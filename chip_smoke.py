@@ -7,28 +7,43 @@ Phases, one line each:
               nvcc (one process per source, all at once) into
               ``raft_tpu_torch/_build``.
 2. kernels  — each kernel against its plain PyTorch version on CUDA
-              tensors at the main path's shapes: fused L2-NN at
-              (262144, 128) x (1024, 128), select-k at (128, 1024) k=96,
-              and (after phase 3) the fused IVF-Flat scan over the real
-              index for one 128-query batch. Kernel, plain and library
+              tensors at each path's shapes: fused L2-NN at
+              (262144, 128) x (1024, 128) and select-k at (128, 1024)
+              k=96 for IVF-Flat; the fused IVF-Flat scan over the real
+              index for one 128-query batch (after phase 3); on the real
+              PQ index (after phase 4) both IVF-PQ scans for one
+              128-query batch, the fused one at k=32 (kk=256), the
+              unfused one at k=64 (kk=512), fused L2-NN at
+              (262144, 128) x (4096, 128) and select-k at (128, 4096)
+              k=128 (rows tagged ``@ivf_pq``). Kernel, plain and library
               times from CUDA events after warm-up.
-3. main     — the port's serving path: a 10M x 128 clustered dataset
+3. main     — the IVF-Flat serving path: a 10M x 128 clustered dataset
               (the benchmark's gaussian mixture, made on the card from a
               seed), IVF-Flat build (1024 lists, 10 k-means sweeps),
               ``SearchServer.from_index`` (batch shapes 1/8/32/128,
               96 probes, k=32), a burst of 512 single-query requests from
               128 threads; recall@32 against exact search, QPS, p50/p99,
-              device memory, and each kernel's launch count over the run.
+              device memory, and each kernel's launch count over the run;
+              then the index is dropped (``free``: device memory after
+              the ``del`` and after a collection pass).
+4. main_pq  — the IVF-PQ serving path on the same dataset, after the
+              IVF-Flat index is freed: build (4096 lists, pq_dim 32 x 8
+              bits, 10 sweeps, raw vectors kept), ``SearchServer`` with
+              128 probes, k=32, rescore_factor 8 re-ranked on the card,
+              the same burst, then one ``ivf_pq.search`` at k=64 (the
+              unfused scan); the same measurements.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. There is no CPU path: without CUDA the
-script fails. ``--n`` cuts the dataset (the cut is printed).
+script fails. ``--n`` cuts the dataset of both paths (the cut is
+printed).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -49,6 +64,10 @@ MIN_ID_AGREEMENT = 0.999
 RECALL_FLOOR = 0.5
 
 D, K, N_PROBES, N_LISTS, KMEANS_ITERS = 128, 32, 96, 1024, 10
+# the IVF-PQ point: bench_suite.bench_ivf_pq(n=10M, nlists=4096,
+# n_probes=128) with its defaults (k=32, pq_bits 8, pq_dim dim/4,
+# rescore_factor 8), the re-rank kept on the card
+PQ_LISTS, PQ_PROBES, PQ_BITS, PQ_RESCORE, PQ_WIDE_K = 4096, 128, 8, 8, 64
 KM_ROWS = 1 << 18             # the k-means trainer's subsample
 BATCH_SIZES = (1, 8, 32, 128)
 N_QUERIES, N_REQUESTS, N_THREADS = 256, 512, 128
@@ -124,15 +143,19 @@ def exact_knn(x: torch.Tensor, q: torch.Tensor, k: int) -> torch.Tensor:
 
 def compare(name, d_k, i_k, d_p, i_p, exact_ids: bool, scale=None):
     """Hold a kernel's (dists, ids) against the plain version's: exact
-    equality, or ids agreeing on >= 99.9% of slots with every distance
+    equality, or the same empty (+inf) slots with the same ids there,
+    and ids agreeing on >= 99.9% of the filled slots with every distance
     (so every disagreement is a near-tie) within ``RTOL * scale``."""
     d_k, d_p = d_k.double(), d_p.double()
     fin = torch.isfinite(d_p)
     if not torch.equal(torch.isfinite(d_k), fin):
         fail(f"{name}: finite pattern differs from the plain version")
+    if not torch.equal(i_k[~fin], i_p[~fin]):
+        fail(f"{name}: ids of the empty slots differ from the plain version")
     err = (d_k[fin] - d_p[fin]).abs()
     max_abs = float(err.max()) if err.numel() else 0.0
-    agree = float((i_k == i_p).double().mean())
+    agree = float((i_k[fin] == i_p[fin]).double().mean()) if err.numel() \
+        else 1.0
     if exact_ids:
         if not (torch.equal(i_k, i_p) and torch.equal(d_k, d_p)):
             fail(f"{name}: output differs from the plain version "
@@ -154,52 +177,56 @@ def kernel_row(name, src, replaces, max_abs, ms, plain_ms, bnd, lib_ms):
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
 
 
-def check_fused_l2_nn(x, dev):
+def sample_rows(x, m: int, seed: int):
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return x[torch.randperm(x.shape[0], generator=g,
+                            device=x.device)[:m]].contiguous()
+
+
+def check_fused_l2_nn(xa, ya, name):
+    """fused L2-NN of ``xa`` against the centres ``ya``, against its
+    plain version; ``name`` tags the path whose shapes these are."""
     from raft_tpu_torch.ops import fused_l2_nn as op
-    m, n = KM_ROWS, N_LISTS
-    g = torch.Generator(device=dev).manual_seed(11)
-    xa = x[torch.randperm(x.shape[0], generator=g, device=dev)[:m]]
-    ya = x[torch.randperm(x.shape[0], generator=g, device=dev)[:n]]
-    xa, ya = xa.contiguous(), ya.contiguous()
+    m, n = xa.shape[0], ya.shape[0]
     saved = op.launches
     i_k, d_k = op.fused_l2_nn_cuda(xa, ya)
     i_p, d_p = op.fused_l2_nn_plain(xa, ya)
     torch.cuda.synchronize()
     scale = (xa * xa).sum(1) + (ya * ya).sum(1)[i_p.long()]
-    max_abs, agree = compare("fused_l2_nn", d_k, i_k, d_p, i_p, False,
-                             scale)
+    max_abs, agree = compare(name, d_k, i_k, d_p, i_p, False, scale)
     ms = cuda_ms(lambda: op.fused_l2_nn_cuda(xa, ya), 10)
     plain_ms = cuda_ms(lambda: op.fused_l2_nn_plain(xa, ya), 5)
     op.launches = saved
     bnd = bound(4 * (m * D + n * D) + 8 * m, 2 * m * n * D)
-    phase("kernels", kernel="fused_l2_nn", shape=[m, n, D],
+    phase("kernels", kernel=name, shape=[m, n, D],
           id_agreement=agree, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
           bound_ms=bnd[0])
-    return kernel_row("fused_l2_nn", "raft_tpu_torch/csrc/fused_l2_nn.cu",
+    return kernel_row(name, "raft_tpu_torch/csrc/fused_l2_nn.cu",
                       "raft_tpu/ops/pallas_fused_l2_nn.py:34", max_abs, ms,
                       plain_ms, bnd, None)
 
 
-def check_select_k(q, centers):
+def check_select_k(q, centers, k, name):
+    """select-k of the coarse scores of one 128-query batch against
+    ``centers`` at ``k`` probes, against its plain version."""
     from raft_tpu_torch.neighbors._ivf_scan import coarse_scores
     from raft_tpu_torch.ops import select_k as op
     v = coarse_scores(q[:128].contiguous(), centers).contiguous()
     m, n = v.shape
     saved = op.launches
-    d_k, i_k = op.select_k_cuda(v, N_PROBES)
-    d_p, i_p = op.select_k_plain(v, N_PROBES)
+    d_k, i_k = op.select_k_cuda(v, k)
+    d_p, i_p = op.select_k_plain(v, k)
     torch.cuda.synchronize()
-    max_abs, agree = compare("select_k", d_k, i_k, d_p, i_p, True)
-    ms = cuda_ms(lambda: op.select_k_cuda(v, N_PROBES), 50)
-    plain_ms = cuda_ms(lambda: op.select_k_plain(v, N_PROBES), 20)
-    lib_ms = cuda_ms(lambda: torch.topk(v, N_PROBES, dim=1, largest=False),
-                     50)
+    max_abs, agree = compare(name, d_k, i_k, d_p, i_p, True)
+    ms = cuda_ms(lambda: op.select_k_cuda(v, k), 50)
+    plain_ms = cuda_ms(lambda: op.select_k_plain(v, k), 20)
+    lib_ms = cuda_ms(lambda: torch.topk(v, k, dim=1, largest=False), 50)
     op.launches = saved
-    bnd = bound(4 * m * n + 8 * m * N_PROBES, m * n)
-    phase("kernels", kernel="select_k", shape=[m, n, N_PROBES],
+    bnd = bound(4 * m * n + 8 * m * k, m * n)
+    phase("kernels", kernel=name, shape=[m, n, k],
           id_agreement=agree, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
           library_ms=lib_ms, bound_ms=bnd[0])
-    return kernel_row("select_k", "raft_tpu_torch/csrc/select_k.cu",
+    return kernel_row(name, "raft_tpu_torch/csrc/select_k.cu",
                       "raft_tpu/ops/pallas_select_k.py:47", max_abs, ms,
                       plain_ms, bnd, lib_ms)
 
@@ -250,6 +277,123 @@ def check_scan(index, q):
                       plain_ms, bnd, None)
 
 
+def _pq_batch(index, qb, k, params):
+    """What both PQ scans see for one batch on the served index: the
+    route (kk, bins), the plan's cached cap, probes, rotated queries,
+    the probe inversion and the LUT-tier books and norms."""
+    from raft_tpu_torch.neighbors import _ivf_scan, ivf_pq
+    from raft_tpu_torch.ops.ivf_scan import resolve_bins
+    route = ivf_pq._Route(index, k, params)
+    cap = index.cap_cache.get((qb.shape[0], route.n_probes))
+    if cap is None:
+        fail("pq scan: the 128-row plan measured no cap")
+    probes = _ivf_scan.coarse_probes(qb, index.centers, route.n_probes)
+    q_rot = (qb @ index.rotation_matrix.T).contiguous()
+    qmap, inv_pos = _ivf_scan._invert_probes(probes, index.n_lists, cap)
+    books, round_q = ivf_pq._lut_books(index, params.lut_dtype)
+    norms = ivf_pq._ensure_code_norms(index, params, False, "l2")
+    bins, _ = resolve_bins(route.bins, route.kk, index.codes.shape[1])
+    args = (q_rot, index.centers_rot, books, index.codes, norms,
+            index.lists_indices)
+    return route, cap, probes, qmap, inv_pos, round_q, bins, args
+
+
+def _pq_bound(index, probes, inv_pos, cap, out_bytes):
+    """The least time for this batch's scan: each probed list's codes,
+    norms and ids and rotated centre read once, the queries once, the
+    output written once; operations: a table build per kept (query,
+    list) pair and a pq_dim-term sum per scored (pair, row)."""
+    kept = inv_pos < cap
+    sizes = index.list_sizes.long()
+    lists = torch.unique(probes[kept].long())
+    rows_once = int(sizes[lists].sum())
+    pairs = int(kept.sum())
+    pair_rows = int(sizes[probes[kept].long()].sum())
+    n_codes = index.pq_centers.shape[1]
+    n_bytes = (rows_once * (index.pq_dim + 8) + int(lists.numel()) * D * 4
+               + probes.shape[0] * D * 4 + out_bytes)
+    n_ops = (pairs * index.pq_dim * n_codes * index.pq_len * 2
+             + pair_rows * index.pq_dim)
+    return bound(n_bytes, n_ops), {
+        "probed_lists": int(lists.numel()), "rows_once": rows_once,
+        "pairs": pairs, "pair_rows": pair_rows}
+
+
+def check_pq_fused(index, q, params):
+    from raft_tpu_torch.ops import ivf_pq_scan as op
+    qb = q[:128].contiguous()
+    route, cap, probes, qmap, inv_pos, round_q, bins, args = _pq_batch(
+        index, qb, K, params)
+    q_rot, centers_rot, norms = args[0], args[1], args[4]
+    kk = route.kk
+
+    def kernel():
+        return op.pq_scan_fused_cuda(*args, probes, inv_pos, cap, kk, bins,
+                                     False, "l2", round_q, False)
+
+    def plain():
+        return op.pq_scan_fused_plain(*args, qmap, kk, bins, False, "l2",
+                                      round_q, False)
+
+    saved = op.launches_fused
+    d_k, i_k = kernel()
+    d_p, i_p = plain()
+    torch.cuda.synchronize()
+    # scale of the scores: the largest |qsub|^2 of the query's probes
+    # plus the largest code norm
+    rr = ((q_rot[:, None, :] - centers_rot[probes.long()]) ** 2).sum(-1)
+    scale = (rr.max(dim=1).values + norms.max())[:, None].expand_as(d_p)
+    max_abs, agree = compare("ivf_pq_scan_fused", d_k, i_k, d_p, i_p, False,
+                             scale)
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 1, warmup=1)
+    op.launches_fused = saved
+    bnd, info = _pq_bound(index, probes, inv_pos, cap, 8 * qb.shape[0] * kk)
+    phase("kernels", kernel="ivf_pq_scan_fused", nq=128, kk=kk, bins=bins,
+          cap=cap, **info, id_agreement=agree, max_abs_err=max_abs, ms=ms,
+          plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+    return kernel_row("ivf_pq_scan_fused", "raft_tpu_torch/csrc/ivf_pq_scan.cu",
+                      "raft_tpu/ops/pallas_ivf_scan.py:499", max_abs, ms,
+                      plain_ms, bnd, None)
+
+
+def check_pq_unfused(index, q, params):
+    from raft_tpu_torch.ops import ivf_pq_scan as op
+    qb = q[:128].contiguous()
+    route, cap, probes, qmap, inv_pos, round_q, bins, args = _pq_batch(
+        index, qb, PQ_WIDE_K, params)
+    q_rot, centers_rot, norms = args[0], args[1], args[4]
+
+    def kernel():
+        return op.pq_scan_cuda(*args, qmap, bins, "l2", round_q, False, False)
+
+    def plain():
+        return op.pq_scan_plain(*args, qmap, bins, "l2", round_q, False,
+                                False)
+
+    saved = op.launches
+    d_k, i_k = kernel()
+    d_p, i_p = plain()
+    torch.cuda.synchronize()
+    # per (list, slot): |qsub|^2 of the slot's query plus the list's
+    # largest code norm
+    qs = q_rot[qmap.clamp(min=0).long()] - centers_rot[:, None, :]
+    scale = ((qs * qs).sum(-1) + norms.max(dim=1).values[:, None])
+    max_abs, agree = compare("ivf_pq_scan", d_k, i_k, d_p, i_p, False,
+                             scale[:, :, None].expand_as(d_p))
+    del qs, d_p, i_p
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 1, warmup=1)
+    op.launches = saved
+    bnd, info = _pq_bound(index, probes, inv_pos, cap, 8 * d_k.numel())
+    phase("kernels", kernel="ivf_pq_scan", nq=128, kk=route.kk, bins=bins,
+          cap=cap, **info, id_agreement=agree, max_abs_err=max_abs, ms=ms,
+          plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+    return kernel_row("ivf_pq_scan", "raft_tpu_torch/csrc/ivf_pq_scan.cu",
+                      "raft_tpu/ops/pallas_ivf_scan.py:851", max_abs, ms,
+                      plain_ms, bnd, None)
+
+
 def serve_burst(srv, q_np):
     """512 single-query requests from 128 threads, each thread sending
     its share one after another; returns per-request (dists, ids),
@@ -286,9 +430,9 @@ def serve_burst(srv, q_np):
     return np.stack(dists), np.stack(ids), np.asarray(lat), wall
 
 
-def profile_burst(srv, q_np) -> None:
+def profile_burst(srv, q_np, tag: str) -> None:
     """Trace one more burst with ``torch.profiler``: device time by
-    kernel into ``chiprun_out/profile_burst.txt``, and the device's
+    kernel into ``chiprun_out/profile_burst_<tag>.txt``, and the device's
     busy share of the burst's wall time (kernels on one stream do not
     overlap, so their summed self time is the busy time)."""
     from torch.profiler import ProfilerActivity, profile
@@ -299,9 +443,9 @@ def profile_burst(srv, q_np) -> None:
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in ka
                    if e.self_device_time_total > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    with open(os.path.join(OUT_DIR, "profile_burst.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_burst_{tag}.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
-    phase("profile", wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
+    phase("profile", path=tag, wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
           busy_share=busy_us / 1e3 / (wall * 1e3),
           top=[{"name": n[:60], "device_ms": t / 1e3, "calls": c}
                for n, t, c in rows[:8]])
@@ -316,13 +460,158 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def serve_phase(srv, q_np, truth, n_rows: int, profile: str = ""):
+    """The burst through a started server: checked results, recall@K,
+    QPS and latency; the server is closed afterwards."""
+    from raft_tpu_torch import obs
+    before = obs.snapshot()
+    try:
+        served_d, served, lat, wall = serve_burst(srv, q_np)
+        after = obs.snapshot()
+        if profile:
+            profile_burst(srv, q_np, profile)
+    finally:
+        srv.close()
+    batches = {k_: after["counters"].get(k_, 0) - before["counters"].get(k_, 0)
+               for k_ in after["counters"] if k_.startswith("raft.serve.batch")}
+    if served.shape != (N_REQUESTS, K):
+        fail(f"served ids have shape {served.shape}")
+    if (served < 0).any() or (served >= n_rows).any():
+        fail("served ids out of range")
+    if not np.isfinite(served_d).all() or (np.diff(served_d, axis=1) < 0).any():
+        fail("served distances are not finite and ascending")
+    hits = [len(set(served[r]) & set(truth[r % N_QUERIES]))
+            for r in range(N_REQUESTS)]
+    recall = float(np.mean(hits)) / K
+    if recall < RECALL_FLOOR:
+        fail(f"recall@{K} = {recall} < {RECALL_FLOOR}")
+    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
+    return dict(requests=N_REQUESTS, threads=N_THREADS, burst_s=wall,
+                qps=N_REQUESTS / wall, p50_ms=p50, p99_ms=p99,
+                **{f"recall_at_{K}": recall}, batches=batches)
+
+
+def check_launched(path: str, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"the {path} path never launched the {name} kernel")
+
+
+def run_flat(x, q, q_np, truth, args):
+    """Phase 3: IVF-Flat build + serving; the fused scan checked against
+    its plain version on the served index afterwards."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = ivf_flat.build(x, ivf_flat.IndexParams(
+        n_lists=N_LISTS, kmeans_n_iters=KMEANS_ITERS))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    srv = SearchServer.from_index(
+        index, q_np[:128], K, params=ivf_flat.SearchParams(n_probes=N_PROBES),
+        config=ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                           max_wait_ms=2.0))
+    ladder_s = time.perf_counter() - t0
+    pre_burst = ops.launch_counts()
+    served = serve_phase(srv, q_np, truth, x.shape[0],
+                         "flat" if args.profile else "")
+    launches = ops.launch_counts()
+    check_launched("IVF-Flat", launches, ("fused_l2_nn", "select_k",
+                                          "ivf_scan"))
+    phase("main", n=x.shape[0], dim=D, n_lists=N_LISTS, max_list=
+          int(index.lists_data.shape[1]), build_s=build_s, ladder_s=ladder_s,
+          **served, build_launches=build_launches,
+          burst_launches={k_: launches[k_] - pre_burst[k_] for k_ in launches},
+          launches=launches,
+          mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    row = check_scan(index, q)
+    # free the index before the IVF-PQ build; what a collection pass
+    # still finds after the del is memory that reference cycles held
+    del index, srv
+    after_del = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("free", path="flat", allocated_gb_after_del=after_del / 1e9,
+          allocated_gb_after_gc=torch.cuda.memory_allocated() / 1e9)
+    return row, launches
+
+
+def run_pq(x, q, q_np, truth, args):
+    """Phase 4: IVF-PQ build + serving + one k=64 search; both PQ scans
+    checked against their plain versions on the served index."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    params = ivf_pq.SearchParams(n_probes=PQ_PROBES,
+                                 rescore_factor=PQ_RESCORE,
+                                 rescore_on_device="always")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = ivf_pq.build(x, ivf_pq.IndexParams(
+        n_lists=PQ_LISTS, kmeans_n_iters=KMEANS_ITERS, keep_raw=True,
+        pq_bits=PQ_BITS, pq_dim=0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    srv = SearchServer.from_index(
+        index, q_np[:128], K, params=params,
+        config=ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                           max_wait_ms=2.0))
+    ladder_s = time.perf_counter() - t0
+    pre_burst = ops.launch_counts()
+    served = serve_phase(srv, q_np, truth, x.shape[0],
+                         "pq" if args.profile else "")
+    # the wide search: kk = 8 * 64 = 512 > 256 takes the unfused scan
+    pre_wide = ops.launch_counts()
+    d_w, i_w = ivf_pq.search(index, q[:128], PQ_WIDE_K, params)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launched("IVF-PQ", launches, ("fused_l2_nn", "select_k",
+                                        "ivf_pq_scan", "ivf_pq_scan_fused"))
+    i_w = i_w.cpu().numpy()
+    if i_w.shape != (128, PQ_WIDE_K) or (i_w < 0).any() or \
+            not bool(torch.isfinite(d_w).all()):
+        fail("the k=64 IVF-PQ search returned missing neighbours")
+    wide_recall = float(np.mean([len(set(i_w[r][:K]) & set(truth[r]))
+                                 for r in range(128)])) / K
+    phase("main_pq", n=x.shape[0], dim=D, n_lists=PQ_LISTS,
+          pq_dim=index.pq_dim, pq_bits=PQ_BITS, n_probes=PQ_PROBES,
+          rescore_factor=PQ_RESCORE, max_list=int(index.codes.shape[1]),
+          build_s=build_s, ladder_s=ladder_s, **served,
+          wide_k=PQ_WIDE_K, wide_recall_at_32_of_top_32=wide_recall,
+          build_launches=build_launches,
+          burst_launches={k_: pre_wide[k_] - pre_burst[k_] for k_ in launches},
+          wide_launches={k_: launches[k_] - pre_wide[k_] for k_ in launches},
+          launches=launches,
+          mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    centers = index.centers.contiguous()
+    rows = [check_pq_fused(index, q, params),
+            check_pq_unfused(index, q, params),
+            # fused L2-NN and select-k at this path's shapes: k-means
+            # rows against PQ_LISTS centres, and PQ_PROBES of PQ_LISTS
+            # coarse scores (several select_k tiles, merged in turn)
+            check_fused_l2_nn(sample_rows(x, KM_ROWS, 13), centers,
+                              "fused_l2_nn@ivf_pq"),
+            check_select_k(q, centers, PQ_PROBES, "select_k@ivf_pq")]
+    return rows, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=10_000_000,
                     help="dataset rows (default 10M; a cut is printed)")
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--profile", action="store_true",
-                    help="after the measured burst, trace a second one "
+                    help="after each measured burst, trace a second one "
                     "with torch.profiler (device time by kernel)")
     args = ap.parse_args()
 
@@ -332,10 +621,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(here, "raft_tpu_torch")):
         fail("raft_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, here)
-    from raft_tpu_torch import ops
-    from raft_tpu_torch.neighbors import ivf_flat
     from raft_tpu_torch.ops import _build
-    from raft_tpu_torch.serve import SearchServer, ServeConfig
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -352,76 +638,32 @@ def main() -> None:
     x, q = ann_dataset(args.n, D, N_QUERIES, args.seed, dev)
     if args.n != 10_000_000:
         phase("cut", n=args.n, note="dataset cut from 10,000,000 rows")
-
-    # 2a. kernels vs plain at the k-means and coarse shapes
-    rows = [check_fused_l2_nn(x, dev)]
-    g = torch.Generator(device=dev).manual_seed(12)
-    cent = x[torch.randperm(x.shape[0], generator=g, device=dev)[:N_LISTS]]
-    rows.append(check_select_k(q, cent.contiguous()))
-
-    # 3. main path: build, serve; launch counts over exactly this run
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    index = ivf_flat.build(x, ivf_flat.IndexParams(
-        n_lists=N_LISTS, kmeans_n_iters=KMEANS_ITERS))
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    build_launches = ops.launch_counts()
-    t0 = time.perf_counter()
     q_np = q.cpu().numpy()
-    srv = SearchServer.from_index(
-        index, q_np[:128], K, params=ivf_flat.SearchParams(n_probes=N_PROBES),
-        config=ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
-                           max_wait_ms=2.0))
-    ladder_s = time.perf_counter() - t0
-    from raft_tpu_torch import obs
-    before = obs.snapshot()
-    pre_burst = ops.launch_counts()
-    try:
-        served_d, served, lat, wall = serve_burst(srv, q_np)
-        launches = ops.launch_counts()
-        after = obs.snapshot()
-        if args.profile:
-            profile_burst(srv, q_np)
-    finally:
-        srv.close()
-    batches = {k_: after["counters"].get(k_, 0) - before["counters"].get(k_, 0)
-               for k_ in after["counters"] if k_.startswith("raft.serve.batch")}
-    burst_launches = {k_: launches[k_] - pre_burst[k_] for k_ in launches}
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            fail(f"main path never launched the {name} kernel")
 
-    if served.shape != (N_REQUESTS, K):
-        fail(f"served ids have shape {served.shape}")
-    if (served < 0).any() or (served >= args.n).any():
-        fail("served ids out of range")
-    if not np.isfinite(served_d).all() or (np.diff(served_d, axis=1) < 0).any():
-        fail("served distances are not finite and ascending")
+    # 2a. kernels vs plain at the IVF-Flat path's k-means and coarse
+    # shapes (the sampled rows stand in for N_LISTS centres)
+    cent = sample_rows(x, N_LISTS, 12)
+    flat_rows = [check_fused_l2_nn(sample_rows(x, KM_ROWS, 11), cent,
+                                   "fused_l2_nn"),
+                 check_select_k(q, cent, N_PROBES, "select_k")]
+    del cent
+
+    # 3. the IVF-Flat path
     truth = exact_knn(x, q, K).cpu().numpy()
-    hits = [len(set(served[r]) & set(truth[r % N_QUERIES]))
-            for r in range(N_REQUESTS)]
-    recall = float(np.mean(hits)) / K
-    if recall < RECALL_FLOOR:
-        fail(f"recall@{K} = {recall} < {RECALL_FLOOR}")
-    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
-    phase("main", n=args.n, dim=D, n_lists=N_LISTS, max_list=
-          int(index.lists_data.shape[1]), build_s=build_s, ladder_s=ladder_s,
-          requests=N_REQUESTS, threads=N_THREADS, burst_s=wall,
-          qps=N_REQUESTS / wall, p50_ms=p50, p99_ms=p99,
-          recall_at_32=recall, batches=batches,
-          build_launches=build_launches, burst_launches=burst_launches,
-          launches=launches,
-          mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
-          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    flat_row, flat_launches = run_flat(x, q, q_np, truth, args)
+    flat_rows.append(flat_row)
 
-    # 2b. the fused scan against its plain version on the real index
-    rows.append(check_scan(index, q))
-    for row, name in zip(rows, ("fused_l2_nn", "select_k", "ivf_scan")):
-        row["launches"] = launches[name]
+    # 4. the IVF-PQ path
+    pq_rows, pq_launches = run_pq(x, q, q_np, truth, args)
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    # launches: each row's kernel over the main-path run of its path
+    for rows, counts in ((flat_rows, flat_launches), (pq_rows, pq_launches)):
+        for row in rows:
+            key = row["name"].split("@")[0]
+            row["launches"] = counts["ivf_scan" if key == "ivf_flat_scan"
+                                     else key]
+
+    print(json.dumps({"kernels": flat_rows + pq_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

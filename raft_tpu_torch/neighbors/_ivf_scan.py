@@ -125,6 +125,39 @@ def resolve_cap(cache: Optional[dict], queries, centers, params,
     return cap
 
 
+def merge_candidates(cand_d, cand_i, probes, inv_pos, k: int, sqrt: bool,
+                     cap: int):
+    """Tail of the unfused list-major scans: gather each (query, probe)
+    pair's candidate row from the (n_lists, cap, kk) blocks and select
+    the per-query top-k, ties to the lower column (probe rank, then
+    bin). Pairs the inversion dropped (``inv_pos >= cap``) are masked.
+    The selection runs through the ``select_k`` kernel when
+    ``k <= 256``, else a stable sort (the JAX package's
+    ``select_k_pallas`` contract either way). Returns (dists, ids)."""
+    nq, n_probes = probes.shape
+    kept = inv_pos < cap
+    pl, ip = probes.long(), torch.clamp(inv_pos, max=cap - 1).long()
+    pd = cand_d[pl, ip].reshape(nq, -1).float()
+    pi = cand_i[pl, ip].reshape(nq, -1)
+    inf = float("inf")
+    keep_f = kept.repeat_interleave(pd.shape[1] // n_probes, dim=1)
+    pi = torch.where(keep_f, pi, torch.full_like(pi, -1))
+    pd = torch.where(pi >= 0, pd, torch.full_like(pd, inf))
+    if pd.shape[1] < k:   # fewer candidates than k: pad like the state
+        short = k - pd.shape[1]
+        pd = torch.nn.functional.pad(pd, (0, short), value=inf)
+        pi = torch.nn.functional.pad(pi, (0, short), value=-1)
+    if k <= _select_op.MAX_K:
+        d, sel = _select_op.select_k(pd.contiguous(), k)
+    else:
+        d, sel = stable_topk_min(pd, k)
+    ids = torch.gather(pi, 1, torch.clamp(sel, min=0).long())
+    ids = torch.where(sel >= 0, ids, torch.full_like(ids, -1))
+    if sqrt:
+        d = torch.sqrt(torch.clamp(d, min=0.0))
+    return d, ids.to(torch.int32)
+
+
 def fused_list_search(queries, centers, data, norms, ids, *, k: int,
                       n_probes: int, cap: int, bins: int, sqrt: bool,
                       kind: str):

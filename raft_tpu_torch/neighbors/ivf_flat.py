@@ -129,10 +129,13 @@ def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _bucketize(x: torch.Tensor, labels: torch.Tensor, n_lists: int,
-               round_to: int = 8, row_ids: Optional[torch.Tensor] = None):
+               round_to: int = 8, row_ids: Optional[torch.Tensor] = None,
+               compute_norms: bool = True):
     """Scatter rows into padded per-list buckets of width ``max(count)``
     rounded up to ``round_to`` (one host sync). Rows keep dataset order
-    within a list. Returns ``(data, ids, norms, counts)``."""
+    within a list; pad slots hold zeros. Returns ``(data, ids, norms,
+    counts)``; ``compute_norms=False`` (integer payloads such as PQ
+    codes) returns ``norms=None``."""
     n, dim = x.shape
     dev = x.device
     lab = labels.long()
@@ -150,6 +153,10 @@ def _bucketize(x: torch.Tensor, labels: torch.Tensor, n_lists: int,
     ids = torch.full((n_lists * max_list,), -1, dtype=torch.int32,
                      device=dev)
     ids[slot] = row_ids[order].to(torch.int32)
+    if not compute_norms:
+        return (data.reshape(n_lists, max_list, dim),
+                ids.reshape(n_lists, max_list), None,
+                counts.to(torch.int32))
     norms = torch.zeros(n_lists * max_list, dtype=torch.float32, device=dev)
     for s in range(0, n, _NORM_ROWS):
         xb = x[order[s:s + _NORM_ROWS]].float()

@@ -1,5 +1,5 @@
 """Search plans: prepared, host-sync-free IVF serving callables
-(counterpart of ``raft_tpu.neighbors.plan``, IVF-Flat only).
+(counterpart of ``raft_tpu.neighbors.plan``, IVF-Flat and IVF-PQ).
 
 A :class:`SearchPlan` fixes one serving point (index, nq, k, params):
 its operands are bound, its route (list- or probe-major) is decided,
@@ -7,7 +7,9 @@ and its inverted-table ``cap`` is measured once at build and cached on
 the index (``index.cap_cache``), so a serving call never measures again
 — ``raft.ivf_scan.resolve_cap.syncs`` stays flat on a warmed plan. The
 JAX package compiles the plan ahead of time; eager PyTorch has nothing
-to compile, so a plan here is the bound callable itself.
+to compile, so a plan here is the bound callable itself. An IVF-PQ
+plan whose exact re-rank runs on the host (the raw corpus is not on the
+device) syncs once per call for that re-rank.
 
 Plans are cached on the index (``index.plan_cache``; hits, misses and
 evictions under ``raft.plan.cache.*``), LRU-bounded by
@@ -26,7 +28,7 @@ from raft_tpu_torch import obs
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.precision import full_fp32_matmul
 from raft_tpu_torch.distance.distance_types import DistanceType
-from raft_tpu_torch.neighbors import _ivf_scan, ivf_flat
+from raft_tpu_torch.neighbors import _ivf_scan, ivf_bq, ivf_flat, ivf_pq
 
 
 def _plan_cache_max() -> int:
@@ -74,17 +76,20 @@ class SearchPlan:
 
 
 def _flat_builder(index, k: int, params):
-    """``make(nq, cap) -> (fn, key_bits)`` for an IVF-Flat index."""
+    """``make(nq, cap) -> (fn, key_bits)`` for an IVF-Flat index. ``fn``
+    holds the index's arrays, not the index (see ``ivf_pq._Route``)."""
+    ivf_flat._check_storage(index)
     n_probes = min(params.n_probes, index.n_lists)
-    kind = ivf_flat._metric_kind(index.metric)
-    sqrt = index.metric in ivf_flat._SQRT_METRICS
-    cosine = index.metric == DistanceType.CosineExpanded
+    metric = index.metric
+    kind = ivf_flat._metric_kind(metric)
+    sqrt = metric in ivf_flat._SQRT_METRICS
+    cosine = metric == DistanceType.CosineExpanded
+    n_lists = index.n_lists
     centers, data = index.centers, index.lists_data
     norms, ids = index.lists_norms, index.lists_indices
 
     def make(nq: int, cap: int):
-        use_list = ivf_flat.use_list_order(params, nq, n_probes,
-                                           index.n_lists, k)
+        use_list = ivf_flat.use_list_order(params, nq, n_probes, n_lists, k)
 
         def fn(q: torch.Tensor):
             full_fp32_matmul()
@@ -99,11 +104,54 @@ def _flat_builder(index, k: int, params):
             else:
                 d, i = ivf_flat._search_impl(q, centers, data, ids, norms,
                                              k, n_probes, sqrt, kind=kind)
-            return ivf_flat._postprocess(d, index.metric), i
+            return ivf_flat._postprocess(d, metric), i
 
         return fn, ("list" if use_list else "probe", params.scan_bins)
 
     return make, n_probes, kind
+
+
+def _pq_builder(index, k: int, params):
+    """``make(nq, cap) -> (fn, key_bits)`` for an IVF-PQ index: the code
+    scan (fused kernel at kk <= 256, else the unfused kernel and the
+    candidate merge), then the exact re-rank, on the device when the raw
+    corpus has a device copy, else on the host."""
+    route = ivf_pq._Route(index, k, params)
+    raw_dev = (ivf_bq.resolve_raw_device(index, params.rescore_on_device)
+               if route.rescoring else None)
+    norms = ivf_pq._ensure_code_norms(index, params, route.per_cluster,
+                                      route.kind)
+    books, round_q = ivf_pq._lut_books(index, params.lut_dtype)
+
+    def make(nq: int, cap: int):
+        if route.fused:
+            obs.counter("raft.ivf_scan.fused.total", family="ivf_pq").inc()
+
+        def fn(q: torch.Tensor):
+            d, i = route.device_phase(q, cap, books, round_q, norms)
+            return route.epilogue(d, i, q, raw_dev)
+
+        key_bits = ("codes", route.fused, str(params.lut_dtype),
+                    str(params.internal_distance_dtype), route.bins,
+                    route.kk, route.rescoring, raw_dev is not None)
+        return fn, key_bits
+
+    return make, route.n_probes, route.kind
+
+
+def _resolve_builder(index):
+    """``(family, builder)`` for an index type."""
+    if isinstance(index, ivf_flat.Index):
+        return "ivf_flat", _flat_builder
+    if isinstance(index, ivf_pq.Index):
+        return "ivf_pq", _pq_builder
+    expects(False, "plan: unsupported index type %s (want ivf_flat or "
+            "ivf_pq Index)", type(index).__name__)
+
+
+def _default_params(family: str):
+    return {"ivf_flat": ivf_flat.SearchParams,
+            "ivf_pq": ivf_pq.SearchParams}[family]()
 
 
 def build_plan(index, queries, k: int, params=None,
@@ -112,24 +160,21 @@ def build_plan(index, queries, k: int, params=None,
     this (index, nq, k, params) point. ``queries`` is a representative
     batch: the inverted-table cap is measured from it (the one host sync
     of the plan's life). ``warm`` runs the plan once on it."""
-    expects(isinstance(index, ivf_flat.Index),
-            "plan: unsupported index type %s (want ivf_flat.Index)",
-            type(index).__name__)
-    ivf_flat._check_storage(index)
+    family, builder = _resolve_builder(index)
     if params is None:
-        params = ivf_flat.SearchParams()
+        params = _default_params(family)
     q = torch.as_tensor(queries, dtype=torch.float32).to(index.device)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "plan: queries must be (nq, dim=%d), got %s", index.dim,
             tuple(q.shape))
     nq = q.shape[0]
-    make, n_probes, kind = _flat_builder(index, k, params)
+    make, n_probes, kind = builder(index, k, params)
     q_cap = (ivf_flat._normalize_rows(q)
              if index.metric == DistanceType.CosineExpanded else q)
     cap = _ivf_scan.resolve_cap(index.cap_cache, q_cap, index.centers,
                                 params, n_probes, index.n_lists, kind=kind)
     fn, key_bits = make(nq, cap)
-    key = ("ivf_flat", nq, index.dim, k, n_probes, cap, kind) + key_bits
+    key = (family, nq, index.dim, k, n_probes, cap, kind) + key_bits
     plan = index.plan_cache.pop(key, None)
     if plan is not None:
         index.plan_cache[key] = plan      # re-insert at the MRU end
@@ -137,7 +182,7 @@ def build_plan(index, queries, k: int, params=None,
     else:
         obs.counter("raft.plan.cache.misses").inc()
         obs.counter("raft.plan.build.total").inc()
-        plan = SearchPlan(family="ivf_flat", key=key, nq=nq, dim=index.dim,
+        plan = SearchPlan(family=family, key=key, nq=nq, dim=index.dim,
                           k=k, n_probes=n_probes, cap=cap,
                           metric=index.metric, device=index.device,
                           _fn=fn)
@@ -154,6 +199,6 @@ def build_plan(index, queries, k: int, params=None,
 
 def warmup(index, queries, k: int, params=None) -> SearchPlan:
     """Measure the cap, prepare the plan, run it once: afterwards
-    same-shape serving calls (``plan.search`` or ``ivf_flat.search``)
+    same-shape serving calls (``plan.search`` or the family's ``search``)
     perform no measurement sync."""
     return build_plan(index, queries, k, params, warm=True)

@@ -1,9 +1,12 @@
-"""IVF-Flat save/load (counterpart of ``raft_tpu.neighbors.serialize``).
+"""IVF-Flat and IVF-PQ save/load (counterpart of
+``raft_tpu.neighbors.serialize``).
 
 Same file format as the JAX package, so an index moves between the two
 packages: a numpy ``.npz`` whose ``__meta__`` entry is a JSON object
-``{format, version, bf16_fields, metric, size, scale}`` (the metric as
-its ``DistanceType`` integer) beside one array per index field.
+``{format, version, bf16_fields, ...}`` (IVF-Flat: ``metric, size,
+scale``; IVF-PQ: ``metric, size, pq_bits, codebook_kind, has_raw``; the
+metric as its ``DistanceType`` integer) beside one array per index
+field.
 """
 
 from __future__ import annotations
@@ -18,35 +21,76 @@ from raft_tpu_torch.core.error import expects
 _VERSION = 1
 _FIELDS = ("centers", "lists_data", "lists_indices", "lists_norms",
            "list_sizes")
+_PQ_FIELDS = ("centers", "centers_rot", "rotation_matrix", "pq_centers",
+              "codes", "lists_indices", "list_sizes")
 
 
-def save_ivf_flat(index, path: str) -> None:
-    """Write an IVF-Flat :class:`~raft_tpu_torch.neighbors.ivf_flat.Index`
-    to ``path`` (exactly that path, even without ``.npz``)."""
-    meta = {"metric": int(index.metric), "size": int(index.size),
-            "scale": float(index.scale), "format": "ivf_flat",
-            "version": _VERSION, "bf16_fields": []}
-    arrays = {f: getattr(index, f).detach().cpu().numpy() for f in _FIELDS}
+def _pack(path: str, fmt: str, meta: dict, arrays: dict) -> None:
+    meta = dict(meta, format=fmt, version=_VERSION, bf16_fields=[])
     np.savez(path, __meta__=np.frombuffer(json.dumps(meta).encode(),
                                           dtype=np.uint8), **arrays)
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         os.replace(path + ".npz", path)
 
 
-def load_ivf_flat(path: str, device="cuda"):
-    """Read an IVF-Flat index written by either package onto ``device``
-    (default ``cuda``). bf16/int8 storage is not ported yet."""
-    from raft_tpu_torch.neighbors.ivf_flat import index_from_numpy
+def _unpack(path: str, fmt: str, fields):
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
-        expects(meta.get("format") == "ivf_flat",
-                "serialize: %s holds %r, expected 'ivf_flat'", path,
-                meta.get("format"))
+        expects(meta.get("format") == fmt,
+                "serialize: %s holds %r, expected %r", path,
+                meta.get("format"), fmt)
         expects(meta.get("version") == _VERSION,
                 "serialize: unsupported version %s", meta.get("version"))
         if meta.get("bf16_fields"):
             raise NotImplementedError(
-                "load_ivf_flat: bfloat16 list storage is not ported yet")
-        arrays = {f: z[f] for f in _FIELDS}
+                f"load_{fmt}: bfloat16 fields are not ported yet")
+        arrays = {f: z[f] for f in fields if f in z.files}
+    return meta, arrays
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def save_ivf_flat(index, path: str) -> None:
+    """Write an IVF-Flat :class:`~raft_tpu_torch.neighbors.ivf_flat.Index`
+    to ``path`` (exactly that path, even without ``.npz``)."""
+    _pack(path, "ivf_flat",
+          {"metric": int(index.metric), "size": int(index.size),
+           "scale": float(index.scale)},
+          {f: _host(getattr(index, f)) for f in _FIELDS})
+
+
+def load_ivf_flat(path: str, device="cuda"):
+    """Read an IVF-Flat index written by either package onto ``device``
+    (default ``cuda``). bf16/int8 storage is not ported yet."""
+    from raft_tpu_torch.neighbors.ivf_flat import index_from_numpy
+    meta, arrays = _unpack(path, "ivf_flat", _FIELDS)
     return index_from_numpy(arrays, meta["metric"], meta["size"],
                             float(meta.get("scale", 1.0)), device=device)
+
+
+def save_ivf_pq(index, path: str, include_raw: bool = True) -> None:
+    """Write an IVF-PQ :class:`~raft_tpu_torch.neighbors.ivf_pq.Index` to
+    ``path``. ``include_raw=False`` leaves out the host rescore corpus.
+    Code norms are not stored: loading derives them."""
+    arrays = {f: _host(getattr(index, f)) for f in _PQ_FIELDS}
+    has_raw = include_raw and index.raw is not None
+    if has_raw:
+        arrays["raw"] = np.asarray(index.raw)
+    _pack(path, "ivf_pq",
+          {"metric": int(index.metric), "size": int(index.size),
+           "pq_bits": int(index.pq_bits),
+           "codebook_kind": int(index.codebook_kind), "has_raw": has_raw},
+          arrays)
+
+
+def load_ivf_pq(path: str, device="cuda"):
+    """Read an IVF-PQ index written by either package onto ``device``
+    (default ``cuda``); the raw corpus, when stored, stays on the host."""
+    from raft_tpu_torch.neighbors.ivf_pq import index_from_numpy
+    meta, arrays = _unpack(path, "ivf_pq", _PQ_FIELDS + ("raw",))
+    return index_from_numpy(arrays, meta["metric"], meta["size"],
+                            meta["pq_bits"], meta.get("codebook_kind", 0),
+                            raw=arrays.get("raw") if meta.get("has_raw")
+                            else None, device=device)

@@ -1,20 +1,30 @@
-"""Kernel wrappers. Each module holds one hand-written CUDA kernel's
-wrapper (dispatching on tensor device), its plain PyTorch version and a
-plain-integer launch counter; ``_build`` compiles and loads the
+"""Kernel wrappers. Each module holds hand-written CUDA kernels'
+wrappers (dispatching on tensor device), their plain PyTorch versions
+and plain-integer launch counters; ``_build`` compiles and loads the
 kernels from ``csrc/``."""
 
-KERNEL_MODULES = ("fused_l2_nn", "select_k", "ivf_scan")
+# launch-count key -> (module, counter attribute)
+KERNEL_COUNTERS = {
+    "fused_l2_nn": ("fused_l2_nn", "launches"),
+    "select_k": ("select_k", "launches"),
+    "ivf_scan": ("ivf_scan", "launches"),
+    "ivf_pq_scan": ("ivf_pq_scan", "launches"),
+    "ivf_pq_scan_fused": ("ivf_pq_scan", "launches_fused"),
+}
+
+
+def _module(name: str):
+    import importlib
+    return importlib.import_module(f"raft_tpu_torch.ops.{name}")
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
-    import importlib
-    for name in KERNEL_MODULES:
-        importlib.import_module(f"raft_tpu_torch.ops.{name}").launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(_module(mod), attr, 0)
 
 
 def launch_counts() -> dict:
-    """``{module: launches}`` of every kernel wrapper."""
-    import importlib
-    return {name: importlib.import_module(
-        f"raft_tpu_torch.ops.{name}").launches for name in KERNEL_MODULES}
+    """``{kernel: launches}`` of every kernel wrapper."""
+    return {key: getattr(_module(mod), attr)
+            for key, (mod, attr) in KERNEL_COUNTERS.items()}

@@ -1,0 +1,295 @@
+"""IVF-PQ code scan, unfused and fused: kernel wrappers and plain versions.
+
+Kernels: ``csrc/ivf_pq_scan.cu``. :func:`pq_scan` replaces the JAX
+package's Pallas ``_pq_scan_kernel`` (per (list, table slot) binned
+candidates, merged afterwards); :func:`pq_scan_fused` replaces
+``_fused_pq_scan_kernel`` (the same candidates merged into a per-query
+top-k). Each dispatches on the device of its inputs: CPU tensors take
+the plain version, CUDA tensors launch the kernel (or raise).
+
+Both score a list row from its u8 codes as ``ip = sum_s op(qsub_s) .
+op(book[c_s])`` with ``qsub`` the rotated query (IP) or its residual
+against the list's rotated centre (L2), ``op`` the LUT tier: books
+arrive already rounded (:func:`lut_operands`) and ``round_q`` rounds
+the query to bf16. The plain versions follow the TPU formulation
+(decode each row by gathering its codewords, one f32 ``einsum``); the
+kernel regroups the same sum through a per-pair table, so the two
+differ in f32 summation order only. See the kernel's source note.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._util import check_cuda_tensor, round_up
+from raft_tpu_torch.ops.ivf_scan import (bin_rows, finish_state,
+                                         kept_probes_sorted,
+                                         merge_lists_into_state)
+
+MAX_K = 256
+# the kernel's dynamic shared memory: (pq_dim * n_codes + rot_dim) f32
+MAX_LUT_BYTES = 160 * 1024
+LUT_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+
+# launches of the CUDA kernels since the last reset (plain integers)
+launches = 0
+launches_fused = 0
+
+# element budget of one chunk's decode / score block in the plain versions
+_PLAIN_BLOCK = 1 << 24
+
+
+def lut_operands(pq_centers: torch.Tensor, lut_dtype):
+    """``(books, round_q)`` for a LUT tier: the codebooks rounded to the
+    tier and widened back to f32 (bf16; fp8 e4m3 widens exactly), and
+    whether the query rounds to bf16 (every tier but float32)."""
+    if lut_dtype not in LUT_DTYPES:
+        raise ValueError(f"ivf_pq: lut_dtype must be one of {LUT_DTYPES}, "
+                         f"got {lut_dtype}")
+    books = pq_centers.float()
+    if lut_dtype != torch.float32:
+        books = books.to(lut_dtype).float()
+    return books.contiguous(), lut_dtype != torch.float32
+
+
+def _cells(q_rot, centers_rot, books, codes, norms, ids, qm, l0: int,
+           bins: int, mlp: int, metric: str, round_q: bool,
+           per_cluster: bool, center_term: bool):
+    """Binned candidates (c, cap, bins) of the lists [l0, l0 + c) for
+    the queries ``qm`` (c, cap) names — the plain per-cell body."""
+    from raft_tpu_torch.neighbors._ivf_scan import gather_query_rows
+    c = qm.shape[0]
+    l1 = l0 + c
+    qsub = gather_query_rows(q_rot, qm)                  # (c, cap, rot)
+    if metric != "ip":
+        qsub = qsub - centers_rot[l0:l1, None, :]
+    cb = codes[l0:l1].long()                             # (c, ML, pq_dim)
+    ml, pq_dim = cb.shape[1], cb.shape[2]
+    dev = q_rot.device
+    if per_cluster:
+        sel = torch.arange(l0, l1, device=dev)[:, None, None]
+    else:
+        sel = torch.arange(pq_dim, device=dev)[None, None, :]
+    dec = books[sel, cb].reshape(c, ml, -1)              # (c, ML, rot)
+    qop = qsub.to(torch.bfloat16).float() if round_q else qsub
+    ip = torch.einsum("gcd,gld->gcl", qop, dec)          # (c, cap, ML)
+    if metric == "ip":
+        sc = -ip
+    else:
+        rr = (qsub * qsub).sum(dim=2)
+        sc = torch.clamp((rr[:, :, None] + norms[l0:l1][:, None, :])
+                         - 2.0 * ip, min=0.0)
+    cd, ci = bin_rows(sc, ids[l0:l1], bins, mlp)
+    if center_term and metric == "ip":
+        corr = (qsub * centers_rot[l0:l1, None, :]).sum(dim=2)
+        cd = cd - corr[:, :, None]
+    empty = (qm < 0)[:, :, None]
+    cd = torch.where(empty, torch.full_like(cd, float("inf")), cd)
+    ci = torch.where(empty, torch.full_like(ci, -1), ci)
+    return cd, ci
+
+
+def _chunk(cap: int, mlp: int, rot_dim: int) -> int:
+    return max(1, _PLAIN_BLOCK // max(1, mlp * max(cap, rot_dim)))
+
+
+def pq_scan_plain(q_rot, centers_rot, books, codes, norms, ids, qmap,
+                  bins: int, metric: str, round_q: bool, per_cluster: bool,
+                  round_out: bool):
+    """Plain version of :func:`pq_scan` (chunked over lists)."""
+    n_lists, max_list = ids.shape
+    cap = qmap.shape[1]
+    mlp = round_up(max_list, bins)
+    dev = q_rot.device
+    out_d = torch.full((n_lists, cap, bins), float("inf"), device=dev)
+    out_i = torch.full((n_lists, cap, bins), -1, dtype=torch.int32,
+                       device=dev)
+    chunk = _chunk(cap, mlp, q_rot.shape[1])
+    for l0 in range(0, n_lists, chunk):
+        qm = qmap[l0:l0 + chunk]
+        if not bool((qm >= 0).any()):
+            continue
+        cd, ci = _cells(q_rot, centers_rot, books, codes, norms, ids, qm,
+                        l0, bins, mlp, metric, round_q, per_cluster, False)
+        out_d[l0:l0 + chunk] = cd
+        out_i[l0:l0 + chunk] = ci.to(torch.int32)
+    if round_out:
+        out_d = out_d.to(torch.bfloat16).float()
+    return out_d, out_i
+
+
+def pq_scan_fused_plain(q_rot, centers_rot, books, codes, norms, ids,
+                        qmap, k: int, bins: int, sqrt: bool, metric: str,
+                        round_q: bool, per_cluster: bool):
+    """Plain version of :func:`pq_scan_fused`: list chunks in ascending
+    id merged into the per-query state, which wins ties."""
+    nq = q_rot.shape[0]
+    n_lists, max_list = ids.shape
+    mlp = round_up(max_list, bins)
+    dev = q_rot.device
+    best_d = torch.full((nq, k), float("inf"), device=dev)
+    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    chunk = _chunk(qmap.shape[1], mlp, q_rot.shape[1])
+    for l0 in range(0, n_lists, chunk):
+        qm = qmap[l0:l0 + chunk]
+        if not bool((qm >= 0).any()):
+            continue
+        cd, ci = _cells(q_rot, centers_rot, books, codes, norms, ids, qm,
+                        l0, bins, mlp, metric, round_q, per_cluster, True)
+        best_d, best_i = merge_lists_into_state(best_d, best_i, cd, ci, qm)
+    return finish_state(best_d, best_i, sqrt)
+
+
+def _fns():
+    lib = _build.load("ivf_pq_scan")
+    scan = lib.raft_ivf_pq_scan
+    scan.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
+                     + [ctypes.c_void_p] * 3)
+    scan.restype = ctypes.c_int
+    topk = lib.raft_ivf_pq_topk
+    topk.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p] * 3)
+    topk.restype = ctypes.c_int
+    return scan, topk
+
+
+def _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster):
+    check_cuda_tensor("ivf_pq_scan q_rot", q_rot, torch.float32, 2)
+    check_cuda_tensor("ivf_pq_scan centers_rot", centers_rot,
+                      torch.float32, 2)
+    check_cuda_tensor("ivf_pq_scan books", books, torch.float32, 3)
+    check_cuda_tensor("ivf_pq_scan codes", codes, torch.uint8, 3)
+    check_cuda_tensor("ivf_pq_scan norms", norms, torch.float32, 2)
+    check_cuda_tensor("ivf_pq_scan ids", ids, torch.int32, 2)
+    n_lists, max_list, pq_dim = codes.shape
+    rot_dim = q_rot.shape[1]
+    n_codes, pq_len = books.shape[1], books.shape[2]
+    if (centers_rot.shape != (n_lists, rot_dim) or ids.shape != (
+            n_lists, max_list) or norms.shape != ids.shape
+            or pq_dim * pq_len != rot_dim
+            or books.shape[0] != (n_lists if per_cluster else pq_dim)):
+        raise ValueError("ivf_pq_scan: index tensors disagree in shape")
+    lut_bytes = (pq_dim * n_codes + rot_dim) * 4
+    if lut_bytes > MAX_LUT_BYTES:
+        raise ValueError(
+            f"ivf_pq_scan: a (pq_dim={pq_dim}, n_codes={n_codes}) table "
+            f"needs {lut_bytes} B of shared memory; the kernel takes at "
+            f"most {MAX_LUT_BYTES} B")
+    return n_lists, max_list, pq_dim, rot_dim, n_codes, pq_len
+
+
+def _launch_pairs(scan, q_rot, centers_rot, books, codes, norms, ids, qsel,
+                  lsel, n_pairs, div, bins, metric, round_q, per_cluster,
+                  center_term, round_out, out_d, out_i):
+    n_lists, max_list, pq_dim = codes.shape
+    n_codes, pq_len = books.shape[1], books.shape[2]
+    vec16 = pq_dim % 16 == 0 and codes.data_ptr() % 16 == 0
+    with torch.cuda.device(q_rot.device):
+        rc = scan(q_rot.data_ptr(), centers_rot.data_ptr(), books.data_ptr(),
+                  codes.data_ptr(), norms.data_ptr(), ids.data_ptr(),
+                  qsel.data_ptr() if qsel is not None else None,
+                  lsel.data_ptr() if lsel is not None else None,
+                  n_pairs, div, q_rot.shape[1], pq_dim, pq_len, n_codes,
+                  max_list, bins, round_up(max_list, bins),
+                  int(metric == "ip"), int(bool(per_cluster)),
+                  int(bool(round_q)), int(bool(center_term)),
+                  int(bool(round_out)), int(vec16), out_d.data_ptr(),
+                  out_i.data_ptr(), _build.stream_handle(q_rot.device))
+    _build.check(rc, "ivf_pq_scan")
+
+
+def pq_scan_cuda(q_rot, centers_rot, books, codes, norms, ids, qmap,
+                 bins: int, metric: str, round_q: bool, per_cluster: bool,
+                 round_out: bool):
+    """Launch kernel 8: one block per (list, table slot)."""
+    global launches
+    n_lists, *_ = _check(q_rot, centers_rot, books, codes, norms, ids,
+                         per_cluster)
+    check_cuda_tensor("ivf_pq_scan qmap", qmap, torch.int32, 2)
+    cap = qmap.shape[1]
+    dev = q_rot.device
+    out_d = torch.empty((n_lists, cap, bins), dtype=torch.float32,
+                        device=dev)
+    out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
+    scan, _ = _fns()
+    _launch_pairs(scan, q_rot, centers_rot, books, codes, norms, ids, qmap,
+                  None, n_lists * cap, cap, bins, metric, round_q,
+                  per_cluster, False, round_out, out_d, out_i)
+    launches += 1
+    return out_d, out_i
+
+
+def pq_scan_fused_cuda(q_rot, centers_rot, books, codes, norms, ids,
+                       probes, inv_pos, cap: int, k: int, bins: int,
+                       sqrt: bool, metric: str, round_q: bool,
+                       per_cluster: bool):
+    """Launch kernel 9: one block per (query, probe) for the binned
+    candidates (IP centre term applied), then one block per query for
+    the top-k."""
+    global launches_fused
+    _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"ivf_pq_scan_fused: k={k} outside [1, {MAX_K}]")
+    nq = q_rot.shape[0]
+    kp = kept_probes_sorted(probes, inv_pos, cap)
+    n_probes = kp.shape[1]
+    dev = q_rot.device
+    cand_d = torch.empty((nq, n_probes * bins), dtype=torch.float32,
+                         device=dev)
+    cand_i = torch.empty((nq, n_probes * bins), dtype=torch.int32,
+                         device=dev)
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    scan, topk = _fns()
+    _launch_pairs(scan, q_rot, centers_rot, books, codes, norms, ids, None,
+                  kp, nq * n_probes, n_probes, bins, metric, round_q,
+                  per_cluster, True, False, cand_d, cand_i)
+    with torch.cuda.device(dev):
+        rc = topk(cand_d.data_ptr(), cand_i.data_ptr(), nq,
+                  n_probes * bins, k, int(bool(sqrt)), out_d.data_ptr(),
+                  out_i.data_ptr(), _build.stream_handle(dev))
+    _build.check(rc, "ivf_pq_scan_fused top-k")
+    launches_fused += 1
+    return out_d, out_i
+
+
+def pq_scan(q_rot, centers_rot, books, codes, norms, ids, qmap, bins: int,
+            metric: str = "l2", round_q: bool = True,
+            per_cluster: bool = False, round_out: bool = False):
+    """Kernel 8: binned candidates of every (list, table slot) pair →
+    ``(cd, ci)`` (n_lists, cap, bins), slot-major; an empty slot (qmap
+    -1) is all (+inf, -1). ``bins`` >= 1 divides the bins-padded list
+    length. ``round_out`` rounds the scores to bf16
+    (``internal_distance_dtype``). IP scores lack the centre term (the
+    caller adds it)."""
+    if q_rot.is_cuda:
+        return pq_scan_cuda(
+            q_rot.contiguous(), centers_rot.contiguous(), books.contiguous(),
+            codes.contiguous(), norms.contiguous(), ids.contiguous(),
+            qmap.contiguous(), bins, metric, round_q, per_cluster,
+            round_out)
+    return pq_scan_plain(q_rot, centers_rot, books, codes, norms, ids, qmap,
+                         bins, metric, round_q, per_cluster, round_out)
+
+
+def pq_scan_fused(q_rot, centers_rot, books, codes, norms, ids, probes,
+                  inv_pos, qmap, cap: int, k: int, bins: int,
+                  sqrt: bool = False, metric: str = "l2",
+                  round_q: bool = True, per_cluster: bool = False):
+    """Kernel 9: the IVF-PQ fine phase → ``(dists (nq, k), ids (nq,
+    k))``, best first, the k smallest binned candidates under the key
+    (score, list id, bin). ``probes`` (nq, n_probes) with ``inv_pos``
+    their slots in the inverted table ``qmap`` (n_lists, cap); pairs
+    with ``inv_pos >= cap`` are dropped. IP scores come back negated,
+    centre term included."""
+    if q_rot.is_cuda:
+        return pq_scan_fused_cuda(
+            q_rot.contiguous(), centers_rot.contiguous(), books.contiguous(),
+            codes.contiguous(), norms.contiguous(), ids.contiguous(), probes,
+            inv_pos, cap, k, bins, sqrt, metric, round_q, per_cluster)
+    return pq_scan_fused_plain(q_rot, centers_rot, books, codes, norms, ids,
+                               qmap, k, bins, sqrt, metric, round_q,
+                               per_cluster)

@@ -51,8 +51,7 @@ def fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
     n_lists, max_list = ids.shape
     bins, mlp = resolve_bins(bins, k, max_list)
     dev = queries.device
-    inf = float("inf")
-    best_d = torch.full((nq, k), inf, device=dev)
+    best_d = torch.full((nq, k), float("inf"), device=dev)
     best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
     chunk = max(1, _PLAIN_BLOCK // max(1, cap * mlp))
     for l0 in range(0, n_lists, chunk):
@@ -63,43 +62,65 @@ def fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
         qsub = gather_query_rows(queries, qm)            # (c, cap, d)
         x = data[l0:l1].float()
         ip = torch.einsum("gcd,gld->gcl", qsub, x)       # (c, cap, ML)
-        lid = ids[l0:l1]
         if metric == "ip":
             sc = -ip
         else:
             qq = (qsub * qsub).sum(dim=2)
             sc = torch.clamp((norms[l0:l1][:, None, :] + qq[:, :, None])
                              - 2.0 * ip, min=0.0)
-        pad = (lid < 0)[:, None, :]
-        sc = torch.where(pad, torch.full_like(sc, inf), sc)
-        c = l1 - l0
-        if mlp > max_list:
-            sc = torch.nn.functional.pad(sc, (0, mlp - max_list), value=inf)
-            lid = torch.nn.functional.pad(lid, (0, mlp - max_list), value=-1)
-        # strided bins: row r -> bin r % bins; min per bin, ties to min id
-        sb = sc.reshape(c, cap, mlp // bins, bins)
-        cd = sb.min(dim=2).values                        # (c, cap, bins)
-        lb = lid.reshape(c, 1, mlp // bins, bins).expand_as(sb)
-        big = torch.iinfo(torch.int32).max
-        ci = torch.where(sb == cd[:, :, None, :], lb,
-                         torch.full_like(lb, big)).min(dim=2).values
-        ci = torch.where(ci == big, torch.full_like(ci, -1), ci)
-        # scatter each (list, slot) candidate row onto its query, in
-        # (list, bin) order; unreached entries stay (+inf, -1)
-        nd = torch.full((nq, c, bins), inf, device=dev)
-        ni = torch.full((nq, c, bins), -1, dtype=torch.int32, device=dev)
-        li, si = torch.nonzero(qm >= 0, as_tuple=True)
-        qsel = qm[li, si].long()
-        nd[qsel, li] = cd[li, si]
-        ni[qsel, li] = ci[li, si].to(torch.int32)
-        # stable merge: the state beats newcomers on ties, newcomers
-        # keep (list, bin) order
-        cat_d = torch.cat([best_d, nd.reshape(nq, c * bins)], dim=1)
-        cat_i = torch.cat([best_i, ni.reshape(nq, c * bins)], dim=1)
-        sd, order = torch.sort(cat_d, dim=1, stable=True)
-        best_d = sd[:, :k]
-        best_i = torch.gather(cat_i, 1, order[:, :k])
-    best_d = torch.where(best_i >= 0, best_d, torch.full_like(best_d, inf))
+        cd, ci = bin_rows(sc, ids[l0:l1], bins, mlp)
+        best_d, best_i = merge_lists_into_state(best_d, best_i, cd, ci, qm)
+    return finish_state(best_d, best_i, sqrt)
+
+
+def bin_rows(sc, lid, bins: int, mlp: int):
+    """Strided bins of per-row scores: ``sc`` (c, cap, ML) against list
+    ids ``lid`` (c, ML) → (c, cap, bins) minima and their ids. Row r goes
+    to bin r % bins; pad rows (id < 0, or r >= ML inside the padded
+    length ``mlp``) score +inf; ties go to the smallest id; an empty bin
+    is (+inf, -1)."""
+    inf = float("inf")
+    c, cap, max_list = sc.shape
+    sc = torch.where((lid < 0)[:, None, :], torch.full_like(sc, inf), sc)
+    if mlp > max_list:
+        sc = torch.nn.functional.pad(sc, (0, mlp - max_list), value=inf)
+        lid = torch.nn.functional.pad(lid, (0, mlp - max_list), value=-1)
+    sb = sc.reshape(c, cap, mlp // bins, bins)
+    cd = sb.min(dim=2).values                            # (c, cap, bins)
+    lb = lid.reshape(c, 1, mlp // bins, bins).expand_as(sb)
+    big = torch.iinfo(torch.int32).max
+    ci = torch.where(sb == cd[:, :, None, :], lb,
+                     torch.full_like(lb, big)).min(dim=2).values
+    return cd, torch.where(ci == big, torch.full_like(ci, -1), ci)
+
+
+def merge_lists_into_state(best_d, best_i, cd, ci, qm):
+    """Merge a chunk of lists' binned candidates ``cd``/``ci`` (c, cap,
+    bins) into the per-query state (nq, k): each (list, slot) row goes to
+    the query ``qm`` (c, cap) names (-1 = none), in (list, bin) order,
+    and a stable sort lets the state win ties — the TPU kernels' resident
+    top-k walk over lists in ascending id."""
+    nq, k = best_d.shape
+    c, _, bins = cd.shape
+    dev = best_d.device
+    # unreached (query, list) entries stay (+inf, -1)
+    nd = torch.full((nq, c, bins), float("inf"), device=dev)
+    ni = torch.full((nq, c, bins), -1, dtype=torch.int32, device=dev)
+    li, si = torch.nonzero(qm >= 0, as_tuple=True)
+    qsel = qm[li, si].long()
+    nd[qsel, li] = cd[li, si].float()
+    ni[qsel, li] = ci[li, si].to(torch.int32)
+    cat_d = torch.cat([best_d, nd.reshape(nq, c * bins)], dim=1)
+    cat_i = torch.cat([best_i, ni.reshape(nq, c * bins)], dim=1)
+    sd, order = torch.sort(cat_d, dim=1, stable=True)
+    return sd[:, :k], torch.gather(cat_i, 1, order[:, :k])
+
+
+def finish_state(best_d, best_i, sqrt: bool):
+    """The resident state's output conventions: id -1 ⇒ +inf, then the
+    optional sqrt."""
+    best_d = torch.where(best_i >= 0, best_d,
+                         torch.full_like(best_d, float("inf")))
     if sqrt:
         best_d = torch.sqrt(torch.clamp(best_d, min=0.0))
     return best_d, best_i

@@ -69,7 +69,8 @@ class SearchServer:
                    config: Optional[ServeConfig] = None,
                    start: bool = True) -> "SearchServer":
         """Prepare and warm the (shape x rung) plan ladder for an
-        IVF-Flat ``index`` and start serving. ``rep_queries`` is the
+        IVF-Flat or IVF-PQ ``index`` and start serving; ``params``
+        defaults to the family's ``SearchParams``. ``rep_queries`` is the
         representative cap-measurement sample (as for
         ``plan.build_plan``)."""
         config = config if config is not None else ServeConfig()

@@ -65,11 +65,12 @@ class PlanLadder:
               probes_ladder: Tuple[int, ...] = (),
               prewarm: bool = True) -> "PlanLadder":
         """Prepare the full (shape x rung) grid from one representative
-        query batch (tiled to each shape: the cap-measurement sample)."""
-        from raft_tpu_torch.neighbors import ivf_flat
+        query batch (tiled to each shape: the cap-measurement sample).
+        ``params`` defaults to the index family's ``SearchParams``."""
         from raft_tpu_torch.neighbors import plan as plan_mod
         if params is None:
-            params = ivf_flat.SearchParams()
+            params = plan_mod._default_params(
+                plan_mod._resolve_builder(index)[0])
         q = np.asarray(rep_queries, np.float32)
         expects(q.ndim == 2 and q.shape[1] == index.dim,
                 "PlanLadder: rep_queries must be (nq, dim=%d), got %s",

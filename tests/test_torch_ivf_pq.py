@@ -1,0 +1,424 @@
+"""Parity of the port's IVF-PQ (raft_tpu_torch) with the JAX package's.
+
+The JAX side runs its Pallas kernels in interpret mode; the port runs
+its plain versions (CPU tensors). Inputs are made with numpy from
+seeds. Search parity uses a JAX-built index loaded through the shared
+file format, so it is free of training noise.
+
+Tolerances, and why:
+* scans and searches: distances within rtol 1e-5 of the |qsub|^2 +
+  code-norm scale (of the values themselves for exact-rescore results)
+  — both sides add the same f32 products in another order (the TPU
+  decodes rows and takes one dot product, the port regroups it per
+  subspace); ids identical except where two candidates' scores lie
+  within that tolerance (an f32 near-tie the order can flip);
+* build: centres within 1e-4 (the tolerance of the IVF-Flat build parity
+  test); codebooks within 5e-3, because the grouped trainer's sums run
+  in another order and one residual changing its nearest codeword among
+  the ~1000 rows of a codeword moves that mean by ~1e-3; codes equal on
+  >= 99.99% of (row, subspace) entries for the same reason.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from raft_tpu.distance.distance_types import DistanceType as JDT
+from raft_tpu.neighbors import ivf_pq as jpq
+from raft_tpu.neighbors.refine import refine as j_refine
+from raft_tpu.neighbors import serialize as jser
+from raft_tpu.ops._util import VMEM_LIMIT
+from raft_tpu.ops.pallas_ivf_scan import ivf_pq_code_scan_pallas
+from raft_tpu_torch.core.error import LogicError
+from raft_tpu_torch.distance.distance_types import DistanceType
+from raft_tpu_torch.neighbors import _ivf_scan as t_scan
+from raft_tpu_torch.neighbors import ivf_pq as tpq
+from raft_tpu_torch.neighbors.refine import refine as t_refine
+from raft_tpu_torch.neighbors import serialize as tser
+from raft_tpu_torch.ops import ivf_pq_scan as pq_op
+from raft_tpu_torch.ops._util import round_up
+
+LUTS = {"f32": (jnp.float32, torch.float32),
+        "bf16": (jnp.bfloat16, torch.bfloat16),
+        "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+N, D, NQ, N_LISTS, K = 3000, 16, 64, 16, 10
+
+
+@pytest.fixture(autouse=True)
+def _pallas_interpret(monkeypatch):
+    monkeypatch.setenv("RAFT_TPU_PALLAS", "always")
+
+
+def _tol(dj, scale):
+    ref = np.abs(dj) if scale is None else np.asarray(scale, np.float64)
+    ref = np.broadcast_to(ref, dj.shape)
+    return 1e-5 * np.maximum(np.where(np.isfinite(ref), ref, 1.0), 1.0)
+
+
+def _close(dt, dj, scale=None):
+    """Distances within rtol 1e-5 of ``scale`` (default: the values)."""
+    dt, dj = np.asarray(dt, np.float64), np.asarray(dj, np.float64)
+    fin = np.isfinite(dj)
+    np.testing.assert_array_equal(np.isfinite(dt), fin)
+    assert (np.abs(dt[fin] - dj[fin]) <= _tol(dj, scale)[fin]).all()
+
+
+def _same(dt, it, dj, ij, scale=None):
+    """Ids equal, except that a slot may hold another candidate whose
+    JAX-side score ties the slot's within the tolerance; then
+    :func:`_close` on the distances."""
+    dj64 = np.asarray(dj, np.float64)
+    tol = _tol(dj64, scale)
+    for r, c in np.argwhere(it != ij):
+        pos = np.flatnonzero(ij[r] == it[r, c])
+        other = dj64[r, pos[0]] if pos.size else float(dt[r, c])
+        assert abs(other - dj64[r, c]) <= tol[r, c], (r, c, it[r, c],
+                                                      ij[r, c])
+    assert (it == ij).mean() >= 0.99
+    _close(dt, dj, scale)
+
+
+# --- (a) the scan kernels' plain versions against the Pallas kernels -----
+
+def _scan_inputs(seed, per_cluster, pq_bits, nq=16, n_lists=8, pq_dim=4,
+                 pq_len=4, max_list=60, n_probes=4):
+    rng = np.random.default_rng(seed)
+    rot = pq_dim * pq_len
+    n_codes = 1 << pq_bits
+    q_rot = rng.normal(size=(nq, rot)).astype(np.float32)
+    centers_rot = rng.normal(size=(n_lists, rot)).astype(np.float32)
+    books = rng.normal(size=(n_lists if per_cluster else pq_dim, n_codes,
+                             pq_len)).astype(np.float32)
+    codes = rng.integers(0, n_codes, size=(n_lists, max_list, pq_dim)
+                         ).astype(np.uint8)
+    sizes = rng.integers(0, max_list + 1, size=n_lists)
+    sizes[0], sizes[1] = max_list, 0
+    ids = np.full((n_lists, max_list), -1, np.int32)
+    nxt = 0
+    for l, s in enumerate(sizes):
+        ids[l, :s] = np.arange(nxt, nxt + s)
+        nxt += s
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(nq)]).astype(np.int32)
+    return q_rot, centers_rot, books, codes, ids, probes
+
+
+def _norms(books, codes, ids, per_cluster, lut_t):
+    b = torch.from_numpy(books)
+    if lut_t == torch.float8_e4m3fn:
+        b = b.to(lut_t).float()
+    fn = tpq._norms_fn(per_cluster)
+    return fn(torch.from_numpy(codes), b, torch.from_numpy(ids)).numpy()
+
+
+def _jax_split(pq_dim, n_codes, rot_dim, cap, bins, mlp, f32_lut):
+    """The JAX wrapper's sub-cell count for long lists (VMEM-derived)."""
+    per_row = (pq_dim * n_codes * (4 if f32_lut else 2) + rot_dim * 4
+               + round_up(max(cap, 8), 8) * 4 + pq_dim * 4)
+    row_budget = max(bins, (VMEM_LIMIT // 3) // per_row)
+    return -(-mlp // round_up(row_budget, bins))
+
+
+def _both_scans(inputs, metric, lut, per_cluster, k, cap, bins, fused,
+                internal="f32", sqrt=False):
+    q_rot, centers_rot, books, codes, ids, probes = inputs
+    lut_j, lut_t = LUTS[lut]
+    norms = _norms(books, codes, ids, per_cluster, lut_t)
+    int_j = jnp.bfloat16 if internal == "bf16" else jnp.float32
+    dj, ij = ivf_pq_code_scan_pallas(
+        jnp.asarray(q_rot), jnp.asarray(centers_rot), jnp.asarray(books),
+        jnp.asarray(codes), jnp.asarray(norms), jnp.asarray(ids),
+        jnp.asarray(probes), k, cap, bins=bins, sqrt=sqrt, lut_dtype=lut_j,
+        internal_distance_dtype=int_j, metric=metric,
+        per_cluster=per_cluster, fused=fused)
+    t_books, round_q = pq_op.lut_operands(torch.from_numpy(books), lut_t)
+    dt, it = tpq.code_scan(
+        torch.from_numpy(q_rot), torch.from_numpy(centers_rot), t_books,
+        round_q, torch.from_numpy(codes), torch.from_numpy(norms),
+        torch.from_numpy(ids), torch.from_numpy(probes), k, cap, bins,
+        sqrt, metric, per_cluster, internal == "bf16", fused)
+    # the score scale where f32 rounding lives: |qsub|^2 + code norm
+    scale = (np.abs(q_rot) ** 2).sum(1).max() + (
+        np.abs(centers_rot) ** 2).sum(1).max() + norms.max()
+    return dt.numpy(), it.numpy(), np.asarray(dj), np.asarray(ij), scale
+
+
+@pytest.mark.parametrize("pq_bits", [4, 8])
+@pytest.mark.parametrize("per_cluster", [False, True],
+                         ids=["per_subspace", "per_cluster"])
+@pytest.mark.parametrize("lut", ["f32", "bf16", "fp8"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_scan_plain_matches_pallas(metric, lut, per_cluster, pq_bits):
+    inputs = _scan_inputs(pq_bits * 7 + per_cluster, per_cluster, pq_bits)
+    cap, bins = 16, 16
+    n_codes = 1 << pq_bits
+    assert _jax_split(4, n_codes, 16, cap, bins, round_up(60, bins),
+                      lut == "f32") == 1
+    before = (pq_op.launches, pq_op.launches_fused)
+    for fused in (True, False):
+        dt, it, dj, ij, scale = _both_scans(inputs, metric, lut,
+                                            per_cluster, K, cap, bins,
+                                            fused)
+        _same(dt, it, dj, ij, scale)
+    assert (pq_op.launches, pq_op.launches_fused) == before   # CPU: plain
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_unfused_bf16_internal_and_wide_k(metric):
+    # internal_distance_dtype bf16 rounds the unfused candidate scores;
+    # k = 300 > 256 merges through the stable sort (the kernel-8 route)
+    inputs = _scan_inputs(3, False, 8, n_lists=8, max_list=60, n_probes=8)
+    for k, internal in ((K, "bf16"), (300, "f32")):
+        dt, it, dj, ij, scale = _both_scans(inputs, metric, "bf16", False,
+                                            k, 16, 64, False, internal)
+        _same(dt, it, dj, ij, scale)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_scan_cap_overflow_drop_rule(fused):
+    # every (list, probe-rank) class holds one query, so the slot order
+    # is forced and the same pairs drop in both packages
+    q_rot, centers_rot, books, codes, ids, _ = _scan_inputs(
+        5, False, 8, nq=16, n_lists=16)
+    probes = np.array([[(q + p) % 16 for p in range(4)] for q in range(16)],
+                      np.int32)
+    inputs = (q_rot, centers_rot, books, codes, ids, probes)
+    _, inv = t_scan._invert_probes(torch.from_numpy(probes), 16, 2)
+    assert bool((inv >= 2).any()), "cap must overflow"
+    dt, it, dj, ij, scale = _both_scans(inputs, "l2", "bf16", False, K, 2,
+                                        16, fused, sqrt=True)
+    _same(dt, it, dj, ij, np.sqrt(scale))
+
+
+def test_fp8_rounding_matches_ml_dtypes():
+    rng = np.random.default_rng(0)
+    v = np.concatenate([rng.normal(size=4096) * s for s in (0.01, 1, 50)])
+    # exact halfway points between neighbouring e4m3 values: ties to even
+    grid = np.unique(np.asarray(jnp.arange(-448, 448.5, 0.5).astype(
+        jnp.float8_e4m3fn).astype(jnp.float32)))
+    mids = ((grid[1:] + grid[:-1]) / 2)
+    v = np.concatenate([v, mids, -mids]).astype(np.float32)
+    j = np.asarray(jnp.asarray(v).astype(jnp.float8_e4m3fn)
+                   .astype(jnp.float32))
+    t = torch.from_numpy(v).to(torch.float8_e4m3fn).float().numpy()
+    np.testing.assert_array_equal(t, j)
+
+
+# --- (b) search on a JAX-built index loaded through the file format ------
+
+def _data(seed=0):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(24, D)).astype(np.float32)
+    x = c[rng.integers(0, 24, N)] + rng.normal(size=(N, D))
+    q = c[rng.integers(0, 24, NQ)] + rng.normal(size=(NQ, D))
+    return x.astype(np.float32), q.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def data():
+    return _data()
+
+
+BUILDS = {"l2": (JDT.L2Expanded, 0), "sqrt": (JDT.L2SqrtExpanded, 0),
+          "ip": (JDT.InnerProduct, 0), "l2_pc": (JDT.L2Expanded, 1)}
+
+
+@pytest.fixture(scope="module")
+def indexes(data, tmp_path_factory):
+    """name -> (JAX index, port index loaded from the JAX file)."""
+    x, _ = data
+    out = {}
+    for name, (metric, kind) in BUILDS.items():
+        jidx = jpq.build(x, jpq.IndexParams(
+            n_lists=N_LISTS, metric=metric, kmeans_n_iters=4, pq_dim=4,
+            pq_bits=6, keep_raw=True, codebook_kind=jpq.CodebookGen(kind)))
+        path = str(tmp_path_factory.mktemp("pq") / f"{name}.npz")
+        jser.save_ivf_pq(jidx, path)
+        out[name] = (jidx, tser.load_ivf_pq(path, device="cpu"))
+    return out
+
+
+def _search_both(jidx, tidx, q, k, lut="bf16", **sp):
+    lut_j, lut_t = LUTS[lut]
+    dj, ij = jpq.search(jidx, q, k, jpq.SearchParams(
+        scan_mode="codes", lut_dtype=lut_j, **sp))
+    dt, it = tpq.search(tidx, q, k, tpq.SearchParams(lut_dtype=lut_t, **sp))
+    return dt.numpy(), it.numpy(), np.asarray(dj), np.asarray(ij)
+
+
+@pytest.mark.parametrize("name", list(BUILDS))
+@pytest.mark.parametrize("rescore,where", [(0, "never"), (4, "never"),
+                                           (4, "always"), (30, "always")])
+def test_search_matches_jax(indexes, data, name, rescore, where):
+    jidx, tidx = indexes[name]
+    _, q = data
+    dt, it, dj, ij = _search_both(jidx, tidx, q, K, n_probes=6,
+                                  rescore_factor=rescore,
+                                  rescore_on_device=where)
+    assert it.dtype == np.int32 and dt.shape == (NQ, K)
+    _same(dt, it, dj, ij)
+
+
+@pytest.mark.parametrize("lut", ["f32", "fp8"])
+def test_search_lut_tiers_match_jax(indexes, data, lut):
+    jidx, tidx = indexes["l2"]
+    _, q = data
+    dt, it, dj, ij = _search_both(jidx, tidx, q, K, lut=lut, n_probes=6)
+    _same(dt, it, dj, ij)
+
+
+def test_wide_kk_takes_the_unfused_kernel(indexes, data, monkeypatch):
+    jidx, tidx = indexes["l2"]
+    _, q = data
+    calls = []
+    real = pq_op.pq_scan
+    monkeypatch.setattr(pq_op, "pq_scan",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    dt, it, dj, ij = _search_both(jidx, tidx, q, 30, n_probes=6,
+                                  rescore_factor=9)       # kk = 270 > 256
+    assert calls
+    _same(dt, it, dj, ij)
+
+
+def test_batched_search_equals_one_batch(indexes, data, monkeypatch):
+    _, tidx = indexes["l2"]
+    _, q = data
+    sp = tpq.SearchParams(n_probes=6, probe_cap=64)
+    d_full, i_full = tpq.search(tidx, q, K, sp)
+    monkeypatch.setattr(tpq, "MAX_QUERY_BATCH", 24)
+    d_b, i_b = tpq.search(tidx, q, K, sp)
+    assert torch.equal(i_b, i_full)
+    torch.testing.assert_close(d_b, d_full)
+
+
+# --- (c) build parity ----------------------------------------------------
+
+def test_port_build_matches_jax_build():
+    # n > 65536 and trainset fraction 1.0: both packages draw the same
+    # rows (coarse init, codebook trainset, initial codewords)
+    rng = np.random.default_rng(2)
+    c = rng.normal(size=(8, 16)).astype(np.float32) * 20
+    x = (c[rng.integers(0, 8, 70000)]
+         + rng.normal(size=(70000, 16))).astype(np.float32)
+    kw = dict(n_lists=8, kmeans_n_iters=3, kmeans_trainset_fraction=1.0,
+              pq_dim=4, pq_bits=6)
+    j = jpq.build(x, jpq.IndexParams(**kw))
+    t = tpq.build(x, tpq.IndexParams(**kw), device="cpu")
+    for f in ("list_sizes", "lists_indices", "rotation_matrix"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)))
+    for f in ("centers", "centers_rot"):
+        np.testing.assert_allclose(getattr(t, f).numpy(),
+                                   np.asarray(getattr(j, f)), atol=1e-4)
+    np.testing.assert_allclose(t.pq_centers.numpy(),
+                               np.asarray(j.pq_centers), atol=5e-3)
+    same = t.codes.numpy() == np.asarray(j.codes)
+    assert same.mean() >= 0.9999
+    # the norms of rows whose codes agree agree to the codebooks' error
+    rows = same.all(axis=2) & (t.lists_indices.numpy() >= 0)
+    np.testing.assert_allclose(t.code_norms.numpy()[rows],
+                               np.asarray(j.code_norms)[rows], rtol=1e-3)
+
+
+def test_build_stages_match_jax_on_same_inputs():
+    rng = np.random.default_rng(4)
+    res = rng.normal(size=(5000, 16)).astype(np.float32)
+    books = rng.normal(size=(4, 64, 4)).astype(np.float32)
+    # encoding and code norms: exact on the same inputs
+    codes_t = tpq._encode(torch.from_numpy(res), torch.from_numpy(books))
+    codes_j = np.asarray(jpq._encode(jnp.asarray(res), jnp.asarray(books)))
+    np.testing.assert_array_equal(codes_t.numpy(), codes_j)
+    cb = np.array(codes_j).reshape(10, 500, 4)
+    ids = np.arange(5000, dtype=np.int32).reshape(10, 500)
+    ids[3, 250:] = -1
+    np.testing.assert_allclose(
+        tpq._code_norms(torch.from_numpy(cb), torch.from_numpy(books),
+                        torch.from_numpy(ids)).numpy(),
+        np.asarray(jpq._code_norms(jnp.asarray(cb), jnp.asarray(books),
+                                   jnp.asarray(ids))), rtol=1e-6)
+    pc = rng.normal(size=(10, 64, 4)).astype(np.float32)
+    np.testing.assert_allclose(
+        tpq._code_norms_per_cluster(torch.from_numpy(cb),
+                                    torch.from_numpy(pc),
+                                    torch.from_numpy(ids)).numpy(),
+        np.asarray(jpq._code_norms_per_cluster(
+            jnp.asarray(cb), jnp.asarray(pc), jnp.asarray(ids))), rtol=1e-6)
+    # the grouped codebook trainer, one sweep from the same draws
+    bt = tpq._train_codebooks_per_subspace(torch.from_numpy(res), 4, 4, 64,
+                                           1, seed=9)
+    bj = jpq._train_codebooks_per_subspace(jnp.asarray(res), 4, 4, 64, 1,
+                                           seed=9)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), atol=1e-5)
+
+
+# --- (d) save and load, both directions --------------------------------
+
+def test_save_roundtrip_both_directions(indexes, data, tmp_path):
+    jidx, tidx = indexes["ip"]
+    _, q = data
+    path = str(tmp_path / "from_port")             # no .npz suffix
+    tser.save_ivf_pq(tidx, path)
+    back = jser.load_ivf_pq(path)
+    for f in ("centers", "centers_rot", "rotation_matrix", "pq_centers",
+              "codes", "lists_indices", "list_sizes"):
+        np.testing.assert_array_equal(np.asarray(getattr(back, f)),
+                                      np.asarray(getattr(jidx, f)))
+    np.testing.assert_array_equal(back.raw, jidx.raw)
+    assert (back.metric, back.size, back.pq_bits, back.codebook_kind) == (
+        jidx.metric, jidx.size, jidx.pq_bits, jidx.codebook_kind)
+    sp = dict(n_probes=6, rescore_factor=4)
+    dj, ij = jpq.search(back, q, K, jpq.SearchParams(scan_mode="codes", **sp))
+    dt, it = tpq.search(tidx, q, K, tpq.SearchParams(**sp))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    tser.save_ivf_pq(tidx, path, include_raw=False)
+    again = tser.load_ivf_pq(path, device="cpu")
+    assert again.raw is None and torch.equal(again.codes, tidx.codes)
+    torch.testing.assert_close(again.code_norms, tidx.code_norms)
+
+
+# --- (e) refine ------------------------------------------------------------
+
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.L2SqrtExpanded],
+                         ids=lambda m: m.name)
+def test_refine_matches_jax(data, metric):
+    x, q = data
+    rng = np.random.default_rng(3)
+    cand = rng.integers(0, N, size=(NQ, 40)).astype(np.int32)
+    cand[:, -3:] = -1
+    dj, ij = j_refine(x, q, cand, K, metric=JDT(int(metric)))
+    dt, it = t_refine(x, q, cand, K, metric=metric, device="cpu")
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    _close(dt.numpy(), np.asarray(dj), (q ** 2).sum(1, keepdims=True)
+           + (x ** 2).sum(1).max())
+
+
+# --- (f) features not ported yet, (g) the default device ---------------
+
+def test_unported_features_raise(indexes, data):
+    x, q = data
+    with pytest.raises(NotImplementedError, match="PER_CLUSTER"):
+        tpq.build(x, tpq.IndexParams(
+            n_lists=4, codebook_kind=tpq.CodebookGen.PER_CLUSTER),
+            device="cpu")
+    _, tidx = indexes["l2"]
+    for mode in ("reconstruct", "lut"):
+        with pytest.raises(NotImplementedError, match=mode):
+            tpq.search(tidx, q, K, tpq.SearchParams(scan_mode=mode))
+    with pytest.raises(LogicError, match="scan_mode"):
+        tpq.search(tidx, q, K, tpq.SearchParams(scan_mode="bogus"))
+    with pytest.raises(NotImplementedError, match="extend"):
+        tpq.extend(tidx, x[:10])
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    x, _ = _data()
+    with pytest.raises(LogicError, match="device='cpu'"):
+        tpq.build(x, tpq.IndexParams(n_lists=4))
+    with pytest.raises(LogicError, match="device='cpu'"):
+        tpq.index_from_numpy({}, DistanceType.L2Expanded, 0, 8)
+    with pytest.raises(LogicError, match="device='cpu'"):
+        t_refine(x, x[:4], np.zeros((4, 8), np.int32), 2)

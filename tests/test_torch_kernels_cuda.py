@@ -7,16 +7,18 @@ so it runs where only PyTorch is installed:
         tests/test_torch_kernels_cuda.py -m cuda
 
 Tolerance: selection is exact; distances within rtol 1e-5 of the
-expanded-L2 scale (|x|^2 + |y|^2) — fp32 with a different summation
-order — and ids identical on random data.
+expanded-L2 scale (|x|^2 + |y|^2, for PQ |qsub|^2 + code norm) — fp32
+with a different summation order — and ids identical on random data,
+except (PQ) where two candidates tie within that tolerance.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch.neighbors import _ivf_scan, ivf_flat
+from raft_tpu_torch.neighbors import _ivf_scan, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import fused_l2_nn as nn_op
+from raft_tpu_torch.ops import ivf_pq_scan as pq_op
 from raft_tpu_torch.ops import ivf_scan as scan_op
 from raft_tpu_torch.ops import select_k as sel_op
 
@@ -159,3 +161,115 @@ def test_build_on_card_launches_fused_l2_nn(dev):
     assert idx.device.type == "cuda"
     assert nn_op.launches >= before + 4      # 3 sweeps + predict
     assert int(idx.list_sizes.sum()) == 2000
+
+
+def _pq_case(rng, dev, pq_dim, bits, per_cluster, n_lists=16, max_list=100,
+             nq=32, n_probes=6, pq_len=2):
+    rot = pq_dim * pq_len
+    n_codes = 1 << bits
+    sizes = rng.integers(0, max_list + 1, size=n_lists)
+    sizes[0], sizes[1], sizes[2] = max_list, 0, 5     # full, empty, short
+    ids = np.full((n_lists, max_list), -1, np.int32)
+    nxt = 0
+    for l, s in enumerate(sizes):
+        ids[l, :s] = np.arange(nxt, nxt + s)
+        nxt += s
+    codes = rng.integers(0, n_codes, size=(n_lists, max_list, pq_dim)
+                         ).astype(np.uint8)
+    books = rng.normal(size=(n_lists if per_cluster else pq_dim, n_codes,
+                             pq_len)).astype(np.float32)
+    norms = ivf_pq._norms_fn(per_cluster)(
+        torch.from_numpy(codes), torch.from_numpy(books),
+        torch.from_numpy(ids)).numpy()
+    q = rng.normal(size=(nq, rot)).astype(np.float32)
+    centers_rot = rng.normal(size=(n_lists, rot)).astype(np.float32)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(nq)]).astype(np.int32)
+    scale = float((q ** 2).sum(1).max() + (centers_rot ** 2).sum(1).max()
+                  + norms.max())
+    return [_t(a, dev) for a in (q, centers_rot, books, codes, norms, ids,
+                                 probes)], scale
+
+
+def _near_tie_equal(dk, ik, dp, ip, tol):
+    """Ids equal except where the slot's two candidates tie within tol
+    (the kernel sums the same products in another order)."""
+    dk, ik, dp, ip = (a.cpu().numpy() for a in (dk, ik, dp, ip))
+    fin = np.isfinite(dp)
+    assert (np.isfinite(dk) == fin).all()
+    assert (np.abs(dk[fin] - dp[fin]) <= tol).all()
+    for r, c in np.argwhere(ik != ip):
+        pos = np.flatnonzero(ip[r] == ik[r, c])
+        other = dp[r, pos[0]] if pos.size else dk[r, c]
+        assert abs(other - dp[r, c]) <= tol, (r, c)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("pq_dim,bits,lut", [
+    (16, 4, torch.bfloat16), (32, 8, torch.bfloat16), (64, 8, torch.float32),
+    (64, 8, torch.float8_e4m3fn), (24, 8, torch.bfloat16)])
+@pytest.mark.parametrize("k,bins,cap", [(1, 16, 32), (10, 128, 32),
+                                        (256, 64, 32), (10, 16, 8)])
+@pytest.mark.parametrize("per_cluster", [False, True])
+def test_pq_scans_match_plain(dev, metric, pq_dim, bits, lut, k, bins, cap,
+                              per_cluster):
+    # bins 128 > max_list 100: every list is shorter than its bins; list
+    # 1 is empty, list 2 holds 5 rows; cap 8 overflows
+    rng = np.random.default_rng(pq_dim + bits + k + cap)
+    (q, cr, books, codes, norms, ids, probes), scale = _pq_case(
+        rng, dev, pq_dim, bits, per_cluster)
+    qmap, inv_pos = _ivf_scan._invert_probes(probes, ids.shape[0], cap)
+    if cap == 8:
+        assert bool((inv_pos >= cap).any()), "cap must overflow"
+    tb, round_q = pq_op.lut_operands(books, lut)
+    args = (q, cr, tb, codes, norms, ids)
+    sqrt = metric == "l2"
+    b_f = (pq_op.launches, pq_op.launches_fused)
+    dk, ik = pq_op.pq_scan_fused(*args, probes, inv_pos, qmap, cap, k, bins,
+                                 sqrt, metric, round_q, per_cluster)
+    ck, cik = pq_op.pq_scan(*args, qmap, bins, metric, round_q, per_cluster,
+                            lut == torch.float32)
+    torch.cuda.synchronize()
+    assert (pq_op.launches, pq_op.launches_fused) == (b_f[0] + 1,
+                                                      b_f[1] + 1)
+    dp, ip = pq_op.pq_scan_fused_plain(*args, qmap, k, bins, sqrt, metric,
+                                       round_q, per_cluster)
+    _near_tie_equal(dk, ik, dp, ip, 1e-5 * (np.sqrt(scale) if sqrt
+                                            else scale))
+    cp, cip = pq_op.pq_scan_plain(*args, qmap, bins, metric, round_q,
+                                  per_cluster, lut == torch.float32)
+    fin = torch.isfinite(cp)
+    assert torch.equal(torch.isfinite(ck), fin)
+    # bf16-rounded scores (round_out) keep 8 bits: 2^-8 of the scale
+    tol = (2.0 ** -8 if lut == torch.float32 else 1e-5) * scale
+    assert float((ck[fin] - cp[fin]).abs().max()) <= tol
+    assert float((cik == cip).double().mean()) >= 0.99
+
+
+def test_pq_search_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(11)
+    c = rng.normal(size=(16, 32)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 16, 4000)]
+         + rng.normal(size=(4000, 32))).astype(np.float32)
+    q = (c[rng.integers(0, 16, 64)]
+         + rng.normal(size=(64, 32))).astype(np.float32)
+    cpu = ivf_pq.build(x, ivf_pq.IndexParams(n_lists=16, kmeans_n_iters=4,
+                                             pq_dim=16, keep_raw=True),
+                       device="cpu")
+    arrays = {f: getattr(cpu, f).numpy() for f in
+              ("centers", "centers_rot", "rotation_matrix", "pq_centers",
+               "codes", "lists_indices", "list_sizes")}
+    gpu = ivf_pq.index_from_numpy(arrays, cpu.metric, cpu.size, cpu.pq_bits,
+                                  raw=cpu.raw, device=dev)
+    for rf, launched in ((4, "fused"), (30, "unfused")):
+        sp = ivf_pq.SearchParams(n_probes=6, rescore_factor=rf,
+                                 rescore_on_device="always")
+        before = (pq_op.launches, pq_op.launches_fused)
+        dg, ig = ivf_pq.search(gpu, q, 10, sp)
+        after = (pq_op.launches, pq_op.launches_fused)
+        assert after[launched == "fused"] > before[launched == "fused"]
+        dc, ic = ivf_pq.search(cpu, q, 10, sp)
+        # exact re-rank: the same ids on both devices
+        np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
+        np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(),
+                                   rtol=1e-5, atol=1e-3)

@@ -10,12 +10,15 @@ whatever batch shape a request lands in. Tolerance: ids identical,
 distances within rtol 1e-5 / atol 1e-5.
 """
 
+import dataclasses
+import gc
 import os
 import re
 import subprocess
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -23,9 +26,12 @@ import torch
 
 from raft_tpu import serve as jserve
 from raft_tpu.neighbors import ivf_flat as jflat
+from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu.neighbors import serialize as jser
 from raft_tpu_torch import obs
 from raft_tpu_torch.neighbors import ivf_flat as tflat
+from raft_tpu_torch.neighbors import ivf_pq as tpq
+from raft_tpu_torch.neighbors import plan as tplan
 from raft_tpu_torch.neighbors import serialize as tser
 from raft_tpu_torch.serve import (DeadlineExceeded, LoadController,
                                   RejectedError, SearchServer, ServeConfig)
@@ -180,6 +186,73 @@ def test_warm_plans_never_remeasure_cap(setup):
     assert (obs.counter_sum(after, "raft.serve.completed.total")
             - obs.counter_sum(before, "raft.serve.completed.total")
             == len(SIZES))
+
+
+@pytest.fixture(scope="module")
+def pq_index(setup, tmp_path_factory):
+    """A JAX-built IVF-PQ index (raw corpus kept) loaded by the port."""
+    _, _, q = setup
+    rng = np.random.default_rng(1)
+    c = rng.normal(size=(24, 16)).astype(np.float32)
+    x = (c[rng.integers(0, 24, 2000)]
+         + rng.normal(size=(2000, 16))).astype(np.float32)
+    pidx = jpq.build(x, jpq.IndexParams(n_lists=16, kmeans_n_iters=4,
+                                        pq_dim=4, pq_bits=6, keep_raw=True))
+    path = str(tmp_path_factory.mktemp("serve") / "pq.npz")
+    jser.save_ivf_pq(pidx, path)
+    return tser.load_ivf_pq(path, device="cpu"), q
+
+
+@pytest.mark.parametrize("where", ["always", "never"])
+def test_pq_server_equals_direct_search(pq_index, where):
+    # rescore on the device or on the host; probe_cap pinned so that
+    # every batch shape keeps every probe and serves what a direct
+    # search returns
+    tidx, q = pq_index
+    sp = tpq.SearchParams(n_probes=4, rescore_factor=4, probe_cap=64,
+                          rescore_on_device=where)
+    reqs = _requests(q)
+    srv = SearchServer.from_index(tidx, q[:8], K, params=sp,
+                                  config=ServeConfig(batch_sizes=SHAPES))
+    try:
+        before = obs.snapshot()
+        served = _serve_all(srv, reqs)
+        after = obs.snapshot()
+    finally:
+        srv.close()
+    for name in ("raft.ivf_scan.resolve_cap.syncs", "raft.plan.cache.misses",
+                 "raft.plan.build.total"):
+        assert obs.counter_sum(after, name) == obs.counter_sum(before, name)
+    for r, (d, i) in zip(reqs, served):
+        dd, id_ = tpq.search(tidx, r, K, sp)
+        np.testing.assert_array_equal(i, id_.numpy())
+        np.testing.assert_allclose(d, dd.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("family", ["flat", "pq"])
+def test_dropped_index_is_freed_without_gc(setup, pq_index, family):
+    # the index caches its plans; a plan holds the index's arrays, never
+    # the index, so dropping the index frees it at once (no cyclic GC
+    # pass) while a plan that is still held goes on serving
+    if family == "flat":
+        src, q = setup[1], setup[2]
+        sp = tflat.SearchParams(**EXACT)
+    else:
+        src, q = pq_index
+        sp = tpq.SearchParams(n_probes=4, rescore_factor=4, probe_cap=64,
+                              rescore_on_device="always")
+    fresh = dataclasses.replace(src, cap_cache={}, plan_cache={})
+    plan = tplan.build_plan(fresh, q[:8], K, sp)
+    d0, i0 = plan.search(q[:8])
+    ref = weakref.ref(fresh)
+    gc.disable()
+    try:
+        del fresh
+        assert ref() is None
+    finally:
+        gc.enable()
+    d1, i1 = plan.search(q[:8])
+    assert torch.equal(i0, i1) and torch.equal(d0, d1)
 
 
 def test_degradation_ladder_steps_down_and_up():
