@@ -10,13 +10,17 @@ Phases, one line each:
               tensors at each path's shapes: fused L2-NN at
               (262144, 128) x (1024, 128) and select-k at (128, 1024)
               k=96 for IVF-Flat; the fused IVF-Flat scan over the real
-              index for one 128-query batch (after phase 3); on the real
+              index for one 128-query batch, and the unfused list scan
+              at k=512 on the same batch (after phase 3); on the real
               PQ index (after phase 4) both IVF-PQ scans for one
               128-query batch, the fused one at k=32 (kk=256), the
               unfused one at k=64 (kk=512), fused L2-NN at
               (262144, 128) x (4096, 128) and select-k at (128, 4096)
-              k=128 (rows tagged ``@ivf_pq``). Kernel, plain and library
-              times from CUDA events after warm-up.
+              k=128 (rows tagged ``@ivf_pq``); on the real BQ index
+              (after phase 5) both IVF-BQ scans likewise (kk=256 fused,
+              kk=512 unfused) and select-k at (128, 1024) k=128
+              (``select_k@ivf_bq``). Kernel, plain and library times
+              from CUDA events after warm-up.
 3. main     — the IVF-Flat serving path: a 10M x 128 clustered dataset
               (the benchmark's gaussian mixture, made on the card from a
               seed), IVF-Flat build (1024 lists, 10 k-means sweeps),
@@ -24,19 +28,31 @@ Phases, one line each:
               96 probes, k=32), a burst of 512 single-query requests from
               128 threads; recall@32 against exact search, QPS, p50/p99,
               device memory, and each kernel's launch count over the run;
-              then the index is dropped (``free``: device memory after
-              the ``del`` and after a collection pass).
+              then ``wide_flat``: one list-major ``ivf_flat.search`` of
+              128 queries at k=512 (the unfused list scan and the
+              candidate merge), its recall of the top 32 and its launch
+              counts; then the index is dropped (``free``: device memory
+              after the ``del`` and after a collection pass).
 4. main_pq  — the IVF-PQ serving path on the same dataset, after the
               IVF-Flat index is freed: build (4096 lists, pq_dim 32 x 8
               bits, 10 sweeps, raw vectors kept), ``SearchServer`` with
               128 probes, k=32, rescore_factor 8 re-ranked on the card,
               the same burst, then one ``ivf_pq.search`` at k=64 (the
-              unfused scan); the same measurements.
+              unfused scan); the same measurements; the index is then
+              dropped (``free``), as after phase 5.
+5. main_bq  — the IVF-BQ serving path on the same dataset, after the
+              IVF-PQ index is freed: build (1024 lists, 10 sweeps, raw
+              vectors kept; ``tools/north_star_recall.py``'s 10M BQ
+              point), ``SearchServer`` with 128 probes, k=32,
+              rescore_factor 8 re-ranked on the card (kk=256: the fused
+              scan serves every batch), the same burst, then one
+              ``ivf_bq.search`` at k=64 (kk=512, the unfused scan); the
+              same measurements.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. There is no CPU path: without CUDA the
-script fails. ``--n`` cuts the dataset of both paths (the cut is
+script fails. ``--n`` cuts the dataset of every path (the cut is
 printed).
 """
 
@@ -44,18 +60,22 @@ from __future__ import annotations
 
 import argparse
 import gc
+import importlib
 import json
 import os
 import subprocess
 import sys
 import threading
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-FP32_FLOPS = 67e12             # H100 SXM fp32, non-tensor-core
+# peaks of the H100 SXM, NVIDIA's data sheet (dense rates, 700 W)
+HBM_BYTES_PER_S = 3.35e12      # HBM3
+FP32_FLOPS = 67e12             # float32 outside the tensor cores
+BF16_FLOPS = 989e12            # bf16 on the tensor cores
 # kernel vs plain distance tolerance: rtol 1e-5 of the scale of the
 # expanded-L2 terms (|x|^2 + |y|^2), where fp32 rounding of
 # |x|^2 + |y|^2 - 2 x.y lives (a distance near 0 keeps that error)
@@ -64,10 +84,19 @@ MIN_ID_AGREEMENT = 0.999
 RECALL_FLOOR = 0.5
 
 D, K, N_PROBES, N_LISTS, KMEANS_ITERS = 128, 32, 96, 1024, 10
+# the IVF-Flat route for k > 256: list-major, the unfused list scan
+FLAT_WIDE_K = 512
 # the IVF-PQ point: bench_suite.bench_ivf_pq(n=10M, nlists=4096,
 # n_probes=128) with its defaults (k=32, pq_bits 8, pq_dim dim/4,
 # rescore_factor 8), the re-rank kept on the card
-PQ_LISTS, PQ_PROBES, PQ_BITS, PQ_RESCORE, PQ_WIDE_K = 4096, 128, 8, 8, 64
+PQ_LISTS, PQ_PROBES, PQ_BITS = 4096, 128, 8
+# the IVF-BQ point: tools/north_star_recall.py's 10M BQ build (1024
+# lists, 10 sweeps, raw kept) at its 128-probe operating point, k=32,
+# rescore_factor 8 (the SearchParams default), the re-rank on the card
+BQ_LISTS, BQ_PROBES = 1024, 128
+# both quantized paths: kk = 8 * 32 = 256 takes the fused scan; one
+# search at k=64 (kk = 512 > 256) takes the unfused scan and the merge
+RESCORE, WIDE_K = 8, 64
 KM_ROWS = 1 << 18             # the k-means trainer's subsample
 BATCH_SIZES = (1, 8, 32, 128)
 N_QUERIES, N_REQUESTS, N_THREADS = 256, 512, 128
@@ -99,8 +128,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(n_bytes: float, n_flops: float):
-    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOPS * 1e3
+def bound(n_bytes: float, *work):
+    """The least milliseconds for a function's work, and what bounds it:
+    its bytes at the memory rate, or its operations, given as
+    ``(count, rate)`` pairs at the card's peak rate for each operand
+    type (units of different types can run at once, so the longest pair
+    counts), whichever takes longer."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    tf = max(n / rate * 1e3 for n, rate in work)
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -177,6 +212,18 @@ def kernel_row(name, src, replaces, max_abs, ms, plain_ms, bnd, lib_ms):
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms}
 
 
+def probe_stats(list_sizes, probes, inv_pos, cap: int) -> dict:
+    """One batch's kept (query, probe) pairs (``inv_pos < cap``): the
+    distinct probed lists, their rows counted once, the pairs, and the
+    rows scored over all pairs."""
+    kept = inv_pos < cap
+    sizes = list_sizes.long()
+    lists = torch.unique(probes[kept].long())
+    return {"probed_lists": int(lists.numel()),
+            "rows_once": int(sizes[lists].sum()), "pairs": int(kept.sum()),
+            "pair_rows": int(sizes[probes[kept].long()].sum())}
+
+
 def sample_rows(x, m: int, seed: int):
     g = torch.Generator(device=x.device).manual_seed(seed)
     return x[torch.randperm(x.shape[0], generator=g,
@@ -197,7 +244,7 @@ def check_fused_l2_nn(xa, ya, name):
     ms = cuda_ms(lambda: op.fused_l2_nn_cuda(xa, ya), 10)
     plain_ms = cuda_ms(lambda: op.fused_l2_nn_plain(xa, ya), 5)
     op.launches = saved
-    bnd = bound(4 * (m * D + n * D) + 8 * m, 2 * m * n * D)
+    bnd = bound(4 * (m * D + n * D) + 8 * m, (2 * m * n * D, FP32_FLOPS))
     phase("kernels", kernel=name, shape=[m, n, D],
           id_agreement=agree, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
           bound_ms=bnd[0])
@@ -222,7 +269,7 @@ def check_select_k(q, centers, k, name):
     plain_ms = cuda_ms(lambda: op.select_k_plain(v, k), 20)
     lib_ms = cuda_ms(lambda: torch.topk(v, k, dim=1, largest=False), 50)
     op.launches = saved
-    bnd = bound(4 * m * n + 8 * m * k, m * n)
+    bnd = bound(4 * m * n + 8 * m * k, (m * n, FP32_FLOPS))
     phase("kernels", kernel=name, shape=[m, n, k],
           id_agreement=agree, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
           library_ms=lib_ms, bound_ms=bnd[0])
@@ -231,167 +278,236 @@ def check_select_k(q, centers, k, name):
                       plain_ms, bnd, lib_ms)
 
 
-def check_scan(index, q):
+class Batch(NamedTuple):
+    """One 128-query batch on a served index: the queries, the cap its
+    plan measured, the coarse probes and their inversion."""
+    qb: torch.Tensor
+    cap: int
+    probes: torch.Tensor
+    qmap: torch.Tensor
+    inv_pos: torch.Tensor
+
+
+def probe_batch(index, q, n_probes: int, name: str) -> Batch:
     from raft_tpu_torch.neighbors import _ivf_scan
-    from raft_tpu_torch.ops import ivf_scan as op
     qb = q[:128].contiguous()
-    cap = index.cap_cache.get((128, N_PROBES))
+    cap = index.cap_cache.get((128, n_probes))
     if cap is None:
-        fail("scan: the 128-row plan measured no cap")
-    probes = _ivf_scan.coarse_probes(qb, index.centers, N_PROBES)
+        fail(f"{name}: the 128-row plan measured no cap")
+    probes = _ivf_scan.coarse_probes(qb, index.centers, n_probes)
     qmap, inv_pos = _ivf_scan._invert_probes(probes, index.n_lists, cap)
-    args = (qb, index.lists_data, index.lists_norms, index.lists_indices,
-            probes, inv_pos)
-    saved = op.launches
-    d_k, i_k = op.fused_list_scan_cuda(*args, cap, K, 0, False, "l2")
-    d_p, i_p = op.fused_list_scan_plain(*args, qmap, cap, K, 0, False, "l2")
+    return Batch(qb, cap, probes, qmap, inv_pos)
+
+
+def scan_bound(index, b: Batch, row_bytes: int, list_bytes: int, work):
+    """``bound_fn`` of a batch's scan: each probed list's real rows
+    (``row_bytes`` each, ids and norms included) and its ``list_bytes``
+    read once, the queries once, the output written once; the
+    operations ``work(info)``, ``(count, rate)`` pairs."""
+    def bound_fn(out_bytes: int):
+        info = probe_stats(index.list_sizes, b.probes, b.inv_pos, b.cap)
+        n_bytes = (info["rows_once"] * row_bytes
+                   + info["probed_lists"] * list_bytes + b.qb.numel() * 4
+                   + out_bytes)
+        return bound(n_bytes, *work(info)), info
+    return bound_fn
+
+
+def check_scan_kernel(name, op, counter: str, kernel, plain, scale,
+                      reps: int, src: str, replaces: str, bound_fn,
+                      **fields):
+    """Hold one scan kernel's (dists, ids) against its plain version's
+    on the same batch, within ``RTOL * scale(d_p, i_p)``; time both and
+    return the kernel's row. ``op.<counter>`` is left as it was found,
+    so the comparison adds no launch; ``bound_fn(out_bytes)`` gives the
+    bound and the batch's sizes."""
+    saved = getattr(op, counter)
+    d_k, i_k = kernel()
+    d_p, i_p = plain()
     torch.cuda.synchronize()
+    max_abs, agree = compare(name, d_k, i_k, d_p, i_p, False,
+                             scale(d_p, i_p))
+    out_bytes = 8 * d_k.numel()
+    del d_k, i_k, d_p, i_p
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, 1, warmup=1)
+    setattr(op, counter, saved)
+    bnd, info = bound_fn(out_bytes)
+    phase("kernels", kernel=name, nq=128, **fields, **info,
+          out_bytes=out_bytes, id_agreement=agree, max_abs_err=max_abs,
+          ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+    return kernel_row(name, src, replaces, max_abs, ms, plain_ms, bnd, None)
+
+
+def check_flat_scans(index, q):
+    """Kernels 3 and 4 against their plain versions on the served
+    IVF-Flat index, one 128-query batch at the plan's cap: the fused
+    scan at k=K and the unfused list scan at k=FLAT_WIDE_K."""
+    from raft_tpu_torch.ops import ivf_scan as op
+    b = probe_batch(index, q, N_PROBES, "flat scan")
+    data = (b.qb, index.lists_data, index.lists_norms, index.lists_indices)
+    src = "raft_tpu_torch/csrc/ivf_flat_scan.cu"
+    # a dot product per kept (query, row) pair, in fp32
+    bound_fn = scan_bound(index, b, D * 4 + 8, 0, lambda info: [
+        (2 * info["pair_rows"] * D, FP32_FLOPS)])
+    qq = (b.qb * b.qb).sum(1)
+    # fused: |q|^2 plus the norm of the row found
     ids_all = index.lists_indices.reshape(-1)
-    norm_by_id = torch.zeros(index.size, device=qb.device)
+    norm_by_id = torch.zeros(index.size, device=b.qb.device)
     norm_by_id[ids_all[ids_all >= 0].long()] = \
         index.lists_norms.reshape(-1)[ids_all >= 0]
-    scale = (qb * qb).sum(1)[:, None] + norm_by_id[i_p.clamp(min=0).long()]
-    max_abs, agree = compare("ivf_flat_scan", d_k, i_k, d_p, i_p, False,
-                             scale)
-    ms = cuda_ms(lambda: op.fused_list_scan_cuda(*args, cap, K, 0, False,
-                                                 "l2"), 5)
-    plain_ms = cuda_ms(lambda: op.fused_list_scan_plain(
-        *args, qmap, cap, K, 0, False, "l2"), 2)
-    op.launches = saved
-    # what this batch needs: each probed list's real rows (and their
-    # norms and ids) read once, the queries once, (nq, k) results out;
-    # a dot product per kept (query, row) pair
-    kept = inv_pos < cap
-    sizes = index.list_sizes.long()
-    lists = torch.unique(probes[kept].long())
-    rows_once = int(sizes[lists].sum())
-    pair_rows = int(sizes[probes[kept].long()].sum())
-    n_bytes = rows_once * (D * 4 + 8) + qb.numel() * 4 + 8 * 128 * K
-    bnd = bound(n_bytes, 2 * pair_rows * D)
-    phase("kernels", kernel="ivf_flat_scan", nq=128, cap=cap,
-          probed_lists=int(lists.numel()), rows_once=rows_once,
-          pair_rows=pair_rows, id_agreement=agree, max_abs_err=max_abs,
-          ms=ms, plain_ms=plain_ms, bound_ms=bnd[0])
-    return kernel_row("ivf_flat_scan", "raft_tpu_torch/csrc/ivf_flat_scan.cu",
-                      "raft_tpu/ops/pallas_ivf_scan.py:360", max_abs, ms,
-                      plain_ms, bnd, None)
+    fused = check_scan_kernel(
+        "ivf_flat_scan", op, "launches",
+        lambda: op.fused_list_scan_cuda(*data, b.probes, b.inv_pos, b.cap,
+                                        K, 0, False, "l2"),
+        lambda: op.fused_list_scan_plain(*data, b.probes, b.inv_pos, b.qmap,
+                                         b.cap, K, 0, False, "l2"),
+        lambda d_p, i_p: qq[:, None] + norm_by_id[i_p.clamp(min=0).long()],
+        5, src, "raft_tpu/ops/pallas_ivf_scan.py:360", bound_fn, k=K,
+        cap=b.cap)
+    del norm_by_id
+    bins, _ = op.resolve_bins(0, FLAT_WIDE_K, index.lists_indices.shape[1])
+    # per (list, slot): |q|^2 of the slot's query plus the list's
+    # largest row norm
+    slot = (qq[b.qmap.clamp(min=0).long()]
+            + index.lists_norms.max(dim=1).values[:, None])
+    wide = check_scan_kernel(
+        "ivf_list_scan", op, "launches_list",
+        lambda: op.list_scan_cuda(*data, b.qmap, bins, "l2"),
+        lambda: op.list_scan_plain(*data, b.qmap, bins, "l2"),
+        lambda d_p, i_p: slot[:, :, None].expand_as(d_p),
+        3, src, "raft_tpu/ops/pallas_ivf_scan.py:105", bound_fn,
+        k=FLAT_WIDE_K, bins=bins, cap=b.cap)
+    return fused, wide
 
 
-def _pq_batch(index, qb, k, params):
-    """What both PQ scans see for one batch on the served index: the
-    route (kk, bins), the plan's cached cap, probes, rotated queries,
-    the probe inversion and the LUT-tier books and norms."""
-    from raft_tpu_torch.neighbors import _ivf_scan, ivf_pq
+def _pq_calls(index, params, b: Batch, q_rot, route):
+    """The IVF-PQ scan that ``route`` takes on batch ``b``: kernel and
+    plain callables, the code norms, the bins."""
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import ivf_pq_scan as op
     from raft_tpu_torch.ops.ivf_scan import resolve_bins
-    route = ivf_pq._Route(index, k, params)
-    cap = index.cap_cache.get((qb.shape[0], route.n_probes))
-    if cap is None:
-        fail("pq scan: the 128-row plan measured no cap")
-    probes = _ivf_scan.coarse_probes(qb, index.centers, route.n_probes)
-    q_rot = (qb @ index.rotation_matrix.T).contiguous()
-    qmap, inv_pos = _ivf_scan._invert_probes(probes, index.n_lists, cap)
     books, round_q = ivf_pq._lut_books(index, params.lut_dtype)
     norms = ivf_pq._ensure_code_norms(index, params, False, "l2")
     bins, _ = resolve_bins(route.bins, route.kk, index.codes.shape[1])
-    args = (q_rot, index.centers_rot, books, index.codes, norms,
-            index.lists_indices)
-    return route, cap, probes, qmap, inv_pos, round_q, bins, args
+    a = (q_rot, index.centers_rot, books, index.codes, norms,
+         index.lists_indices)
+    if route.fused:
+        return (lambda: op.pq_scan_fused_cuda(
+                    *a, b.probes, b.inv_pos, b.cap, route.kk, bins, False,
+                    "l2", round_q, False),
+                lambda: op.pq_scan_fused_plain(
+                    *a, b.qmap, route.kk, bins, False, "l2", round_q, False),
+                norms, bins)
+    return (lambda: op.pq_scan_cuda(*a, b.qmap, bins, "l2", round_q, False,
+                                    False),
+            lambda: op.pq_scan_plain(*a, b.qmap, bins, "l2", round_q, False,
+                                     False),
+            norms, bins)
 
 
-def _pq_bound(index, probes, inv_pos, cap, out_bytes):
-    """The least time for this batch's scan: each probed list's codes,
-    norms and ids and rotated centre read once, the queries once, the
-    output written once; operations: a table build per kept (query,
-    list) pair and a pq_dim-term sum per scored (pair, row)."""
-    kept = inv_pos < cap
-    sizes = index.list_sizes.long()
-    lists = torch.unique(probes[kept].long())
-    rows_once = int(sizes[lists].sum())
-    pairs = int(kept.sum())
-    pair_rows = int(sizes[probes[kept].long()].sum())
-    n_codes = index.pq_centers.shape[1]
-    n_bytes = (rows_once * (index.pq_dim + 8) + int(lists.numel()) * D * 4
-               + probes.shape[0] * D * 4 + out_bytes)
-    n_ops = (pairs * index.pq_dim * n_codes * index.pq_len * 2
-             + pair_rows * index.pq_dim)
-    return bound(n_bytes, n_ops), {
-        "probed_lists": int(lists.numel()), "rows_once": rows_once,
-        "pairs": pairs, "pair_rows": pair_rows}
+def _bq_calls(index, params, b: Batch, q_rot, route):
+    """The IVF-BQ scan that ``route`` takes on batch ``b``: kernel and
+    plain callables, the rows' norms2, the bins."""
+    from raft_tpu_torch.ops import ivf_bq_scan as op
+    a = (q_rot, index.centers_rot, index.bits, index.norms2, index.scales,
+         index.lists_indices)
+    if route.fused:
+        return (lambda: op.bq_scan_fused_cuda(
+                    *a, b.probes, b.inv_pos, b.cap, route.kk, route.bins,
+                    "l2"),
+                lambda: op.bq_scan_fused_plain(*a, b.qmap, route.kk,
+                                               route.bins, "l2"),
+                index.norms2, route.bins)
+    return (lambda: op.bq_scan_cuda(*a, b.qmap, route.bins, "l2"),
+            lambda: op.bq_scan_plain(*a, b.qmap, route.bins, "l2"),
+            index.norms2, route.bins)
 
 
-def check_pq_fused(index, q, params):
-    from raft_tpu_torch.ops import ivf_pq_scan as op
-    qb = q[:128].contiguous()
-    route, cap, probes, qmap, inv_pos, round_q, bins, args = _pq_batch(
-        index, qb, K, params)
-    q_rot, centers_rot, norms = args[0], args[1], args[4]
-    kk = route.kk
-
-    def kernel():
-        return op.pq_scan_fused_cuda(*args, probes, inv_pos, cap, kk, bins,
-                                     False, "l2", round_q, False)
-
-    def plain():
-        return op.pq_scan_fused_plain(*args, qmap, kk, bins, False, "l2",
-                                      round_q, False)
-
-    saved = op.launches_fused
-    d_k, i_k = kernel()
-    d_p, i_p = plain()
-    torch.cuda.synchronize()
-    # scale of the scores: the largest |qsub|^2 of the query's probes
-    # plus the largest code norm
-    rr = ((q_rot[:, None, :] - centers_rot[probes.long()]) ** 2).sum(-1)
-    scale = (rr.max(dim=1).values + norms.max())[:, None].expand_as(d_p)
-    max_abs, agree = compare("ivf_pq_scan_fused", d_k, i_k, d_p, i_p, False,
-                             scale)
-    ms = cuda_ms(kernel, 10)
-    plain_ms = cuda_ms(plain, 1, warmup=1)
-    op.launches_fused = saved
-    bnd, info = _pq_bound(index, probes, inv_pos, cap, 8 * qb.shape[0] * kk)
-    phase("kernels", kernel="ivf_pq_scan_fused", nq=128, kk=kk, bins=bins,
-          cap=cap, **info, id_agreement=agree, max_abs_err=max_abs, ms=ms,
-          plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
-    return kernel_row("ivf_pq_scan_fused", "raft_tpu_torch/csrc/ivf_pq_scan.cu",
-                      "raft_tpu/ops/pallas_ivf_scan.py:499", max_abs, ms,
-                      plain_ms, bnd, None)
+class Family(NamedTuple):
+    """A quantized family's served point and how the smoke drives its
+    two scans (``raft_tpu_torch.ops.<op>``, launch keys ``<op>`` and
+    ``<op>_fused``, source ``csrc/<op>.cu``)."""
+    tag: str             # phase main_<tag>, profile_burst_<tag>.txt
+    label: str
+    module: str          # raft_tpu_torch.neighbors.<module>
+    op: str
+    n_lists: int
+    n_probes: int
+    index_params: dict   # beyond n_lists, the sweeps and keep_raw
+    fields: Callable     # index -> the family's fields of its phase
+    calls: Callable      # _pq_calls / _bq_calls
+    row_bytes: Callable  # index -> bytes of one list row (code, norms, id)
+    work: Callable       # (index, params, info) -> (operations, rate) pairs
+    replaces: tuple      # TPU kernels: (fused, unfused)
 
 
-def check_pq_unfused(index, q, params):
-    from raft_tpu_torch.ops import ivf_pq_scan as op
-    qb = q[:128].contiguous()
-    route, cap, probes, qmap, inv_pos, round_q, bins, args = _pq_batch(
-        index, qb, PQ_WIDE_K, params)
-    q_rot, centers_rot, norms = args[0], args[1], args[4]
+FAMILIES = (
+    Family("pq", "IVF-PQ", "ivf_pq", "ivf_pq_scan", PQ_LISTS, PQ_PROBES,
+           {"pq_bits": PQ_BITS, "pq_dim": 0},
+           lambda index: {"pq_dim": index.pq_dim, "pq_bits": PQ_BITS},
+           _pq_calls,
+           lambda index: index.pq_dim + 8,
+           # a table built per kept (query, list) pair, a product of
+           # the rounded query and books (bf16 operands unless the
+           # float32 tier), then a pq_dim-term f32 sum per (pair, row)
+           lambda index, params, info: [
+               (info["pairs"] * index.pq_dim * index.pq_centers.shape[1]
+                * index.pq_len * 2,
+                FP32_FLOPS if params.lut_dtype == torch.float32
+                else BF16_FLOPS),
+               (info["pair_rows"] * index.pq_dim, FP32_FLOPS)],
+           ("raft_tpu/ops/pallas_ivf_scan.py:499",
+            "raft_tpu/ops/pallas_ivf_scan.py:851")),
+    Family("bq", "IVF-BQ", "ivf_bq", "ivf_bq_scan", BQ_LISTS, BQ_PROBES, {},
+           lambda index: {},
+           _bq_calls,
+           lambda index: index.words * 4 + 12,
+           # the estimator's product of a +-1 tile and the bf16 query, a
+           # multiply and an add per (scored pair, row, dimension): bf16
+           # operands, so the tensor cores' bf16 rate
+           lambda index, params, info: [
+               (2 * info["pair_rows"] * D, BF16_FLOPS)],
+           ("raft_tpu/ops/pallas_ivf_scan.py:428",
+            "raft_tpu/ops/pallas_ivf_scan.py:737")),
+)
 
-    def kernel():
-        return op.pq_scan_cuda(*args, qmap, bins, "l2", round_q, False, False)
 
-    def plain():
-        return op.pq_scan_plain(*args, qmap, bins, "l2", round_q, False,
-                                False)
-
-    saved = op.launches
-    d_k, i_k = kernel()
-    d_p, i_p = plain()
-    torch.cuda.synchronize()
-    # per (list, slot): |qsub|^2 of the slot's query plus the list's
-    # largest code norm
-    qs = q_rot[qmap.clamp(min=0).long()] - centers_rot[:, None, :]
-    scale = ((qs * qs).sum(-1) + norms.max(dim=1).values[:, None])
-    max_abs, agree = compare("ivf_pq_scan", d_k, i_k, d_p, i_p, False,
-                             scale[:, :, None].expand_as(d_p))
-    del qs, d_p, i_p
-    ms = cuda_ms(kernel, 5)
-    plain_ms = cuda_ms(plain, 1, warmup=1)
-    op.launches = saved
-    bnd, info = _pq_bound(index, probes, inv_pos, cap, 8 * d_k.numel())
-    phase("kernels", kernel="ivf_pq_scan", nq=128, kk=route.kk, bins=bins,
-          cap=cap, **info, id_agreement=agree, max_abs_err=max_abs, ms=ms,
-          plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
-    return kernel_row("ivf_pq_scan", "raft_tpu_torch/csrc/ivf_pq_scan.cu",
-                      "raft_tpu/ops/pallas_ivf_scan.py:851", max_abs, ms,
-                      plain_ms, bnd, None)
+def check_family_scans(fam: Family, index, q, params):
+    """Both scans of ``fam`` against their plain versions on the served
+    index, one 128-query batch: the fused one at k=K (kk = 256), the
+    unfused one at k=WIDE_K (kk = 512)."""
+    mod = importlib.import_module(f"raft_tpu_torch.neighbors.{fam.module}")
+    op = importlib.import_module(f"raft_tpu_torch.ops.{fam.op}")
+    b = probe_batch(index, q, fam.n_probes, fam.op)
+    q_rot = (b.qb @ index.rotation_matrix.T).contiguous()
+    c_rot = index.centers_rot
+    bound_fn = scan_bound(index, b, fam.row_bytes(index), D * 4,
+                          lambda info: fam.work(index, params, info))
+    rows = []
+    for k, name, counter, replaces in (
+            (K, fam.op + "_fused", "launches_fused", fam.replaces[0]),
+            (WIDE_K, fam.op, "launches", fam.replaces[1])):
+        route = mod._Route(index, k, params)
+        kernel, plain, norms, bins = fam.calls(index, params, b, q_rot, route)
+        if route.fused:
+            # per query: the largest |qsub|^2 of its probes plus the
+            # largest row norm
+            rr = ((q_rot[:, None, :] - c_rot[b.probes.long()]) ** 2).sum(-1)
+            s = rr.max(dim=1).values + norms.max()
+            scale = lambda d_p, i_p, s=s: s[:, None].expand_as(d_p)  # noqa: E731
+        else:
+            # per (list, slot): |qsub|^2 of the slot's query plus the
+            # list's largest row norm
+            qs = q_rot[b.qmap.clamp(min=0).long()] - c_rot[:, None, :]
+            s = (qs * qs).sum(-1) + norms.max(dim=1).values[:, None]
+            del qs
+            scale = lambda d_p, i_p, s=s: s[:, :, None].expand_as(d_p)  # noqa: E731
+        rows.append(check_scan_kernel(
+            name, op, counter, kernel, plain, scale,
+            10 if route.fused else 5, f"raft_tpu_torch/csrc/{fam.op}.cu",
+            replaces, bound_fn, kk=route.kk, bins=bins, cap=b.cap))
+    return rows
 
 
 def serve_burst(srv, q_np):
@@ -530,33 +646,71 @@ def run_flat(x, q, q_np, truth, args):
           launches=launches,
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    row = check_scan(index, q)
-    # free the index before the IVF-PQ build; what a collection pass
-    # still finds after the del is memory that reference cycles held
+    wide_launches = run_wide_flat(index, q, truth)
+    row, wide_row = check_flat_scans(index, q)
     del index, srv
+    free_phase("flat")
+    return [row], launches, [wide_row], wide_launches
+
+
+def run_wide_flat(index, q, truth):
+    """The k > 256 route: one list-major search of 128 queries at
+    k=FLAT_WIDE_K through the unfused list scan and the merge."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.neighbors import ivf_flat
+    params = ivf_flat.SearchParams(n_probes=N_PROBES, scan_order="list")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    d_w, i_w = ivf_flat.search(index, q[:128], FLAT_WIDE_K, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check_launched("wide IVF-Flat", launches, ("select_k", "ivf_list_scan"))
+    i_w = i_w.cpu().numpy()
+    if i_w.shape != (128, FLAT_WIDE_K) or (i_w < 0).any() or \
+            not bool(torch.isfinite(d_w).all()) or \
+            bool((torch.diff(d_w, dim=1) < 0).any()):
+        fail("the k=512 IVF-Flat search returned missing or unsorted "
+             "neighbours")
+    recall = float(np.mean([len(set(i_w[r][:K]) & set(truth[r]))
+                            for r in range(128)])) / K
+    if recall < RECALL_FLOOR:
+        fail(f"wide IVF-Flat recall@{K} of the top {K} = {recall}")
+    phase("wide_flat", nq=128, k=FLAT_WIDE_K, n_probes=N_PROBES,
+          order="list", search_s=wall,
+          **{f"recall_at_{K}_of_top_{K}": recall}, launches=launches,
+          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def free_phase(path: str) -> None:
+    """After the caller's ``del`` of an index: device memory then and
+    after a collection pass (what the pass frees, reference cycles
+    held)."""
     after_del = torch.cuda.memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
-    phase("free", path="flat", allocated_gb_after_del=after_del / 1e9,
+    phase("free", path=path, allocated_gb_after_del=after_del / 1e9,
           allocated_gb_after_gc=torch.cuda.memory_allocated() / 1e9)
-    return row, launches
 
 
-def run_pq(x, q, q_np, truth, args):
-    """Phase 4: IVF-PQ build + serving + one k=64 search; both PQ scans
-    checked against their plain versions on the served index."""
+def run_family(fam: Family, x, q, q_np, truth, args):
+    """Phases 4 and 5: ``fam``'s build + serving + one k=WIDE_K search;
+    both scans, and the path's k-means and coarse shapes, checked
+    against their plain versions on the served index; then the index is
+    dropped."""
     from raft_tpu_torch import ops
-    from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.serve import SearchServer, ServeConfig
-    params = ivf_pq.SearchParams(n_probes=PQ_PROBES,
-                                 rescore_factor=PQ_RESCORE,
-                                 rescore_on_device="always")
+    mod = importlib.import_module(f"raft_tpu_torch.neighbors.{fam.module}")
+    params = mod.SearchParams(n_probes=fam.n_probes, rescore_factor=RESCORE,
+                              rescore_on_device="always")
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    index = ivf_pq.build(x, ivf_pq.IndexParams(
-        n_lists=PQ_LISTS, kmeans_n_iters=KMEANS_ITERS, keep_raw=True,
-        pq_bits=PQ_BITS, pq_dim=0))
+    index = mod.build(x, mod.IndexParams(
+        n_lists=fam.n_lists, kmeans_n_iters=KMEANS_ITERS, keep_raw=True,
+        **fam.index_params))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = ops.launch_counts()
@@ -568,25 +722,33 @@ def run_pq(x, q, q_np, truth, args):
     ladder_s = time.perf_counter() - t0
     pre_burst = ops.launch_counts()
     served = serve_phase(srv, q_np, truth, x.shape[0],
-                         "pq" if args.profile else "")
-    # the wide search: kk = 8 * 64 = 512 > 256 takes the unfused scan
+                         fam.tag if args.profile else "")
     pre_wide = ops.launch_counts()
-    d_w, i_w = ivf_pq.search(index, q[:128], PQ_WIDE_K, params)
+    d_w, i_w = mod.search(index, q[:128], WIDE_K, params)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    check_launched("IVF-PQ", launches, ("fused_l2_nn", "select_k",
-                                        "ivf_pq_scan", "ivf_pq_scan_fused"))
+    fused = fam.op + "_fused"
+    check_launched(fam.label, launches, ("fused_l2_nn", "select_k", fam.op,
+                                         fused))
+    n_batches = sum(v for k_, v in served["batches"].items()
+                    if k_.startswith("raft.serve.batch.total"))
+    if pre_wide[fused] - pre_burst[fused] < n_batches:
+        fail(f"{fam.label}: {pre_wide[fused] - pre_burst[fused]} fused-scan "
+             f"launches for {n_batches} served batches")
     i_w = i_w.cpu().numpy()
-    if i_w.shape != (128, PQ_WIDE_K) or (i_w < 0).any() or \
+    if i_w.shape != (128, WIDE_K) or (i_w < 0).any() or \
             not bool(torch.isfinite(d_w).all()):
-        fail("the k=64 IVF-PQ search returned missing neighbours")
+        fail(f"the k={WIDE_K} {fam.label} search returned missing neighbours")
     wide_recall = float(np.mean([len(set(i_w[r][:K]) & set(truth[r]))
                                  for r in range(128)])) / K
-    phase("main_pq", n=x.shape[0], dim=D, n_lists=PQ_LISTS,
-          pq_dim=index.pq_dim, pq_bits=PQ_BITS, n_probes=PQ_PROBES,
-          rescore_factor=PQ_RESCORE, max_list=int(index.codes.shape[1]),
-          build_s=build_s, ladder_s=ladder_s, **served,
-          wide_k=PQ_WIDE_K, wide_recall_at_32_of_top_32=wide_recall,
+    if wide_recall < RECALL_FLOOR:
+        fail(f"the k={WIDE_K} {fam.label} search: recall@{K} of the top "
+             f"{K} = {wide_recall}")
+    phase(f"main_{fam.tag}", n=x.shape[0], dim=D, n_lists=fam.n_lists,
+          **fam.fields(index), n_probes=fam.n_probes, rescore_factor=RESCORE,
+          max_list=int(index.lists_indices.shape[1]), build_s=build_s,
+          ladder_s=ladder_s, **served, served_batches=n_batches,
+          wide_k=WIDE_K, **{f"wide_recall_at_{K}_of_top_{K}": wide_recall},
           build_launches=build_launches,
           burst_launches={k_: pre_wide[k_] - pre_burst[k_] for k_ in launches},
           wide_launches={k_: launches[k_] - pre_wide[k_] for k_ in launches},
@@ -594,14 +756,17 @@ def run_pq(x, q, q_np, truth, args):
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     centers = index.centers.contiguous()
-    rows = [check_pq_fused(index, q, params),
-            check_pq_unfused(index, q, params),
-            # fused L2-NN and select-k at this path's shapes: k-means
-            # rows against PQ_LISTS centres, and PQ_PROBES of PQ_LISTS
-            # coarse scores (several select_k tiles, merged in turn)
-            check_fused_l2_nn(sample_rows(x, KM_ROWS, 13), centers,
-                              "fused_l2_nn@ivf_pq"),
-            check_select_k(q, centers, PQ_PROBES, "select_k@ivf_pq")]
+    rows = check_family_scans(fam, index, q, params)
+    if fam.n_lists != N_LISTS:
+        # fused L2-NN at this path's k-means shape: the sampled rows
+        # against its n_lists centres
+        rows.append(check_fused_l2_nn(sample_rows(x, KM_ROWS, 13), centers,
+                                      f"fused_l2_nn@{fam.module}"))
+    # select-k at this path's coarse shape: n_probes of n_lists scores
+    rows.append(check_select_k(q, centers, fam.n_probes,
+                               f"select_k@{fam.module}"))
+    del index, srv, centers
+    free_phase(fam.tag)
     return rows, launches
 
 
@@ -648,22 +813,25 @@ def main() -> None:
                  check_select_k(q, cent, N_PROBES, "select_k")]
     del cent
 
-    # 3. the IVF-Flat path
+    # 3. the IVF-Flat path, with its k > 256 search
     truth = exact_knn(x, q, K).cpu().numpy()
-    flat_row, flat_launches = run_flat(x, q, q_np, truth, args)
-    flat_rows.append(flat_row)
+    scan_rows, flat_launches, wide_rows, wide_launches = run_flat(
+        x, q, q_np, truth, args)
+    flat_rows += scan_rows
 
-    # 4. the IVF-PQ path
-    pq_rows, pq_launches = run_pq(x, q, q_np, truth, args)
+    # 4., 5. the IVF-PQ and IVF-BQ paths
+    paths = [(flat_rows, flat_launches), (wide_rows, wide_launches)]
+    paths += [run_family(fam, x, q, q_np, truth, args) for fam in FAMILIES]
 
     # launches: each row's kernel over the main-path run of its path
-    for rows, counts in ((flat_rows, flat_launches), (pq_rows, pq_launches)):
+    for rows, counts in paths:
         for row in rows:
             key = row["name"].split("@")[0]
             row["launches"] = counts["ivf_scan" if key == "ivf_flat_scan"
                                      else key]
 
-    print(json.dumps({"kernels": flat_rows + pq_rows}), flush=True)
+    print(json.dumps({"kernels": [r for rows, _ in paths for r in rows]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,10 +29,10 @@
 //   * fused (kernel 9): one pair per (query, probe), the probes of each query
 //     sorted by list id with dropped pairs (table slot >= cap) as -1; the IP
 //     centre term sum_j qsub_j * centers_rot[l][j] (f32) is subtracted from
-//     each bin minimum; then pq_topk_kernel keeps per query the k smallest
-//     candidates under the key (score, list id, bin): the TPU's list-ascending
-//     walk in which the resident state wins ties. Slots no candidate reaches
-//     end as (+inf, -1); sqrt is applied last.
+//     each bin minimum; then candidate_topk_kernel keeps per query the k
+//     smallest candidates under the key (score, list id, bin): the TPU's
+//     list-ascending walk in which the resident state wins ties. Slots no
+//     candidate reaches end as (+inf, -1); sqrt is applied last.
 //
 // Bound on the H100 SXM (data-sheet rates, 700 W): bytes and operations about
 // equally. At the served point (10M x 128, 4096 lists, pq_dim 32 x 8 bits,
@@ -43,7 +43,7 @@
 // at the served point's clustered queries 138.7M (pair, row) scores against
 // 6.8M rows once, 20x, mostly from the 50 MB L2. Measured per 128-query
 // batch (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py): fused 3.32 ms
-// (pq_pairs_kernel ~2.3 ms + pq_topk_kernel ~0.6 ms) against a 0.082 ms
+// (pq_pairs_kernel ~2.3 ms + the top-k pass ~0.6 ms) against a 0.082 ms
 // bound; unfused (kk = 512) 2.57 ms against 0.162 ms.
 //
 // Design (simple first): pq_pairs_kernel runs one 256-thread block per pair,
@@ -53,13 +53,10 @@
 // list: with bins < 256, 256 / bins threads share a bin and combine their
 // partial minima through shared memory; each thread reads a row's pq_dim codes
 // as 16-byte vectors (pq_dim % 16 == 0), neighbouring threads on
-// neighbouring rows. pq_topk_kernel is the per-query merge: select_k.cu's
-// tile walk with the rank merge of topk_merge.cuh, carrying the row ids as
-// payload; its tie order by concat position is the key above because each
-// query's candidates lie in (list id, bin) order. Each tile is first
-// compacted, in column order, to the entries below the current k-th best
-// (a block-wide prefix sum), so once the state holds good candidates a
-// merge ranks k + a few entries instead of k + 1024.
+// neighbouring rows. candidate_topk_kernel (candidate_topk.cuh, shared with
+// the IVF-BQ scan) is the per-query merge; its tie order by concat position
+// is the key above because each query's candidates lie in (list id, bin)
+// order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -67,7 +64,7 @@
 #include <climits>
 #include <cstdint>
 
-#include "topk_merge.cuh"
+#include "candidate_topk.cuh"
 
 namespace {
 
@@ -75,12 +72,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLutBytes = 160 * 1024;  // table + query row, dynamic smem
 
-constexpr int kTopThreads = 256;
-constexpr int kTopTile = 1024;
-constexpr int kMaxK = 256;
-constexpr int kTopMaxE = (kMaxK + kTopTile + kTopThreads - 1) / kTopThreads;
-constexpr int kTopPer = kTopTile / kTopThreads;  // columns per thread
-constexpr int kTopWarps = kTopThreads / 32;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -239,95 +230,6 @@ __global__ __launch_bounds__(kThreads) void pq_pairs_kernel(
   }
 }
 
-// Per query: the k smallest of its n candidates (ties to the lower column),
-// carrying the candidate ids; (+inf, -1) where none reaches; sqrt last.
-__global__ __launch_bounds__(kTopThreads) void pq_topk_kernel(
-    const float* __restrict__ cand_d, const int* __restrict__ cand_i, int n,
-    int k, int do_sqrt, float* __restrict__ out_d, int* __restrict__ out_i) {
-  __shared__ float cat_v[kMaxK + kTopTile];
-  __shared__ int cat_i[kMaxK + kTopTile];
-  __shared__ float st_v[kMaxK];
-  __shared__ int st_i[kMaxK];
-  __shared__ int wsum[kTopWarps];
-
-  const size_t row = blockIdx.x;
-  const float* vr = cand_d + row * static_cast<size_t>(n);
-  const int* ir = cand_i + row * static_cast<size_t>(n);
-  for (int r = threadIdx.x; r < k; r += kTopThreads) {
-    st_v[r] = CUDART_INF_F;
-    st_i[r] = -1;
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int c0 = 0; c0 < n; c0 += kTopTile) {
-    // only entries below the k-th best can enter the state (an equal
-    // one ranks after it, a +inf one never fills a slot the final
-    // (+inf, -1) would not): keep those, in column order, so their
-    // concat positions keep the tie order
-    const float kth = st_v[k - 1];
-    float xv[kTopPer];
-    int xi[kTopPer];
-    int cnt = 0;
-#pragma unroll
-    for (int t = 0; t < kTopPer; ++t) {
-      const int j = c0 + threadIdx.x * kTopPer + t;
-      float x = CUDART_INF_F;
-      int id = -1;
-      if (j < n) {
-        x = vr[j];
-        if (isnan(x)) x = CUDART_INF_F;
-        id = ir[j];
-      }
-      xv[t] = x;
-      xi[t] = id;
-      cnt += (x < kth);
-    }
-    int incl = cnt;  // block-wide exclusive scan of the kept counts
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    if (lane == 31) wsum[warp] = incl;
-    for (int r = threadIdx.x; r < k; r += kTopThreads) {
-      cat_v[r] = st_v[r];
-      cat_i[r] = st_i[r];
-    }
-    __syncthreads();
-    int before = 0, kept = 0;
-#pragma unroll
-    for (int w = 0; w < kTopWarps; ++w) {
-      before += (w < warp) ? wsum[w] : 0;
-      kept += wsum[w];
-    }
-    int pos = k + before + incl - cnt;
-#pragma unroll
-    for (int t = 0; t < kTopPer; ++t) {
-      if (xv[t] < kth) {
-        cat_v[pos] = xv[t];
-        cat_i[pos] = xi[t];
-        ++pos;
-      }
-    }
-    __syncthreads();
-    if (kept == 0) continue;  // block-uniform
-    raft_tpu_torch::merge_ranked<kTopThreads, kTopMaxE>(cat_v, cat_i,
-                                                        k + kept, k, st_v,
-                                                        st_i);
-    __syncthreads();
-  }
-
-  for (int r = threadIdx.x; r < k; r += kTopThreads) {
-    const float v = st_v[r];
-    const int id = (v == CUDART_INF_F) ? -1 : st_i[r];
-    out_i[row * k + r] = id;
-    out_d[row * k + r] =
-        id >= 0 ? (do_sqrt ? sqrtf(fmaxf(v, 0.f)) : v) : CUDART_INF_F;
-  }
-}
-
 template <bool kVec16>
 int launch_pairs(int n_pairs, size_t dyn, cudaStream_t s, const float* q_rot,
                  const float* centers_rot, const float* books,
@@ -390,9 +292,7 @@ extern "C" int raft_ivf_pq_scan(
 extern "C" int raft_ivf_pq_topk(const float* cand_d, const int* cand_i,
                                 int nq, int n, int k, int do_sqrt,
                                 float* out_d, int* out_i, void* stream) {
-  if (k < 1 || k > kMaxK || n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (nq == 0) return 0;
-  pq_topk_kernel<<<nq, kTopThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cand_d, cand_i, n, k, do_sqrt, out_d, out_i);
-  return static_cast<int>(cudaGetLastError());
+  return raft_tpu_torch::launch_candidate_topk(
+      cand_d, cand_i, nq, n, k, do_sqrt, out_d, out_i,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,13 @@
 """List-major IVF helpers: coarse probes, probe inversion, cap policy,
 and the fused list search (counterpart of ``raft_tpu.neighbors._ivf_scan``).
 
-The fused list search runs the coarse GEMM, selects ``n_probes`` lists
+The list-major search runs the coarse GEMM, selects ``n_probes`` lists
 per query with the ``select_k`` kernel (``n_probes <= 256``), inverts
 the probe map into a (list → probing queries) table of width ``cap``
-and hands the fine phase to the ``ivf_flat_scan`` kernel, whose
-resident top-k state makes it the whole fine phase in one launch.
+and hands the fine phase to the ``ivf_flat_scan`` kernels: at k <= 256
+the fused scan, whose resident top-k state makes it the whole fine
+phase in one launch; above that the unfused list scan and
+:func:`merge_candidates`.
 """
 
 from __future__ import annotations
@@ -160,12 +162,19 @@ def merge_candidates(cand_d, cand_i, probes, inv_pos, k: int, sqrt: bool,
 
 def fused_list_search(queries, centers, data, norms, ids, *, k: int,
                       n_probes: int, cap: int, bins: int, sqrt: bool,
-                      kind: str):
-    """List-major IVF-Flat search: coarse probes, probe inversion, and
-    the fused scan + top-k kernel. Returns (dists, ids), best first;
-    ip scores come back negated (callers postprocess)."""
+                      kind: str, internal_dtype=torch.float32):
+    """List-major IVF-Flat search: coarse probes, probe inversion, then
+    the fused scan + top-k kernel (``k <= 256``), or the unfused list
+    scan (candidate scores in ``internal_dtype``) and the candidate
+    merge, in f32. Returns (dists, ids), best first; ip scores come
+    back negated (callers postprocess)."""
     probes = coarse_probes(queries, centers, n_probes, kind=kind)
     qmap, inv_pos = _invert_probes(probes, centers.shape[0], cap)
-    return _scan_op.fused_list_scan(queries, data, norms, ids, probes,
-                                    inv_pos, qmap, cap, k, bins=bins,
-                                    sqrt=sqrt, metric=kind)
+    if k <= _scan_op.MAX_K:
+        return _scan_op.fused_list_scan(queries, data, norms, ids, probes,
+                                        inv_pos, qmap, cap, k, bins=bins,
+                                        sqrt=sqrt, metric=kind)
+    bins, _ = _scan_op.resolve_bins(bins, k, ids.shape[1])
+    cd, ci = _scan_op.list_scan(queries, data, norms, ids, qmap, bins,
+                                metric=kind, out_dtype=internal_dtype)
+    return merge_candidates(cd, ci, probes, inv_pos, k, sqrt, cap=cap)

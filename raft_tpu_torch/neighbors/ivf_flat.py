@@ -9,15 +9,17 @@ chooses (``scan_order``; "auto" picks list-major when ``nq >= 64`` and
 ``nq * n_probes >= 4 * n_lists``):
 
 * list-major: coarse GEMM + ``select_k`` kernel, probe inversion, and
-  the fused ``ivf_flat_scan`` kernel (``neighbors._ivf_scan``);
+  the fused ``ivf_flat_scan`` kernel at k <= 256, or the unfused list
+  scan kernel and the candidate merge above that
+  (``neighbors._ivf_scan``);
 * probe-major: plain PyTorch — per probe rank, one batched product over
   every query's p-th list and a merge into the running top-k (the JAX
   package leaves this route to XLA too).
 
 Ported: float32 storage; metrics L2 (squared and sqrt), InnerProduct and
-Cosine. Not ported yet: bf16/int8 storage and list-major search with
-k > 256 (both raise ``NotImplementedError``), the trainer's bf16
-tiers (``kmeans_kernel_precision``), ``extend``.
+Cosine. Not ported yet: bf16/int8 storage (raises
+``NotImplementedError``), the trainer's bf16 tiers
+(``kmeans_kernel_precision``), ``extend``.
 """
 
 from __future__ import annotations
@@ -68,12 +70,16 @@ class SearchParams:
     """``scan_order``: "probe" | "list" | "auto". ``scan_bins``: 0 = auto
     (``min(max(4k, 64), max_list)`` strided bins per list), -1 = exact,
     > 0 explicit. ``probe_cap``: 0 = measure once per (nq, n_probes) and
-    cache on the index, -1 = re-measure every batch, > 0 = pinned."""
+    cache on the index, -1 = re-measure every batch, > 0 = pinned.
+    ``internal_distance_dtype``: the candidate scores the unfused list
+    scan (list-major, k > 256) hands to the merge, ``torch.float32`` or
+    ``torch.bfloat16``; the merge and the results stay f32."""
 
     n_probes: int = 20
     scan_order: str = "auto"
     scan_bins: int = 0
     probe_cap: int = 0
+    internal_distance_dtype: torch.dtype = torch.float32
 
 
 @dataclass
@@ -280,18 +286,21 @@ def _check_storage(index: Index) -> None:
             "not ported yet (float32 only)")
 
 
+def _check_params(params: SearchParams) -> None:
+    expects(params.scan_order in ("auto", "probe", "list"),
+            "ivf_flat.search: unknown scan_order %r", params.scan_order)
+    expects(params.internal_distance_dtype in (torch.float32,
+                                               torch.bfloat16),
+            "ivf_flat: internal_distance_dtype must be float32|bfloat16")
+
+
 def use_list_order(params: SearchParams, nq: int, n_probes: int,
-                   n_lists: int, k: int) -> bool:
+                   n_lists: int) -> bool:
     """The route rule: "list" and "probe" as asked; "auto" list-major at
-    high reuse (``list_order_auto``) while the fused kernel takes k."""
+    high reuse (``list_order_auto``), for every k."""
     if params.scan_order == "list":
-        if k > _FUSED_MAX_K:
-            raise NotImplementedError(
-                f"ivf_flat.search: list-major search with k={k} > "
-                f"{_FUSED_MAX_K} needs the unfused scan kernel, not "
-                "ported yet")
         return True
-    return (params.scan_order == "auto" and k <= _FUSED_MAX_K
+    return (params.scan_order == "auto"
             and list_order_auto(nq, n_probes, n_lists))
 
 
@@ -305,8 +314,7 @@ def search(index: Index, queries, k: int,
     q = _as_queries(index, queries)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "ivf_flat.search: dim mismatch")
-    expects(params.scan_order in ("auto", "probe", "list"),
-            "ivf_flat.search: unknown scan_order %r", params.scan_order)
+    _check_params(params)
     if q.shape[0] > MAX_QUERY_BATCH:
         pinned = pin_scan_order(params, q.shape[0], index.n_lists)
         return batched_search(lambda qb: search(index, qb, k, pinned), q,
@@ -318,16 +326,19 @@ def search(index: Index, queries, k: int,
     kind = _metric_kind(index.metric)
     if index.metric == DistanceType.CosineExpanded:
         q = _normalize_rows(q)
-    if use_list_order(params, nq, n_probes, index.n_lists, k):
+    if use_list_order(params, nq, n_probes, index.n_lists):
         cap = _ivf_scan.resolve_cap(index.cap_cache, q, index.centers,
                                     params, n_probes, index.n_lists,
                                     kind=kind)
-        obs.counter("raft.ivf_scan.fused.total", family="ivf_flat").inc()
-        obs.counter("raft.ivf_scan.fused.queries").inc(nq)
+        if k <= _FUSED_MAX_K:
+            obs.counter("raft.ivf_scan.fused.total",
+                        family="ivf_flat").inc()
+            obs.counter("raft.ivf_scan.fused.queries").inc(nq)
         d, i = _ivf_scan.fused_list_search(
             q, index.centers, index.lists_data, index.lists_norms,
             index.lists_indices, k=k, n_probes=n_probes, cap=cap,
-            bins=params.scan_bins, sqrt=sqrt, kind=kind)
+            bins=params.scan_bins, sqrt=sqrt, kind=kind,
+            internal_dtype=params.internal_distance_dtype)
     else:
         d, i = _search_impl(q, index.centers, index.lists_data,
                             index.lists_indices, index.lists_norms, k,

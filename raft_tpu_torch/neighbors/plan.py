@@ -1,5 +1,6 @@
 """Search plans: prepared, host-sync-free IVF serving callables
-(counterpart of ``raft_tpu.neighbors.plan``, IVF-Flat and IVF-PQ).
+(counterpart of ``raft_tpu.neighbors.plan``: IVF-Flat, IVF-PQ and
+IVF-BQ).
 
 A :class:`SearchPlan` fixes one serving point (index, nq, k, params):
 its operands are bound, its route (list- or probe-major) is decided,
@@ -7,9 +8,9 @@ and its inverted-table ``cap`` is measured once at build and cached on
 the index (``index.cap_cache``), so a serving call never measures again
 — ``raft.ivf_scan.resolve_cap.syncs`` stays flat on a warmed plan. The
 JAX package compiles the plan ahead of time; eager PyTorch has nothing
-to compile, so a plan here is the bound callable itself. An IVF-PQ
-plan whose exact re-rank runs on the host (the raw corpus is not on the
-device) syncs once per call for that re-rank.
+to compile, so a plan here is the bound callable itself. An IVF-PQ or
+IVF-BQ plan whose exact re-rank runs on the host (the raw corpus is not
+on the device) syncs once per call for that re-rank.
 
 Plans are cached on the index (``index.plan_cache``; hits, misses and
 evictions under ``raft.plan.cache.*``), LRU-bounded by
@@ -79,6 +80,7 @@ def _flat_builder(index, k: int, params):
     """``make(nq, cap) -> (fn, key_bits)`` for an IVF-Flat index. ``fn``
     holds the index's arrays, not the index (see ``ivf_pq._Route``)."""
     ivf_flat._check_storage(index)
+    ivf_flat._check_params(params)
     n_probes = min(params.n_probes, index.n_lists)
     metric = index.metric
     kind = ivf_flat._metric_kind(metric)
@@ -89,24 +91,26 @@ def _flat_builder(index, k: int, params):
     norms, ids = index.lists_norms, index.lists_indices
 
     def make(nq: int, cap: int):
-        use_list = ivf_flat.use_list_order(params, nq, n_probes, n_lists, k)
+        use_list = ivf_flat.use_list_order(params, nq, n_probes, n_lists)
+        if use_list and k <= ivf_flat._FUSED_MAX_K:
+            obs.counter("raft.ivf_scan.fused.total", family="ivf_flat").inc()
 
         def fn(q: torch.Tensor):
             full_fp32_matmul()
             if cosine:
                 q = ivf_flat._normalize_rows(q)
             if use_list:
-                obs.counter("raft.ivf_scan.fused.total",
-                            family="ivf_flat").inc()
                 d, i = _ivf_scan.fused_list_search(
                     q, centers, data, norms, ids, k=k, n_probes=n_probes,
-                    cap=cap, bins=params.scan_bins, sqrt=sqrt, kind=kind)
+                    cap=cap, bins=params.scan_bins, sqrt=sqrt, kind=kind,
+                    internal_dtype=params.internal_distance_dtype)
             else:
                 d, i = ivf_flat._search_impl(q, centers, data, ids, norms,
                                              k, n_probes, sqrt, kind=kind)
             return ivf_flat._postprocess(d, metric), i
 
-        return fn, ("list" if use_list else "probe", params.scan_bins)
+        return fn, ("list" if use_list else "probe", params.scan_bins,
+                    str(params.internal_distance_dtype))
 
     return make, n_probes, kind
 
@@ -139,19 +143,51 @@ def _pq_builder(index, k: int, params):
     return make, route.n_probes, route.kind
 
 
+def _bq_builder(index, k: int, params):
+    """``make(nq, cap) -> (fn, key_bits)`` for an IVF-BQ index: the bit
+    scan (fused kernel at kk <= 256, else the unfused kernel and the
+    candidate merge), then the estimator slice or the exact re-rank, on
+    the device when the raw corpus has a device copy, else on the
+    host."""
+    route = ivf_bq._Route(index, k, params)
+    raw_dev = (ivf_bq.resolve_raw_device(index, params.rescore_on_device)
+               if route.rescoring else None)
+
+    def make(nq: int, cap: int):
+        if route.fused:
+            obs.counter("raft.ivf_scan.fused.total", family="ivf_bq").inc()
+
+        def fn(q: torch.Tensor):
+            if route.cosine:
+                q = ivf_flat._normalize_rows(q)
+            d, i = route.device_phase(q, cap)
+            return route.epilogue(d, i, q, raw_dev)
+
+        key_bits = ("bits", route.fused, route.bins, route.kk,
+                    route.rescoring, raw_dev is not None)
+        return fn, key_bits
+
+    return make, route.n_probes, route.kind
+
+
+_BUILDERS = ((ivf_flat.Index, "ivf_flat", _flat_builder),
+             (ivf_pq.Index, "ivf_pq", _pq_builder),
+             (ivf_bq.Index, "ivf_bq", _bq_builder))
+
+
 def _resolve_builder(index):
     """``(family, builder)`` for an index type."""
-    if isinstance(index, ivf_flat.Index):
-        return "ivf_flat", _flat_builder
-    if isinstance(index, ivf_pq.Index):
-        return "ivf_pq", _pq_builder
-    expects(False, "plan: unsupported index type %s (want ivf_flat or "
-            "ivf_pq Index)", type(index).__name__)
+    for cls, family, builder in _BUILDERS:
+        if isinstance(index, cls):
+            return family, builder
+    expects(False, "plan: unsupported index type %s (want ivf_flat, "
+            "ivf_pq or ivf_bq Index)", type(index).__name__)
 
 
 def _default_params(family: str):
     return {"ivf_flat": ivf_flat.SearchParams,
-            "ivf_pq": ivf_pq.SearchParams}[family]()
+            "ivf_pq": ivf_pq.SearchParams,
+            "ivf_bq": ivf_bq.SearchParams}[family]()
 
 
 def build_plan(index, queries, k: int, params=None,

@@ -1,12 +1,13 @@
-"""IVF-Flat and IVF-PQ save/load (counterpart of
+"""IVF-Flat, IVF-PQ and IVF-BQ save/load (counterpart of
 ``raft_tpu.neighbors.serialize``).
 
 Same file format as the JAX package, so an index moves between the two
 packages: a numpy ``.npz`` whose ``__meta__`` entry is a JSON object
 ``{format, version, bf16_fields, ...}`` (IVF-Flat: ``metric, size,
-scale``; IVF-PQ: ``metric, size, pq_bits, codebook_kind, has_raw``; the
-metric as its ``DistanceType`` integer) beside one array per index
-field.
+scale``; IVF-PQ: ``metric, size, pq_bits, codebook_kind, has_raw``;
+IVF-BQ: ``metric, size, has_raw``; the metric as its ``DistanceType``
+integer) beside one array per index field. IVF-BQ bits are stored as
+uint32, as the JAX package holds them.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ _FIELDS = ("centers", "lists_data", "lists_indices", "lists_norms",
            "list_sizes")
 _PQ_FIELDS = ("centers", "centers_rot", "rotation_matrix", "pq_centers",
               "codes", "lists_indices", "list_sizes")
+_BQ_FIELDS = ("centers", "centers_rot", "rotation_matrix", "bits", "norms2",
+              "scales", "lists_indices", "list_sizes")
 
 
 def _pack(path: str, fmt: str, meta: dict, arrays: dict) -> None:
@@ -92,5 +95,29 @@ def load_ivf_pq(path: str, device="cuda"):
     meta, arrays = _unpack(path, "ivf_pq", _PQ_FIELDS + ("raw",))
     return index_from_numpy(arrays, meta["metric"], meta["size"],
                             meta["pq_bits"], meta.get("codebook_kind", 0),
+                            raw=arrays.get("raw") if meta.get("has_raw")
+                            else None, device=device)
+
+
+def save_ivf_bq(index, path: str, include_raw: bool = True) -> None:
+    """Write an IVF-BQ :class:`~raft_tpu_torch.neighbors.ivf_bq.Index` to
+    ``path``, the bits as uint32. ``include_raw=False`` leaves out the
+    host rescore corpus."""
+    arrays = {f: _host(getattr(index, f)) for f in _BQ_FIELDS}
+    arrays["bits"] = arrays["bits"].view(np.uint32)
+    has_raw = include_raw and index.raw is not None
+    if has_raw:
+        arrays["raw"] = np.asarray(index.raw)
+    _pack(path, "ivf_bq",
+          {"metric": int(index.metric), "size": int(index.size),
+           "has_raw": has_raw}, arrays)
+
+
+def load_ivf_bq(path: str, device="cuda"):
+    """Read an IVF-BQ index written by either package onto ``device``
+    (default ``cuda``); the raw corpus, when stored, stays on the host."""
+    from raft_tpu_torch.neighbors.ivf_bq import index_from_numpy
+    meta, arrays = _unpack(path, "ivf_bq", _BQ_FIELDS + ("raw",))
+    return index_from_numpy(arrays, meta["metric"], meta["size"],
                             raw=arrays.get("raw") if meta.get("has_raw")
                             else None, device=device)

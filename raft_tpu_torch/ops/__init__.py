@@ -8,8 +8,11 @@ KERNEL_COUNTERS = {
     "fused_l2_nn": ("fused_l2_nn", "launches"),
     "select_k": ("select_k", "launches"),
     "ivf_scan": ("ivf_scan", "launches"),
+    "ivf_list_scan": ("ivf_scan", "launches_list"),
     "ivf_pq_scan": ("ivf_pq_scan", "launches"),
     "ivf_pq_scan_fused": ("ivf_pq_scan", "launches_fused"),
+    "ivf_bq_scan": ("ivf_bq_scan", "launches"),
+    "ivf_bq_scan_fused": ("ivf_bq_scan", "launches_fused"),
 }
 
 

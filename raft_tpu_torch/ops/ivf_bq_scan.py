@@ -1,0 +1,264 @@
+"""IVF-BQ 1-bit scan, unfused and fused: kernel wrappers and plain versions.
+
+Kernels: ``csrc/ivf_bq_scan.cu``. :func:`bq_scan` replaces the JAX
+package's Pallas ``_bq_scan_kernel`` (per (list, table slot) binned
+estimator candidates, merged afterwards); :func:`bq_scan_fused`
+replaces ``_fused_bq_scan_kernel`` (the same candidates, IP centre term
+included, merged into a per-query top-k). Each dispatches on the device
+of its inputs: CPU tensors take the plain version, CUDA tensors launch
+the kernel (or raise).
+
+Both score a list row from its sign bits as ``est = (norms2 + |qsub|^2)
+- 2 * scale * <bf16(qsub), +-1>`` (L2) or ``-(scale * <bf16(q_rot),
++-1>)`` (IP), not clamped, with ``qsub`` the rotated query's residual
+against the list's rotated centre (L2) or the rotated query (IP). The
+plain versions follow the TPU formulation (decode the bits to a +-1
+tile, one f32 ``einsum`` with the bf16-rounded query); the kernel adds
+the sign-flipped query entries word by word, so the two differ in f32
+summation order only. See the kernel's source note.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._util import check_cuda_tensor, round_up
+from raft_tpu_torch.ops.ivf_scan import (bin_rows, finish_state,
+                                         kept_probes_sorted,
+                                         merge_lists_into_state)
+
+MAX_K = 256
+# the kernel's dynamic shared memory holds the (d,) f32 query row
+MAX_DIM = 40 * 1024
+
+# launches of the CUDA kernels since the last reset (plain integers)
+launches = 0
+launches_fused = 0
+
+# element budget of one chunk's decode / score block in the plain versions
+_PLAIN_BLOCK = 1 << 24
+
+
+def unpack_pm1(words: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., w) int32 bit patterns → (..., d) f32 +-1: bit ``j % 32`` of
+    word ``j // 32`` set is +1. ``(w >> s) & 1`` reads bit s of an int32
+    word whatever the arithmetic shift fills in above it."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    b = (words[..., None] >> shifts) & 1
+    flat = b.reshape(*words.shape[:-1], words.shape[-1] * 32)[..., :d]
+    return 2.0 * flat.float() - 1.0
+
+
+def _cells(q_rot, centers_rot, bits, norms2, scales, ids, qm, l0: int,
+           bins: int, mlp: int, metric: str, center_term: bool):
+    """Binned estimator candidates (c, cap, bins) of the lists [l0, l0 +
+    c) for the queries ``qm`` (c, cap) names — the plain per-cell
+    body."""
+    from raft_tpu_torch.neighbors._ivf_scan import gather_query_rows
+    c = qm.shape[0]
+    l1 = l0 + c
+    d = q_rot.shape[1]
+    qsub = gather_query_rows(q_rot, qm)                  # (c, cap, d)
+    if metric != "ip":
+        qsub = qsub - centers_rot[l0:l1, None, :]
+    pm1 = unpack_pm1(bits[l0:l1], d)                     # (c, ML, d)
+    ip = torch.einsum("gcd,gld->gcl", qsub.to(torch.bfloat16).float(), pm1)
+    sc = scales[l0:l1][:, None, :]
+    if metric == "ip":
+        est = -(sc * ip)
+    else:
+        qq = (qsub * qsub).sum(dim=2)
+        est = (norms2[l0:l1][:, None, :] + qq[:, :, None]) - (2.0 * sc) * ip
+    cd, ci = bin_rows(est, ids[l0:l1], bins, mlp)
+    if center_term and metric == "ip":
+        corr = (qsub * centers_rot[l0:l1, None, :]).sum(dim=2)
+        cd = cd - corr[:, :, None]
+    empty = (qm < 0)[:, :, None]
+    cd = torch.where(empty, torch.full_like(cd, float("inf")), cd)
+    ci = torch.where(empty, torch.full_like(ci, -1), ci)
+    return cd, ci
+
+
+def _chunk(cap: int, mlp: int, d: int) -> int:
+    return max(1, _PLAIN_BLOCK // max(1, mlp * max(cap, d)))
+
+
+def bq_scan_plain(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
+                  bins: int, metric: str):
+    """Plain version of :func:`bq_scan` (chunked over lists)."""
+    n_lists, max_list = ids.shape
+    cap = qmap.shape[1]
+    mlp = round_up(max_list, bins)
+    dev = q_rot.device
+    out_d = torch.full((n_lists, cap, bins), float("inf"), device=dev)
+    out_i = torch.full((n_lists, cap, bins), -1, dtype=torch.int32,
+                       device=dev)
+    chunk = _chunk(cap, mlp, q_rot.shape[1])
+    for l0 in range(0, n_lists, chunk):
+        qm = qmap[l0:l0 + chunk]
+        if not bool((qm >= 0).any()):
+            continue
+        cd, ci = _cells(q_rot, centers_rot, bits, norms2, scales, ids, qm,
+                        l0, bins, mlp, metric, False)
+        out_d[l0:l0 + chunk] = cd
+        out_i[l0:l0 + chunk] = ci.to(torch.int32)
+    return out_d, out_i
+
+
+def bq_scan_fused_plain(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
+                        k: int, bins: int, metric: str):
+    """Plain version of :func:`bq_scan_fused`: list chunks in ascending
+    id merged into the per-query state, which wins ties."""
+    nq = q_rot.shape[0]
+    n_lists, max_list = ids.shape
+    mlp = round_up(max_list, bins)
+    dev = q_rot.device
+    best_d = torch.full((nq, k), float("inf"), device=dev)
+    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    chunk = _chunk(qmap.shape[1], mlp, q_rot.shape[1])
+    for l0 in range(0, n_lists, chunk):
+        qm = qmap[l0:l0 + chunk]
+        if not bool((qm >= 0).any()):
+            continue
+        cd, ci = _cells(q_rot, centers_rot, bits, norms2, scales, ids, qm,
+                        l0, bins, mlp, metric, True)
+        best_d, best_i = merge_lists_into_state(best_d, best_i, cd, ci, qm)
+    return finish_state(best_d, best_i, False)
+
+
+def _fns():
+    lib = _build.load("ivf_bq_scan")
+    scan = lib.raft_ivf_bq_scan
+    scan.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                     + [ctypes.c_void_p] * 3)
+    scan.restype = ctypes.c_int
+    topk = lib.raft_ivf_bq_topk
+    topk.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 3)
+    topk.restype = ctypes.c_int
+    return scan, topk
+
+
+def _check(q_rot, centers_rot, bits, norms2, scales, ids):
+    check_cuda_tensor("ivf_bq_scan q_rot", q_rot, torch.float32, 2)
+    check_cuda_tensor("ivf_bq_scan centers_rot", centers_rot,
+                      torch.float32, 2)
+    check_cuda_tensor("ivf_bq_scan bits", bits, torch.int32, 3)
+    check_cuda_tensor("ivf_bq_scan norms2", norms2, torch.float32, 2)
+    check_cuda_tensor("ivf_bq_scan scales", scales, torch.float32, 2)
+    check_cuda_tensor("ivf_bq_scan ids", ids, torch.int32, 2)
+    n_lists, max_list, words = bits.shape
+    d = q_rot.shape[1]
+    if (centers_rot.shape != (n_lists, d) or ids.shape != (n_lists, max_list)
+            or norms2.shape != ids.shape or scales.shape != ids.shape
+            or words != -(-d // 32)):
+        raise ValueError("ivf_bq_scan: index tensors disagree in shape")
+    if d > MAX_DIM:
+        raise ValueError(f"ivf_bq_scan: dim {d} > {MAX_DIM}, the kernel's "
+                         "shared-memory query row")
+
+
+def _launch_pairs(scan, q_rot, centers_rot, bits, norms2, scales, ids, qsel,
+                  lsel, n_pairs, div, bins, metric, center_term, out_d,
+                  out_i):
+    n_lists, max_list, words = bits.shape
+    vec4 = words % 4 == 0 and bits.data_ptr() % 16 == 0
+    with torch.cuda.device(q_rot.device):
+        rc = scan(q_rot.data_ptr(), centers_rot.data_ptr(), bits.data_ptr(),
+                  norms2.data_ptr(), scales.data_ptr(), ids.data_ptr(),
+                  qsel.data_ptr() if qsel is not None else None,
+                  lsel.data_ptr() if lsel is not None else None,
+                  n_pairs, div, q_rot.shape[1], words, max_list, bins,
+                  round_up(max_list, bins), int(metric == "ip"),
+                  int(bool(center_term)), int(vec4), out_d.data_ptr(),
+                  out_i.data_ptr(), _build.stream_handle(q_rot.device))
+    _build.check(rc, "ivf_bq_scan")
+
+
+def bq_scan_cuda(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
+                 bins: int, metric: str):
+    """Launch kernel 10: one block per (list, table slot)."""
+    global launches
+    _check(q_rot, centers_rot, bits, norms2, scales, ids)
+    check_cuda_tensor("ivf_bq_scan qmap", qmap, torch.int32, 2)
+    n_lists, cap = qmap.shape
+    if n_lists != ids.shape[0]:
+        raise ValueError("ivf_bq_scan: qmap rows != n_lists")
+    dev = q_rot.device
+    out_d = torch.empty((n_lists, cap, bins), dtype=torch.float32,
+                        device=dev)
+    out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
+    scan, _ = _fns()
+    _launch_pairs(scan, q_rot, centers_rot, bits, norms2, scales, ids, qmap,
+                  None, n_lists * cap, cap, bins, metric, False, out_d, out_i)
+    launches += 1
+    return out_d, out_i
+
+
+def bq_scan_fused_cuda(q_rot, centers_rot, bits, norms2, scales, ids,
+                       probes, inv_pos, cap: int, k: int, bins: int,
+                       metric: str):
+    """Launch kernel 11: one block per (query, probe) for the binned
+    candidates (IP centre term applied), then one block per query for
+    the top-k."""
+    global launches_fused
+    _check(q_rot, centers_rot, bits, norms2, scales, ids)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"ivf_bq_scan_fused: k={k} outside [1, {MAX_K}]")
+    nq = q_rot.shape[0]
+    kp = kept_probes_sorted(probes, inv_pos, cap)
+    n_probes = kp.shape[1]
+    dev = q_rot.device
+    cand_d = torch.empty((nq, n_probes * bins), dtype=torch.float32,
+                         device=dev)
+    cand_i = torch.empty((nq, n_probes * bins), dtype=torch.int32,
+                         device=dev)
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    scan, topk = _fns()
+    _launch_pairs(scan, q_rot, centers_rot, bits, norms2, scales, ids, None,
+                  kp, nq * n_probes, n_probes, bins, metric, True, cand_d,
+                  cand_i)
+    with torch.cuda.device(dev):
+        rc = topk(cand_d.data_ptr(), cand_i.data_ptr(), nq,
+                  n_probes * bins, k, out_d.data_ptr(), out_i.data_ptr(),
+                  _build.stream_handle(dev))
+    _build.check(rc, "ivf_bq_scan_fused top-k")
+    launches_fused += 1
+    return out_d, out_i
+
+
+def bq_scan(q_rot, centers_rot, bits, norms2, scales, ids, qmap, bins: int,
+            metric: str = "l2"):
+    """Kernel 10: binned estimator candidates of every (list, table slot)
+    pair → ``(cd, ci)`` (n_lists, cap, bins), slot-major; an empty slot
+    (qmap -1) is all (+inf, -1). ``bins`` >= 1 divides the bins-padded
+    list length. IP scores lack the centre term (the caller adds it)."""
+    if q_rot.is_cuda:
+        return bq_scan_cuda(
+            q_rot.contiguous(), centers_rot.contiguous(), bits.contiguous(),
+            norms2.contiguous(), scales.contiguous(), ids.contiguous(),
+            qmap.contiguous(), bins, metric)
+    return bq_scan_plain(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
+                         bins, metric)
+
+
+def bq_scan_fused(q_rot, centers_rot, bits, norms2, scales, ids, probes,
+                  inv_pos, qmap, cap: int, k: int, bins: int,
+                  metric: str = "l2"):
+    """Kernel 11: the IVF-BQ fine phase → ``(dists (nq, k), ids (nq,
+    k))``, best first, the k smallest binned estimator candidates under
+    the key (score, list id, bin). ``probes`` (nq, n_probes) with
+    ``inv_pos`` their slots in the inverted table ``qmap`` (n_lists,
+    cap); pairs with ``inv_pos >= cap`` are dropped. IP scores come back
+    negated, centre term included."""
+    if q_rot.is_cuda:
+        return bq_scan_fused_cuda(
+            q_rot.contiguous(), centers_rot.contiguous(), bits.contiguous(),
+            norms2.contiguous(), scales.contiguous(), ids.contiguous(),
+            probes, inv_pos, cap, k, bins, metric)
+    return bq_scan_fused_plain(q_rot, centers_rot, bits, norms2, scales, ids,
+                               qmap, k, bins, metric)

@@ -1,15 +1,17 @@
-"""IVF-Flat fused fine phase: kernel wrapper and plain version.
+"""IVF-Flat fine phase, fused and unfused: kernel wrappers and plain
+versions.
 
-Kernel: ``csrc/ivf_flat_scan.cu`` (replaces the JAX package's Pallas
-``_fused_list_scan_kernel``). :func:`fused_list_scan` dispatches on the
-device of its inputs: CPU tensors take :func:`fused_list_scan_plain`,
-CUDA tensors launch the kernel (or raise).
-
-Both compute, per query, the k smallest binned candidates under the key
-(score, list id, bin index) — see the kernel's source note. The
-kernel walks each query's probed lists (query-major); the plain version
-walks lists in chunks and merges with a stable sort (list-major, like
-the JAX package's XLA tier).
+Kernels: ``csrc/ivf_flat_scan.cu``. :func:`fused_list_scan` replaces
+the JAX package's Pallas ``_fused_list_scan_kernel``: per query, the k
+smallest binned candidates under the key (score, list id, bin index) —
+see the kernel's source note. The kernel walks each query's probed
+lists (query-major); the plain version walks lists in chunks and merges
+with a stable sort (list-major, like the JAX package's XLA tier).
+:func:`list_scan` replaces ``_list_scan_kernel``: per (list, table
+slot), the slot's query's binned candidates, written as (n_lists, cap,
+bins) blocks for ``neighbors._ivf_scan.merge_candidates`` (k > 256).
+Each dispatches on the device of its inputs: CPU tensors take the plain
+version, CUDA tensors launch the kernel (or raise).
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from raft_tpu_torch.ops._util import check_cuda_tensor, round_up
 
 MAX_K = 256
 
-# launches of the CUDA kernel since the last reset (a plain integer)
+# launches of the CUDA kernels since the last reset (plain integers):
+# the fused scan, the unfused list scan
 launches = 0
+launches_list = 0
 
 # element budget of one (lists, cap, rows) score block of the plain version
 _PLAIN_BLOCK = 1 << 24
@@ -41,12 +45,26 @@ def resolve_bins(bins: int, k: int, max_list: int):
     return (mlp if bins < 0 else bins), mlp
 
 
+def _list_scores(queries, data, norms, qm, l0: int, metric: str):
+    """(c, cap, ML) scores of the lists [l0, l0 + c) against the queries
+    ``qm`` (c, cap) names: L2 ``max((norm + |q|^2) - 2 q.x, 0)`` or IP
+    ``-q.x``."""
+    from raft_tpu_torch.neighbors._ivf_scan import gather_query_rows
+    l1 = l0 + qm.shape[0]
+    qsub = gather_query_rows(queries, qm)                # (c, cap, d)
+    ip = torch.einsum("gcd,gld->gcl", qsub, data[l0:l1].float())
+    if metric == "ip":
+        return -ip
+    qq = (qsub * qsub).sum(dim=2)
+    return torch.clamp((norms[l0:l1][:, None, :] + qq[:, :, None])
+                       - 2.0 * ip, min=0.0)
+
+
 def fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
                           qmap, cap: int, k: int, bins: int, sqrt: bool,
                           metric: str):
     """Plain PyTorch version (list-major, chunked over lists so the
     (lists, cap, rows) score block stays bounded on the card)."""
-    from raft_tpu_torch.neighbors._ivf_scan import gather_query_rows
     nq = queries.shape[0]
     n_lists, max_list = ids.shape
     bins, mlp = resolve_bins(bins, k, max_list)
@@ -59,15 +77,7 @@ def fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
         qm = qmap[l0:l1]                                 # (c, cap)
         if not bool((qm >= 0).any()):
             continue
-        qsub = gather_query_rows(queries, qm)            # (c, cap, d)
-        x = data[l0:l1].float()
-        ip = torch.einsum("gcd,gld->gcl", qsub, x)       # (c, cap, ML)
-        if metric == "ip":
-            sc = -ip
-        else:
-            qq = (qsub * qsub).sum(dim=2)
-            sc = torch.clamp((norms[l0:l1][:, None, :] + qq[:, :, None])
-                             - 2.0 * ip, min=0.0)
+        sc = _list_scores(queries, data, norms, qm, l0, metric)
         cd, ci = bin_rows(sc, ids[l0:l1], bins, mlp)
         best_d, best_i = merge_lists_into_state(best_d, best_i, cd, ci, qm)
     return finish_state(best_d, best_i, sqrt)
@@ -126,14 +136,21 @@ def finish_state(best_d, best_i, sqrt: bool):
     return best_d, best_i
 
 
-def _lib():
-    fn = _build.load("ivf_flat_scan").raft_ivf_flat_scan
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    return fn
+def _fns():
+    """The library's two entry points: the fused scan, the list scan."""
+    lib = _build.load("ivf_flat_scan")
+    fused = lib.raft_ivf_flat_scan
+    fused.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int]
+                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p] * 3)
+    fused.restype = ctypes.c_int
+    unfused = lib.raft_ivf_list_scan
+    unfused.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+    unfused.restype = ctypes.c_int
+    return fused, unfused
 
 
 def kept_probes_sorted(probes, inv_pos, cap: int):
@@ -166,7 +183,7 @@ def fused_list_scan_cuda(queries, data, norms, ids, probes, inv_pos,
             and data.data_ptr() % 16 == 0)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=queries.device)
-    fn = _lib()
+    fn, _ = _fns()
     with torch.cuda.device(queries.device):
         rc = fn(queries.data_ptr(), nq, d, kp.data_ptr(), kp.shape[1],
                 data.data_ptr(), norms.data_ptr(), ids.data_ptr(),
@@ -194,3 +211,81 @@ def fused_list_scan(queries, data, norms, ids, probes, inv_pos, qmap,
             ids.contiguous(), probes, inv_pos, cap, k, bins, sqrt, metric)
     return fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
                                  qmap, cap, k, bins, sqrt, metric)
+
+
+def list_scan_plain(queries, data, norms, ids, qmap, bins: int,
+                    metric: str, out_dtype=torch.float32):
+    """Plain version of :func:`list_scan` (chunked over lists)."""
+    n_lists, max_list = ids.shape
+    cap = qmap.shape[1]
+    mlp = round_up(max_list, bins)
+    dev = queries.device
+    out_d = torch.full((n_lists, cap, bins), float("inf"), dtype=out_dtype,
+                       device=dev)
+    out_i = torch.full((n_lists, cap, bins), -1, dtype=torch.int32,
+                       device=dev)
+    chunk = max(1, _PLAIN_BLOCK // max(1, cap * mlp))
+    for l0 in range(0, n_lists, chunk):
+        qm = qmap[l0:l0 + chunk]
+        if not bool((qm >= 0).any()):
+            continue
+        sc = _list_scores(queries, data, norms, qm, l0, metric)
+        cd, ci = bin_rows(sc, ids[l0:l0 + chunk], bins, mlp)
+        empty = (qm < 0)[:, :, None]
+        out_d[l0:l0 + chunk] = torch.where(
+            empty, torch.full_like(cd, float("inf")), cd).to(out_dtype)
+        out_i[l0:l0 + chunk] = torch.where(
+            empty, torch.full_like(ci, -1), ci).to(torch.int32)
+    return out_d, out_i
+
+
+def list_scan_cuda(queries, data, norms, ids, qmap, bins: int, metric: str,
+                   out_dtype=torch.float32):
+    """Launch kernel 4: one block per (list, table slot)."""
+    global launches_list
+    check_cuda_tensor("ivf_list_scan queries", queries, torch.float32, 2)
+    check_cuda_tensor("ivf_list_scan data", data, torch.float32, 3)
+    check_cuda_tensor("ivf_list_scan norms", norms, torch.float32, 2)
+    check_cuda_tensor("ivf_list_scan ids", ids, torch.int32, 2)
+    check_cuda_tensor("ivf_list_scan qmap", qmap, torch.int32, 2)
+    d = queries.shape[1]
+    n_lists, max_list = ids.shape
+    cap = qmap.shape[1]
+    if (data.shape != (n_lists, max_list, d) or norms.shape != ids.shape
+            or qmap.shape[0] != n_lists):
+        raise ValueError("ivf_list_scan: list tensors disagree in shape")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ivf_list_scan: out_dtype {out_dtype} is not "
+                        "float32 or bfloat16")
+    mlp = round_up(max_list, bins)
+    vec4 = (d % 4 == 0 and queries.data_ptr() % 16 == 0
+            and data.data_ptr() % 16 == 0)
+    dev = queries.device
+    out_d = torch.empty((n_lists, cap, bins), dtype=out_dtype, device=dev)
+    out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
+    _, fn = _fns()
+    with torch.cuda.device(dev):
+        rc = fn(queries.data_ptr(), d, qmap.data_ptr(), n_lists, cap,
+                data.data_ptr(), norms.data_ptr(), ids.data_ptr(), max_list,
+                bins, mlp, int(metric == "ip"), int(vec4),
+                int(out_dtype == torch.bfloat16), out_d.data_ptr(),
+                out_i.data_ptr(), _build.stream_handle(dev))
+    _build.check(rc, "ivf_list_scan")
+    launches_list += 1
+    return out_d, out_i
+
+
+def list_scan(queries, data, norms, ids, qmap, bins: int,
+              metric: str = "l2", out_dtype=torch.float32):
+    """Kernel 4: binned candidates of every (list, table slot) pair →
+    ``(cd, ci)`` (n_lists, cap, bins), cap-major; an empty slot (qmap
+    -1) is all (+inf, -1). ``bins`` >= 1 (resolved, see
+    :func:`resolve_bins`) divides the bins-padded list length.
+    ``out_dtype`` bfloat16 rounds the scores to nearest
+    (``internal_distance_dtype``). IP scores come back negated."""
+    if queries.is_cuda:
+        return list_scan_cuda(queries.contiguous(), data.contiguous(),
+                              norms.contiguous(), ids.contiguous(),
+                              qmap.contiguous(), bins, metric, out_dtype)
+    return list_scan_plain(queries, data, norms, ids, qmap, bins, metric,
+                           out_dtype)

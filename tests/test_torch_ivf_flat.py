@@ -89,9 +89,9 @@ def test_auto_order_routes_like_jax(indexes, data):
     dj, ij, dt, it = _search_both(jidx, tidx, q, K, n_probes=4)
     np.testing.assert_array_equal(it, ij)
     assert tflat.use_list_order(tflat.SearchParams(n_probes=4), NQ, 4,
-                                N_LISTS, K)
+                                N_LISTS)
     assert not tflat.use_list_order(tflat.SearchParams(n_probes=4), 32, 4,
-                                    N_LISTS, K)
+                                    N_LISTS)
 
 
 def test_pinned_cap_overflow_drop_rule(indexes, data):
@@ -215,11 +215,96 @@ def test_unported_features_raise(indexes, data):
                                          storage_dtype="bfloat16"),
                     device="cpu")
     _, tidx = indexes[DistanceType.L2Expanded]
-    with pytest.raises(NotImplementedError, match="k=300"):
-        tflat.search(tidx, q, 300, tflat.SearchParams(scan_order="list"))
-    # "auto" keeps k > 256 on the probe-major route
-    d, i = tflat.search(tidx, q, 300, tflat.SearchParams(n_probes=16))
-    assert i.shape == (NQ, 300)
+    with pytest.raises(LogicError, match="internal_distance_dtype"):
+        tflat.search(tidx, q, K, tflat.SearchParams(
+            internal_distance_dtype=torch.float16))
+
+
+# --- k > 256: the unfused list scan (kernel 4) and the candidate merge ----
+
+def _bf16_ulp_tol(dj):
+    """One bf16 rounding step of each value (2^-8 relative): the unit in
+    which bf16 candidate scores can differ when the two packages' f32
+    scores straddle a rounding boundary."""
+    return 2.0 ** -8 * np.maximum(np.abs(dj), 1.0)
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.InnerProduct],
+                         ids=lambda m: m.name)
+@pytest.mark.parametrize("order", ["list", "auto"])
+@pytest.mark.parametrize("internal", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bins", [0, 32])
+def test_wide_k_matches_jax(indexes, data, metric, order, internal, bins):
+    # nq=64 x 16 probes over 16 lists: "auto" goes list-major too; k=300
+    # takes the unfused scan (auto bins = every row, or 32 strided bins)
+    jidx, tidx = indexes[metric]
+    _, q = data
+    before = scan_op.launches_list
+    dj, ij = jflat.search(jidx, q, 300, jflat.SearchParams(
+        n_probes=16, scan_order=order, scan_bins=bins,
+        internal_distance_dtype=getattr(jnp, internal)))
+    dt, it = tflat.search(tidx, q, 300, tflat.SearchParams(
+        n_probes=16, scan_order=order, scan_bins=bins,
+        internal_distance_dtype=getattr(torch, internal)))
+    assert scan_op.launches_list == before  # CPU tensors: plain version
+    dj, ij, dt, it = np.asarray(dj), np.asarray(ij), dt.numpy(), it.numpy()
+    assert it.shape == (NQ, 300) and it.dtype == np.int32
+    if internal == "float32":
+        np.testing.assert_array_equal(it, ij)
+        np.testing.assert_allclose(dt, dj, rtol=1e-5, atol=1e-5)
+        return
+    # bf16 scores: equal where both packages round to the same bf16
+    # value; a slot may differ by one rounding step, and the ids of
+    # such slots are near-ties at that step
+    fin = np.isfinite(dj)
+    np.testing.assert_array_equal(np.isfinite(dt), fin)
+    tol = _bf16_ulp_tol(dj)
+    assert (np.abs(dt - dj)[fin] <= tol[fin]).all()
+    for r, c in np.argwhere(it != ij):
+        pos = np.flatnonzero(ij[r] == it[r, c])
+        other = dj[r, pos[0]] if pos.size else dt[r, c]
+        assert abs(other - dj[r, c]) <= tol[r, c], (r, c)
+    assert (it == ij).mean() >= 0.99
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bins", [0, -1, 24])
+def test_list_scan_plain_matches_pallas(metric, bins):
+    # the unfused tier alone on random lists (an empty list, a short one,
+    # a bins count that does not divide max_list), merged at k=300
+    from raft_tpu.ops.pallas_ivf_scan import ivf_list_scan_pallas
+    rng = np.random.default_rng(bins + 7)
+    n_lists, max_list, d, nq, n_probes, k, cap = 12, 70, 13, 40, 6, 300, 32
+    data_ = rng.normal(size=(n_lists, max_list, d)).astype(np.float32)
+    sizes = rng.integers(0, max_list + 1, size=n_lists)
+    sizes[0], sizes[1], sizes[2] = max_list, 0, 5
+    ids = np.full((n_lists, max_list), -1, np.int32)
+    nxt = 0
+    for l, s in enumerate(sizes):
+        ids[l, :s] = np.arange(nxt, nxt + s)
+        nxt += s
+    data_[ids < 0] = 0.0
+    norms = (data_ ** 2).sum(-1).astype(np.float32)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(nq)]).astype(np.int32)
+    dj, ij = ivf_list_scan_pallas(
+        jnp.asarray(q), jnp.asarray(data_), jnp.asarray(norms),
+        jnp.asarray(ids), jnp.asarray(probes), k, cap, bins=bins,
+        metric=metric, fused=False)
+    tq, tp = torch.from_numpy(q), torch.from_numpy(probes)
+    qmap, inv_pos = t_scan._invert_probes(tp, n_lists, cap)
+    rb, _ = scan_op.resolve_bins(bins, k, max_list)
+    cd, ci = scan_op.list_scan(tq, torch.from_numpy(data_),
+                               torch.from_numpy(norms),
+                               torch.from_numpy(ids), qmap, rb, metric)
+    assert cd.shape == (n_lists, cap, rb)
+    assert bool((ci[qmap < 0] == -1).all())
+    dt, it = t_scan.merge_candidates(cd, ci, tp, inv_pos, k, False, cap)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_default_device_is_cuda():

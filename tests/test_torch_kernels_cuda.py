@@ -7,17 +7,20 @@ so it runs where only PyTorch is installed:
         tests/test_torch_kernels_cuda.py -m cuda
 
 Tolerance: selection is exact; distances within rtol 1e-5 of the
-expanded-L2 scale (|x|^2 + |y|^2, for PQ |qsub|^2 + code norm) — fp32
-with a different summation order — and ids identical on random data,
-except (PQ) where two candidates tie within that tolerance.
+expanded-L2 scale (|x|^2 + |y|^2, for PQ |qsub|^2 + code norm, for BQ
+|qsub|^2 + norms2) — fp32 with a different summation order — and ids
+identical on random data, except (PQ, BQ, the unfused IVF-Flat scan)
+where two candidates tie within that tolerance; bf16 candidate scores
+within one bf16 step (2^-8 of the scale).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch.neighbors import _ivf_scan, ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors import _ivf_scan, ivf_bq, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import fused_l2_nn as nn_op
+from raft_tpu_torch.ops import ivf_bq_scan as bq_op
 from raft_tpu_torch.ops import ivf_pq_scan as pq_op
 from raft_tpu_torch.ops import ivf_scan as scan_op
 from raft_tpu_torch.ops import select_k as sel_op
@@ -269,6 +272,169 @@ def test_pq_search_on_card_matches_cpu(dev):
         after = (pq_op.launches, pq_op.launches_fused)
         assert after[launched == "fused"] > before[launched == "fused"]
         dc, ic = ivf_pq.search(cpu, q, 10, sp)
+        # exact re-rank: the same ids on both devices
+        np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
+        np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(),
+                                   rtol=1e-5, atol=1e-3)
+
+
+def _blocks_match(ck, cik, cp, cip, tol):
+    """Unfused candidate blocks (n_lists, cap, bins): the same empty
+    pattern, ids -1 exactly there, distances within ``tol``, ids equal
+    on >= 99% of the filled entries (the rest near-ties)."""
+    ck, cp = ck.float(), cp.float()
+    fin = torch.isfinite(cp)
+    assert torch.equal(torch.isfinite(ck), fin)
+    assert torch.equal(cik[~fin], cip[~fin])
+    if bool(fin.any()):
+        assert float((ck[fin] - cp[fin]).abs().max()) <= tol
+        assert float((cik[fin] == cip[fin]).double().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [16, 13])
+@pytest.mark.parametrize("bins", [0, -1, 7, 600])
+@pytest.mark.parametrize("cap", [32, 8])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_list_scan_matches_plain(dev, metric, d, bins, cap, out):
+    # kernel 4 at k=300: auto bins = every row of the 40-row lists; 7
+    # does not divide 40; 600 > 512 bins takes two bin chunks per block;
+    # list 0 full, empty and short lists among the rest; cap 8 overflows
+    # (the merge drops the overflow, the blocks just hold fewer slots)
+    rng = np.random.default_rng(d * 7 + cap + (bins % 97))
+    nq, n_lists, max_list, n_probes, k = 48, 16, 40, 6, 300
+    centers, data, norms, ids = _random_index(rng, n_lists, max_list, d, dev)
+    ids[1] = -1
+    q = _t(rng.normal(size=(nq, d)).astype(np.float32), dev)
+    probes = _ivf_scan.coarse_probes(q, centers, n_probes, kind=metric)
+    qmap, inv_pos = _ivf_scan._invert_probes(probes, n_lists, cap)
+    rb, _ = scan_op.resolve_bins(bins, k, max_list)
+    before = scan_op.launches_list
+    ck, cik = scan_op.list_scan(q, data, norms, ids, qmap, rb, metric, out)
+    torch.cuda.synchronize()
+    assert scan_op.launches_list == before + 1
+    assert ck.dtype == out and ck.shape == (n_lists, cap, rb)
+    cp, cip = scan_op.list_scan_plain(q, data, norms, ids, qmap, rb, metric,
+                                      out)
+    scale = float((q * q).sum(1).max() + norms.max())
+    step = 2.0 ** -8 if out == torch.bfloat16 else 1e-5
+    _blocks_match(ck, cik, cp, cip, step * scale)
+    # the merged search result, as ivf_flat.search returns it
+    dk, ik = _ivf_scan.merge_candidates(ck, cik, probes, inv_pos, k, False,
+                                        cap)
+    dp, ip = _ivf_scan.merge_candidates(cp, cip, probes, inv_pos, k, False,
+                                        cap)
+    _near_tie_equal(dk, ik, dp, ip, step * scale)
+
+
+def test_wide_flat_search_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(5)
+    c = rng.normal(size=(16, 16)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 16, 3000)]
+         + rng.normal(size=(3000, 16))).astype(np.float32)
+    q = (c[rng.integers(0, 16, 64)]
+         + rng.normal(size=(64, 16))).astype(np.float32)
+    cpu = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=16,
+                                                 kmeans_n_iters=4),
+                         device="cpu")
+    arrays = {f: getattr(cpu, f).numpy() for f in
+              ("centers", "lists_data", "lists_indices", "lists_norms",
+               "list_sizes")}
+    gpu = ivf_flat.index_from_numpy(arrays, cpu.metric, cpu.size, device=dev)
+    sp = ivf_flat.SearchParams(n_probes=8, scan_order="list")
+    before = scan_op.launches_list
+    dg, ig = ivf_flat.search(gpu, q, 300, sp)
+    assert scan_op.launches_list == before + 1
+    dc, ic = ivf_flat.search(cpu, q, 300, sp)
+    scale = float((q ** 2).sum(1).max() + cpu.lists_norms.max())
+    _near_tie_equal(dg, ig, dc, ic, 1e-5 * scale)
+
+
+def _bq_case(rng, dev, d, n_lists=16, max_list=100, nq=32, n_probes=6):
+    words = -(-d // 32)
+    sizes = rng.integers(0, max_list + 1, size=n_lists)
+    sizes[0], sizes[1], sizes[2] = max_list, 0, 5     # full, empty, short
+    ids = np.full((n_lists, max_list), -1, np.int32)
+    nxt = 0
+    for l, s in enumerate(sizes):
+        ids[l, :s] = np.arange(nxt, nxt + s)
+        nxt += s
+    bits = rng.integers(-(1 << 31), 1 << 31, size=(n_lists, max_list, words),
+                        dtype=np.int64).astype(np.int32)
+    norms2 = rng.uniform(0.5 * d, 1.5 * d, size=(n_lists, max_list)).astype(
+        np.float32)
+    scales = rng.uniform(0.5, 1.5, size=(n_lists, max_list)).astype(
+        np.float32)
+    for a in (bits, norms2, scales):
+        a[ids < 0] = 0
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    centers_rot = rng.normal(size=(n_lists, d)).astype(np.float32)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(nq)]).astype(np.int32)
+    scale = float(((np.abs(q) + np.abs(centers_rot).max(0)) ** 2).sum(1).max()
+                  + norms2.max())
+    return [_t(a, dev) for a in (q, centers_rot, bits, norms2, scales, ids,
+                                 probes)], scale
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [48, 128, 100, 13, 256])
+@pytest.mark.parametrize("k,bins,cap", [(1, 16, 32), (10, 128, 32),
+                                        (256, 64, 32), (10, 16, 8),
+                                        (32, 7, 32), (10, 300, 32)])
+def test_bq_scans_match_plain(dev, metric, d, k, bins, cap):
+    # d 48: a partial second word; 128 and 256: 16-byte word vectors;
+    # 100: vectors with a partial last word; 13: one partial word.
+    # bins 128 and 300 > max_list 100 (300 > 256 threads: a bin per
+    # thread); 7 does not divide 100; list 1 empty, list 2 holds 5 rows;
+    # cap 8 overflows
+    rng = np.random.default_rng(d + k + bins + cap)
+    (q, cr, bits, n2, sc, ids, probes), scale = _bq_case(rng, dev, d)
+    qmap, inv_pos = _ivf_scan._invert_probes(probes, ids.shape[0], cap)
+    if cap == 8:
+        assert bool((inv_pos >= cap).any()), "cap must overflow"
+    args = (q, cr, bits, n2, sc, ids)
+    b_f = (bq_op.launches, bq_op.launches_fused)
+    dk, ik = bq_op.bq_scan_fused(*args, probes, inv_pos, qmap, cap, k, bins,
+                                 metric)
+    ck, cik = bq_op.bq_scan(*args, qmap, bins, metric)
+    torch.cuda.synchronize()
+    assert (bq_op.launches, bq_op.launches_fused) == (b_f[0] + 1,
+                                                      b_f[1] + 1)
+    dp, ip = bq_op.bq_scan_fused_plain(*args, qmap, k, bins, metric)
+    _near_tie_equal(dk, ik, dp, ip, 1e-5 * scale)
+    assert bool((ik[~torch.isfinite(dk)] == -1).all())
+    cp, cip = bq_op.bq_scan_plain(*args, qmap, bins, metric)
+    _blocks_match(ck, cik, cp, cip, 1e-5 * scale)
+
+
+@pytest.mark.parametrize("metric", [ivf_flat.DistanceType.L2Expanded,
+                                    ivf_flat.DistanceType.InnerProduct,
+                                    ivf_flat.DistanceType.CosineExpanded])
+def test_bq_search_on_card_matches_cpu(dev, metric):
+    rng = np.random.default_rng(13)
+    c = rng.normal(size=(16, 48)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 16, 4000)]
+         + rng.normal(size=(4000, 48))).astype(np.float32)
+    q = (c[rng.integers(0, 16, 64)]
+         + rng.normal(size=(64, 48))).astype(np.float32)
+    cpu = ivf_bq.build(x, ivf_bq.IndexParams(n_lists=16, metric=metric,
+                                             kmeans_n_iters=4),
+                       device="cpu")
+    arrays = {f: getattr(cpu, f).numpy() for f in
+              ("centers", "centers_rot", "rotation_matrix", "bits", "norms2",
+               "scales", "lists_indices", "list_sizes")}
+    arrays["bits"] = arrays["bits"].view(np.uint32)
+    gpu = ivf_bq.index_from_numpy(arrays, cpu.metric, cpu.size, raw=cpu.raw,
+                                  device=dev)
+    for rf, launched in ((4, "fused"), (30, "unfused")):
+        sp = ivf_bq.SearchParams(n_probes=6, rescore_factor=rf,
+                                 rescore_on_device="always")
+        before = (bq_op.launches, bq_op.launches_fused)
+        dg, ig = ivf_bq.search(gpu, q, 10, sp)
+        after = (bq_op.launches, bq_op.launches_fused)
+        assert after[launched == "fused"] > before[launched == "fused"]
+        dc, ic = ivf_bq.search(cpu, q, 10, sp)
         # exact re-rank: the same ids on both devices
         np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
         np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(),

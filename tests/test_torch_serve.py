@@ -25,10 +25,12 @@ import pytest
 import torch
 
 from raft_tpu import serve as jserve
+from raft_tpu.neighbors import ivf_bq as jbq
 from raft_tpu.neighbors import ivf_flat as jflat
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu.neighbors import serialize as jser
 from raft_tpu_torch import obs
+from raft_tpu_torch.neighbors import ivf_bq as tbq
 from raft_tpu_torch.neighbors import ivf_flat as tflat
 from raft_tpu_torch.neighbors import ivf_pq as tpq
 from raft_tpu_torch.neighbors import plan as tplan
@@ -229,17 +231,63 @@ def test_pq_server_equals_direct_search(pq_index, where):
         np.testing.assert_allclose(d, dd.numpy(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("family", ["flat", "pq"])
-def test_dropped_index_is_freed_without_gc(setup, pq_index, family):
+@pytest.fixture(scope="module")
+def bq_index(setup, tmp_path_factory):
+    """A JAX-built IVF-BQ index (raw corpus kept) loaded by the port."""
+    _, _, q = setup
+    rng = np.random.default_rng(2)
+    c = rng.normal(size=(24, 16)).astype(np.float32)
+    x = (c[rng.integers(0, 24, 2000)]
+         + rng.normal(size=(2000, 16))).astype(np.float32)
+    bidx = jbq.build(x, jbq.IndexParams(n_lists=16, kmeans_n_iters=4))
+    path = str(tmp_path_factory.mktemp("serve") / "bq.npz")
+    jser.save_ivf_bq(bidx, path)
+    return tser.load_ivf_bq(path, device="cpu"), q
+
+
+@pytest.mark.parametrize("where", ["always", "never"])
+@pytest.mark.parametrize("rescore", [4, 40], ids=["fused", "unfused"])
+def test_bq_server_equals_direct_search(bq_index, where, rescore):
+    # kk = 40 (the fused scan) or 400 (the unfused scan + merge); the
+    # re-rank on the device or on the host; probe_cap pinned so that
+    # every batch shape serves what a direct search returns
+    tidx, q = bq_index
+    sp = tbq.SearchParams(n_probes=4, rescore_factor=rescore, probe_cap=64,
+                          rescore_on_device=where)
+    reqs = _requests(q)
+    srv = SearchServer.from_index(tidx, q[:8], K, params=sp,
+                                  config=ServeConfig(batch_sizes=SHAPES))
+    try:
+        before = obs.snapshot()
+        served = _serve_all(srv, reqs)
+        after = obs.snapshot()
+    finally:
+        srv.close()
+    for name in ("raft.ivf_scan.resolve_cap.syncs", "raft.plan.cache.misses",
+                 "raft.plan.build.total"):
+        assert obs.counter_sum(after, name) == obs.counter_sum(before, name)
+    for r, (d, i) in zip(reqs, served):
+        dd, id_ = tbq.search(tidx, r, K, sp)
+        np.testing.assert_array_equal(i, id_.numpy())
+        np.testing.assert_allclose(d, dd.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("family", ["flat", "pq", "bq"])
+def test_dropped_index_is_freed_without_gc(setup, pq_index, bq_index,
+                                           family):
     # the index caches its plans; a plan holds the index's arrays, never
     # the index, so dropping the index frees it at once (no cyclic GC
     # pass) while a plan that is still held goes on serving
     if family == "flat":
         src, q = setup[1], setup[2]
         sp = tflat.SearchParams(**EXACT)
-    else:
+    elif family == "pq":
         src, q = pq_index
         sp = tpq.SearchParams(n_probes=4, rescore_factor=4, probe_cap=64,
+                              rescore_on_device="always")
+    else:
+        src, q = bq_index
+        sp = tbq.SearchParams(n_probes=4, rescore_factor=4, probe_cap=64,
                               rescore_on_device="always")
     fresh = dataclasses.replace(src, cap_cache={}, plan_cache={})
     plan = tplan.build_plan(fresh, q[:8], K, sp)
