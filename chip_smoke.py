@@ -48,6 +48,29 @@ Phases, one line each:
               scan serves every batch), the same burst, then one
               ``ivf_bq.search`` at k=64 (kk=512, the unfused scan); the
               same measurements.
+6. main_bf  — brute-force k-NN on the same 10M x 128 dataset (the
+              reference's ``knn.cuh`` case): 1000 queries from the same
+              mixture, k=32, ``brute_force_knn(mode="fused")`` for
+              L2Expanded, InnerProduct and CosineExpanded (kernel 5);
+              time and QPS over 3 reps after a warm-up, recall@32
+              against ``mode="exact"`` and the exact scan's time, peak
+              memory, launch counts, and kernel 5 against its plain
+              version on the same inputs (rows ``fused_knn@<metric>``).
+7. wide_bf  — 10,000 x 8192 normal rows, 1000 queries, k=32, fused: the
+              d > 4096 route (kernel 6, row ``fused_knn_ktiled``),
+              against its plain version, recall against exact.
+8. pairwise — ``pairwise_distance`` at 8192 x 8192 x 256 on uniform
+              [0, 1) data (hamming on values rounded to {0..3}) for
+              every elementwise metric name (kernel 7, rows
+              ``elementwise_dist@<name>``), each against its plain
+              version, with one ``torch.cdist`` call as the library time
+              where one computes the same function; the expanded
+              metrics' times for context; one exact L1 ``brute_force_knn``
+              of 100 queries over the first 1M rows (kernel 7 inside the
+              exact scan).
+
+The exact search's truth for phases 3-5 (256 queries, k=32) comes from
+the port's own ``brute_force_knn(mode="exact")``.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -76,6 +99,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # HBM3
 FP32_FLOPS = 67e12             # float32 outside the tensor cores
 BF16_FLOPS = 989e12            # bf16 on the tensor cores
+# instruction rates: the fp32 peak counts an FMA as two operations, so
+# 128 lanes x 132 SMs x 1.98 GHz issue 33.5e12 fp32 instructions a
+# second; special functions (log, exp, reciprocal) at 16 results a clock
+# per SM (CUDA C++ Programming Guide, throughput table, compute 9.0)
+FP32_INSTR = FP32_FLOPS / 2
+SFU_OPS = 16 * 132 * 1.98e9
 # kernel vs plain distance tolerance: rtol 1e-5 of the scale of the
 # expanded-L2 terms (|x|^2 + |y|^2), where fp32 rounding of
 # |x|^2 + |y|^2 - 2 x.y lives (a distance near 0 keeps that error)
@@ -100,6 +129,42 @@ RESCORE, WIDE_K = 8, 64
 KM_ROWS = 1 << 18             # the k-means trainer's subsample
 BATCH_SIZES = (1, 8, 32, 128)
 N_QUERIES, N_REQUESTS, N_THREADS = 256, 512, 128
+# brute force: the reference's cpp/bench/neighbors/knn.cuh:380-389 cases
+# (10M x 128 and 10k x 8192, 1000 queries, k=32); the JAX package's
+# recall gate for the fused kernel (BASELINE.md:43)
+BF_QUERIES, BF_REPS, BF_RECALL_GATE = 1000, 3, 0.95
+WIDE_N, WIDE_D = 10_000, 8192
+# pairwise distances at bench_suite.py:37-51's 8192 x 8192 x 256; one
+# exact L1 scan of L1_QUERIES queries over the first L1_ROWS rows
+PAIR_N, PAIR_D = 8192, 256
+L1_ROWS, L1_QUERIES = 1_000_000, 100
+# elementwise kernel vs plain: float32 sums of 256 terms in two orders
+# differ by up to ~2 x 256 x 2^-24 relative (logarithm cores alike)
+ELT_RTOL, ELT_ATOL = 1e-4, 1e-5
+# the elementwise metric names: name -> (core, sqrt, torch.cdist p giving
+# the same function or None)
+PAIR_NAMES = {
+    "cityblock": ("l1", False, 1.0),
+    "sqeuclidean": ("l2unexp", False, None),
+    "euclidean": ("l2unexp", True, 2.0),
+    "chebyshev": ("linf", False, float("inf")),
+    "canberra": ("canberra", False, None),
+    "minkowski": ("minkowski", False, 3.0),
+    "hamming": ("hamming", False, None),
+    "jensenshannon": ("jensen_shannon", False, None),
+    "kl_divergence": ("kl", False, None),
+    "braycurtis": ("braycurtis", False, None),
+}
+# the least work of each core per (i, j, dimension) element:
+# (fp32 instructions, special-function results) — a difference and an
+# add of its absolute value for l1; for canberra a reciprocal; for
+# minkowski a log2 and an exp2; for jensen_shannon the log of the mean
+# (the logs of a and b can be taken once a row, as for kl)
+ELT_WORK = {"l1": (2, 0), "l2unexp": (2, 0), "linf": (2, 0),
+            "canberra": (5, 1), "minkowski": (3, 2), "hamming": (2, 0),
+            "jensen_shannon": (8, 1), "kl": (2, 0), "braycurtis": (4, 0)}
+PAIR_EXPANDED = ("inner_product", "cosine", "correlation", "hellinger",
+                 "russellrao", "jaccard", "dice")
 
 OUT_DIR = "chiprun_out"
 
@@ -142,7 +207,8 @@ def bound(n_bytes: float, *work):
 def ann_dataset(n: int, d: int, nq: int, seed: int, dev):
     """The benchmark's clustered mixture: ``nc = max(64, min(8192,
     n // 125))`` standard-normal centres, rows = centre + unit noise;
-    queries from the same mixture. Drawn on the card from ``seed``."""
+    ``nq`` queries from the same mixture, then ``BF_QUERIES`` more for
+    brute force. Drawn on the card from ``seed``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     nc = max(64, min(8192, n // 125))
     centers = torch.randn((nc, d), generator=g, device=dev)
@@ -153,27 +219,12 @@ def ann_dataset(n: int, d: int, nq: int, seed: int, dev):
         lab = torch.randint(0, nc, (e - s,), generator=g, device=dev)
         x[s:e] = centers[lab] + torch.randn((e - s, d), generator=g,
                                             device=dev)
-    qlab = torch.randint(0, nc, (nq,), generator=g, device=dev)
-    q = centers[qlab] + torch.randn((nq, d), generator=g, device=dev)
-    return x, q
-
-
-def exact_knn(x: torch.Tensor, q: torch.Tensor, k: int) -> torch.Tensor:
-    """Exact squared-L2 k-NN ids: chunked ``torch.matmul`` + ``topk``."""
-    best_d = torch.full((q.shape[0], k), float("inf"), device=q.device)
-    best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64,
-                        device=q.device)
-    step = 1 << 20
-    for s in range(0, x.shape[0], step):
-        xb = x[s:s + step]
-        d = (xb * xb).sum(1)[None, :] - 2.0 * (q @ xb.T)
-        cd = torch.cat([best_d, d], 1)
-        ci = torch.cat([best_i, torch.arange(s, s + xb.shape[0],
-                                             device=q.device)
-                        .expand(q.shape[0], -1)], 1)
-        best_d, sel = torch.topk(cd, k, dim=1, largest=False)
-        best_i = torch.gather(ci, 1, sel)
-    return best_i
+    qs = []
+    for m in (nq, BF_QUERIES):
+        qlab = torch.randint(0, nc, (m,), generator=g, device=dev)
+        qs.append(centers[qlab] + torch.randn((m, d), generator=g,
+                                              device=dev))
+    return x, qs[0], qs[1]
 
 
 def compare(name, d_k, i_k, d_p, i_p, exact_ids: bool, scale=None):
@@ -547,19 +598,26 @@ def serve_burst(srv, q_np):
 
 
 def profile_burst(srv, q_np, tag: str) -> None:
-    """Trace one more burst with ``torch.profiler``: device time by
-    kernel into ``chiprun_out/profile_burst_<tag>.txt``, and the device's
-    busy share of the burst's wall time (kernels on one stream do not
-    overlap, so their summed self time is the busy time)."""
+    """Trace one more burst (``profile_run``)."""
+    profile_run(lambda: serve_burst(srv, q_np)[-1], tag,
+                f"profile_burst_{tag}")
+
+
+def profile_run(run, tag: str, out_name: str) -> None:
+    """Trace ``run()`` (which returns its wall seconds) with
+    ``torch.profiler``: device time by kernel into
+    ``chiprun_out/<out_name>.txt``, and the device's busy share of the
+    wall time (kernels on one stream do not overlap, so their summed self
+    time is the busy time)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = serve_burst(srv, q_np)[-1]
+        wall = run()
     ka = prof.key_averages()
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in ka
                    if e.self_device_time_total > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    with open(os.path.join(OUT_DIR, f"profile_burst_{tag}.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"{out_name}.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     phase("profile", path=tag, wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
           busy_share=busy_us / 1e3 / (wall * 1e3),
@@ -770,6 +828,242 @@ def run_family(fam: Family, x, q, q_np, truth, args):
     return rows, launches
 
 
+def cuda_once(fn):
+    """``(fn(), device milliseconds of that one call)``."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def recall_at(ids: torch.Tensor, truth: torch.Tensor) -> float:
+    """Mean share of each row's ``truth`` ids that ``ids`` holds."""
+    ids, truth = ids.cpu().numpy(), truth.cpu().numpy()
+    return float(np.mean([len(set(a) & set(b))
+                          for a, b in zip(ids, truth)])) / truth.shape[1]
+
+
+def check_knn_result(what: str, d, i, n: int, descending: bool) -> None:
+    """(BF_QUERIES, K) neighbours, ids in range, finite sorted values."""
+    if tuple(i.shape) != (d.shape[0], K) or bool((i < 0).any()) \
+            or bool((i >= n).any()) or not bool(torch.isfinite(d).all()):
+        fail(f"{what}: missing, out-of-range or non-finite neighbours")
+    step = torch.diff(d, dim=1)
+    if bool(((step > 0) if descending else (step < 0)).any()):
+        fail(f"{what}: neighbours are not sorted")
+
+
+def check_fused_knn(name, xq, y, metric, replaces, launches):
+    """The fused k-NN kernel (both passes) against its plain version on
+    the main path's inputs, within ``RTOL`` of |x|^2 + |y|^2; the plain
+    version is timed on its one call."""
+    from raft_tpu_torch.ops import fused_knn as op
+    m, dim = xq.shape
+    n = y.shape[0]
+    _, tn, l_bins, kt = op.geometry(m, n, dim, K)
+    saved = (op.launches, op.launches_ktiled)
+    kernel = lambda: op.fused_knn_cuda(xq, y, K, metric, False, tn,  # noqa: E731
+                                       l_bins, kt)
+    d_k, i_k = kernel()
+    (d_p, i_p), plain_ms = cuda_once(lambda: op.fused_knn_plain(
+        xq, y, K, metric, False, tn, l_bins, kt))
+    scale = (xq * xq).sum(1)[:, None] + (y * y).sum(1)[i_p.clamp(min=0).long()]
+    max_abs, agree = compare(name, d_k, i_k, d_p, i_p, False, scale)
+    del d_k, i_k, d_p, i_p
+    ms = cuda_ms(kernel, BF_REPS, warmup=1)
+    op.launches, op.launches_ktiled = saved
+    # the TPU kernel's products as three bf16 passes on the tensor cores
+    bnd = bound(4 * (m + n) * dim + 8 * m * K,
+                (3 * 2 * m * n * dim, BF16_FLOPS))
+    phase("kernels", kernel=name, shape=[m, n, dim], k=K, tn=tn,
+          l_bins=l_bins, kt=kt, id_agreement=agree, max_abs_err=max_abs,
+          ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+          f32_cuda_core_ms=2 * m * n * dim / FP32_FLOPS * 1e3)
+    row = kernel_row(name, "raft_tpu_torch/csrc/fused_knn.cu", replaces,
+                     max_abs, ms, plain_ms, bnd, None)
+    row["launches"] = launches
+    return row
+
+
+def run_bf(x, qb, args):
+    """Phase 6: fused brute-force k-NN of BF_QUERIES queries over the
+    dataset for three metrics, each against the exact scan, and kernel 5
+    against its plain version on each metric's kernel inputs."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.neighbors.brute_force import brute_force_knn
+    from raft_tpu_torch.neighbors.processing import preprocess_rows
+    m, n = qb.shape[0], x.shape[0]
+    rows = []
+    for metric, kmetric, label in (
+            (DistanceType.L2Expanded, "l2", "l2"),
+            (DistanceType.InnerProduct, "ip", "ip"),
+            (DistanceType.CosineExpanded, "ip", "cosine")):
+        def fused(metric=metric):
+            return brute_force_knn(x, qb, K, metric, mode="fused")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        d_f, i_f = fused()
+        ms = cuda_ms(fused, BF_REPS, warmup=0)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_launched(f"brute force {label}", launches, ("fused_knn",))
+        check_knn_result(f"fused {label}", d_f, i_f, n, label == "ip")
+        (d_e, i_e), exact_ms = cuda_once(
+            lambda: brute_force_knn(x, qb, K, metric, mode="exact"))
+        check_knn_result(f"exact {label}", d_e, i_e, n, label == "ip")
+        recall = recall_at(i_f, i_e)
+        floor = BF_RECALL_GATE if label == "l2" else RECALL_FLOOR
+        if recall < floor:
+            fail(f"fused {label}: recall@{K} {recall} < {floor}")
+        phase("main_bf", metric=label, n=n, dim=D, nq=m, k=K, ms=ms,
+              qps=m / (ms / 1e3), **{f"recall_at_{K}": recall},
+              exact_ms=exact_ms, exact_qps=m / (exact_ms / 1e3),
+              mem_peak_gb=peak / 1e9, launches=launches)
+        if args.profile and label == "l2":
+            def wall_s(fused=fused):
+                t0 = time.perf_counter()
+                fused()
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+            profile_run(wall_s, "bf", "profile_bf")
+        del d_f, i_f, d_e, i_e
+        if label == "cosine":
+            xq, y = preprocess_rows(qb, metric), preprocess_rows(x, metric)
+        else:
+            xq, y = qb, x
+        rows.append(check_fused_knn(
+            "fused_knn" if label == "l2" else f"fused_knn@{label}", xq, y,
+            kmetric, "raft_tpu/ops/pallas_fused_knn.py:100",
+            launches["fused_knn"]))
+        del xq, y
+    return rows
+
+
+def run_wide_bf(seed: int, dev):
+    """Phase 7: the d > 4096 route (kernel 6) on WIDE_N x WIDE_D normal
+    rows, BF_QUERIES queries, against exact and its plain version."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.neighbors.brute_force import brute_force_knn
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    y = torch.randn((WIDE_N, WIDE_D), generator=g, device=dev)
+    qw = torch.randn((BF_QUERIES, WIDE_D), generator=g, device=dev)
+
+    def fused():
+        return brute_force_knn(y, qw, K, DistanceType.L2Expanded,
+                               mode="fused")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    d_f, i_f = fused()
+    ms = cuda_ms(fused, BF_REPS, warmup=0)
+    launches = ops.launch_counts()
+    check_launched("wide brute force", launches, ("fused_knn_ktiled",))
+    check_knn_result("wide fused", d_f, i_f, WIDE_N, False)
+    (d_e, i_e), exact_ms = cuda_once(lambda: brute_force_knn(
+        y, qw, K, DistanceType.L2Expanded, mode="exact"))
+    recall = recall_at(i_f, i_e)
+    if recall < RECALL_FLOOR:
+        fail(f"wide fused: recall@{K} {recall} < {RECALL_FLOOR}")
+    phase("wide_bf", n=WIDE_N, dim=WIDE_D, nq=BF_QUERIES, k=K, ms=ms,
+          qps=BF_QUERIES / (ms / 1e3), **{f"recall_at_{K}": recall},
+          exact_ms=exact_ms, launches=launches,
+          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return [check_fused_knn("fused_knn_ktiled", qw, y, "l2",
+                            "raft_tpu/ops/pallas_fused_knn.py:121",
+                            launches["fused_knn_ktiled"])]
+
+
+def run_pairwise(x1m, q100, seed: int, dev):
+    """Phase 8: every elementwise metric name through ``pairwise_distance``
+    at PAIR_N x PAIR_N x PAIR_D (kernel 7), each against its plain version
+    and, where one computes the same function, ``torch.cdist``; the
+    expanded metrics' times; one exact L1 scan through kernel 7."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.distance import DistanceType, pairwise_distance
+    from raft_tpu_torch.neighbors.brute_force import brute_force_knn
+    from raft_tpu_torch.ops import elementwise_dist as op
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    a = torch.rand((PAIR_N, PAIR_D), generator=g, device=dev)
+    b = torch.rand((PAIR_N, PAIR_D), generator=g, device=dev)
+    ai, bi = torch.floor(a * 4), torch.floor(b * 4)  # {0, 1, 2, 3}
+    elems = PAIR_N * PAIR_N * PAIR_D
+    rows = []
+    for name, (tag, sqrt, p_lib) in PAIR_NAMES.items():
+        xa, ya = (ai, bi) if name == "hamming" else (a, b)
+
+        def entry(xa=xa, ya=ya, name=name):
+            return pairwise_distance(xa, ya, name, p=3.0)
+
+        def kernel(xa=xa, ya=ya, tag=tag, sqrt=sqrt):
+            return op.elementwise_dist_cuda(xa, ya, tag, 3.0, sqrt)
+        ops.reset_launch_counts()
+        out = entry()
+        entry_ms = cuda_ms(entry, 3, warmup=0)
+        launches = ops.launch_counts()["elementwise_dist"]
+        if launches < 4:
+            fail(f"pairwise {name}: {launches} elementwise_dist launches")
+        saved = op.launches
+        d_k = kernel()
+        d_p, plain_ms = cuda_once(lambda: op.elementwise_dist_plain(
+            xa, ya, tag, 3.0, sqrt))
+        err = (d_k - d_p).abs()
+        max_abs = float(err.max())
+        exact = name == "hamming"
+        if not bool(torch.isfinite(d_k).all()) or not torch.equal(out, d_k) \
+                or (exact and not torch.equal(d_k, d_p)) \
+                or bool((err > ELT_ATOL + ELT_RTOL * d_p.abs()).any()):
+            fail(f"pairwise {name}: kernel differs from its plain version "
+                 f"by up to {max_abs}")
+        del out, d_p, err
+        ms = cuda_ms(kernel, 5)
+        op.launches = saved
+        lib_ms = lib_err = None
+        if p_lib is not None:
+            def lib(xa=xa, ya=ya, p_lib=p_lib):
+                return torch.cdist(xa, ya, p=p_lib,
+                                   compute_mode="donot_use_mm_for_euclid_dist")
+            lib_err = float((lib() - d_k).abs().max())
+            lib_ms = cuda_ms(lib, 5)
+        del d_k
+        fp, sfu = ELT_WORK[tag]
+        bnd = bound(4 * 2 * PAIR_N * PAIR_D + 4 * PAIR_N * PAIR_N,
+                    (fp * elems, FP32_INSTR), (sfu * elems, SFU_OPS))
+        phase("pairwise", metric=name, core=tag, sqrt=sqrt,
+              shape=[PAIR_N, PAIR_N, PAIR_D], entry_ms=entry_ms, ms=ms,
+              plain_ms=plain_ms, library_ms=lib_ms,
+              library_max_abs_err=lib_err, max_abs_err=max_abs,
+              bound_ms=bnd[0], bound_by=bnd[1], launches=launches)
+        row = kernel_row(f"elementwise_dist@{name}",
+                         "raft_tpu_torch/csrc/elementwise_dist.cu",
+                         "raft_tpu/ops/pallas_elementwise_dist.py:49",
+                         max_abs, ms, plain_ms, bnd, lib_ms)
+        row["launches"] = launches
+        rows.append(row)
+    expanded = {name: cuda_ms(lambda name=name: pairwise_distance(a, b, name),
+                              3) for name in PAIR_EXPANDED}
+    # kernel 7 inside the exact scan: L1 k-NN of 100 queries over 1M rows
+    ops.reset_launch_counts()
+    (d1, i1), l1_ms = cuda_once(lambda: brute_force_knn(
+        x1m, q100, K, DistanceType.L1))
+    launches = ops.launch_counts()
+    check_launched("exact L1 scan", launches, ("elementwise_dist",))
+    d_ref, i_ref = torch.topk(torch.cdist(q100, x1m, p=1.0), K, dim=1,
+                              largest=False)
+    agree = float((i1.long() == i_ref).double().mean())
+    if agree < MIN_ID_AGREEMENT or bool(
+            ((d1 - d_ref).abs() > ELT_ATOL + ELT_RTOL * d_ref).any()):
+        fail(f"exact L1 scan: ids agree on {agree} with torch.cdist + topk")
+    phase("pairwise", expanded_ms=expanded, l1_scan={
+        "n": x1m.shape[0], "nq": q100.shape[0], "k": K, "ms": l1_ms,
+        "id_agreement_vs_cdist": agree, "launches": launches})
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=10_000_000,
@@ -800,7 +1094,7 @@ def main() -> None:
             f.write(f"== {name}\n{text}\n")
     phase("build", seconds=secs, kernels=list(_build.KERNEL_SOURCES))
 
-    x, q = ann_dataset(args.n, D, N_QUERIES, args.seed, dev)
+    x, q, q_bf = ann_dataset(args.n, D, N_QUERIES, args.seed, dev)
     if args.n != 10_000_000:
         phase("cut", n=args.n, note="dataset cut from 10,000,000 rows")
     q_np = q.cpu().numpy()
@@ -813,8 +1107,15 @@ def main() -> None:
                  check_select_k(q, cent, N_PROBES, "select_k")]
     del cent
 
+    # the exact truth of the 256 queries, by the port's exact scan
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.neighbors.brute_force import brute_force_knn
+    t0 = time.perf_counter()
+    truth = brute_force_knn(x, q, K, DistanceType.L2Expanded,
+                            mode="exact")[1].cpu().numpy()
+    phase("truth", nq=N_QUERIES, k=K, seconds=time.perf_counter() - t0)
+
     # 3. the IVF-Flat path, with its k > 256 search
-    truth = exact_knn(x, q, K).cpu().numpy()
     scan_rows, flat_launches, wide_rows, wide_launches = run_flat(
         x, q, q_np, truth, args)
     flat_rows += scan_rows
@@ -829,6 +1130,13 @@ def main() -> None:
             key = row["name"].split("@")[0]
             row["launches"] = counts["ivf_scan" if key == "ivf_flat_scan"
                                      else key]
+
+    # 6.-8. brute force and pairwise distances: rows carry their own
+    # path's launches
+    paths.append((run_bf(x, q_bf, args), None))
+    paths.append((run_wide_bf(args.seed, dev), None))
+    paths.append((run_pairwise(x[:L1_ROWS], q_bf[:L1_QUERIES], args.seed,
+                               dev), None))
 
     print(json.dumps({"kernels": [r for rows, _ in paths for r in rows]}),
           flush=True)

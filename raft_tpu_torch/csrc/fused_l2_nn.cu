@@ -30,29 +30,14 @@
 
 #include <climits>
 
+#include "row_norms.cuh"
+
 namespace {
 
 constexpr int kTM = 64;
 constexpr int kTN = 64;
 constexpr int kTK = 16;
 constexpr int kThreads = 256;
-
-__global__ void row_norms_kernel(const float* __restrict__ x, long long rows,
-                                 int d, float* __restrict__ out) {
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (warp >= rows) return;  // uniform per warp
-  const float* xr = x + warp * d;
-  float s = 0.f;
-  for (int j = lane; j < d; j += 32) {
-    const float a = xr[j];
-    s = fmaf(a, a, s);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) out[warp] = s;
-}
 
 __global__ __launch_bounds__(kThreads) void fused_l2_nn_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
@@ -157,11 +142,9 @@ extern "C" int raft_fused_l2_nn(const float* x, const float* y, float* xx,
   if (m == 0) return 0;
   if (n < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int warps_per_block = kThreads / 32;
-  row_norms_kernel<<<(m + warps_per_block - 1) / warps_per_block, kThreads,
-                     0, s>>>(x, m, d, xx);
-  row_norms_kernel<<<(n + warps_per_block - 1) / warps_per_block, kThreads,
-                     0, s>>>(y, n, d, yy);
+  int rc = raft_tpu_torch::launch_row_norms(x, m, d, xx, s);
+  if (rc == 0) rc = raft_tpu_torch::launch_row_norms(y, n, d, yy, s);
+  if (rc != 0) return rc;
   fused_l2_nn_kernel<<<(m + kTM - 1) / kTM, kThreads, 0, s>>>(
       x, y, xx, yy, m, n, d, do_sqrt, out_i, out_d);
   return static_cast<int>(cudaGetLastError());

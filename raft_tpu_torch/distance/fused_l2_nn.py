@@ -29,3 +29,9 @@ def fused_l2_nn(x: torch.Tensor, y: torch.Tensor,
     full_fp32_matmul()
     idx, d = _op.fused_l2_nn(x.float(), y.float(), sqrt=bool(sqrt))
     return KeyValuePair(idx, d)
+
+
+def fused_l2_nn_argmin(x: torch.Tensor, y: torch.Tensor,
+                       sqrt: bool = True) -> torch.Tensor:
+    """Index-only form (``pylibraft.distance.fused_l2_nn_argmin``)."""
+    return fused_l2_nn(x, y, sqrt=sqrt).key

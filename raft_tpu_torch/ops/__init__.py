@@ -13,6 +13,9 @@ KERNEL_COUNTERS = {
     "ivf_pq_scan_fused": ("ivf_pq_scan", "launches_fused"),
     "ivf_bq_scan": ("ivf_bq_scan", "launches"),
     "ivf_bq_scan_fused": ("ivf_bq_scan", "launches_fused"),
+    "fused_knn": ("fused_knn", "launches"),
+    "fused_knn_ktiled": ("fused_knn", "launches_ktiled"),
+    "elementwise_dist": ("elementwise_dist", "launches"),
 }
 
 

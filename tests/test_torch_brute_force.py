@@ -1,0 +1,274 @@
+"""Parity of the port's brute-force k-NN (raft_tpu_torch.neighbors) with
+the JAX package's: the fused binned kernel (kernels 5 and 6, the port's
+plain version against the Pallas kernels in interpret mode), the exact
+scan, parts and merges, haversine, the legacy ``spatial.knn`` forwards
+and the ball cover.
+
+Inputs are made with numpy from a seed; the port runs on CPU tensors.
+Tolerances: ids identical (random normal data has no ties); distances
+within rtol 1e-5 of the expanded-L2 scale |x|^2 + |y|^2 (float32, another
+summation order; for square-rooted distances, their squares), rtol 1e-5
+/ atol 1e-5 elsewhere.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu.distance.distance_types import DistanceType as JDT
+from raft_tpu.neighbors import ball_cover as jbc
+from raft_tpu.neighbors import brute_force as jbf
+from raft_tpu.ops.pallas_fused_knn import _fused_knn_call as j_call
+from raft_tpu.ops.pallas_fused_knn import fused_knn_pallas
+from raft_tpu_torch.distance.distance_types import DistanceType
+from raft_tpu_torch.neighbors import ball_cover as tbc
+from raft_tpu_torch.neighbors import brute_force as tbf
+from raft_tpu_torch.neighbors import ivf_flat
+from raft_tpu_torch.ops import fused_knn as op
+from raft_tpu_torch.spatial import knn as spatial_knn
+
+
+@pytest.fixture(autouse=True)
+def _pallas_interpret(monkeypatch):
+    monkeypatch.setenv("RAFT_TPU_PALLAS", "always")
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _assert_knn(got, want, x, y, sqrt=False):
+    (dt, it), (dj, ij) = got, want
+    it, ij = it.numpy(), np.asarray(ij)
+    np.testing.assert_array_equal(it, ij)
+    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[ij]
+    if sqrt:
+        scale = np.sqrt(scale)
+    assert (np.abs(dt.numpy() - np.asarray(dj)) <= 1e-5 * scale).all()
+
+
+def _assert_sqrt_close(d, want, q, x, ids):
+    """Square-rooted expanded L2: the squares within rtol 1e-5 of
+    |q|^2 + |x|^2 (a root near 0 magnifies the rounding of its square)."""
+    scale = (q * q).sum(1)[:, None] + (x * x).sum(1)[ids]
+    assert (np.abs(d.astype(np.float64) ** 2 - np.asarray(want, np.float64)
+                   ** 2) <= 1e-5 * scale).all()
+
+
+def test_fused_default_geometry_matches_jax_and_bins():
+    # the JAX default geometry at d <= 512: tn 4096, 64 bins of 64 rows;
+    # n = 10,000 leaves a ragged last tile
+    x, y = _normal((32, 16), 1), _normal((10_000, 16), 2)
+    assert op.geometry(32, 10_000, 16, 32) == (32, 4096, 64, 0)
+    want = fused_knn_pallas(x, y, 32)
+    got = op.fused_knn(_t(x), _t(y), 32)
+    _assert_knn(got, want, x, y)
+    # the binning is in the result: it drops true neighbours
+    full = ((x[:, None, :] - y[None]) ** 2).sum(-1)
+    exact = np.argsort(full, axis=1, kind="stable")[:, :32]
+    assert (got[1].numpy() != exact).any()
+
+
+@pytest.mark.parametrize("metric,sqrt,tn,l_bins,k", [
+    ("l2", False, 64, 8, 10), ("ip", False, 40, 5, 7),
+    ("l2", True, 64, 16, 10), ("l2", False, 48, 48, 12),
+    ("ip", False, 24, 24, 30)])
+def test_fused_small_geometries_match_jax(metric, sqrt, tn, l_bins, k):
+    x, y = _normal((21, 9), tn), _normal((333, 9), l_bins)
+    want = fused_knn_pallas(x, y, k, metric=metric, sqrt=sqrt, tm=8, tn=tn,
+                            l_bins=l_bins)
+    got = op.fused_knn(_t(x), _t(y), k, metric=metric, sqrt=sqrt, tm=8,
+                       tn=tn, l_bins=l_bins)
+    if metric == "l2":
+        _assert_knn(got, want, x, y, sqrt)
+    else:
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   rtol=1e-5, atol=1e-5)
+    if l_bins == tn:  # one row a bin: the exact k-NN
+        s = (((x[:, None, :] - y[None]) ** 2).sum(-1) if metric == "l2"
+             else -(x @ y.T))
+        np.testing.assert_array_equal(
+            got[1].numpy(), np.argsort(s, axis=1, kind="stable")[:, :k])
+
+
+def test_ktiled_route_matches_jax():
+    # d > 4096: kernel 6's geometry, tn 1024 with 64 bins of 16 rows
+    x, y = _normal((16, 8192), 3), _normal((2048, 8192), 4)
+    assert op.geometry(16, 2048, 8192, 10) == (16, 1024, 64, 2048)
+    _assert_knn(op.fused_knn(_t(x), _t(y), 10), fused_knn_pallas(x, y, 10),
+                x, y)
+
+
+def test_ktiled_call_at_small_dim_matches_jax():
+    x, y = _normal((16, 64), 5), _normal((300, 64), 6)
+    want = j_call(x, y, 5, "l2", False, 16, 64, 16, True, kt=32)
+    got = op._fused_knn_call(_t(x), _t(y), 5, "l2", False, 16, 64, 16, kt=32)
+    _assert_knn(got, want, x, y)
+
+
+def test_k_above_256_ranks_by_stable_sort():
+    x, y = _normal((5, 8), 7), _normal((1200, 8), 8)
+    want = fused_knn_pallas(x, y, 300)
+    _assert_knn(op.fused_knn(_t(x), _t(y), 300), want, x, y)
+
+
+def test_bf16_tier_rounds_both_operands():
+    x, y = _normal((9, 24), 9), _normal((200, 24), 10)
+    xr = _t(x).bfloat16().float().numpy()
+    yr = _t(y).bfloat16().float().numpy()
+    s = np.maximum((y * y).sum(1)[None] + (x * x).sum(1)[:, None]
+                   - 2.0 * (xr @ yr.T), 0.0)
+    d, i = op.fused_knn(_t(x), _t(y), 6, tn=200, l_bins=200,
+                        kernel_precision="bf16")
+    np.testing.assert_array_equal(i.numpy(),
+                                  np.argsort(s, axis=1, kind="stable")[:, :6])
+    for name in (None, "bf16x3", "highest"):
+        assert not op.rounds_bf16(name)
+    with pytest.raises(ValueError):
+        op.rounds_bf16("fp8")
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.InnerProduct,
+                                    DistanceType.L1,
+                                    DistanceType.CosineExpanded])
+def test_exact_scan_matches_jax(metric, monkeypatch):
+    x, q = _normal((700, 12), 11), _normal((40, 12), 12)
+    want = jbf.brute_force_knn(x, q, 9, JDT(int(metric)), mode="exact")
+    # tiles of 128 rows on the port's side: six merges with the carry
+    monkeypatch.setattr(tbf, "_TILE_ELEMS", 40 * 128)
+    d, i = tbf.brute_force_knn(x, q, 9, metric, mode="exact", device="cpu")
+    np.testing.assert_array_equal(i.numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(d.numpy(), np.asarray(want[0]), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", [DistanceType.CosineExpanded,
+                                    DistanceType.CorrelationExpanded,
+                                    DistanceType.L2SqrtExpanded])
+def test_fused_mode_matches_jax(metric):
+    x, q = _normal((3000, 12), 13), _normal((24, 12), 14)
+    want = jbf.brute_force_knn(x, q, 8, JDT(int(metric)), mode="fused")
+    d, i = tbf.brute_force_knn(x, q, 8, metric, mode="fused", device="cpu")
+    np.testing.assert_array_equal(i.numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(d.numpy(), np.asarray(want[0]), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_knn_parts_translations_and_merge_match_jax():
+    parts = [_normal((150, 6), 15), _normal((90, 6), 16), _normal((5, 6), 17)]
+    q = _normal((11, 6), 18)
+    for tr in (None, [1000, 0, 5000]):
+        want = jbf.knn(parts, q, 7, JDT.L2Expanded, translations=tr)
+        got = tbf.knn(parts, q, 7, DistanceType.L2Expanded, translations=tr,
+                      device="cpu")
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   rtol=1e-5, atol=1e-5)
+    want = jbf.knn(parts, q, 7, JDT.InnerProduct)
+    got = tbf.knn(parts, q, 7, DistanceType.InnerProduct, device="cpu")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    # merge with -1 sentinels: a row whose parts hold fewer than k ids
+    pd = [np.array([[0.5, np.inf], [0.1, 0.2]], np.float32),
+          np.array([[0.3, np.inf], [0.05, 0.4]], np.float32)]
+    pi = [np.array([[1, -1], [2, 3]], np.int32),
+          np.array([[7, -1], [8, 9]], np.int32)]
+    want = jbf.knn_merge_parts(pd, pi, 3)
+    got = tbf.knn_merge_parts(pd, pi, 3, device="cpu")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def test_haversine_and_fused_l2_knn_match_jax():
+    rng = np.random.default_rng(19)
+    pts = rng.uniform(-1.2, 1.2, size=(300, 2)).astype(np.float32)
+    want = jbf.haversine_knn(pts, pts[:20], 5)
+    got = tbf.haversine_knn(pts, pts[:20], 5, device="cpu")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-5)
+    x = _normal((400, 8), 20)
+    for sqrt in (False, True):
+        want = jbf.fused_l2_knn(x, x[:10], 4, sqrt=sqrt)
+        got = tbf.fused_l2_knn(x, x[:10], 4, sqrt=sqrt, device="cpu")
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_spatial_knn_forwards():
+    x = _normal((500, 8), 21)
+    assert spatial_knn.brute_force_knn is tbf.brute_force_knn
+    assert spatial_knn.knn_merge_parts is tbf.knn_merge_parts
+    params = ivf_flat.IndexParams(n_lists=8, kmeans_n_iters=3)
+    idx = spatial_knn.approx_knn_build_index(x, params, device="cpu")
+    assert isinstance(idx, ivf_flat.Index)
+    sp = ivf_flat.SearchParams(n_probes=8)
+    got = spatial_knn.approx_knn_search(idx, x[:6], 4, sp)
+    want = ivf_flat.search(idx, x[:6], 4, sp)
+    assert torch.equal(got[1], want[1])
+    np.testing.assert_array_equal(got[1][:, 0].numpy(), np.arange(6))
+    with pytest.raises(TypeError):
+        spatial_knn.approx_knn_build_index(x, object(), device="cpu")
+    with pytest.raises(TypeError):
+        spatial_knn.approx_knn_search(object(), x[:6], 4)
+
+
+@pytest.fixture(scope="module")
+def ball_data():
+    rng = np.random.default_rng(22)
+    c = rng.normal(size=(10, 5)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 10, 900)] + rng.normal(size=(900, 5))).astype(
+        np.float32)
+    return x, jbc.build(x)
+
+
+@pytest.mark.parametrize("prune,n_probes", [(True, 0), (False, 0),
+                                            (True, 4)])
+def test_ball_cover_on_jax_index_matches_jax(ball_data, prune, n_probes):
+    x, jidx = ball_data
+    tidx = tbc.index_from_numpy(
+        {f: np.asarray(getattr(jidx, f)) for f in
+         ("landmarks", "lists_data", "lists_indices", "radii")},
+        int(jidx.metric), jidx.size, device="cpu")
+    q = x[::37]
+    want = jbc.knn_query(jidx, q, 6, n_probes=n_probes, prune=prune)
+    got = tbc.knn_query(tidx, q, 6, n_probes=n_probes, prune=prune)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    _assert_sqrt_close(got[0].numpy(), want[0], q, x, got[1].numpy())
+    if n_probes == 0:
+        want = jbc.all_knn_query(jidx, 3)
+        got = tbc.all_knn_query(tidx, 3)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L2SqrtExpanded,
+                                    DistanceType.L2SqrtUnexpanded])
+def test_ball_cover_own_build_is_exact(ball_data, metric):
+    x, _ = ball_data
+    idx = tbc.build(x, metric, device="cpu")
+    assert idx.n_landmarks == 30 and idx.size == 900
+    q = x[::23]
+    d, i = tbc.knn_query(idx, q, 5)
+    want = tbf.brute_force_knn(x, q, 5, DistanceType.L2SqrtExpanded,
+                               device="cpu")
+    np.testing.assert_array_equal(i.numpy(), want[1].numpy())
+    _assert_sqrt_close(d.numpy(), want[0].numpy(), q, x, i.numpy())
+
+
+def test_cpu_tensor_takes_plain_version_without_launch():
+    x = _t(_normal((6, 4), 23))
+    before = (op.launches, op.launches_ktiled)
+    op.fused_knn(x, x, 2)
+    assert (op.launches, op.launches_ktiled) == before
+
+
+def test_cuda_entry_refuses_cpu_tensors():
+    x = torch.zeros((4, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        op.fused_knn_cuda(x, x, 2)
+    with pytest.raises(ValueError, match="metric"):
+        op.fused_knn(x, x, 2, metric="l1")

@@ -18,7 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch.distance import _elementwise_cores as elt_cores
 from raft_tpu_torch.neighbors import _ivf_scan, ivf_bq, ivf_flat, ivf_pq
+from raft_tpu_torch.ops import elementwise_dist as elt_op
+from raft_tpu_torch.ops import fused_knn as knn_op
 from raft_tpu_torch.ops import fused_l2_nn as nn_op
 from raft_tpu_torch.ops import ivf_bq_scan as bq_op
 from raft_tpu_torch.ops import ivf_pq_scan as pq_op
@@ -439,3 +442,95 @@ def test_bq_search_on_card_matches_cpu(dev, metric):
         np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
         np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(),
                                    rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("metric,sqrt,bf16", [("l2", False, False),
+                                              ("l2", True, False),
+                                              ("ip", False, False),
+                                              ("l2", False, True)])
+@pytest.mark.parametrize("m,n,d,k", [(1, 1, 1, 1), (37, 23, 8, 5),
+                                     (130, 5000, 17, 32), (65, 9000, 128, 1),
+                                     (70, 3000, 64, 256), (20, 2500, 24, 300),
+                                     (33, 700, 4097, 10), (9, 2100, 8192, 16)])
+def test_fused_knn_matches_plain(dev, m, n, d, k, metric, sqrt, bf16):
+    rng = np.random.default_rng(m + n + d + k)
+    x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
+    y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
+    _, tn, l_bins, kt = knn_op.geometry(m, n, d, k)
+    key = "launches_ktiled" if kt else "launches"
+    before = getattr(knn_op, key)
+    dk, ik = knn_op.fused_knn_cuda(x, y, k, metric, sqrt, tn, l_bins, kt,
+                                   bf16)
+    torch.cuda.synchronize()
+    assert getattr(knn_op, key) == before + 1
+    dp, ip = knn_op.fused_knn_plain(x, y, k, metric, sqrt, tn, l_bins, kt,
+                                    bf16)
+    assert ik.dtype == torch.int32 and dk.shape == (m, k)
+    assert ((ik >= 0) & (ik < n)).all() or k > n
+    if sqrt:
+        dk, dp = dk * dk, dp * dp
+    tol = 1e-5 * float(((x * x).sum(1).max() + (y * y).sum(1).max()))
+    _near_tie_equal(dk, ik, dp, ip, tol)
+
+
+def test_fused_knn_exact_bins_equal_exact_scan(dev):
+    # one row a bin: the binned search is the exact k-NN
+    rng = np.random.default_rng(5)
+    x = _t(rng.normal(size=(50, 32)).astype(np.float32), dev)
+    y = _t(rng.normal(size=(1000, 32)).astype(np.float32), dev)
+    dk, ik = knn_op.fused_knn(x, y, 20, tn=1000, l_bins=1000)
+    full = ((x[:, None, :] - y[None]) ** 2).sum(-1)
+    de, ie = torch.sort(full, dim=1, stable=True)
+    _near_tie_equal(dk, ik, de[:, :20], ie[:, :20].int(), 1e-4)
+
+
+ELT_CASES = [(t, False) for t in elt_cores.TAGS] + [("l2unexp", True)]
+
+
+@pytest.mark.parametrize("tag,sqrt", ELT_CASES)
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (70, 65, 127), (33, 129, 5000)])
+def test_elementwise_dist_matches_plain(dev, tag, sqrt, m, n, d):
+    rng = np.random.default_rng(m + n + d)
+    x = rng.random((m, d)).astype(np.float32)
+    y = rng.random((n, d)).astype(np.float32)
+    x[x < 0.1] = 0.0
+    y[y < 0.1] = 0.0
+    x, y = _t(x, dev), _t(y, dev)
+    before = elt_op.launches
+    got = elt_op.elementwise_dist(x, y, tag, p=3.0, sqrt=sqrt)
+    torch.cuda.synchronize()
+    assert elt_op.launches == before + 1
+    want = elt_op.elementwise_dist_plain(x, y, tag, p=3.0, sqrt=sqrt)
+    rtol = 1e-4 if tag in ("jensen_shannon", "kl") else 1e-5
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=rtol, atol=1e-5)
+
+
+def test_elementwise_hamming_on_integers_is_exact(dev):
+    rng = np.random.default_rng(6)
+    x = _t(rng.integers(0, 4, size=(90, 300)).astype(np.float32), dev)
+    y = _t(rng.integers(0, 4, size=(70, 300)).astype(np.float32), dev)
+    assert torch.equal(elt_op.elementwise_dist(x, y, "hamming"),
+                       elt_op.elementwise_dist_plain(x, y, "hamming"))
+
+
+def test_brute_force_entry_points_launch_on_card(dev):
+    from raft_tpu_torch.neighbors import brute_force
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(3000, 16)).astype(np.float32)
+    q = rng.normal(size=(40, 16)).astype(np.float32)
+    before = (knn_op.launches, elt_op.launches)
+    for metric in (brute_force.DistanceType.L2Expanded,
+                   brute_force.DistanceType.CosineExpanded):
+        dg, ig = brute_force.brute_force_knn(x, q, 10, metric, mode="fused")
+        dc, ic = brute_force.brute_force_knn(x, q, 10, metric, mode="fused",
+                                             device="cpu")
+        np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
+    dg, ig = brute_force.brute_force_knn(x, q, 10, brute_force.DistanceType.L1)
+    dc, ic = brute_force.brute_force_knn(x, q, 10, brute_force.DistanceType.L1,
+                                         device="cpu")
+    np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
+    assert knn_op.launches == before[0] + 2
+    # one launch per db tile of the exact scan
+    tiles = -(-3000 // brute_force._db_tile(40, 3000))
+    assert tiles == 2 and elt_op.launches == before[1] + tiles

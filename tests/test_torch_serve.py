@@ -322,11 +322,19 @@ def test_port_imports_without_jax():
             "    raft_tpu_torch.__path__, 'raft_tpu_torch.')]\n"
             "for m in mods:\n"
             "    importlib.import_module(m)\n"
-            "print(len(mods))\n")
+            "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    mods = set(out.stdout.split())
+    assert len(mods) >= 30
+    # the brute-force and pairwise slice, imported without JAX too
+    assert {f"raft_tpu_torch.{m}" for m in (
+        "distance._elementwise_cores", "distance.pairwise",
+        "distance.kernels", "ops.elementwise_dist", "ops.fused_knn",
+        "neighbors.processing", "neighbors.brute_force",
+        "neighbors.epsilon_neighborhood", "neighbors.ball_cover",
+        "spatial.knn")} <= mods
 
 
 def test_port_sources_do_not_import_jax():
