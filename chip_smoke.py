@@ -51,11 +51,15 @@ Phases, one line each:
 6. main_bf  — brute-force k-NN on the same 10M x 128 dataset (the
               reference's ``knn.cuh`` case): 1000 queries from the same
               mixture, k=32, ``brute_force_knn(mode="fused")`` for
-              L2Expanded, InnerProduct and CosineExpanded (kernel 5);
-              time and QPS over 3 reps after a warm-up, recall@32
+              L2Expanded, InnerProduct and CosineExpanded at the card's
+              default precision (kernel 5's bf16x3 pass A on the tensor
+              cores), then L2 at ``kernel_precision="highest"`` (its f32
+              body); time and QPS over 3 reps after a warm-up, recall@32
               against ``mode="exact"`` and the exact scan's time, peak
               memory, launch counts, and kernel 5 against its plain
-              version on the same inputs (rows ``fused_knn@<metric>``).
+              version at the same arithmetic on the same inputs (rows
+              ``fused_knn``, ``fused_knn@<metric>``,
+              ``fused_knn@highest``).
 7. wide_bf  — 10,000 x 8192 normal rows, 1000 queries, k=32, fused: the
               d > 4096 route (kernel 6, row ``fused_knn_ktiled``),
               against its plain version, recall against exact.
@@ -72,8 +76,10 @@ Phases, one line each:
 The exact search's truth for phases 3-5 (256 queries, k=32) comes from
 the port's own ``brute_force_knn(mode="exact")``.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
-the last line ``{"ok": true, "device": {...}}``. Any failed check exits
+The build line reports the registers, shared memory and spills of the
+radix select and the tensor-core pass A (``nvcc -Xptxas -v``). Then a
+``{"kernels": [...]}`` line, the card's name and power limit, and the
+last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. There is no CPU path: without CUDA the
 script fails. ``--n`` cuts the dataset of every path (the cut is
 printed).
@@ -166,6 +172,9 @@ ELT_WORK = {"l1": (2, 0), "l2unexp": (2, 0), "linf": (2, 0),
 PAIR_EXPANDED = ("inner_product", "cosine", "correlation", "hellinger",
                  "russellrao", "jaccard", "dice")
 
+# kernels whose compiled resources the build line reports
+PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel")
+
 OUT_DIR = "chiprun_out"
 
 
@@ -176,6 +185,37 @@ def fail(msg: str) -> None:
 
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def ptxas_summary(reports: dict) -> dict:
+    """Registers, shared memory and spills of each PTXAS_KERNELS entry
+    function, from ``nvcc -Xptxas -v`` output."""
+    import re
+    out, cur = {}, None
+    for text in reports.values():
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                hit = [kn for kn in PTXAS_KERNELS if kn in name]
+                cur = (hit[0] + name.split(hit[0], 1)[1].split("Ev", 1)[0]
+                       if hit else None)
+                if cur:
+                    out[cur] = {}
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[cur]["spill_stores"] = int(m.group(1))
+                out[cur]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[cur]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                out[cur]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -191,6 +231,37 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Mean device milliseconds of ``fn()`` with the host's launch cost
+    taken out: ``reps`` calls captured into one CUDA graph, replayed
+    ``replays`` times between two events. For kernels of a few
+    microseconds, where a Python launch takes longer than the kernel and
+    ``cuda_ms`` would time the host."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (reps * replays)
 
 
 def bound(n_bytes: float, *work):
@@ -316,14 +387,19 @@ def check_select_k(q, centers, k, name):
     d_p, i_p = op.select_k_plain(v, k)
     torch.cuda.synchronize()
     max_abs, agree = compare(name, d_k, i_k, d_p, i_p, True)
-    ms = cuda_ms(lambda: op.select_k_cuda(v, k), 50)
+    # device times by graph replay (the kernel takes ~10 us, less than a
+    # Python launch); the eager per-call times, host included, beside them
+    kernel = lambda: op.select_k_cuda(v, k)  # noqa: E731
+    lib = lambda: torch.topk(v, k, dim=1, largest=False)  # noqa: E731
+    ms, lib_ms = graph_ms(kernel), graph_ms(lib)
+    eager_ms, lib_eager_ms = cuda_ms(kernel, 50), cuda_ms(lib, 50)
     plain_ms = cuda_ms(lambda: op.select_k_plain(v, k), 20)
-    lib_ms = cuda_ms(lambda: torch.topk(v, k, dim=1, largest=False), 50)
     op.launches = saved
     bnd = bound(4 * m * n + 8 * m * k, (m * n, FP32_FLOPS))
     phase("kernels", kernel=name, shape=[m, n, k],
           id_agreement=agree, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-          library_ms=lib_ms, bound_ms=bnd[0])
+          library_ms=lib_ms, eager_ms=eager_ms, library_eager_ms=lib_eager_ms,
+          bound_ms=bnd[0])
     return kernel_row(name, "raft_tpu_torch/csrc/select_k.cu",
                       "raft_tpu/ops/pallas_select_k.py:47", max_abs, ms,
                       plain_ms, bnd, lib_ms)
@@ -857,72 +933,92 @@ def check_knn_result(what: str, d, i, n: int, descending: bool) -> None:
         fail(f"{what}: neighbours are not sorted")
 
 
-def check_fused_knn(name, xq, y, metric, replaces, launches):
-    """The fused k-NN kernel (both passes) against its plain version on
-    the main path's inputs, within ``RTOL`` of |x|^2 + |y|^2; the plain
-    version is timed on its one call."""
+def check_fused_knn(name, xq, y, metric, replaces, launches, precision,
+                    src="raft_tpu_torch/csrc/fused_knn.cu", bound_as=None):
+    """The fused k-NN kernel (both passes) at ``precision`` against its
+    plain version at the same arithmetic on the main path's inputs, within
+    ``RTOL`` of |x|^2 + |y|^2; the plain version is timed on its one
+    call. The bound counts the products at ``bound_as`` (default
+    ``precision``)."""
     from raft_tpu_torch.ops import fused_knn as op
     m, dim = xq.shape
     n = y.shape[0]
     _, tn, l_bins, kt = op.geometry(m, n, dim, K)
-    saved = (op.launches, op.launches_ktiled)
+    saved = (op.launches, op.launches_f32, op.launches_ktiled)
     kernel = lambda: op.fused_knn_cuda(xq, y, K, metric, False, tn,  # noqa: E731
-                                       l_bins, kt)
+                                       l_bins, kt, precision)
     d_k, i_k = kernel()
     (d_p, i_p), plain_ms = cuda_once(lambda: op.fused_knn_plain(
-        xq, y, K, metric, False, tn, l_bins, kt))
+        xq, y, K, metric, False, tn, l_bins, kt, precision))
     scale = (xq * xq).sum(1)[:, None] + (y * y).sum(1)[i_p.clamp(min=0).long()]
     max_abs, agree = compare(name, d_k, i_k, d_p, i_p, False, scale)
     del d_k, i_k, d_p, i_p
     ms = cuda_ms(kernel, BF_REPS, warmup=1)
-    op.launches, op.launches_ktiled = saved
-    # the TPU kernel's products as three bf16 passes on the tensor cores
+    op.launches, op.launches_f32, op.launches_ktiled = saved
+    # the products at the arithmetic asked for: bf16x3 (the TPU kernel's)
+    # three bf16 passes on the tensor cores, f32 one pass on the CUDA cores
+    ops = 2 * m * n * dim
     bnd = bound(4 * (m + n) * dim + 8 * m * K,
-                (3 * 2 * m * n * dim, BF16_FLOPS))
+                {"bf16x3": (3 * ops, BF16_FLOPS), "bf16": (ops, BF16_FLOPS),
+                 "f32": (ops, FP32_FLOPS)}[bound_as or precision])
     phase("kernels", kernel=name, shape=[m, n, dim], k=K, tn=tn,
-          l_bins=l_bins, kt=kt, id_agreement=agree, max_abs_err=max_abs,
+          l_bins=l_bins, kt=kt, precision=precision, id_agreement=agree,
+          max_abs_err=max_abs,
           ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
           f32_cuda_core_ms=2 * m * n * dim / FP32_FLOPS * 1e3)
-    row = kernel_row(name, "raft_tpu_torch/csrc/fused_knn.cu", replaces,
-                     max_abs, ms, plain_ms, bnd, None)
+    row = kernel_row(name, src, replaces, max_abs, ms, plain_ms, bnd, None)
     row["launches"] = launches
     return row
 
 
 def run_bf(x, qb, args):
     """Phase 6: fused brute-force k-NN of BF_QUERIES queries over the
-    dataset for three metrics, each against the exact scan, and kernel 5
-    against its plain version on each metric's kernel inputs."""
+    dataset for three metrics at the card's default precision (bf16x3 on
+    the tensor cores), and L2 at ``"highest"`` (kernel 5's f32 body), each
+    against the exact scan, and kernel 5 against its plain version at the
+    same arithmetic on each run's kernel inputs."""
     from raft_tpu_torch import ops
     from raft_tpu_torch.distance import DistanceType
     from raft_tpu_torch.neighbors.brute_force import brute_force_knn
     from raft_tpu_torch.neighbors.processing import preprocess_rows
     m, n = qb.shape[0], x.shape[0]
     rows = []
-    for metric, kmetric, label in (
-            (DistanceType.L2Expanded, "l2", "l2"),
-            (DistanceType.InnerProduct, "ip", "ip"),
-            (DistanceType.CosineExpanded, "ip", "cosine")):
-        def fused(metric=metric):
-            return brute_force_knn(x, qb, K, metric, mode="fused")
+    exact_l2 = None
+    for metric, kmetric, label, prec in (
+            (DistanceType.L2Expanded, "l2", "l2", None),
+            (DistanceType.InnerProduct, "ip", "ip", None),
+            (DistanceType.CosineExpanded, "ip", "cosine", None),
+            (DistanceType.L2Expanded, "l2", "highest", "highest")):
+        def fused(metric=metric, prec=prec):
+            return brute_force_knn(x, qb, K, metric, mode="fused",
+                                   kernel_precision=prec)
+        key = "fused_knn_f32" if prec == "highest" else "fused_knn"
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         d_f, i_f = fused()
         ms = cuda_ms(fused, BF_REPS, warmup=0)
         launches = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        check_launched(f"brute force {label}", launches, ("fused_knn",))
+        check_launched(f"brute force {label}", launches, (key,))
         check_knn_result(f"fused {label}", d_f, i_f, n, label == "ip")
-        (d_e, i_e), exact_ms = cuda_once(
-            lambda: brute_force_knn(x, qb, K, metric, mode="exact"))
-        check_knn_result(f"exact {label}", d_e, i_e, n, label == "ip")
+        exact_ms = None
+        if exact_l2 is not None and kmetric == "l2":
+            i_e = exact_l2  # the same function: L2's exact scan
+        else:
+            (d_e, i_e), exact_ms = cuda_once(
+                lambda: brute_force_knn(x, qb, K, metric, mode="exact"))
+            check_knn_result(f"exact {label}", d_e, i_e, n, label == "ip")
+            del d_e
+            if kmetric == "l2":
+                exact_l2 = i_e
         recall = recall_at(i_f, i_e)
-        floor = BF_RECALL_GATE if label == "l2" else RECALL_FLOOR
+        floor = BF_RECALL_GATE if kmetric == "l2" else RECALL_FLOOR
         if recall < floor:
             fail(f"fused {label}: recall@{K} {recall} < {floor}")
-        phase("main_bf", metric=label, n=n, dim=D, nq=m, k=K, ms=ms,
-              qps=m / (ms / 1e3), **{f"recall_at_{K}": recall},
-              exact_ms=exact_ms, exact_qps=m / (exact_ms / 1e3),
+        phase("main_bf", metric=label, precision=prec or "bf16x3", n=n,
+              dim=D, nq=m, k=K, ms=ms, qps=m / (ms / 1e3),
+              **{f"recall_at_{K}": recall}, exact_ms=exact_ms,
+              exact_qps=m / (exact_ms / 1e3) if exact_ms else None,
               mem_peak_gb=peak / 1e9, launches=launches)
         if args.profile and label == "l2":
             def wall_s(fused=fused):
@@ -931,15 +1027,17 @@ def run_bf(x, qb, args):
                 torch.cuda.synchronize()
                 return time.perf_counter() - t0
             profile_run(wall_s, "bf", "profile_bf")
-        del d_f, i_f, d_e, i_e
+        del d_f, i_f, i_e
         if label == "cosine":
             xq, y = preprocess_rows(qb, metric), preprocess_rows(x, metric)
         else:
             xq, y = qb, x
         rows.append(check_fused_knn(
             "fused_knn" if label == "l2" else f"fused_knn@{label}", xq, y,
-            kmetric, "raft_tpu/ops/pallas_fused_knn.py:100",
-            launches["fused_knn"]))
+            kmetric, "raft_tpu/ops/pallas_fused_knn.py:100", launches[key],
+            "f32" if prec == "highest" else "bf16x3",
+            "raft_tpu_torch/csrc/fused_knn.cu" if prec == "highest"
+            else "raft_tpu_torch/csrc/fused_knn_tc.cu"))
         del xq, y
     return rows
 
@@ -973,9 +1071,12 @@ def run_wide_bf(seed: int, dev):
           qps=BF_QUERIES / (ms / 1e3), **{f"recall_at_{K}": recall},
           exact_ms=exact_ms, launches=launches,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # kernel 6 computes the default bf16x3 in f32; its bound is that of
+    # the TPU kernel's bf16x3 products on the tensor cores
     return [check_fused_knn("fused_knn_ktiled", qw, y, "l2",
                             "raft_tpu/ops/pallas_fused_knn.py:121",
-                            launches["fused_knn_ktiled"])]
+                            launches["fused_knn_ktiled"], "f32",
+                            bound_as="bf16x3")]
 
 
 def run_pairwise(x1m, q100, seed: int, dev):
@@ -1092,7 +1193,8 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         for name, text in reports.items():
             f.write(f"== {name}\n{text}\n")
-    phase("build", seconds=secs, kernels=list(_build.KERNEL_SOURCES))
+    phase("build", seconds=secs, kernels=list(_build.KERNEL_SOURCES),
+          ptxas=ptxas_summary(reports))
 
     x, q, q_bf = ann_dataset(args.n, D, N_QUERIES, args.seed, dev)
     if args.n != 10_000_000:
@@ -1138,8 +1240,8 @@ def main() -> None:
     paths.append((run_pairwise(x[:L1_ROWS], q_bf[:L1_QUERIES], args.seed,
                                dev), None))
 
-    print(json.dumps({"kernels": [r for rows, _ in paths for r in rows]}),
-          flush=True)
+    kernels = [r for rows, _ in paths for r in rows]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,10 @@
 //    wrapper ranks with a stable sort). The TPU's filtered merge changes no
 //    result and has no counterpart. Padded rows never enter: a bin with no
 //    finite value keeps (+inf, -1), and pass B writes -1 for every +inf slot.
-//  - precision: f32 products, the bf16 tier rounding both operands to bf16
-//    before the product (norms from the unrounded values), as one MXU pass.
+//  - precision: f32 products ("highest"); kernel 6's bf16 tier rounds both
+//    operands to bf16 before the product (norms from the unrounded values),
+//    as one MXU pass. Kernel 5's bf16x3 (the card's default) and bf16 tiers
+//    run on the tensor cores, in fused_knn_tc.cu.
 //
 // Bound on the H100 SXM (data-sheet rates, 700 W): operations. The TPU
 // kernel computes its 2*m*n*d products as bf16x3 (three bf16 passes), so
@@ -217,7 +219,8 @@ extern "C" int raft_fused_knn_norms(const float* x, long long rows, int d,
                                           static_cast<cudaStream_t>(stream));
 }
 
-// Pass A (kernel 5, or kernel 6 with ktiled): x (m, d) queries, y (n, d)
+// Pass A (kernel 5 in f32, or kernel 6 with ktiled, which alone takes
+// bf16): x (m, d) queries, y (n, d)
 // database, xx/yy their norms (kernel 5, L2 only; else unused) -> cand_d /
 // cand_i (m, nb), nb = ceil(n / b), each bin's (minimum, row).
 extern "C" int raft_fused_knn_bins(const float* x, const float* y,
@@ -237,9 +240,7 @@ extern "C" int raft_fused_knn_bins(const float* x, const float* y,
                                 cand_i, s);
   switch (sel) {
     RAFT_BINS(false, false, false)
-    RAFT_BINS(false, false, true)
     RAFT_BINS(false, true, false)
-    RAFT_BINS(false, true, true)
     RAFT_BINS(true, false, false)
     RAFT_BINS(true, false, true)
     RAFT_BINS(true, true, false)

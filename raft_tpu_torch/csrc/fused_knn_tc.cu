@@ -1,0 +1,534 @@
+// Pass A of the fused brute-force k-NN (kernel 5) on the tensor cores:
+// every bin's (minimum, row) of the expanded L2 or inner-product scores,
+// with the products taken as bf16x3 (or one bf16 pass) by wgmma.
+//
+// Replaces: raft_tpu/ops/pallas_fused_knn.py:_knn_kernel (kernel 5, d <=
+// 4096), whose products are dot_nt_f32(y, x, "bf16x3")
+// (raft_tpu/ops/_util.py:21-50): each f32 operand is split into hi =
+// bf16(v) and lo = bf16(v - hi), and hi.lo + lo.hi + hi.hi are summed in
+// f32. PASSES = 3 takes the same three products (each exact in f32) into
+// one f32 accumulator; PASSES = 1 takes hi.hi alone, the bf16 tier (both
+// operands rounded, the product exact). Norms come from the unrounded f32
+// rows (row_norms.cuh, as the TPU kernel sums x*x). Distances and binning
+// are fused_knn.cu's: L2 max((|y|^2 + |x|^2) - 2 acc, 0), IP -acc; each bin
+// of b = tn / l_bins rows of a tn tile gives its minimum, the lowest row
+// among equal values; padded rows never enter; a bin with no finite value
+// writes (+inf, -1). Pass B (candidate_topk.cuh) is unchanged.
+//
+// Bound on the H100 SXM (data-sheet rates, 700 W): operations, 3 x 2mnd
+// at the 989 TFLOP/s bf16 tensor rate: 7.8 ms at 1000 x 10M x 128 (the
+// database's 5.1 GB take 1.53 ms). The f32 body it replaces on the main
+// path took 122.9 ms there (NVIDIA H100 80GB HBM3, 700.00 W;
+// chip_smoke.py), 3.1x its own 38.2 ms floor on the CUDA cores.
+//
+// Design: a 256-thread block = two warpgroups owns 128 queries (64 each,
+// the wgmma M side) and one db tile, walked in chunks of 128 rows (the N
+// side) and 64-wide feature slices (128 bytes of bf16, one 128-byte
+// swizzle row). The queries' hi/lo slices stay in shared memory for the
+// whole tile when they fit (d <= 320, 3 passes); otherwise they stream
+// with the rows. Rows are split on the fly: the f32 slice for step t + 2
+// is loaded into registers behind the wgmmas of step t (and the epilogue
+// and barrier after them), and split and stored in the swizzled K-major
+// layout the wgmma descriptors read one step later (a two-stage ring, one
+// barrier a step). Pre-splitting the database once a
+// call instead would read and write 10 GB more at 10M x 128 and hold
+// 5 GB more of device memory. The epilogue reads the accumulator
+// fragment: for a power-of-two b >= 8 (REG; the default geometry's b = 64)
+// bins are reduced in registers (the column pair, then this thread's
+// 8-column groups of a bin, lower rows first, then quad shuffles on what
+// is left), a bin wider than a chunk carried across chunks, each result
+// stored as its bin closes; the metric and this mode are template
+// parameters, so the epilogue is straight-line code (a runtime b == 1 /
+// ip branch in it cost more than the products). For any other b (WALK) the
+// chunk's distances go through shared memory and one thread per query
+// walks them in row order (fused_knn.cu's walk). The grid keeps the query
+// block fastest, so the blocks sharing a db tile read it from L2.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBM = 128;    // queries per block (two warpgroups of 64)
+constexpr int kBN = 128;    // db rows per chunk
+constexpr int kBK = 64;     // features per slice (128 bytes of bf16)
+constexpr int kTile = kBN * kBK * 2;  // bytes of one swizzled bf16 tile
+constexpr int kUnits = kBN * kBK / 8 / kThreads;  // 8-float groups a thread
+constexpr int kDistLd = kBN + 1;
+constexpr int kMaxSmem = 232448;  // the H100's opt-in limit per block
+
+// ---- wgmma helpers (PTX ISA, warpgroup-level matrix multiply) ----
+
+// Descriptor of a K-major tile of 64-wide rows (128 bytes) with the
+// 128-byte swizzle: 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  uint64_t d = static_cast<uint64_t>((saddr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(16 >> 4) << 16;    // leading offset (unused)
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride: 8 rows x 128 B
+  d |= 1ull << 62;                               // 128-byte swizzle
+  return d;
+}
+
+// d (64 x 128 f32 fragment) = a (64 x 16) . b (128 x 16)^T [+ d]
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// generic-proxy shared-memory writes made visible to the wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma window
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---- staging: f32 rows -> swizzled bf16 hi / lo tiles ----
+
+// One thread's share of a 128-row x 64-feature f32 slice: kUnits groups of
+// 8 consecutive features, group u of the block at row u / 8, features
+// 8 (u % 8) .. + 7; zeros beyond the valid rows and features.
+struct Slice {
+  float v[kUnits][8];
+};
+
+__device__ __forceinline__ void fetch(Slice& f, const float* __restrict__ src,
+                                      long long r0, long long rlim, int d,
+                                      int k0, bool vec4) {
+#pragma unroll
+  for (int s = 0; s < kUnits; ++s) {
+    const int u = threadIdx.x + s * kThreads;
+    const long long row = r0 + (u >> 3);
+    const int kk = k0 + 8 * (u & 7);
+    const float* p = src + row * d + kk;
+    if (row < rlim && vec4 && kk + 8 <= d) {
+      const float4 a = *reinterpret_cast<const float4*>(p);
+      const float4 b = *reinterpret_cast<const float4*>(p + 4);
+      f.v[s][0] = a.x; f.v[s][1] = a.y; f.v[s][2] = a.z; f.v[s][3] = a.w;
+      f.v[s][4] = b.x; f.v[s][5] = b.y; f.v[s][6] = b.z; f.v[s][7] = b.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        f.v[s][e] = (row < rlim && kk + e < d) ? p[e] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Split the slice into hi (and, for 3 passes, lo) and store both at the
+// 128-byte-swizzled K-major position of each group: byte r * 128 +
+// ((g ^ (r % 8)) * 16) of its tile.
+template <int PASSES>
+__device__ __forceinline__ void put(const Slice& f, unsigned char* hi,
+                                    unsigned char* lo) {
+#pragma unroll
+  for (int s = 0; s < kUnits; ++s) {
+    const int u = threadIdx.x + s * kThreads;
+    const int r = u >> 3, g = u & 7;
+    const int off = r * 128 + ((g ^ (r & 7)) << 4);
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = f.v[s][2 * e], b = f.v[s][2 * e + 1];
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
+      h[e] = pack2(hv);
+      if constexpr (PASSES == 3)
+        l[e] = pack2(__floats2bfloat162_rn(a - __low2float(hv),
+                                           b - __high2float(hv)));
+    }
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    if constexpr (PASSES == 3)
+      *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// ---- bins ----
+
+struct Cand {
+  float v;
+  int r;
+};
+
+// the better of two candidates: smaller value, then lower row
+__device__ __forceinline__ Cand better(Cand a, Cand b) {
+  return (b.v < a.v || (b.v == a.v && b.r < a.r)) ? b : a;
+}
+
+// the better of a and b when b holds the higher rows: b only if smaller
+__device__ __forceinline__ Cand lower_first(Cand a, Cand b) {
+  return b.v < a.v ? b : a;
+}
+
+__device__ __forceinline__ Cand shfl_xor(Cand c, int mask) {
+  return {__shfl_xor_sync(0xffffffffu, c.v, mask),
+          __shfl_xor_sync(0xffffffffu, c.r, mask)};
+}
+
+__device__ __forceinline__ void write_cand(float* od, int* oi, long long col,
+                                           Cand c) {
+  od[col] = c.v;
+  oi[col] = c.v == CUDART_INF_F ? -1 : c.r;
+}
+
+// Shared-memory layout (bytes, from a 1024-aligned base): query hi tiles
+// [qt], query lo tiles [qt] (3 passes), row hi tiles [2], row lo tiles [2]
+// (3 passes), the chunk norms [2][kBN] floats, then (WALK) the chunk
+// distances [kBM][kDistLd] floats. qt is the
+// number of slices (resident queries) or 2 (a ring with the rows).
+__host__ __device__ inline int q_tiles(bool qres, int ks) {
+  return qres ? ks : 2;
+}
+__host__ __device__ inline size_t smem_bytes(int passes, bool qres, bool reg,
+                                             int ks) {
+  const size_t planes = passes == 3 ? 2 : 1;
+  return 1024 + planes * (q_tiles(qres, ks) + 2) * kTile + 2 * kBN * 4 +
+         (reg ? 0 : static_cast<size_t>(kBM) * kDistLd * 4);
+}
+
+}  // namespace
+
+namespace {
+
+// REG: b is a power of two >= 8, reduced in registers; otherwise the
+// chunk's distances go through shared memory and a walk (WALK).
+template <int PASSES, bool QRES, bool IP, bool REG>
+__global__ __launch_bounds__(kThreads, 1) void knn_bins_tc_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ xx, const float* __restrict__ yy, int m, int n,
+    int d, int tn, int b, int q_blocks, long long nb,
+    float* __restrict__ cand_d, int* __restrict__ cand_i) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* base = smem_raw + ((1024 - (raw_s & 1023)) & 1023);
+  const uint32_t base_s = static_cast<uint32_t>(__cvta_generic_to_shared(base));
+
+  const int ks_n = (d + kBK - 1) / kBK;
+  const int qt = q_tiles(QRES, ks_n);
+  constexpr int kPlanes = PASSES == 3 ? 2 : 1;
+  // byte offsets of the tiles (see smem_bytes)
+  const int q_hi = 0, q_lo = qt * kTile;
+  const int y_hi = kPlanes * qt * kTile, y_lo = y_hi + 2 * kTile;
+  float* ysn = reinterpret_cast<float*>(base + kPlanes * (qt + 2) * kTile);
+  float* dist = ysn + 2 * kBN;
+
+  const int tid = threadIdx.x, lane = tid & 31, quad = lane & 3;
+  const int wg = tid >> 7;
+  const long long q0 = static_cast<long long>(blockIdx.x % q_blocks) * kBM;
+  const long long t0 = static_cast<long long>(blockIdx.x / q_blocks) * tn;
+  const long long t1 = min(t0 + tn, static_cast<long long>(n));
+  const int steps = static_cast<int>((t1 - t0 + kBN - 1) / kBN) * ks_n;
+  const bool vec4 = (d & 3) == 0;
+
+  // the two query rows of this thread's accumulator fragment (local), and
+  // their rows of the candidate matrix
+  const int rbase = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  float xq[2];
+  bool qok[2];
+  float* od[2];
+  int* oi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long q = q0 + rbase + 8 * i;
+    qok[i] = q < m;
+    xq[i] = (!IP && qok[i]) ? xx[q] : 0.f;
+    od[i] = cand_d + (qok[i] ? q : 0) * nb;
+    oi[i] = cand_i + (qok[i] ? q : 0) * nb;
+  }
+
+  // step 0 (and the resident queries)
+  Slice f;
+  if constexpr (QRES) {
+    for (int s = 0; s < ks_n; ++s) {
+      fetch(f, x, q0, m, d, s * kBK, vec4);
+      put<PASSES>(f, base + q_hi + s * kTile, base + q_lo + s * kTile);
+    }
+  } else {
+    fetch(f, x, q0, m, d, 0, vec4);
+    put<PASSES>(f, base + q_hi, base + q_lo);
+  }
+  fetch(f, y, t0, t1, d, 0, vec4);
+  put<PASSES>(f, base + y_hi, base + y_lo);
+  if (tid < kBN) ysn[tid] = (!IP && t0 + tid < t1) ? yy[t0 + tid] : 0.f;
+  // step 1's rows (and norms) in flight in registers: step t + 1 is stored
+  // while the wgmmas of step t run, and step t + 2 loaded behind them, so
+  // the loads' latency hides behind the products, the epilogue and the
+  // barrier
+  float ypre = 0.f;
+  auto prefetch = [&](int t) {
+    const int c = t / ks_n, k = t - c * ks_n;
+    const long long r0n = t0 + static_cast<long long>(c) * kBN;
+    fetch(f, y, r0n, t1, d, k * kBK, vec4);
+    if (!IP && k == 0 && tid < kBN && r0n + tid < t1) ypre = yy[r0n + tid];
+    else ypre = 0.f;
+  };
+  if (steps > 1) prefetch(1);
+  fence_proxy_async();
+  __syncthreads();
+
+  // REG: log2(b), the 8-column groups of a bin (<= 16) less one, and the
+  // open bin of a b > kBN carried across chunks. WALK: the walk of thread
+  // tid < kBM over query q0 + tid.
+  const int bshift = __ffs(b) - 1;
+  const int gmask = min(b >> 3, 16) - 1;
+  Cand carry[2] = {{CUDART_INF_F, -1}, {CUDART_INF_F, -1}};
+  Cand cur = {CUDART_INF_F, -1};
+  long long wcol = t0 / b, wclose = t0 + b - 1;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < steps; ++t) {
+    const int chunk = t / ks_n, ks = t - chunk * ks_n, st = t & 1;
+    const int qi = QRES ? ks : st;
+    const uint32_t a_hi = base_s + q_hi + qi * kTile + wg * 64 * 128;
+    const uint32_t a_lo = base_s + q_lo + qi * kTile + wg * 64 * 128;
+    const uint32_t b_hi = base_s + y_hi + st * kTile;
+    const uint32_t b_lo = base_s + y_lo + st * kTile;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const int accumulate = (ks == 0 && kk == 0) ? 0 : 1;
+      const uint32_t o = kk * 32;  // 16 bf16 along K inside the swizzle row
+      if constexpr (PASSES == 3) {
+        // dot_nt_f32's order: hi.lo, lo.hi, hi.hi
+        wgmma_m64n128k16(acc, desc_sw128(a_hi + o), desc_sw128(b_lo + o),
+                         accumulate);
+        wgmma_m64n128k16(acc, desc_sw128(a_lo + o), desc_sw128(b_hi + o), 1);
+        wgmma_m64n128k16(acc, desc_sw128(a_hi + o), desc_sw128(b_hi + o), 1);
+      } else {
+        wgmma_m64n128k16(acc, desc_sw128(a_hi + o), desc_sw128(b_hi + o),
+                         accumulate);
+      }
+    }
+    wgmma_commit();
+    // store step t + 1 in the other half of the ring while they run, then
+    // load step t + 2
+    if (t + 1 < steps) {
+      const int nc = (t + 1) / ks_n, nks = t + 1 - nc * ks_n, ns = st ^ 1;
+      put<PASSES>(f, base + y_hi + ns * kTile, base + y_lo + ns * kTile);
+      if (nks == 0 && tid < kBN) ysn[(nc & 1) * kBN + tid] = ypre;
+      if constexpr (!QRES) {
+        Slice fq;
+        fetch(fq, x, q0, m, d, nks * kBK, vec4);
+        put<PASSES>(fq, base + q_hi + ns * kTile, base + q_lo + ns * kTile);
+      }
+      fence_proxy_async();
+      if (t + 2 < steps) prefetch(t + 2);
+    }
+    wgmma_wait_all();
+    fence_acc(acc);
+
+    if (ks == ks_n - 1) {
+      // epilogue: fragment element (i, n8, j) = acc[4 n8 + 2 i + j] is
+      // query rbase + 8 i against chunk column 8 n8 + 2 quad + j
+      const long long c0 = t0 + static_cast<long long>(chunk) * kBN;
+      const int lim = static_cast<int>(min(t1 - c0, static_cast<long long>(kBN)));
+      const bool full = lim == kBN;
+      const int r0 = static_cast<int>(c0);  // rows are below n < 2^31
+      const float* yn = ysn + (chunk & 1) * kBN;
+      Cand c[2][16];
+#pragma unroll
+      for (int n8 = 0; n8 < 16; ++n8) {
+        const int col = 8 * n8 + 2 * quad;
+        float yv[2] = {0.f, 0.f};
+        if constexpr (!IP) {
+          yv[0] = yn[col];
+          yv[1] = yn[col + 1];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float v[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float a = acc[4 * n8 + 2 * i + j];
+            // (|y|^2 + |x|^2) - 2 acc with one rounding of the difference,
+            // as the plain version's (2 acc is exact)
+            v[j] = IP ? -a : fmaxf(fmaf(-2.0f, a, yv[j] + xq[i]), 0.f);
+            // padded rows never win; an empty bin's id becomes -1 when
+            // written (its value is +inf)
+            if (!full && col + j >= lim) v[j] = CUDART_INF_F;
+          }
+          if constexpr (REG) {
+            c[i][n8] = v[1] < v[0] ? Cand{v[1], r0 + col + 1}
+                                   : Cand{v[0], r0 + col};
+          } else {
+            dist[(rbase + 8 * i) * kDistLd + col] = v[0];
+            dist[(rbase + 8 * i) * kDistLd + col + 1] = v[1];
+          }
+        }
+      }
+      if constexpr (REG) {
+        // first across this thread's 8-column groups of a bin (lower rows
+        // first), then across the quad's four threads on each bin's first
+        // group only
+#pragma unroll
+        for (int s = 1; s < 16; s <<= 1) {
+          if (b >= 16 * s) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int n8 = 0; n8 < 16; n8 += 2 * s)
+                c[i][n8] = lower_first(c[i][n8], c[i][n8 + s]);
+          }
+        }
+#pragma unroll
+        for (int n8 = 0; n8 < 16; ++n8) {
+          if ((n8 & gmask) == 0) {  // uniform across the warp
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              c[i][n8] = better(c[i][n8], shfl_xor(c[i][n8], 1));
+              c[i][n8] = better(c[i][n8], shfl_xor(c[i][n8], 2));
+            }
+          }
+        }
+        if (b <= kBN) {
+          if (quad == 0) {
+#pragma unroll
+            for (int n8 = 0; n8 < 16; ++n8)
+              if ((n8 & gmask) == 0 && (full || 8 * n8 < lim)) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                  if (qok[i])
+                    write_cand(od[i], oi[i], (r0 + 8 * n8) >> bshift,
+                               c[i][n8]);
+              }
+          }
+        } else {
+          const bool closes = (c0 + kBN - t0) % b == 0 || c0 + kBN >= t1;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            carry[i] = better(carry[i], c[i][0]);
+            if (closes) {
+              if (quad == 0 && qok[i])
+                write_cand(od[i], oi[i], c0 >> bshift, carry[i]);
+              carry[i] = {CUDART_INF_F, -1};
+            }
+          }
+        }
+      } else {
+        __syncthreads();
+        if (tid < kBM && q0 + tid < m) {
+          const long long c1 = min(c0 + kBN, t1);
+          float* wd = cand_d + (q0 + tid) * nb;
+          int* wi = cand_i + (q0 + tid) * nb;
+          for (long long r = c0; r < c1; ++r) {
+            const float v = dist[tid * kDistLd + (r - c0)];
+            if (v < cur.v) cur = {v, static_cast<int>(r)};
+            if (r == wclose || r + 1 == t1) {  // the bin closes
+              write_cand(wd, wi, wcol, cur);
+              cur = {CUDART_INF_F, -1};
+              ++wcol;
+              wclose += b;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int PASSES, bool QRES, bool IP, bool REG>
+int launch_tc(const float* x, const float* y, const float* xx,
+              const float* yy, int m, int n, int d, int tn, int b,
+              long long nb, float* cand_d, int* cand_i, cudaStream_t s) {
+  const size_t smem = smem_bytes(PASSES, QRES, REG, (d + kBK - 1) / kBK);
+  auto kernel = knn_bins_tc_kernel<PASSES, QRES, IP, REG>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int q_blocks = (m + kBM - 1) / kBM;
+  const long long blocks =
+      static_cast<long long>(q_blocks) * ((n + tn - 1) / tn);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+      x, y, xx, yy, m, n, d, tn, b, q_blocks, nb, cand_d, cand_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Pass A of kernel 5 on the tensor cores: x (m, d) queries, y (n, d)
+// database, xx/yy their norms (L2 only; else unused), passes 3 (bf16x3) or
+// 1 (bf16) -> cand_d / cand_i (m, nb), nb = ceil(n / b), each bin's
+// (minimum, row). d <= 4096 (kernel 6 takes wider rows).
+extern "C" int raft_fused_knn_bins_tc(const float* x, const float* y,
+                                      const float* xx, const float* yy, int m,
+                                      int n, int d, int tn, int b, int ip,
+                                      int passes, long long nb, float* cand_d,
+                                      int* cand_i, void* stream) {
+  if (m == 0) return 0;
+  if (n < 1 || d < 1 || d > 4096 || tn < 1 || b < 1 || tn % b != 0 ||
+      nb != (n + b - 1) / b || (passes != 1 && passes != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool reg = (b & (b - 1)) == 0 && b >= 8;
+  const bool qres =
+      smem_bytes(passes, true, reg, (d + kBK - 1) / kBK) <= kMaxSmem;
+  const bool is_ip = ip != 0;
+#define RAFT_TC(P, Q, I, R)                                                 \
+  if (passes == P && qres == Q && is_ip == I && reg == R)                   \
+    return launch_tc<P, Q, I, R>(x, y, xx, yy, m, n, d, tn, b, nb, cand_d,  \
+                                 cand_i, s);
+  RAFT_TC(3, true, false, true)
+  RAFT_TC(3, true, false, false)
+  RAFT_TC(3, true, true, true)
+  RAFT_TC(3, true, true, false)
+  RAFT_TC(3, false, false, true)
+  RAFT_TC(3, false, false, false)
+  RAFT_TC(3, false, true, true)
+  RAFT_TC(3, false, true, false)
+  RAFT_TC(1, true, false, true)
+  RAFT_TC(1, true, false, false)
+  RAFT_TC(1, true, true, true)
+  RAFT_TC(1, true, true, false)
+  RAFT_TC(1, false, false, true)
+  RAFT_TC(1, false, false, false)
+  RAFT_TC(1, false, true, true)
+  RAFT_TC(1, false, true, false)
+#undef RAFT_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}

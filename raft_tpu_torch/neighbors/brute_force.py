@@ -73,9 +73,11 @@ def brute_force_knn(db, queries, k: int,
     (n_queries, k), on ``device`` (default ``cuda``; ``"cpu"`` only when
     asked). ``mode``: ``"auto"``/``"exact"`` the exact tile scan, any
     :class:`DistanceType`; ``"fused"`` the binned fused kernel (L2, IP,
-    cosine, correlation). ``kernel_precision`` (fused L2/IP only):
-    ``None``, ``"bf16x3"``, ``"highest"`` compute in f32, ``"bf16"``
-    rounds the operands to bf16."""
+    cosine, correlation). ``kernel_precision`` (fused only):
+    ``None`` (bf16x3 on the card, f32 on the CPU), ``"bf16x3"`` (three
+    bf16 products of each operand's hi/lo split, the JAX package's TPU
+    default), ``"bf16"`` (operands rounded to bf16), ``"highest"``
+    (f32)."""
     dev = ensure_resources(res, device).device
     db, queries = as_device_tensor(db, dev), as_device_tensor(queries, dev)
     expects(db.shape[1] == queries.shape[1], "knn: dim mismatch")
@@ -88,7 +90,8 @@ def brute_force_knn(db, queries, k: int,
                       DistanceType.CorrelationExpanded):
             from raft_tpu_torch.neighbors.processing import (
                 fused_knn_preprocessed)
-            return fused_knn_preprocessed(db, queries, k, metric)
+            return fused_knn_preprocessed(db, queries, k, metric,
+                                          kernel_precision)
         fused = _FUSED_METRICS.get(metric)
         expects(fused is not None,
                 f"fused knn supports L2/IP/cosine/correlation, got {metric}")

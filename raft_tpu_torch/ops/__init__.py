@@ -14,6 +14,7 @@ KERNEL_COUNTERS = {
     "ivf_bq_scan": ("ivf_bq_scan", "launches"),
     "ivf_bq_scan_fused": ("ivf_bq_scan", "launches_fused"),
     "fused_knn": ("fused_knn", "launches"),
+    "fused_knn_f32": ("fused_knn", "launches_f32"),
     "fused_knn_ktiled": ("fused_knn", "launches_ktiled"),
     "elementwise_dist": ("elementwise_dist", "launches"),
 }

@@ -1,11 +1,14 @@
 """Fused brute-force k-NN with binned partial top-k: kernel wrapper, plain
 version and the tile geometry.
 
-Kernels: ``csrc/fused_knn.cu`` (replaces the JAX package's Pallas
-``_knn_kernel``, kernel 5, and ``_knn_kernel_ktiled``, kernel 6, the
-latter launched for d > 4096). :func:`fused_knn` picks the JAX package's
-geometry (:func:`geometry`) and dispatches on the device of its inputs:
-CPU tensors take :func:`fused_knn_plain`, CUDA tensors launch the kernel
+Kernels (replacing the JAX package's Pallas ``_knn_kernel``, kernel 5,
+and ``_knn_kernel_ktiled``, kernel 6, the latter launched for d > 4096):
+``csrc/fused_knn_tc.cu``, kernel 5's pass A on the tensor cores (bf16x3,
+the TPU kernel's arithmetic and the card's default, or one bf16 pass);
+``csrc/fused_knn.cu``, kernel 5's f32 body (``"highest"``), kernel 6, the
+row norms and pass B. :func:`fused_knn` picks the JAX package's geometry
+(:func:`geometry`) and dispatches on the device of its inputs: CPU
+tensors take :func:`fused_knn_plain`, CUDA tensors launch the kernels
 (or raise).
 
 The result is the JAX kernel's: each db tile of ``tn`` rows is cut into
@@ -32,9 +35,14 @@ MAX_K = 256
 KT = 2048
 
 # launches of the CUDA kernels since the last reset (plain integers):
-# kernel 5 and the K-staged kernel 6
+# kernel 5 on the tensor cores (bf16x3, bf16), kernel 5's f32 body
+# ("highest") and the K-staged kernel 6
 launches = 0
+launches_f32 = 0
 launches_ktiled = 0
+
+# pass A arithmetic: :func:`resolve_precision`
+PRECISIONS = ("bf16x3", "bf16", "f32")
 
 # candidates (queries x bins) per kernel launch: bounds the pass-A buffer
 _MAX_CAND_ELEMS = 1 << 28
@@ -70,17 +78,24 @@ def geometry(m: int, n: int, dim: int, k: int, tm: int = 0, tn: int = 0,
     return tm, tn, l_bins, kt
 
 
-def rounds_bf16(kernel_precision) -> bool:
-    """Whether a ``kernel_precision`` rounds the operands to bf16: only
-    ``"bf16"`` (one MXU pass on the TPU); ``None``, ``"bf16x3"`` and
-    ``"highest"`` compute in f32."""
+def resolve_precision(kernel_precision, on_cuda: bool) -> str:
+    """The arithmetic of pass A for a ``kernel_precision``, with the JAX
+    package's meanings (``raft_tpu/core/precision.py``
+    ``resolve_kernel_mode``): ``"bf16x3"`` (three bf16 products of each
+    operand's hi/lo split, the TPU kernel's default), ``"bf16"`` (one
+    product of bf16-rounded operands) or ``"f32"``. ``None`` is the
+    device's default: bf16x3 on the card, f32 on the CPU (the JAX
+    package's interpret mode computes at ``HIGHEST``); ``"default"`` is
+    ``"bf16"``, ``"highest"`` is f32."""
     if kernel_precision is None:
-        return False
+        return "bf16x3" if on_cuda else "f32"
     name = str(kernel_precision).lower()
+    if name == "bf16x3":
+        return "bf16x3"
     if name in ("bf16", "default"):
-        return True
-    if name in ("bf16x3", "highest"):
-        return False
+        return "bf16"
+    if name == "highest":
+        return "f32"
     raise ValueError(f"kernel precision {kernel_precision!r}: want "
                      "bf16x3|bf16|highest")
 
@@ -107,38 +122,57 @@ def rank_candidates(cand_d: torch.Tensor, cand_i: torch.Tensor, k: int,
     return vals.contiguous(), ids.contiguous()
 
 
-def _product(x: torch.Tensor, y: torch.Tensor, kt: int) -> torch.Tensor:
-    """x @ y.T in f32, summed over ``kt``-wide dimension chunks when
-    ``0 < kt < dim`` (kernel 6's staging)."""
+def _nt(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """``a @ b.T`` at ``precision``; bf16x3 as
+    ``raft_tpu/ops/_util.py`` ``dot_nt_f32``: each operand split into
+    ``hi = bf16(v)`` and ``lo = bf16(v - hi)`` (round to nearest even, as
+    the kernel's ``__float2bfloat16_rn``), three full-f32 products of the
+    splits (each exact) summed hi.lo + lo.hi + hi.hi."""
+    if precision == "f32":
+        return a @ b.T
+    ah, bh = a.bfloat16().float(), b.bfloat16().float()
+    if precision == "bf16":
+        return ah @ bh.T
+    al, bl = (a - ah).bfloat16().float(), (b - bh).bfloat16().float()
+    acc = ah @ bl.T
+    acc += al @ bh.T
+    acc += ah @ bh.T
+    return acc
+
+
+def _product(x: torch.Tensor, y: torch.Tensor, kt: int,
+             precision: str = "f32") -> torch.Tensor:
+    """x @ y.T at ``precision`` (``"f32"``, ``"bf16x3"``, ``"bf16"``),
+    summed over ``kt``-wide dimension chunks when ``0 < kt < dim``
+    (kernel 6's staging)."""
     full_fp32_matmul()
     dim = x.shape[1]
     if not 0 < kt < dim:
-        return x @ y.T
-    acc = x[:, :kt] @ y[:, :kt].T
+        return _nt(x, y, precision)
+    acc = _nt(x[:, :kt], y[:, :kt], precision)
     for c in range(kt, dim, kt):
-        acc += x[:, c:c + kt] @ y[:, c:c + kt].T
+        acc += _nt(x[:, c:c + kt], y[:, c:c + kt], precision)
     return acc
 
 
 def bin_candidates_plain(x: torch.Tensor, y: torch.Tensor, metric: str,
                          tn: int, l_bins: int, kt: int = 0,
-                         bf16: bool = False):
+                         precision: str = "f32"):
     """Pass A in plain PyTorch: every bin's (minimum, row) → ``(cand_d,
     cand_i)`` (m, ceil(n / b)), b = tn / l_bins; a bin with no finite
-    value holds (+inf, -1)."""
+    value holds (+inf, -1). Products at ``precision`` (``"f32"``,
+    ``"bf16x3"``, ``"bf16"``); norms from the unrounded rows."""
     x, y = x.float(), y.float()
     m, n = x.shape[0], y.shape[0]
     b = tn // l_bins
     nb = -(-n // b)
-    xr, yr = ((x.bfloat16().float(), y.bfloat16().float()) if bf16
-              else (x, y))
     xx = (x * x).sum(dim=1)
     cand_d = torch.empty((m, nb), dtype=torch.float32, device=x.device)
     cand_i = torch.empty((m, nb), dtype=torch.int32, device=x.device)
     step = max(1, _PLAIN_ELEMS // max(1, m) // tn) * tn
     for s in range(0, n, step):
         yb = y[s:s + step]
-        ip = _product(xr, yr[s:s + step], kt)
+        ip = _product(x, yb, kt, precision)
         if metric == "ip":
             d = -ip
         else:
@@ -160,10 +194,11 @@ def bin_candidates_plain(x: torch.Tensor, y: torch.Tensor, metric: str,
 
 def fused_knn_plain(x: torch.Tensor, y: torch.Tensor, k: int,
                     metric: str = "l2", sqrt: bool = False, tn: int = 4096,
-                    l_bins: int = 64, kt: int = 0, bf16: bool = False):
+                    l_bins: int = 64, kt: int = 0, precision: str = "f32"):
     """Plain PyTorch version: pass A (:func:`bin_candidates_plain`) and
     the ranking (:func:`rank_candidates`); IP scores negated back."""
-    cand_d, cand_i = bin_candidates_plain(x, y, metric, tn, l_bins, kt, bf16)
+    cand_d, cand_i = bin_candidates_plain(x, y, metric, tn, l_bins, kt,
+                                          precision)
     vals, ids = rank_candidates(cand_d, cand_i, k, sqrt and metric == "l2")
     return (-vals if metric == "ip" else vals), ids
 
@@ -184,13 +219,25 @@ def _lib():
     return norms, bins, topk
 
 
+def _lib_tc():
+    fn = _build.load("fused_knn_tc").raft_fused_knn_bins_tc
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
                    metric: str = "l2", sqrt: bool = False, tn: int = 4096,
-                   l_bins: int = 64, kt: int = 0, bf16: bool = False):
-    """Launch pass A (kernel 5, or kernel 6 when ``0 < kt < dim``) and
-    pass B on contiguous float32 CUDA tensors, one launch of each per
-    chunk of queries (the candidate buffer stays under 2^28 entries)."""
-    global launches, launches_ktiled
+                   l_bins: int = 64, kt: int = 0, precision: str = "f32"):
+    """Launch pass A and pass B on contiguous float32 CUDA tensors, one
+    launch of each per chunk of queries (the candidate buffer stays under
+    2^28 entries). Pass A: kernel 5 on the tensor cores
+    (``csrc/fused_knn_tc.cu``) for ``precision`` ``"bf16x3"`` (3 passes)
+    or ``"bf16"`` (1 pass); kernel 5's f32 body (``csrc/fused_knn.cu``)
+    for ``"f32"``; kernel 6 when ``0 < kt < dim``, in f32 or, for
+    ``"bf16"``, on bf16-rounded operands (it has no bf16x3 body)."""
+    global launches, launches_f32, launches_ktiled
     check_cuda_tensor("fused_knn x", x, torch.float32, 2)
     check_cuda_tensor("fused_knn y", y, torch.float32, 2)
     m, dim = x.shape
@@ -201,10 +248,16 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
         raise ValueError(f"fused_knn: bad metric {metric!r}, n={n}, "
                          f"tn={tn} or l_bins={l_bins}")
     ktiled = 0 < kt < dim
+    if precision not in PRECISIONS or (ktiled and precision == "bf16x3"):
+        raise ValueError(f"fused_knn: precision {precision!r} "
+                         f"{'at d > 4096 ' if ktiled else ''}(want "
+                         f"{'f32|bf16' if ktiled else '|'.join(PRECISIONS)})")
+    tc = not ktiled and precision != "f32"
     b = tn // l_bins
     nb = -(-n // b)
     dev = x.device
     norms_fn, bins_fn, topk_fn = _lib()
+    tc_fn = _lib_tc() if tc else None
     stream = _build.stream_handle(dev)
     xx = yy = None
     with torch.cuda.device(dev):
@@ -222,17 +275,26 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
             rows = min(mc, m - s)
             cand_d = torch.empty((rows, nb), dtype=torch.float32, device=dev)
             cand_i = torch.empty((rows, nb), dtype=torch.int32, device=dev)
-            rc = bins_fn(x[s].data_ptr(), y.data_ptr(),
-                         xx[s].data_ptr() if xx is not None else None,
-                         yy.data_ptr() if yy is not None else None,
-                         rows, n, dim, tn, b, int(ktiled),
-                         int(metric == "ip"), int(bool(bf16)), nb,
-                         cand_d.data_ptr(), cand_i.data_ptr(), stream)
+            norm_ptrs = (xx[s].data_ptr() if xx is not None else None,
+                         yy.data_ptr() if yy is not None else None)
+            if tc:
+                rc = tc_fn(x[s].data_ptr(), y.data_ptr(), *norm_ptrs, rows,
+                           n, dim, tn, b, int(metric == "ip"),
+                           3 if precision == "bf16x3" else 1, nb,
+                           cand_d.data_ptr(), cand_i.data_ptr(), stream)
+            else:
+                rc = bins_fn(x[s].data_ptr(), y.data_ptr(), *norm_ptrs,
+                             rows, n, dim, tn, b, int(ktiled),
+                             int(metric == "ip"), int(precision == "bf16"),
+                             nb, cand_d.data_ptr(), cand_i.data_ptr(),
+                             stream)
             _build.check(rc, "fused_knn")
-            if ktiled:
+            if tc:
+                launches += 1
+            elif ktiled:
                 launches_ktiled += 1
             else:
-                launches += 1
+                launches_f32 += 1
             do_sqrt = bool(sqrt) and metric == "l2"
             if k <= MAX_K:
                 _build.check(topk_fn(cand_d.data_ptr(), cand_i.data_ptr(),
@@ -253,13 +315,15 @@ def _fused_knn_call(x: torch.Tensor, y: torch.Tensor, k: int, metric: str,
     """One fused k-NN at an explicit geometry (``tm`` only tiles the
     queries on the TPU and changes no result)."""
     del tm
-    bf16 = rounds_bf16(kernel_precision)
+    precision = resolve_precision(kernel_precision, x.is_cuda)
+    if 0 < kt < x.shape[1] and precision == "bf16x3":
+        precision = "f32"  # kernel 6 keeps its f32 body
     if x.is_cuda:
         return fused_knn_cuda(x.float().contiguous(), y.float().contiguous(),
                               int(k), metric, bool(sqrt), int(tn),
-                              int(l_bins), int(kt), bf16)
+                              int(l_bins), int(kt), precision)
     return fused_knn_plain(x, y, int(k), metric, bool(sqrt), int(tn),
-                           int(l_bins), int(kt), bf16)
+                           int(l_bins), int(kt), precision)
 
 
 def fused_knn(x: torch.Tensor, y: torch.Tensor, k: int, metric: str = "l2",
@@ -270,8 +334,10 @@ def fused_knn(x: torch.Tensor, y: torch.Tensor, k: int, metric: str = "l2",
     ``metric``: ``"l2"`` (expanded, ``sqrt`` optional) or ``"ip"``
     (largest inner product first). ``l_bins`` (0 → ``max(2k, 64)``) sets
     the per-tile candidates; ``l_bins == tn`` is exact.
-    ``kernel_precision``: ``None`` | ``"bf16x3"`` | ``"highest"`` (f32) |
-    ``"bf16"`` (operands rounded to bf16)."""
+    ``kernel_precision`` (:func:`resolve_precision`): ``None`` (bf16x3
+    on the card, f32 on the CPU) | ``"bf16x3"`` | ``"bf16"`` (operands
+    rounded to bf16) | ``"highest"`` (f32); above d = 4096 (kernel 6)
+    bf16x3 computes in f32."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"fused_knn: metric={metric!r}: want l2|ip")
     m, dim = x.shape

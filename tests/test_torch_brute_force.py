@@ -127,10 +127,67 @@ def test_bf16_tier_rounds_both_operands():
                         kernel_precision="bf16")
     np.testing.assert_array_equal(i.numpy(),
                                   np.argsort(s, axis=1, kind="stable")[:, :6])
-    for name in (None, "bf16x3", "highest"):
-        assert not op.rounds_bf16(name)
+    for name in ("bf16", "default", "BF16"):
+        for on_cuda in (False, True):
+            assert op.resolve_precision(name, on_cuda) == "bf16"
+
+
+def test_precision_mapping():
+    # the JAX package's meanings (raft_tpu/core/precision.py
+    # resolve_kernel_mode): None is the device's default, bf16x3 on the
+    # card (as on the TPU), f32 on the CPU (as interpret mode computes)
+    assert op.resolve_precision(None, True) == "bf16x3"
+    assert op.resolve_precision(None, False) == "f32"
+    for on_cuda in (False, True):
+        assert op.resolve_precision("bf16x3", on_cuda) == "bf16x3"
+        assert op.resolve_precision("highest", on_cuda) == "f32"
+        assert op.resolve_precision("default", on_cuda) == "bf16"
+        for bad in ("fp8", "high", "tf32"):
+            with pytest.raises(ValueError):
+                op.resolve_precision(bad, on_cuda)
     with pytest.raises(ValueError):
-        op.rounds_bf16("fp8")
+        op.fused_knn(_t(_normal((3, 4), 1)), _t(_normal((20, 4), 2)), 2,
+                     kernel_precision="fp8")
+
+
+@pytest.mark.parametrize("d", [1, 17, 128, 300])
+def test_bf16x3_product_matches_jax_split_matmul(d):
+    # the same three exact bf16 products summed in dot_nt_f32's order;
+    # what differs is f32 summation order inside each product, at most
+    # ~d * 2^-24 of sum |a_k b_k| <= |a||b| and in practice ~sqrt(d) *
+    # 2^-24 of it, so rtol 1e-6 of |a||b| holds for d <= 300 with room
+    from raft_tpu.ops._util import dot_nt_f32
+    a, b = _normal((33, d), 40 + d), _normal((57, d), 41 + d)
+    want = np.asarray(dot_nt_f32(a, b, "bf16x3"))
+    got = op._product(_t(a), _t(b), 0, "bf16x3").numpy()
+    scale = np.linalg.norm(a, axis=1)[:, None] * np.linalg.norm(b, axis=1)
+    assert (np.abs(got - want) <= 1e-6 * scale).all()
+    # and it is not the f32 product: the split drops lo.lo
+    if d >= 17:
+        assert not np.array_equal(got, op._product(_t(a), _t(b), 0).numpy())
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_bf16x3_fused_knn_matches_jax_split_distances(metric):
+    # the slice at bf16x3: the JAX package's split product, the expanded
+    # L2 (or -IP) scores and a stable selection against the port's plain
+    # fused kernel, one row a bin (exact) and the default bins
+    from raft_tpu.ops._util import dot_nt_f32
+    x, y = _normal((21, 40), 42), _normal((1500, 40), 43)
+    ip = np.asarray(dot_nt_f32(x, y, "bf16x3"))
+    s = (-ip if metric == "ip" else np.maximum(
+        (y * y).sum(1)[None] + (x * x).sum(1)[:, None] - 2.0 * ip, 0.0))
+    want = np.argsort(s, axis=1, kind="stable")[:, :10]
+    d, i = op.fused_knn(_t(x), _t(y), 10, metric, tn=1504, l_bins=1504,
+                        kernel_precision="bf16x3")
+    np.testing.assert_array_equal(i.numpy(), want)
+    got = -d.numpy() if metric == "ip" else d.numpy()
+    np.testing.assert_allclose(got, np.take_along_axis(s, want, 1),
+                               rtol=1e-5, atol=1e-4)
+    _, i_bins = op.fused_knn(_t(x), _t(y), 10, metric,
+                             kernel_precision="bf16x3")
+    _, i_f32 = op.fused_knn(_t(x), _t(y), 10, metric)
+    assert (i_bins.numpy() == i_f32.numpy()).mean() > 0.99
 
 
 @pytest.mark.parametrize("metric", [DistanceType.L2Expanded,

@@ -87,6 +87,36 @@ def test_select_k_matches_plain_exactly(dev, k, n):
     assert torch.equal(dk.cpu(), dp) and torch.equal(ik.cpu(), ip)
 
 
+def _select_rows(rng, n):
+    """Rows that stress the radix select's tie and key handling."""
+    rows = [rng.normal(size=n),                       # distinct
+            np.full(n, 0.5),                          # all equal
+            rng.integers(0, 3, size=n) * 0.25,        # few levels: ties at k
+            rng.choice([-0.0, 0.0, 1.0, -1.0], size=n),  # -0.0 beside +0.0
+            np.where(rng.random(n) < 0.5, np.nan, rng.normal(size=n)),
+            np.where(rng.random(n) < 0.5, np.inf, -np.inf),
+            np.full(n, np.nan),
+            # coarse-score-like: positive values crowding one top byte
+            1000.0 + rng.random(n).astype(np.float32)]
+    return np.stack(rows).astype(np.float32)
+
+
+@pytest.mark.parametrize("k,n", [(k, n) for n in (1, 255, 1024, 4096, 100_000)
+                                 for k in (1, 96, 128, 256) if k <= n])
+def test_select_k_radix_ties_and_keys(dev, k, n):
+    rng = np.random.default_rng(k * 7 + n)
+    v = _t(_select_rows(rng, n), dev)
+    before = sel_op.launches
+    dk, ik = sel_op.select_k(v, k)
+    torch.cuda.synchronize()
+    assert sel_op.launches == before + 1
+    dp, ip = sel_op.select_k_plain(v.cpu(), k)
+    assert torch.equal(dk.cpu(), dp) and torch.equal(ik.cpu(), ip)
+    # one row alone (m = 1)
+    dk1, ik1 = sel_op.select_k(v[2:3].contiguous(), k)
+    assert torch.equal(dk1.cpu(), dp[2:3]) and torch.equal(ik1.cpu(), ip[2:3])
+
+
 def _random_index(rng, n_lists, max_list, d, dev, metric="l2"):
     sizes = rng.integers(0, max_list + 1, size=n_lists)
     sizes[0] = max_list
@@ -444,27 +474,35 @@ def test_bq_search_on_card_matches_cpu(dev, metric):
                                    rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("metric,sqrt,bf16", [("l2", False, False),
-                                              ("l2", True, False),
-                                              ("ip", False, False),
-                                              ("l2", False, True)])
+@pytest.mark.parametrize("metric,sqrt,precision", [
+    ("l2", False, "bf16x3"), ("l2", True, "bf16x3"), ("ip", False, "bf16x3"),
+    ("l2", False, "bf16"), ("ip", False, "bf16"), ("l2", False, "f32"),
+    ("ip", False, "f32")])
 @pytest.mark.parametrize("m,n,d,k", [(1, 1, 1, 1), (37, 23, 8, 5),
                                      (130, 5000, 17, 32), (65, 9000, 128, 1),
                                      (70, 3000, 64, 256), (20, 2500, 24, 300),
                                      (33, 700, 4097, 10), (9, 2100, 8192, 16)])
-def test_fused_knn_matches_plain(dev, m, n, d, k, metric, sqrt, bf16):
+def test_fused_knn_matches_plain(dev, m, n, d, k, metric, sqrt, precision):
     rng = np.random.default_rng(m + n + d + k)
     x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
     y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
     _, tn, l_bins, kt = knn_op.geometry(m, n, d, k)
-    key = "launches_ktiled" if kt else "launches"
+    if kt and precision == "bf16x3":
+        # kernel 6 has no bf16x3 body: the wrapper refuses, the entry
+        # point computes in f32
+        with pytest.raises(ValueError):
+            knn_op.fused_knn_cuda(x, y, k, metric, sqrt, tn, l_bins, kt,
+                                  precision)
+        precision = "f32"
+    key = ("launches_ktiled" if kt else
+           "launches_f32" if precision == "f32" else "launches")
     before = getattr(knn_op, key)
     dk, ik = knn_op.fused_knn_cuda(x, y, k, metric, sqrt, tn, l_bins, kt,
-                                   bf16)
+                                   precision)
     torch.cuda.synchronize()
     assert getattr(knn_op, key) == before + 1
     dp, ip = knn_op.fused_knn_plain(x, y, k, metric, sqrt, tn, l_bins, kt,
-                                    bf16)
+                                    precision)
     assert ik.dtype == torch.int32 and dk.shape == (m, k)
     assert ((ik >= 0) & (ik < n)).all() or k > n
     if sqrt:
@@ -473,15 +511,73 @@ def test_fused_knn_matches_plain(dev, m, n, d, k, metric, sqrt, bf16):
     _near_tie_equal(dk, ik, dp, ip, tol)
 
 
-def test_fused_knn_exact_bins_equal_exact_scan(dev):
-    # one row a bin: the binned search is the exact k-NN
+# (m, n, d, tn, l_bins): bins of b = tn / l_bins rows through every route
+# of the tensor-core epilogue: b = 1 (exact), 2, 4, 8..128 in registers,
+# b > 128 carried across chunks, b not a power of two through shared
+# memory (below and above a chunk), ragged n, queries past one block, and
+# d past the resident-query limit (the queries stream with the rows)
+TC_GEOMETRIES = [(40, 1000, 32, 1000, 1000), (50, 999, 16, 1000, 500),
+                 (129, 2000, 20, 2000, 500), (20, 4100, 64, 4096, 512),
+                 (70, 5000, 128, 4096, 128), (33, 9000, 128, 4096, 64),
+                 (10, 4096, 48, 4096, 32), (17, 12000, 128, 4096, 8),
+                 (25, 7000, 40, 3000, 10), (30, 3000, 24, 3000, 600),
+                 (300, 3001, 72, 3008, 47), (9, 2000, 400, 1024, 64),
+                 (12, 1500, 1000, 1024, 128), (5, 600, 4096, 600, 100)]
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("m,n,d,tn,l_bins", TC_GEOMETRIES)
+def test_fused_knn_tc_bins_match_plain(dev, m, n, d, tn, l_bins, metric,
+                                       precision):
+    rng = np.random.default_rng(m * 3 + n + d)
+    x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
+    y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
+    before = knn_op.launches
+    got = knn_op.fused_knn_cuda(x, y, 10, metric, False, tn, l_bins, 0,
+                                precision)
+    torch.cuda.synchronize()
+    assert knn_op.launches == before + 1
+    want = knn_op.fused_knn_plain(x, y, 10, metric, False, tn, l_bins, 0,
+                                  precision)
+    tol = 1e-5 * float(((x * x).sum(1).max() + (y * y).sum(1).max()))
+    _near_tie_equal(*got, *want, tol)
+
+
+def test_highest_launches_the_f32_body(dev):
+    rng = np.random.default_rng(11)
+    x = _t(rng.normal(size=(40, 32)).astype(np.float32), dev)
+    y = _t(rng.normal(size=(3000, 32)).astype(np.float32), dev)
+    before = (knn_op.launches, knn_op.launches_f32)
+    dk, ik = knn_op.fused_knn(x, y, 8, kernel_precision="highest")
+    torch.cuda.synchronize()
+    assert (knn_op.launches, knn_op.launches_f32) == (before[0],
+                                                      before[1] + 1)
+    dp, ip = knn_op.fused_knn(x.cpu(), y.cpu(), 8, kernel_precision="highest")
+    tol = 1e-5 * float(((x * x).sum(1).max() + (y * y).sum(1).max()))
+    _near_tie_equal(dk, ik, dp, ip, tol)
+    knn_op.fused_knn(x, y, 8)  # the card's default: the tensor cores
+    torch.cuda.synchronize()
+    assert (knn_op.launches, knn_op.launches_f32) == (before[0] + 1,
+                                                      before[1] + 1)
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+def test_fused_knn_exact_bins_equal_exact_scan(dev, precision):
+    # one row a bin: the binned search is the exact k-NN. bf16x3 (the
+    # card's default) drops lo.lo, at most 2^-18 |x||y| of x.y, so its
+    # distances may sit 2^-18 (|x|^2 + |y|^2) further from the f32 scan's
     rng = np.random.default_rng(5)
     x = _t(rng.normal(size=(50, 32)).astype(np.float32), dev)
     y = _t(rng.normal(size=(1000, 32)).astype(np.float32), dev)
-    dk, ik = knn_op.fused_knn(x, y, 20, tn=1000, l_bins=1000)
+    dk, ik = knn_op.fused_knn(x, y, 20, tn=1000, l_bins=1000,
+                              kernel_precision=precision)
     full = ((x[:, None, :] - y[None]) ** 2).sum(-1)
     de, ie = torch.sort(full, dim=1, stable=True)
-    _near_tie_equal(dk, ik, de[:, :20], ie[:, :20].int(), 1e-4)
+    tol = 1e-4
+    if precision == "bf16x3":
+        tol += 2.0 ** -18 * float((x * x).sum(1).max() + (y * y).sum(1).max())
+    _near_tie_equal(dk, ik, de[:, :20], ie[:, :20].int(), tol)
 
 
 ELT_CASES = [(t, False) for t in elt_cores.TAGS] + [("l2unexp", True)]
@@ -519,18 +615,22 @@ def test_brute_force_entry_points_launch_on_card(dev):
     rng = np.random.default_rng(8)
     x = rng.normal(size=(3000, 16)).astype(np.float32)
     q = rng.normal(size=(40, 16)).astype(np.float32)
-    before = (knn_op.launches, elt_op.launches)
+    before = (knn_op.launches_f32, elt_op.launches)
+    # the card's default is bf16x3; f32 on both sides compares like with
+    # like ("highest", the f32 body)
     for metric in (brute_force.DistanceType.L2Expanded,
                    brute_force.DistanceType.CosineExpanded):
-        dg, ig = brute_force.brute_force_knn(x, q, 10, metric, mode="fused")
+        dg, ig = brute_force.brute_force_knn(x, q, 10, metric, mode="fused",
+                                             kernel_precision="highest")
         dc, ic = brute_force.brute_force_knn(x, q, 10, metric, mode="fused",
+                                             kernel_precision="highest",
                                              device="cpu")
         np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
     dg, ig = brute_force.brute_force_knn(x, q, 10, brute_force.DistanceType.L1)
     dc, ic = brute_force.brute_force_knn(x, q, 10, brute_force.DistanceType.L1,
                                          device="cpu")
     np.testing.assert_array_equal(ig.cpu().numpy(), ic.numpy())
-    assert knn_op.launches == before[0] + 2
+    assert knn_op.launches_f32 == before[0] + 2
     # one launch per db tile of the exact scan
     tiles = -(-3000 // brute_force._db_tile(40, 3000))
     assert tiles == 2 and elt_op.launches == before[1] + tiles

@@ -105,3 +105,20 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     before = op.launches
     op.select_k(torch.arange(20, dtype=torch.float32)[None], 3)
     assert op.launches == before
+
+
+@pytest.mark.parametrize("k", [3, 17])
+def test_signed_zeros_and_levels_tie_by_column(k):
+    # -0.0 and +0.0 compare equal, so only the column orders them (the
+    # card's radix keys map -0.0 onto +0.0 for this); few distinct levels
+    # put ties at the k-th value; an all-equal row keeps the first k
+    rng = np.random.default_rng(21)
+    v = np.stack([rng.choice([-0.0, 0.0, 1.0, -1.0], size=80),
+                  rng.integers(0, 3, size=80) * 0.25,
+                  np.full(80, 0.5),
+                  rng.choice([-0.0, 0.0], size=80)]).astype(np.float32)
+    dj, ij = _pallas(v, k)
+    dt, it = select_k(torch.from_numpy(v), k)
+    np.testing.assert_array_equal(dt.numpy(), dj)
+    np.testing.assert_array_equal(it.numpy(), ij)
+    np.testing.assert_array_equal(it.numpy()[2], np.arange(k))
