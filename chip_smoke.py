@@ -11,7 +11,8 @@ Phases, one line each:
               (262144, 128) x (1024, 128) and select-k at (128, 1024)
               k=96 for IVF-Flat; the fused IVF-Flat scan over the real
               index for one 128-query batch, and the unfused list scan
-              at k=512 on the same batch (after phase 3); on the real
+              at k=512 on the same batch (after phase 3; both bf16x3 on
+              the tensor cores, held to bf16x3 plain versions); on the real
               PQ index (after phase 4) both IVF-PQ scans for one
               128-query batch, the fused one at k=32 (kk=256), the
               unfused one at k=64 (kk=512), fused L2-NN at
@@ -77,7 +78,8 @@ The exact search's truth for phases 3-5 (256 queries, k=32) comes from
 the port's own ``brute_force_knn(mode="exact")``.
 
 The build line reports the registers, shared memory and spills of the
-radix select and the tensor-core pass A (``nvcc -Xptxas -v``). Then a
+radix select and the tensor-core passes A of kernels 5 and 3/4
+(``nvcc -Xptxas -v``). Then a
 ``{"kernels": [...]}`` line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. There is no CPU path: without CUDA the
@@ -173,7 +175,8 @@ PAIR_EXPANDED = ("inner_product", "cosine", "correlation", "hellinger",
                  "russellrao", "jaccard", "dice")
 
 # kernels whose compiled resources the build line reports
-PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel")
+PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
+                 "list_scan_tc_kernel")
 
 OUT_DIR = "chiprun_out"
 
@@ -467,16 +470,20 @@ def check_scan_kernel(name, op, counter: str, kernel, plain, scale,
 
 
 def check_flat_scans(index, q):
-    """Kernels 3 and 4 against their plain versions on the served
-    IVF-Flat index, one 128-query batch at the plan's cap: the fused
-    scan at k=K and the unfused list scan at k=FLAT_WIDE_K."""
+    """Kernels 3 and 4 against their plain versions at the kernels'
+    bf16x3 arithmetic on the served IVF-Flat index, one 128-query batch
+    at the plan's cap: the fused scan at k=K and the unfused list scan at
+    k=FLAT_WIDE_K. The kernels sum the three bf16 products in one
+    accumulator in the wgmma's order, the plain versions as three f32
+    products: ``compare``'s tolerance covers that order."""
     from raft_tpu_torch.ops import ivf_scan as op
     b = probe_batch(index, q, N_PROBES, "flat scan")
     data = (b.qb, index.lists_data, index.lists_norms, index.lists_indices)
     src = "raft_tpu_torch/csrc/ivf_flat_scan.cu"
-    # a dot product per kept (query, row) pair, in fp32
+    # a dot product per kept (query, row) pair, as three bf16 products
+    # on the tensor cores (bf16x3, the TPU kernel's)
     bound_fn = scan_bound(index, b, D * 4 + 8, 0, lambda info: [
-        (2 * info["pair_rows"] * D, FP32_FLOPS)])
+        (3 * 2 * info["pair_rows"] * D, BF16_FLOPS)])
     qq = (b.qb * b.qb).sum(1)
     # fused: |q|^2 plus the norm of the row found
     ids_all = index.lists_indices.reshape(-1)
@@ -485,10 +492,10 @@ def check_flat_scans(index, q):
         index.lists_norms.reshape(-1)[ids_all >= 0]
     fused = check_scan_kernel(
         "ivf_flat_scan", op, "launches",
-        lambda: op.fused_list_scan_cuda(*data, b.probes, b.inv_pos, b.cap,
-                                        K, 0, False, "l2"),
+        lambda: op.fused_list_scan_cuda(*data, b.probes, b.inv_pos, b.qmap,
+                                        b.cap, K, 0, False, "l2"),
         lambda: op.fused_list_scan_plain(*data, b.probes, b.inv_pos, b.qmap,
-                                         b.cap, K, 0, False, "l2"),
+                                         b.cap, K, 0, False, "l2", "bf16x3"),
         lambda d_p, i_p: qq[:, None] + norm_by_id[i_p.clamp(min=0).long()],
         5, src, "raft_tpu/ops/pallas_ivf_scan.py:360", bound_fn, k=K,
         cap=b.cap)
@@ -501,7 +508,8 @@ def check_flat_scans(index, q):
     wide = check_scan_kernel(
         "ivf_list_scan", op, "launches_list",
         lambda: op.list_scan_cuda(*data, b.qmap, bins, "l2"),
-        lambda: op.list_scan_plain(*data, b.qmap, bins, "l2"),
+        lambda: op.list_scan_plain(*data, b.qmap, bins, "l2", torch.float32,
+                                   "bf16x3"),
         lambda d_p, i_p: slot[:, :, None].expand_as(d_p),
         3, src, "raft_tpu/ops/pallas_ivf_scan.py:105", bound_fn,
         k=FLAT_WIDE_K, bins=bins, cap=b.cap)

@@ -9,7 +9,8 @@ from the highest-cost rows. The JAX package picks those rows with
 CPU the JAX operator is exact too, so the two agree there).
 
 Only the flat path of :func:`build_hierarchical` (``n_clusters <=
-16384``) is ported; the two-level path raises ``NotImplementedError``.
+16384``) is ported; the two-level path raises ``NotImplementedError``,
+as do the assignment's bf16 ``kernel_precision`` tiers.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 
 from raft_tpu_torch import obs
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.precision import check_f32_kernel_precision
+from raft_tpu_torch.core.resources import ensure_resources
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 from raft_tpu_torch.util.host_sample import sample_rows, take_rows
 
@@ -31,8 +34,10 @@ def _nn(x: torch.Tensor, centers: torch.Tensor):
     return kv.key, kv.value
 
 
-def predict(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+def predict(x: torch.Tensor, centers: torch.Tensor,
+            res=None) -> torch.Tensor:
     """Nearest-centre labels (int32)."""
+    ensure_resources(res, x.device)
     labels, _ = _nn(x.float(), centers.float())
     return labels
 
@@ -64,12 +69,22 @@ def _em(x: torch.Tensor, centers: torch.Tensor, n_clusters: int,
 
 def balanced_kmeans(x: torch.Tensor, n_clusters: int, n_iters: int = 20,
                     balance_threshold: float = 0.25, seed: int = 0,
-                    init_idx: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """Train ``n_clusters`` balanced centres → (n_clusters, dim).
+                    kernel_precision: Optional[str] = None,
+                    res=None) -> torch.Tensor:
+    """Train ``n_clusters`` balanced centres → (n_clusters, dim), from
+    the initial rows ``sample_rows(n, n_clusters, seed)`` (a host-side
+    draw). ``kernel_precision``: ``None`` or ``"highest"``."""
+    check_f32_kernel_precision("balanced_kmeans", kernel_precision)
+    ensure_resources(res, x.device)
+    return _train_from(x, n_clusters, n_iters, balance_threshold, seed)
 
-    Initial centres are the rows ``init_idx`` (default: the host-side
-    draw ``sample_rows(n, n_clusters, seed)``)."""
+
+def _train_from(x: torch.Tensor, n_clusters: int, n_iters: int = 20,
+                balance_threshold: float = 0.25, seed: int = 0,
+                init_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`balanced_kmeans` from the initial rows ``init_idx``
+    (default: the seeded draw), so a test can hand both packages the
+    same rows."""
     x = x.float()
     expects(n_clusters <= x.shape[0],
             "balanced_kmeans: n_clusters=%d > n_rows=%d", n_clusters,
@@ -82,11 +97,14 @@ def balanced_kmeans(x: torch.Tensor, n_clusters: int, n_iters: int = 20,
 
 
 def build_hierarchical(x: torch.Tensor, n_clusters: int, n_iters: int = 20,
-                       max_train_points: int = 1 << 18,
-                       seed: int = 0) -> torch.Tensor:
+                       max_train_points: int = 1 << 18, seed: int = 0,
+                       kernel_precision: Optional[str] = None,
+                       res=None) -> torch.Tensor:
     """Train on a ``max_train_points`` subsample with flat balanced EM.
     The JAX package's two-level path (``n_clusters > 16384``) is not
     ported yet."""
+    check_f32_kernel_precision("build_hierarchical", kernel_precision)
+    ensure_resources(res, x.device)
     x = x.float()
     n = x.shape[0]
     if n > max_train_points:

@@ -1,7 +1,8 @@
 """Error types and check helpers (counterpart of ``raft_tpu.core.error``).
 
 ``RaftError`` captures the instantiation backtrace like
-``raft::exception``; ``expects`` is ``RAFT_EXPECTS``.
+``raft::exception``; ``expects`` is ``RAFT_EXPECTS``, ``fail``
+``RAFT_FAIL``.
 """
 
 from __future__ import annotations
@@ -26,3 +27,7 @@ def expects(cond: bool, fmt: str, *args) -> None:
     if not cond:
         raise LogicError(fmt % args if args else fmt)
 
+
+def fail(fmt: str, *args) -> None:
+    """Raise :class:`LogicError` with ``fmt % args`` (``RAFT_FAIL``)."""
+    raise LogicError(fmt % args if args else fmt)

@@ -10,6 +10,7 @@ entry point never drops to the CPU on its own.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
@@ -49,10 +50,24 @@ class Resources:
         return f"Resources(device={self.device})"
 
 
-def ensure_resources(res: Optional[Resources] = None,
+_default: Optional[Resources] = None
+_default_lock = threading.Lock()
+
+
+def default_resources() -> Resources:
+    """Process-default resources on ``cuda`` (created on first use)."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = Resources()
+        return _default
+
+
+def ensure_resources(res: Optional[Resources],
                      device: DeviceLike = None) -> Resources:
-    """``res`` as given, else a fresh handle on ``device`` (default
-    ``cuda``). Passing both with different devices is an error."""
+    """``res`` as given, else a handle on ``device``, else
+    :func:`default_resources`. Passing both with different device
+    types is an error."""
     if res is not None:
         if device is not None and torch.device(device).type != \
                 res.device.type:
@@ -60,4 +75,4 @@ def ensure_resources(res: Optional[Resources] = None,
                 f"ensure_resources: device={device} contradicts "
                 f"res.device={res.device}")
         return res
-    return Resources(device if device is not None else "cuda")
+    return Resources(device) if device is not None else default_resources()

@@ -1,6 +1,7 @@
-// Per-query top-k over candidate rows, shared by ivf_pq_scan.cu (kernel 9)
-// and ivf_bq_scan.cu (kernel 11): the second pass of the fused scans, whose
-// first pass writes each query's candidates in (list id, bin) order.
+// Per-query top-k over candidate rows, shared by ivf_flat_scan.cu (kernel
+// 3), ivf_pq_scan.cu (kernel 9), ivf_bq_scan.cu (kernel 11) and
+// fused_knn.cu (kernel 5): the second pass of the fused scans, whose first
+// pass writes each query's candidates in (list id, bin) order.
 //
 // Replaces the resident-state merge of the TPU's fused scan kernels
 // (raft_tpu/ops/pallas_ivf_scan.py:_merge_state): k rounds of "take the

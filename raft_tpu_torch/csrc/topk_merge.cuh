@@ -1,5 +1,5 @@
-// Block-wide exact top-k merge shared by select_k.cu, ivf_flat_scan.cu and
-// candidate_topk.cuh.
+// Block-wide exact top-k merge of candidate_topk.cuh (pass B of kernels 3,
+// 5, 9 and 11).
 //
 // The TPU kernels (raft_tpu/ops/pallas_select_k.py:_select_kernel and
 // raft_tpu/ops/pallas_ivf_scan.py:_merge_state) keep a sorted k-state and

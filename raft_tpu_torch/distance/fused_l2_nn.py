@@ -13,25 +13,32 @@ import torch
 
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.kvp import KeyValuePair
-from raft_tpu_torch.core.precision import full_fp32_matmul
+from raft_tpu_torch.core.precision import (check_f32_kernel_precision,
+                                           full_fp32_matmul)
+from raft_tpu_torch.core.resources import ensure_resources
 from raft_tpu_torch.ops import fused_l2_nn as _op
 
 
-def fused_l2_nn(x: torch.Tensor, y: torch.Tensor,
-                sqrt: bool = False) -> KeyValuePair:
+def fused_l2_nn(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False,
+                kernel_precision: str | None = None,
+                res=None) -> KeyValuePair:
     """``KeyValuePair(key=int32 (m,), value=float32 (m,))``; ties go to
-    the lowest index of ``y``. ``x`` and ``y`` must share a device."""
+    the lowest index of ``y``. ``x`` and ``y`` must share a device.
+    ``kernel_precision``: ``None`` or ``"highest"`` (f32, the kernel's
+    only arithmetic so far); the bf16 tiers raise."""
+    check_f32_kernel_precision("fused_l2_nn", kernel_precision)
     expects(x.dim() == 2 and y.dim() == 2, "fused_l2_nn: inputs must be rank-2")
     expects(x.shape[1] == y.shape[1], "fused_l2_nn: dim mismatch")
     expects(x.device == y.device, "fused_l2_nn: x on %s, y on %s",
             x.device, y.device)
     expects(y.shape[0] > 0, "fused_l2_nn: y has no rows")
+    ensure_resources(res, x.device)
     full_fp32_matmul()
     idx, d = _op.fused_l2_nn(x.float(), y.float(), sqrt=bool(sqrt))
     return KeyValuePair(idx, d)
 
 
 def fused_l2_nn_argmin(x: torch.Tensor, y: torch.Tensor,
-                       sqrt: bool = True) -> torch.Tensor:
+                       sqrt: bool = True, res=None) -> torch.Tensor:
     """Index-only form (``pylibraft.distance.fused_l2_nn_argmin``)."""
-    return fused_l2_nn(x, y, sqrt=sqrt).key
+    return fused_l2_nn(x, y, sqrt=sqrt, res=res).key

@@ -15,16 +15,20 @@ MAX_QUERY_BATCH = 4096
 
 
 def batched_search(search_one_batch, queries: torch.Tensor,
-                   max_batch: int = 0):
+                   max_batch: int = 0, pad_partial: bool = False,
+                   block: bool = False):
     """Run ``search_one_batch(q_slice) -> (d, i)`` over query batches of
     ``max_batch`` rows (default :data:`MAX_QUERY_BATCH`) and concatenate.
     A ragged last batch is padded to the batch size with real rows from
-    the batch before it and the pad results are dropped, so every call
-    sees one shape."""
+    the batch before it (a lone short batch cycles its own rows) and the
+    pad results are dropped, so every call sees one shape.
+    ``pad_partial`` pads a whole query set smaller than ``max_batch``
+    too; ``block`` ends with one ``torch.cuda.synchronize`` of the
+    queries' device."""
     mb = max_batch if max_batch > 0 else MAX_QUERY_BATCH
     nq = queries.shape[0]
-    if nq <= mb:
-        return search_one_batch(queries)
+    if nq <= mb and not (pad_partial and nq < mb):
+        return _finish(search_one_batch(queries), queries, block)
     outs = []
     n_sub = 0
     for s in range(0, nq, mb):
@@ -32,15 +36,29 @@ def batched_search(search_one_batch, queries: torch.Tensor,
         short = mb - qb.shape[0]
         n_sub += 1
         if short:
-            # nq > mb, so the batch before this one has mb >= short rows
-            fill = queries[s - short:s]
+            # real rows keep the pad in the queries' distribution (one
+            # repeated row would crowd its lists and could overflow a
+            # cached cap); earlier rows where there are enough
+            if s >= short:
+                fill = queries[s - short:s]
+            else:
+                fill = qb.repeat(-(-short // qb.shape[0]), 1)[:short]
             d, i = search_one_batch(torch.cat([qb, fill], dim=0))
             outs.append((d[:mb - short], i[:mb - short]))
         else:
             outs.append(search_one_batch(qb))
     obs.counter("raft.ann.batched_search.sub_batches").inc(n_sub)
     d, i = zip(*outs)
-    return torch.cat(d, dim=0), torch.cat(i, dim=0)
+    return _finish((torch.cat(d, dim=0), torch.cat(i, dim=0)), queries,
+                   block)
+
+
+def _finish(out, queries: torch.Tensor, block: bool):
+    """``out``, after one synchronize of the queries' CUDA device when
+    ``block``."""
+    if block and queries.is_cuda:
+        torch.cuda.synchronize(queries.device)
+    return out
 
 
 def list_order_auto(nq: int, n_probes: int, n_lists: int) -> bool:

@@ -106,13 +106,15 @@ def index_from_numpy(arrays: dict, metric, size: int,
 
 
 def knn_query(index: BallCoverIndex, queries, k: int, n_probes: int = 0,
-              prune: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+              prune: bool = True, res=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k-NN through the ball cover → ``(dists, ids int32)`` (nq, k).
 
     Balls are scanned in order of their lower bound; with ``prune`` the
     scan stops once every query's next ball is excluded by ``bound >
     kth_best``. ``n_probes`` caps the depth (0 → every landmark when
     pruning, else ``2·√n_l + 1``)."""
+    ensure_resources(res, index.landmarks.device)
     q = as_device_tensor(queries, index.landmarks.device).float()
     nq = q.shape[0]
     n_l = index.n_landmarks
@@ -139,9 +141,10 @@ def knn_query(index: BallCoverIndex, queries, k: int, n_probes: int = 0,
     return best_d, best_i
 
 
-def all_knn_query(index: BallCoverIndex, k: int, n_probes: int = 0
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def all_knn_query(index: BallCoverIndex, k: int, n_probes: int = 0,
+                  res=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """All-points k-NN over the indexed dataset itself."""
+    ensure_resources(res, index.landmarks.device)
     dim = index.landmarks.shape[1]
     flat = index.lists_data.reshape(-1, dim)
     ids = index.lists_indices.reshape(-1)

@@ -89,9 +89,9 @@ def brute_force_knn(db, queries, k: int,
         if metric in (DistanceType.CosineExpanded,
                       DistanceType.CorrelationExpanded):
             from raft_tpu_torch.neighbors.processing import (
-                fused_knn_preprocessed)
-            return fused_knn_preprocessed(db, queries, k, metric,
-                                          kernel_precision)
+                _fused_knn_preprocessed)
+            return _fused_knn_preprocessed(db, queries, k, metric,
+                                           kernel_precision)
         fused = _FUSED_METRICS.get(metric)
         expects(fused is not None,
                 f"fused knn supports L2/IP/cosine/correlation, got {metric}")

@@ -70,6 +70,8 @@ class IndexParams:
     metric: DistanceType = DistanceType.L2Expanded
     kmeans_n_iters: int = 10          # coarse only; there is no codebook
     kmeans_trainset_fraction: float = 0.5
+    # the trainer's fused L2-NN tier: None / "highest" (f32) only
+    kmeans_kernel_precision: object = None
     # keep the raw f32 vectors on the host for the exact re-rank
     keep_raw: bool = True
 
@@ -104,11 +106,11 @@ class Index:
     size: int
     # raw f32 vectors on the host (keep_raw builds), indexed by id
     raw: Optional[np.ndarray] = None
-    # lazy device copy of ``raw`` (rescore_on_device); not serialized
-    raw_dev: Optional[torch.Tensor] = None
     cap_cache: dict = field(default_factory=dict, repr=False, compare=False)
     plan_cache: dict = field(default_factory=dict, repr=False,
                              compare=False)
+    # lazy device copy of ``raw`` (rescore_on_device); not serialized
+    raw_dev: Optional[torch.Tensor] = None
 
     @property
     def n_lists(self) -> int:
@@ -193,7 +195,8 @@ def build(dataset, params: IndexParams = IndexParams(), res=None,
     trainset = (take_rows(x, sample_rows(n, n_train, 0, x.device))
                 if n_train < n else x)
     centers = kmeans_balanced.build_hierarchical(
-        trainset, params.n_lists, params.kmeans_n_iters)
+        trainset, params.n_lists, params.kmeans_n_iters,
+        kernel_precision=params.kmeans_kernel_precision)
     del trainset
     labels = kmeans_balanced.predict(x, centers)
     rot = make_rotation_matrix(d, d, force_random=True, device=x.device)
@@ -239,8 +242,10 @@ def index_from_numpy(arrays: dict, metric, size: int, raw=None,
                       if raw is not None else None))
 
 
-def extend(index: Index, new_vectors, new_indices=None) -> Index:
-    raise NotImplementedError("ivf_bq.extend is not ported yet")
+def extend(index: Index, new_vectors, new_indices=None,
+           res=None) -> Index:
+    raise NotImplementedError("ivf_bq.extend is not ported yet "
+                              "(ROADMAP.md queue 1 item 2)")
 
 
 def _exact_rescore_device(raw_dev: torch.Tensor, q: torch.Tensor,
@@ -409,13 +414,14 @@ class _Route:
 
 
 def search(index: Index, queries, k: int,
-           params: SearchParams = SearchParams()
+           params: SearchParams = SearchParams(), res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Estimator scan on the device + exact re-rank → (dists (nq, k)
     f32, ids (nq, k) int32) on the index's device. When rescoring the
     distances are exact; in the IVF-Flat output conventions either way
     (squared L2 ascending, euclidean for L2Sqrt, IP similarities
     descending, 1 - cos for cosine)."""
+    ensure_resources(res, index.device)
     full_fp32_matmul()
     q = torch.as_tensor(queries, dtype=torch.float32).to(
         index.device).contiguous()

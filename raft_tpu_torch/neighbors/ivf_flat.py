@@ -17,9 +17,9 @@ chooses (``scan_order``; "auto" picks list-major when ``nq >= 64`` and
   package leaves this route to XLA too).
 
 Ported: float32 storage; metrics L2 (squared and sqrt), InnerProduct and
-Cosine. Not ported yet: bf16/int8 storage (raises
-``NotImplementedError``), the trainer's bf16 tiers
-(``kmeans_kernel_precision``), ``extend``.
+Cosine. Not ported yet (each raises ``NotImplementedError``): bf16/int8
+storage, the trainer's bf16 tiers (``kmeans_kernel_precision``),
+``adaptive_centers`` (it acts in ``extend``, which is not ported either).
 """
 
 from __future__ import annotations
@@ -61,6 +61,10 @@ class IndexParams:
     metric: DistanceType = DistanceType.L2Expanded
     kmeans_n_iters: int = 20
     kmeans_trainset_fraction: float = 0.5
+    # True only matters to extend (not ported)
+    adaptive_centers: bool = False
+    # the trainer's fused L2-NN tier: None / "highest" (f32) only
+    kmeans_kernel_precision: object = None
     # only "float32" is ported
     storage_dtype: str = "float32"
 
@@ -187,6 +191,10 @@ def build(dataset, params: IndexParams = IndexParams(), res=None,
         raise NotImplementedError(
             f"ivf_flat.build: storage_dtype={params.storage_dtype!r} is "
             "not ported yet (float32 only)")
+    if params.adaptive_centers:
+        raise NotImplementedError(
+            "ivf_flat.build: adaptive_centers=True acts in extend, which "
+            "is not ported yet (ROADMAP.md queue 1 item 1)")
     obs.counter("raft.ivf_flat.build.total").inc()
     obs.counter("raft.ivf_flat.build.rows").inc(n)
     if params.metric == DistanceType.CosineExpanded:
@@ -195,7 +203,8 @@ def build(dataset, params: IndexParams = IndexParams(), res=None,
     trainset = (take_rows(x, sample_rows(n, n_train, 0, x.device))
                 if n_train < n else x)
     centers = kmeans_balanced.build_hierarchical(
-        trainset, params.n_lists, params.kmeans_n_iters)
+        trainset, params.n_lists, params.kmeans_n_iters,
+        kernel_precision=params.kmeans_kernel_precision)
     del trainset
     labels = kmeans_balanced.predict(x, centers)
     data, ids, norms, counts = _bucketize(x, labels, params.n_lists)
@@ -305,10 +314,11 @@ def use_list_order(params: SearchParams, nq: int, n_probes: int,
 
 
 def search(index: Index, queries, k: int,
-           params: SearchParams = SearchParams()
+           params: SearchParams = SearchParams(), res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search → (dists (nq, k) f32, neighbour ids (nq, k) int32) on the
-    index's device."""
+    index's device (``res``, if given, must name it)."""
+    ensure_resources(res, index.device)
     full_fp32_matmul()
     _check_storage(index)
     q = _as_queries(index, queries)

@@ -73,6 +73,8 @@ class IndexParams:
     pq_dim: int = 0           # 0 = dim // 4
     codebook_kind: CodebookGen = CodebookGen.PER_SUBSPACE
     force_random_rotation: bool = False
+    # the trainer's fused L2-NN tier: None / "highest" (f32) only
+    kmeans_kernel_precision: object = None
     # keep the raw f32 vectors on the host for exact rescoring
     keep_raw: bool = False
     # codewords under reseed_threshold * (rows / n_codes) assignments
@@ -119,17 +121,21 @@ class Index:
     codebook_kind: CodebookGen = CodebookGen.PER_SUBSPACE
     # exact decoded-residual squared norms (n_lists, max_list), 0 on pads
     code_norms: Optional[torch.Tensor] = None
+    # the "reconstruct" scan's decoded lists and their norms (lazy in
+    # the JAX package); that scan is not ported, so they stay None
+    decoded: Optional[torch.Tensor] = None
+    decoded_norms: Optional[torch.Tensor] = None
     # the same over the fp8-rounded books (fp8 LUT tier, lazy)
     code_norms_fp8: Optional[torch.Tensor] = None
     # raw f32 vectors on the host (keep_raw builds), indexed by id
     raw: Optional[np.ndarray] = None
+    cap_cache: dict = field(default_factory=dict, repr=False, compare=False)
+    plan_cache: dict = field(default_factory=dict, repr=False,
+                             compare=False)
     # lazy device copy of ``raw`` (rescore_on_device); not serialized
     raw_dev: Optional[torch.Tensor] = None
     # books rounded per LUT tier, keyed by dtype; not serialized
-    lut_cache: dict = field(default_factory=dict, repr=False,
-                            compare=False)
-    cap_cache: dict = field(default_factory=dict, repr=False, compare=False)
-    plan_cache: dict = field(default_factory=dict, repr=False,
+    _lut_cache: dict = field(default_factory=dict, repr=False,
                              compare=False)
 
     @property
@@ -370,7 +376,8 @@ def build(dataset, params: IndexParams = IndexParams(), seed: int = 0,
     trainset = (take_rows(x, sample_rows(n, n_train, seed, x.device))
                 if n_train < n else x)
     centers = kmeans_balanced.build_hierarchical(
-        trainset, params.n_lists, params.kmeans_n_iters)
+        trainset, params.n_lists, params.kmeans_n_iters,
+        kernel_precision=params.kmeans_kernel_precision)
     del trainset
     rot = make_rotation_matrix(dim, rot_dim, params.force_random_rotation,
                                seed=seed + 1, device=x.device)
@@ -424,8 +431,10 @@ def index_from_numpy(arrays: dict, metric, size: int, pq_bits: int,
     return index
 
 
-def extend(index: Index, new_vectors, new_indices=None) -> Index:
-    raise NotImplementedError("ivf_pq.extend is not ported yet")
+def extend(index: Index, new_vectors, new_indices=None,
+           res=None) -> Index:
+    raise NotImplementedError("ivf_pq.extend is not ported yet "
+                              "(ROADMAP.md queue 1 item 2)")
 
 
 def _ensure_code_norms(index: Index, params: SearchParams,
@@ -447,10 +456,10 @@ def _ensure_code_norms(index: Index, params: SearchParams,
 
 def _lut_books(index: Index, lut_dtype):
     """``(books, round_q)`` of the LUT tier, cached on the index."""
-    got = index.lut_cache.get(lut_dtype)
+    got = index._lut_cache.get(lut_dtype)
     if got is None:
         got = pq_op.lut_operands(index.pq_centers, lut_dtype)
-        index.lut_cache[lut_dtype] = got
+        index._lut_cache[lut_dtype] = got
     return got
 
 
@@ -559,11 +568,12 @@ class _Route:
 
 
 def search(index: Index, queries, k: int,
-           params: SearchParams = SearchParams()
+           params: SearchParams = SearchParams(), res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search → (dists (nq, k) f32, ids (nq, k) int32) on the index's
     device: exact distances when rescoring, PQ estimates otherwise, in
     the IVF-Flat output conventions."""
+    ensure_resources(res, index.device)
     full_fp32_matmul()
     q = torch.as_tensor(queries, dtype=torch.float32).to(
         index.device).contiguous()

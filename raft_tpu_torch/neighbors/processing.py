@@ -38,10 +38,19 @@ def postprocess_distances(sims: torch.Tensor,
 
 
 def fused_knn_preprocessed(db: torch.Tensor, queries: torch.Tensor, k: int,
-                           metric: DistanceType,
-                           kernel_precision=None
+                           metric: DistanceType
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cosine/correlation k-NN through the fused IP kernel."""
+    return _fused_knn_preprocessed(db, queries, k, metric)
+
+
+def _fused_knn_preprocessed(db: torch.Tensor, queries: torch.Tensor,
+                            k: int, metric: DistanceType,
+                            kernel_precision=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_knn_preprocessed` at a ``kernel_precision``
+    (``brute_force_knn`` passes its own on, where the JAX package drops
+    it)."""
     from raft_tpu_torch.ops.fused_knn import fused_knn
     if metric not in (DistanceType.CosineExpanded,
                       DistanceType.CorrelationExpanded):

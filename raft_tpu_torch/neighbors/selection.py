@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.resources import ensure_resources
 from raft_tpu_torch.ops import select_k as _op
 
 _FLOATS = (torch.float32, torch.float16, torch.bfloat16)
@@ -25,11 +26,19 @@ def _use_kernel(v: torch.Tensor, k: int) -> bool:
 
 
 def select_k(values: torch.Tensor, k: int, select_min: bool = True,
-             input_indices=None) -> Tuple[torch.Tensor, torch.Tensor]:
+             input_indices=None, mode: str = "exact",
+             recall_target: float = 0.95,
+             res=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row exact k smallest (or largest) values with their int32
     indices. ``input_indices`` maps columns to global ids (``-1`` stays
-    ``-1``). The JAX package's ``mode="approx"`` is not ported."""
+    ``-1``). The JAX package's ``mode="approx"`` (and with it
+    ``recall_target``) is not ported and raises."""
+    if mode == "approx":
+        raise NotImplementedError(
+            f"select_k: mode={mode!r} is not ported yet (ROADMAP.md queue "
+            "1 item 5)")
     v = values if isinstance(values, torch.Tensor) else torch.as_tensor(values)
+    ensure_resources(res, v.device)
     expects(v.dim() == 2, "select_k: values must be (n_rows, n_cols)")
     expects(1 <= k <= v.shape[1], "select_k: k=%d outside [1, %d]", k,
             v.shape[1])

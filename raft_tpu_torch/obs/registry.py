@@ -25,10 +25,11 @@ def _series(name: str, labels: dict) -> str:
 
 
 class Counter:
-    """Monotonic counter."""
+    """Monotonic counter; ``help`` is its description."""
 
-    def __init__(self):
+    def __init__(self, help: str = ""):
         self.value = 0.0
+        self.help = help
 
     def inc(self, amount: float = 1.0) -> None:
         if amount < 0:
@@ -38,17 +39,19 @@ class Counter:
 
 
 class Gauge:
-    """Value that can go up and down."""
+    """Value that can go up and down; ``help`` is its description."""
 
-    def __init__(self):
+    def __init__(self, help: str = ""):
         self.value = 0.0
+        self.help = help
 
     def set(self, value: float) -> None:
         with _lock:
             self.value = float(value)
 
 
-def _get(table: dict, other: dict, cls, name: str, labels: dict):
+def _get(table: dict, other: dict, cls, name: str, help: str,
+         labels: dict):
     key = _series(name, labels)
     with _lock:
         inst = table.get(key)
@@ -56,16 +59,16 @@ def _get(table: dict, other: dict, cls, name: str, labels: dict):
             if any(k == name or k.startswith(name + "{") for k in other):
                 raise ValueError(f"metric {name!r} already registered "
                                  "as another kind")
-            inst = table[key] = cls()
+            inst = table[key] = cls(help)
         return inst
 
 
-def counter(name: str, **labels) -> Counter:
-    return _get(_counters, _gauges, Counter, name, labels)
+def counter(name: str, help: str = "", **labels) -> Counter:
+    return _get(_counters, _gauges, Counter, name, help, labels)
 
 
-def gauge(name: str, **labels) -> Gauge:
-    return _get(_gauges, _counters, Gauge, name, labels)
+def gauge(name: str, help: str = "", **labels) -> Gauge:
+    return _get(_gauges, _counters, Gauge, name, help, labels)
 
 
 def snapshot() -> dict:

@@ -10,6 +10,10 @@ first launch of a kernel builds it, or :func:`build_all` builds every
 kernel at once with one ``nvcc`` process per source, all running
 together.
 
+Each C entry point is an :class:`Entry`: the library is loaded, the
+symbol resolved and its ``argtypes`` set once, at the first call; a
+launch after that costs one attribute read.
+
 Compiler: ``$NVCC`` if set, else ``nvcc`` on ``PATH``, else
 ``$CUDA_HOME/bin/nvcc`` (``CUDA_HOME`` defaulting to ``/usr/local/cuda``).
 Target: ``sm_90a`` (Hopper), ``-O3``.
@@ -25,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,6 +44,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# argument types of the entry points: every pointer and the stream are
+# c_void_p (a bare Python int would be cut to 32 bits)
+PTR, INT, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
 
 
 def nvcc_path() -> str:
@@ -115,6 +124,27 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
     return lib
+
+
+class Entry:
+    """A C entry point ``symbol`` of the kernel library ``lib``, taking
+    ``argtypes`` and returning a cudaError code. The library is built or
+    loaded, and the function's ``argtypes`` set, once, at the first
+    call."""
+
+    def __init__(self, lib: str, symbol: str, argtypes: Sequence):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes = list(argtypes)
+        self._fn = None
+
+    def __call__(self, *args) -> int:
+        fn = self._fn
+        if fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return fn(*args)
 
 
 def check(rc: int, what: str) -> None:

@@ -10,12 +10,11 @@ VMEM limit of its kernel) has no counterpart here.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from raft_tpu_torch.distance import _elementwise_cores as cores
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._build import F32, INT, PTR
 from raft_tpu_torch.ops._util import check_cuda_tensor
 
 # kernel tag -> the metric id of csrc/elementwise_dist.cu's enum Metric
@@ -63,13 +62,9 @@ def elementwise_dist_plain(x: torch.Tensor, y: torch.Tensor, metric: str,
     return cores.finalize(metric, tuple(out) if pair else out[0], p, k, sqrt)
 
 
-def _lib():
-    fn = _build.load("elementwise_dist").raft_elementwise_dist
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_ELEMENTWISE = _build.Entry(
+    "elementwise_dist", "raft_elementwise_dist",
+    [PTR, PTR, INT, INT, INT, INT, F32, INT, PTR, PTR])
 
 
 def elementwise_dist_cuda(x: torch.Tensor, y: torch.Tensor, metric: str,
@@ -87,13 +82,13 @@ def elementwise_dist_cuda(x: torch.Tensor, y: torch.Tensor, metric: str,
     if d < 1:
         raise ValueError("elementwise_dist: dim must be >= 1")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _lib()
     with torch.cuda.device(x.device):
         for s in range(0, m, _KERNEL_ROWS):
             rows = min(_KERNEL_ROWS, m - s)
-            rc = fn(x[s].data_ptr(), y.data_ptr(), rows, n, d,
-                    METRIC_IDS[metric], float(p), int(bool(sqrt)),
-                    out[s].data_ptr(), _build.stream_handle(x.device))
+            rc = _ELEMENTWISE(x[s].data_ptr(), y.data_ptr(), rows, n, d,
+                              METRIC_IDS[metric], float(p), int(bool(sqrt)),
+                              out[s].data_ptr(),
+                              _build.stream_handle(x.device))
             _build.check(rc, "elementwise_dist")
             launches += 1
     return out

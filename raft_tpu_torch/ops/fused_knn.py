@@ -20,13 +20,13 @@ geometry is part of the result; ``l_bins == tn`` is exact.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from raft_tpu_torch.core.precision import full_fp32_matmul
 from raft_tpu_torch.ops import _build
-from raft_tpu_torch.ops._util import check_cuda_tensor, round_up, stable_topk_min
+from raft_tpu_torch.ops._build import I64, INT, PTR
+from raft_tpu_torch.ops._util import (check_cuda_tensor, round_up,
+                                      stable_topk_min)
 
 # k served by the kernel's top-k pass (csrc/candidate_topk.cuh kTopMaxK);
 # above it the candidates are ranked by a stable sort
@@ -127,16 +127,17 @@ def _nt(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
     ``raft_tpu/ops/_util.py`` ``dot_nt_f32``: each operand split into
     ``hi = bf16(v)`` and ``lo = bf16(v - hi)`` (round to nearest even, as
     the kernel's ``__float2bfloat16_rn``), three full-f32 products of the
-    splits (each exact) summed hi.lo + lo.hi + hi.hi."""
+    splits (each exact) summed hi.lo + lo.hi + hi.hi. Leading dimensions
+    batch."""
     if precision == "f32":
-        return a @ b.T
+        return a @ b.transpose(-2, -1)
     ah, bh = a.bfloat16().float(), b.bfloat16().float()
     if precision == "bf16":
-        return ah @ bh.T
+        return ah @ bh.transpose(-2, -1)
     al, bl = (a - ah).bfloat16().float(), (b - bh).bfloat16().float()
-    acc = ah @ bl.T
-    acc += al @ bh.T
-    acc += ah @ bh.T
+    acc = ah @ bl.transpose(-2, -1)
+    acc += al @ bh.transpose(-2, -1)
+    acc += ah @ bh.transpose(-2, -1)
     return acc
 
 
@@ -203,28 +204,14 @@ def fused_knn_plain(x: torch.Tensor, y: torch.Tensor, k: int,
     return (-vals if metric == "ip" else vals), ids
 
 
-def _lib():
-    lib = _build.load("fused_knn")
-    norms = lib.raft_fused_knn_norms
-    norms.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p]
-    bins = lib.raft_fused_knn_bins
-    bins.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                     + [ctypes.c_longlong] + [ctypes.c_void_p] * 3)
-    topk = lib.raft_fused_knn_topk
-    topk.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong]
-                     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
-    for fn in (norms, bins, topk):
-        fn.restype = ctypes.c_int
-    return norms, bins, topk
-
-
-def _lib_tc():
-    fn = _build.load("fused_knn_tc").raft_fused_knn_bins_tc
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    return fn
+_NORMS = _build.Entry("fused_knn", "raft_fused_knn_norms",
+                      [PTR, I64, INT, PTR, PTR])
+_BINS = _build.Entry("fused_knn", "raft_fused_knn_bins",
+                     [PTR] * 4 + [INT] * 8 + [I64] + [PTR] * 3)
+_TOPK = _build.Entry("fused_knn", "raft_fused_knn_topk",
+                     [PTR] * 2 + [INT, I64] + [INT] * 2 + [PTR] * 3)
+_BINS_TC = _build.Entry("fused_knn_tc", "raft_fused_knn_bins_tc",
+                        [PTR] * 4 + [INT] * 7 + [I64] + [PTR] * 3)
 
 
 def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
@@ -256,18 +243,16 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
     b = tn // l_bins
     nb = -(-n // b)
     dev = x.device
-    norms_fn, bins_fn, topk_fn = _lib()
-    tc_fn = _lib_tc() if tc else None
     stream = _build.stream_handle(dev)
     xx = yy = None
     with torch.cuda.device(dev):
         if metric == "l2" and not ktiled:
             xx = torch.empty(m, dtype=torch.float32, device=dev)
             yy = torch.empty(n, dtype=torch.float32, device=dev)
-            _build.check(norms_fn(x.data_ptr(), m, dim, xx.data_ptr(),
-                                  stream), "fused_knn norms")
-            _build.check(norms_fn(y.data_ptr(), n, dim, yy.data_ptr(),
-                                  stream), "fused_knn norms")
+            _build.check(_NORMS(x.data_ptr(), m, dim, xx.data_ptr(),
+                                stream), "fused_knn norms")
+            _build.check(_NORMS(y.data_ptr(), n, dim, yy.data_ptr(),
+                                stream), "fused_knn norms")
         out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
         mc = max(1, min(m, _MAX_CAND_ELEMS // nb))
@@ -278,16 +263,16 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
             norm_ptrs = (xx[s].data_ptr() if xx is not None else None,
                          yy.data_ptr() if yy is not None else None)
             if tc:
-                rc = tc_fn(x[s].data_ptr(), y.data_ptr(), *norm_ptrs, rows,
-                           n, dim, tn, b, int(metric == "ip"),
-                           3 if precision == "bf16x3" else 1, nb,
-                           cand_d.data_ptr(), cand_i.data_ptr(), stream)
+                rc = _BINS_TC(x[s].data_ptr(), y.data_ptr(), *norm_ptrs,
+                              rows, n, dim, tn, b, int(metric == "ip"),
+                              3 if precision == "bf16x3" else 1, nb,
+                              cand_d.data_ptr(), cand_i.data_ptr(), stream)
             else:
-                rc = bins_fn(x[s].data_ptr(), y.data_ptr(), *norm_ptrs,
-                             rows, n, dim, tn, b, int(ktiled),
-                             int(metric == "ip"), int(precision == "bf16"),
-                             nb, cand_d.data_ptr(), cand_i.data_ptr(),
-                             stream)
+                rc = _BINS(x[s].data_ptr(), y.data_ptr(), *norm_ptrs,
+                           rows, n, dim, tn, b, int(ktiled),
+                           int(metric == "ip"), int(precision == "bf16"),
+                           nb, cand_d.data_ptr(), cand_i.data_ptr(),
+                           stream)
             _build.check(rc, "fused_knn")
             if tc:
                 launches += 1
@@ -297,10 +282,10 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
                 launches_f32 += 1
             do_sqrt = bool(sqrt) and metric == "l2"
             if k <= MAX_K:
-                _build.check(topk_fn(cand_d.data_ptr(), cand_i.data_ptr(),
-                                     rows, nb, k, int(do_sqrt),
-                                     out_d[s].data_ptr(),
-                                     out_i[s].data_ptr(), stream),
+                _build.check(_TOPK(cand_d.data_ptr(), cand_i.data_ptr(),
+                                   rows, nb, k, int(do_sqrt),
+                                   out_d[s].data_ptr(),
+                                   out_i[s].data_ptr(), stream),
                              "fused_knn top-k")
             else:
                 out_d[s:s + rows], out_i[s:s + rows] = rank_candidates(

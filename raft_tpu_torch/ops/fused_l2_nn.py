@@ -8,11 +8,10 @@ the kernel (or raise).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._build import INT, PTR
 from raft_tpu_torch.ops._util import check_cuda_tensor
 
 # launches of the CUDA kernel since the last reset (a plain integer)
@@ -44,13 +43,8 @@ def fused_l2_nn_plain(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False):
     return idx, dist
 
 
-def _lib():
-    lib = _build.load("fused_l2_nn")
-    fn = lib.raft_fused_l2_nn
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    return fn
+_FUSED_L2_NN = _build.Entry("fused_l2_nn", "raft_fused_l2_nn",
+                            [PTR] * 4 + [INT] * 4 + [PTR] * 3)
 
 
 def fused_l2_nn_cuda(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False):
@@ -68,11 +62,11 @@ def fused_l2_nn_cuda(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False):
     dist = torch.empty(m, dtype=torch.float32, device=x.device)
     xx = torch.empty(m, dtype=torch.float32, device=x.device)
     yy = torch.empty(n, dtype=torch.float32, device=x.device)
-    fn = _lib()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), y.data_ptr(), xx.data_ptr(), yy.data_ptr(),
-                m, n, d, int(bool(sqrt)), idx.data_ptr(), dist.data_ptr(),
-                _build.stream_handle(x.device))
+        rc = _FUSED_L2_NN(x.data_ptr(), y.data_ptr(), xx.data_ptr(),
+                          yy.data_ptr(), m, n, d, int(bool(sqrt)),
+                          idx.data_ptr(), dist.data_ptr(),
+                          _build.stream_handle(x.device))
     _build.check(rc, "fused_l2_nn")
     launches += 1
     return idx, dist

@@ -20,11 +20,10 @@ summation order only. See the kernel's source note.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._build import INT, PTR
 from raft_tpu_torch.ops._util import check_cuda_tensor, round_up
 from raft_tpu_torch.ops.ivf_scan import (bin_rows, finish_state,
                                          kept_probes_sorted,
@@ -129,17 +128,10 @@ def bq_scan_fused_plain(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
     return finish_state(best_d, best_i, False)
 
 
-def _fns():
-    lib = _build.load("ivf_bq_scan")
-    scan = lib.raft_ivf_bq_scan
-    scan.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                     + [ctypes.c_void_p] * 3)
-    scan.restype = ctypes.c_int
-    topk = lib.raft_ivf_bq_topk
-    topk.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p] * 3)
-    topk.restype = ctypes.c_int
-    return scan, topk
+_SCAN = _build.Entry("ivf_bq_scan", "raft_ivf_bq_scan",
+                     [PTR] * 8 + [INT] * 10 + [PTR] * 3)
+_TOPK = _build.Entry("ivf_bq_scan", "raft_ivf_bq_topk",
+                     [PTR] * 2 + [INT] * 3 + [PTR] * 3)
 
 
 def _check(q_rot, centers_rot, bits, norms2, scales, ids):
@@ -161,20 +153,20 @@ def _check(q_rot, centers_rot, bits, norms2, scales, ids):
                          "shared-memory query row")
 
 
-def _launch_pairs(scan, q_rot, centers_rot, bits, norms2, scales, ids, qsel,
+def _launch_pairs(q_rot, centers_rot, bits, norms2, scales, ids, qsel,
                   lsel, n_pairs, div, bins, metric, center_term, out_d,
                   out_i):
     n_lists, max_list, words = bits.shape
     vec4 = words % 4 == 0 and bits.data_ptr() % 16 == 0
     with torch.cuda.device(q_rot.device):
-        rc = scan(q_rot.data_ptr(), centers_rot.data_ptr(), bits.data_ptr(),
-                  norms2.data_ptr(), scales.data_ptr(), ids.data_ptr(),
-                  qsel.data_ptr() if qsel is not None else None,
-                  lsel.data_ptr() if lsel is not None else None,
-                  n_pairs, div, q_rot.shape[1], words, max_list, bins,
-                  round_up(max_list, bins), int(metric == "ip"),
-                  int(bool(center_term)), int(vec4), out_d.data_ptr(),
-                  out_i.data_ptr(), _build.stream_handle(q_rot.device))
+        rc = _SCAN(q_rot.data_ptr(), centers_rot.data_ptr(), bits.data_ptr(),
+                   norms2.data_ptr(), scales.data_ptr(), ids.data_ptr(),
+                   qsel.data_ptr() if qsel is not None else None,
+                   lsel.data_ptr() if lsel is not None else None,
+                   n_pairs, div, q_rot.shape[1], words, max_list, bins,
+                   round_up(max_list, bins), int(metric == "ip"),
+                   int(bool(center_term)), int(vec4), out_d.data_ptr(),
+                   out_i.data_ptr(), _build.stream_handle(q_rot.device))
     _build.check(rc, "ivf_bq_scan")
 
 
@@ -191,8 +183,7 @@ def bq_scan_cuda(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
     out_d = torch.empty((n_lists, cap, bins), dtype=torch.float32,
                         device=dev)
     out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
-    scan, _ = _fns()
-    _launch_pairs(scan, q_rot, centers_rot, bits, norms2, scales, ids, qmap,
+    _launch_pairs(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
                   None, n_lists * cap, cap, bins, metric, False, out_d, out_i)
     launches += 1
     return out_d, out_i
@@ -218,14 +209,13 @@ def bq_scan_fused_cuda(q_rot, centers_rot, bits, norms2, scales, ids,
                          device=dev)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    scan, topk = _fns()
-    _launch_pairs(scan, q_rot, centers_rot, bits, norms2, scales, ids, None,
+    _launch_pairs(q_rot, centers_rot, bits, norms2, scales, ids, None,
                   kp, nq * n_probes, n_probes, bins, metric, True, cand_d,
                   cand_i)
     with torch.cuda.device(dev):
-        rc = topk(cand_d.data_ptr(), cand_i.data_ptr(), nq,
-                  n_probes * bins, k, out_d.data_ptr(), out_i.data_ptr(),
-                  _build.stream_handle(dev))
+        rc = _TOPK(cand_d.data_ptr(), cand_i.data_ptr(), nq,
+                   n_probes * bins, k, out_d.data_ptr(), out_i.data_ptr(),
+                   _build.stream_handle(dev))
     _build.check(rc, "ivf_bq_scan_fused top-k")
     launches_fused += 1
     return out_d, out_i

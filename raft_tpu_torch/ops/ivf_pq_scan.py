@@ -19,11 +19,10 @@ differ in f32 summation order only. See the kernel's source note.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._build import INT, PTR
 from raft_tpu_torch.ops._util import check_cuda_tensor, round_up
 from raft_tpu_torch.ops.ivf_scan import (bin_rows, finish_state,
                                          kept_probes_sorted,
@@ -143,17 +142,10 @@ def pq_scan_fused_plain(q_rot, centers_rot, books, codes, norms, ids,
     return finish_state(best_d, best_i, sqrt)
 
 
-def _fns():
-    lib = _build.load("ivf_pq_scan")
-    scan = lib.raft_ivf_pq_scan
-    scan.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
-                     + [ctypes.c_void_p] * 3)
-    scan.restype = ctypes.c_int
-    topk = lib.raft_ivf_pq_topk
-    topk.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                     + [ctypes.c_void_p] * 3)
-    topk.restype = ctypes.c_int
-    return scan, topk
+_SCAN = _build.Entry("ivf_pq_scan", "raft_ivf_pq_scan",
+                     [PTR] * 8 + [INT] * 15 + [PTR] * 3)
+_TOPK = _build.Entry("ivf_pq_scan", "raft_ivf_pq_topk",
+                     [PTR] * 2 + [INT] * 4 + [PTR] * 3)
 
 
 def _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster):
@@ -181,23 +173,23 @@ def _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster):
     return n_lists, max_list, pq_dim, rot_dim, n_codes, pq_len
 
 
-def _launch_pairs(scan, q_rot, centers_rot, books, codes, norms, ids, qsel,
+def _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, qsel,
                   lsel, n_pairs, div, bins, metric, round_q, per_cluster,
                   center_term, round_out, out_d, out_i):
     n_lists, max_list, pq_dim = codes.shape
     n_codes, pq_len = books.shape[1], books.shape[2]
     vec16 = pq_dim % 16 == 0 and codes.data_ptr() % 16 == 0
     with torch.cuda.device(q_rot.device):
-        rc = scan(q_rot.data_ptr(), centers_rot.data_ptr(), books.data_ptr(),
-                  codes.data_ptr(), norms.data_ptr(), ids.data_ptr(),
-                  qsel.data_ptr() if qsel is not None else None,
-                  lsel.data_ptr() if lsel is not None else None,
-                  n_pairs, div, q_rot.shape[1], pq_dim, pq_len, n_codes,
-                  max_list, bins, round_up(max_list, bins),
-                  int(metric == "ip"), int(bool(per_cluster)),
-                  int(bool(round_q)), int(bool(center_term)),
-                  int(bool(round_out)), int(vec16), out_d.data_ptr(),
-                  out_i.data_ptr(), _build.stream_handle(q_rot.device))
+        rc = _SCAN(q_rot.data_ptr(), centers_rot.data_ptr(), books.data_ptr(),
+                   codes.data_ptr(), norms.data_ptr(), ids.data_ptr(),
+                   qsel.data_ptr() if qsel is not None else None,
+                   lsel.data_ptr() if lsel is not None else None,
+                   n_pairs, div, q_rot.shape[1], pq_dim, pq_len, n_codes,
+                   max_list, bins, round_up(max_list, bins),
+                   int(metric == "ip"), int(bool(per_cluster)),
+                   int(bool(round_q)), int(bool(center_term)),
+                   int(bool(round_out)), int(vec16), out_d.data_ptr(),
+                   out_i.data_ptr(), _build.stream_handle(q_rot.device))
     _build.check(rc, "ivf_pq_scan")
 
 
@@ -214,8 +206,7 @@ def pq_scan_cuda(q_rot, centers_rot, books, codes, norms, ids, qmap,
     out_d = torch.empty((n_lists, cap, bins), dtype=torch.float32,
                         device=dev)
     out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
-    scan, _ = _fns()
-    _launch_pairs(scan, q_rot, centers_rot, books, codes, norms, ids, qmap,
+    _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, qmap,
                   None, n_lists * cap, cap, bins, metric, round_q,
                   per_cluster, False, round_out, out_d, out_i)
     launches += 1
@@ -243,14 +234,13 @@ def pq_scan_fused_cuda(q_rot, centers_rot, books, codes, norms, ids,
                          device=dev)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    scan, topk = _fns()
-    _launch_pairs(scan, q_rot, centers_rot, books, codes, norms, ids, None,
+    _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, None,
                   kp, nq * n_probes, n_probes, bins, metric, round_q,
                   per_cluster, True, False, cand_d, cand_i)
     with torch.cuda.device(dev):
-        rc = topk(cand_d.data_ptr(), cand_i.data_ptr(), nq,
-                  n_probes * bins, k, int(bool(sqrt)), out_d.data_ptr(),
-                  out_i.data_ptr(), _build.stream_handle(dev))
+        rc = _TOPK(cand_d.data_ptr(), cand_i.data_ptr(), nq,
+                   n_probes * bins, k, int(bool(sqrt)), out_d.data_ptr(),
+                   out_i.data_ptr(), _build.stream_handle(dev))
     _build.check(rc, "ivf_pq_scan_fused top-k")
     launches_fused += 1
     return out_d, out_i

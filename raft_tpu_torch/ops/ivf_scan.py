@@ -1,26 +1,31 @@
 """IVF-Flat fine phase, fused and unfused: kernel wrappers and plain
 versions.
 
-Kernels: ``csrc/ivf_flat_scan.cu``. :func:`fused_list_scan` replaces
-the JAX package's Pallas ``_fused_list_scan_kernel``: per query, the k
-smallest binned candidates under the key (score, list id, bin index) —
-see the kernel's source note. The kernel walks each query's probed
-lists (query-major); the plain version walks lists in chunks and merges
-with a stable sort (list-major, like the JAX package's XLA tier).
-:func:`list_scan` replaces ``_list_scan_kernel``: per (list, table
-slot), the slot's query's binned candidates, written as (n_lists, cap,
-bins) blocks for ``neighbors._ivf_scan.merge_candidates`` (k > 256).
-Each dispatches on the device of its inputs: CPU tensors take the plain
-version, CUDA tensors launch the kernel (or raise).
+Kernels: ``csrc/ivf_flat_scan.cu``, one list-major pass A on the tensor
+cores (bf16x3 products, the TPU kernel's arithmetic) behind both entry
+points. :func:`fused_list_scan` replaces the JAX package's Pallas
+``_fused_list_scan_kernel``: per query, the k smallest binned candidates
+under the key (score, list id, bin index) — see the kernel's source
+note; pass A writes each query's candidates in (list id, bin) order and
+``candidate_topk`` keeps the k best. The plain version walks lists in
+chunks and merges with a stable sort (list-major, like the JAX
+package's XLA tier). :func:`list_scan` replaces ``_list_scan_kernel``:
+per (list, table slot), the slot's query's binned candidates, written
+as (n_lists, cap, bins) blocks for
+``neighbors._ivf_scan.merge_candidates`` (k > 256). Each dispatches on
+the device of its inputs: CPU tensors take the plain version, CUDA
+tensors launch the kernel (or raise). The plain versions take the
+products' ``precision``: ``"f32"`` (the CPU's, as the JAX package's
+interpret mode) or ``"bf16x3"`` (the kernel's, for comparing on the
+card).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._build import INT, PTR
 from raft_tpu_torch.ops._util import check_cuda_tensor, round_up
 
 MAX_K = 256
@@ -32,6 +37,17 @@ launches_list = 0
 
 # element budget of one (lists, cap, rows) score block of the plain version
 _PLAIN_BLOCK = 1 << 24
+# candidates (queries x n_probes x bins) of one fused launch
+# (csrc/ivf_flat_scan.cu kMaxCand)
+_MAX_CAND = 1 << 28
+
+_FUSED_SCAN = _build.Entry(
+    "ivf_flat_scan", "raft_ivf_flat_scan",
+    [PTR, INT, PTR, INT, INT, PTR] + [INT] * 3 + [PTR] * 3 + [INT] * 6
+    + [PTR] * 6)
+_LIST_SCAN = _build.Entry(
+    "ivf_flat_scan", "raft_ivf_list_scan",
+    [PTR, INT, PTR, INT, INT] + [PTR] * 3 + [INT] * 5 + [PTR] * 4)
 
 
 def resolve_bins(bins: int, k: int, max_list: int):
@@ -45,14 +61,23 @@ def resolve_bins(bins: int, k: int, max_list: int):
     return (mlp if bins < 0 else bins), mlp
 
 
-def _list_scores(queries, data, norms, qm, l0: int, metric: str):
+def _list_scores(queries, data, norms, qm, l0: int, metric: str,
+                 precision: str = "f32"):
     """(c, cap, ML) scores of the lists [l0, l0 + c) against the queries
     ``qm`` (c, cap) names: L2 ``max((norm + |q|^2) - 2 q.x, 0)`` or IP
-    ``-q.x``."""
+    ``-q.x``, the products at ``precision`` (``"f32"`` or ``"bf16x3"``),
+    the norms those of the unrounded rows."""
     from raft_tpu_torch.neighbors._ivf_scan import gather_query_rows
+    from raft_tpu_torch.ops.fused_knn import _nt
     l1 = l0 + qm.shape[0]
     qsub = gather_query_rows(queries, qm)                # (c, cap, d)
-    ip = torch.einsum("gcd,gld->gcl", qsub, data[l0:l1].float())
+    if precision == "f32":
+        ip = torch.einsum("gcd,gld->gcl", qsub, data[l0:l1].float())
+    elif precision == "bf16x3":
+        ip = _nt(qsub, data[l0:l1].float(), precision)
+    else:
+        raise ValueError(f"ivf_flat_scan: precision {precision!r} "
+                         "(want f32|bf16x3)")
     if metric == "ip":
         return -ip
     qq = (qsub * qsub).sum(dim=2)
@@ -62,7 +87,7 @@ def _list_scores(queries, data, norms, qm, l0: int, metric: str):
 
 def fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
                           qmap, cap: int, k: int, bins: int, sqrt: bool,
-                          metric: str):
+                          metric: str, precision: str = "f32"):
     """Plain PyTorch version (list-major, chunked over lists so the
     (lists, cap, rows) score block stays bounded on the card)."""
     nq = queries.shape[0]
@@ -77,7 +102,7 @@ def fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
         qm = qmap[l0:l1]                                 # (c, cap)
         if not bool((qm >= 0).any()):
             continue
-        sc = _list_scores(queries, data, norms, qm, l0, metric)
+        sc = _list_scores(queries, data, norms, qm, l0, metric, precision)
         cd, ci = bin_rows(sc, ids[l0:l1], bins, mlp)
         best_d, best_i = merge_lists_into_state(best_d, best_i, cd, ci, qm)
     return finish_state(best_d, best_i, sqrt)
@@ -136,23 +161,6 @@ def finish_state(best_d, best_i, sqrt: bool):
     return best_d, best_i
 
 
-def _fns():
-    """The library's two entry points: the fused scan, the list scan."""
-    lib = _build.load("ivf_flat_scan")
-    fused = lib.raft_ivf_flat_scan
-    fused.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int]
-                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                      + [ctypes.c_void_p] * 3)
-    fused.restype = ctypes.c_int
-    unfused = lib.raft_ivf_list_scan
-    unfused.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
-    unfused.restype = ctypes.c_int
-    return fused, unfused
-
-
 def kept_probes_sorted(probes, inv_pos, cap: int):
     """Per-query probed list ids in ascending order, ``-1`` where the
     inversion dropped the pair (``inv_pos >= cap``) — the kernel's view
@@ -162,37 +170,57 @@ def kept_probes_sorted(probes, inv_pos, cap: int):
     return torch.sort(kept, dim=1).values.contiguous()
 
 
-def fused_list_scan_cuda(queries, data, norms, ids, probes, inv_pos,
+def fused_list_scan_cuda(queries, data, norms, ids, probes, inv_pos, qmap,
                          cap: int, k: int, bins: int, sqrt: bool,
                          metric: str):
-    """Launch the CUDA kernel (all tensors contiguous, on one card)."""
+    """Launch kernel 3 (all tensors contiguous, on one card): pass A over
+    (list, query tile) blocks into per-query candidate rows, then the
+    top-k pass; queries in chunks of at most ``_MAX_CAND`` candidates."""
     global launches
     check_cuda_tensor("ivf_flat_scan queries", queries, torch.float32, 2)
     check_cuda_tensor("ivf_flat_scan data", data, torch.float32, 3)
     check_cuda_tensor("ivf_flat_scan norms", norms, torch.float32, 2)
     check_cuda_tensor("ivf_flat_scan ids", ids, torch.int32, 2)
+    check_cuda_tensor("ivf_flat_scan qmap", qmap, torch.int32, 2)
     nq, d = queries.shape
     n_lists, max_list = ids.shape
-    if data.shape != (n_lists, max_list, d) or norms.shape != ids.shape:
+    if (data.shape != (n_lists, max_list, d) or norms.shape != ids.shape
+            or qmap.shape != (n_lists, cap)):
         raise ValueError("ivf_flat_scan: list tensors disagree in shape")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"ivf_flat_scan: k={k} outside [1, {MAX_K}]")
-    bins, mlp = resolve_bins(bins, k, max_list)
+    bins, _ = resolve_bins(bins, k, max_list)
     kp = kept_probes_sorted(probes, inv_pos, cap)
-    vec4 = (d % 4 == 0 and queries.data_ptr() % 16 == 0
-            and data.data_ptr() % 16 == 0)
-    out_d = torch.empty((nq, k), dtype=torch.float32, device=queries.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=queries.device)
-    fn, _ = _fns()
-    with torch.cuda.device(queries.device):
-        rc = fn(queries.data_ptr(), nq, d, kp.data_ptr(), kp.shape[1],
-                data.data_ptr(), norms.data_ptr(), ids.data_ptr(),
-                max_list, bins, mlp, k, int(metric == "ip"), int(bool(sqrt)),
-                int(vec4), out_d.data_ptr(), out_i.data_ptr(),
-                _build.stream_handle(queries.device))
-    _build.check(rc, "ivf_flat_scan")
-    launches += 1
+    n_probes = kp.shape[1]
+    ncols = n_probes * bins
+    step = max(1, _MAX_CAND // max(1, ncols))
+    dev = queries.device
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    cand_d = torch.empty((min(nq, step), ncols), dtype=torch.float32,
+                         device=dev)
+    cand_i = torch.empty((min(nq, step), ncols), dtype=torch.int32,
+                         device=dev)
+    lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        for q0 in range(0, nq, step):
+            rc = _FUSED_SCAN(
+                queries.data_ptr(), d, qmap.data_ptr(), n_lists, cap,
+                kp.data_ptr(), n_probes, q0, min(nq, q0 + step),
+                data.data_ptr(), norms.data_ptr(), ids.data_ptr(), max_list,
+                bins, k, int(metric == "ip"), int(bool(sqrt)),
+                int(_vec4(queries, data)), cand_d.data_ptr(),
+                cand_i.data_ptr(), lists.data_ptr(), out_d.data_ptr(),
+                out_i.data_ptr(), _build.stream_handle(dev))
+            _build.check(rc, "ivf_flat_scan")
+            launches += 1
     return out_d, out_i
+
+
+def _vec4(queries, data) -> bool:
+    """16-byte loads of the rows: d % 4 == 0 and aligned bases."""
+    return (queries.shape[1] % 4 == 0 and queries.data_ptr() % 16 == 0
+            and data.data_ptr() % 16 == 0)
 
 
 def fused_list_scan(queries, data, norms, ids, probes, inv_pos, qmap,
@@ -208,13 +236,15 @@ def fused_list_scan(queries, data, norms, ids, probes, inv_pos, qmap,
     if queries.is_cuda:
         return fused_list_scan_cuda(
             queries.contiguous(), data.contiguous(), norms.contiguous(),
-            ids.contiguous(), probes, inv_pos, cap, k, bins, sqrt, metric)
+            ids.contiguous(), probes, inv_pos, qmap.contiguous(), cap, k,
+            bins, sqrt, metric)
     return fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
                                  qmap, cap, k, bins, sqrt, metric)
 
 
 def list_scan_plain(queries, data, norms, ids, qmap, bins: int,
-                    metric: str, out_dtype=torch.float32):
+                    metric: str, out_dtype=torch.float32,
+                    precision: str = "f32"):
     """Plain version of :func:`list_scan` (chunked over lists)."""
     n_lists, max_list = ids.shape
     cap = qmap.shape[1]
@@ -229,7 +259,7 @@ def list_scan_plain(queries, data, norms, ids, qmap, bins: int,
         qm = qmap[l0:l0 + chunk]
         if not bool((qm >= 0).any()):
             continue
-        sc = _list_scores(queries, data, norms, qm, l0, metric)
+        sc = _list_scores(queries, data, norms, qm, l0, metric, precision)
         cd, ci = bin_rows(sc, ids[l0:l0 + chunk], bins, mlp)
         empty = (qm < 0)[:, :, None]
         out_d[l0:l0 + chunk] = torch.where(
@@ -241,7 +271,8 @@ def list_scan_plain(queries, data, norms, ids, qmap, bins: int,
 
 def list_scan_cuda(queries, data, norms, ids, qmap, bins: int, metric: str,
                    out_dtype=torch.float32):
-    """Launch kernel 4: one block per (list, table slot)."""
+    """Launch kernel 4: pass A alone, one block per (list, tile of up to
+    128 table slots), writing the blocks."""
     global launches_list
     check_cuda_tensor("ivf_list_scan queries", queries, torch.float32, 2)
     check_cuda_tensor("ivf_list_scan data", data, torch.float32, 3)
@@ -257,19 +288,18 @@ def list_scan_cuda(queries, data, norms, ids, qmap, bins: int, metric: str,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ivf_list_scan: out_dtype {out_dtype} is not "
                         "float32 or bfloat16")
-    mlp = round_up(max_list, bins)
-    vec4 = (d % 4 == 0 and queries.data_ptr() % 16 == 0
-            and data.data_ptr() % 16 == 0)
     dev = queries.device
     out_d = torch.empty((n_lists, cap, bins), dtype=out_dtype, device=dev)
     out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
-    _, fn = _fns()
+    lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(queries.data_ptr(), d, qmap.data_ptr(), n_lists, cap,
-                data.data_ptr(), norms.data_ptr(), ids.data_ptr(), max_list,
-                bins, mlp, int(metric == "ip"), int(vec4),
-                int(out_dtype == torch.bfloat16), out_d.data_ptr(),
-                out_i.data_ptr(), _build.stream_handle(dev))
+        rc = _LIST_SCAN(queries.data_ptr(), d, qmap.data_ptr(), n_lists, cap,
+                        data.data_ptr(), norms.data_ptr(), ids.data_ptr(),
+                        max_list, bins, int(metric == "ip"),
+                        int(_vec4(queries, data)),
+                        int(out_dtype == torch.bfloat16), out_d.data_ptr(),
+                        out_i.data_ptr(), lists.data_ptr(),
+                        _build.stream_handle(dev))
     _build.check(rc, "ivf_list_scan")
     launches_list += 1
     return out_d, out_i

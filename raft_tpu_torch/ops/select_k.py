@@ -8,11 +8,10 @@ kernel (or raise).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops._build import INT, PTR
 from raft_tpu_torch.ops._util import check_cuda_tensor
 
 MAX_K = 256
@@ -34,12 +33,8 @@ def select_k_plain(v: torch.Tensor, k: int):
     return vals, idx
 
 
-def _lib():
-    fn = _build.load("select_k").raft_select_k
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_SELECT_K = _build.Entry("select_k", "raft_select_k",
+                         [PTR, INT, INT, INT, PTR, PTR, PTR])
 
 
 def select_k_cuda(v: torch.Tensor, k: int):
@@ -49,10 +44,9 @@ def select_k_cuda(v: torch.Tensor, k: int):
     m, n = v.shape
     out_v = torch.empty((m, k), dtype=torch.float32, device=v.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=v.device)
-    fn = _lib()
     with torch.cuda.device(v.device):
-        rc = fn(v.data_ptr(), m, n, k, out_v.data_ptr(), out_i.data_ptr(),
-                _build.stream_handle(v.device))
+        rc = _SELECT_K(v.data_ptr(), m, n, k, out_v.data_ptr(),
+                       out_i.data_ptr(), _build.stream_handle(v.device))
     _build.check(rc, "select_k")
     launches += 1
     return out_v, out_i

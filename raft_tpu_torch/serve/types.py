@@ -4,7 +4,9 @@
 Not ported yet: the dispatch watchdog and retries
 (``dispatch_timeout_ms``, ``max_retries``, ``ShardFailedError``), the
 distributed failover (``failover``) and quality sampling
-(``quality_sample_rate``).
+(``quality_sample_rate``). ``ServeConfig`` takes their fields with the
+JAX package's defaults and raises ``NotImplementedError`` on any other
+value.
 """
 
 from __future__ import annotations
@@ -53,6 +55,10 @@ class ServeConfig:
       watermark, at most once per cooldown.
     * ``prewarm`` — prepare and run every (shape x rung) plan at
       construction.
+    * ``dispatch_timeout_ms``, ``max_retries``, ``retry_backoff_ms``,
+      ``retry_backoff_mult``, ``failover``, ``failover_probe_ms``,
+      ``quality_sample_rate`` — the JAX package's failure handling and
+      quality sampling: only their defaults (all off) are ported.
     """
 
     batch_sizes: Tuple[int, ...] = (1, 8, 32, 128)
@@ -65,6 +71,13 @@ class ServeConfig:
     upgrade_watermark_ms: float = 20.0
     degrade_cooldown_ms: float = 50.0
     prewarm: bool = True
+    dispatch_timeout_ms: float = 0.0
+    max_retries: int = 0
+    retry_backoff_ms: float = 10.0
+    retry_backoff_mult: float = 2.0
+    failover: bool = False
+    failover_probe_ms: float = 1000.0
+    quality_sample_rate: float = 0.0
 
     def __post_init__(self):
         if not self.batch_sizes or list(self.batch_sizes) != sorted(
@@ -82,6 +95,21 @@ class ServeConfig:
         if not 0.0 < self.degrade_trigger_frac <= 1.0:
             raise ValueError("ServeConfig.degrade_trigger_frac must be "
                              "in (0, 1]")
+        if self.dispatch_timeout_ms < 0 or self.max_retries < 0:
+            raise ValueError("ServeConfig: dispatch_timeout_ms and "
+                             "max_retries must be >= 0")
+        if self.retry_backoff_ms < 0 or self.retry_backoff_mult < 1.0:
+            raise ValueError("ServeConfig: retry_backoff_ms must be >= 0 "
+                             "and retry_backoff_mult >= 1.0")
+        if not 0.0 <= self.quality_sample_rate <= 1.0:
+            raise ValueError("ServeConfig: quality_sample_rate must be "
+                             "in [0, 1]")
+        if (self.dispatch_timeout_ms, self.max_retries, self.failover,
+                self.quality_sample_rate) != (0.0, 0, False, 0.0):
+            raise NotImplementedError(
+                "ServeConfig: the dispatch watchdog, retries, failover and "
+                "quality sampling are not ported yet (ROADMAP.md queue 1 "
+                "item 4)")
 
 
 @dataclass

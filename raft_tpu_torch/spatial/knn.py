@@ -43,13 +43,14 @@ def approx_knn_search(
     queries,
     k: int,
     params: Union[ivf_flat.SearchParams, ivf_pq.SearchParams, None] = None,
+    res=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search a built ANN index on its device."""
     if isinstance(index, ivf_flat.Index):
         return ivf_flat.search(index, queries, k,
-                               params or ivf_flat.SearchParams())
+                               params or ivf_flat.SearchParams(), res=res)
     if isinstance(index, ivf_pq.Index):
         return ivf_pq.search(index, queries, k,
-                             params or ivf_pq.SearchParams())
+                             params or ivf_pq.SearchParams(), res=res)
     raise TypeError(
         f"approx_knn_search: unknown index type {type(index).__name__}")

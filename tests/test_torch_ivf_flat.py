@@ -307,6 +307,126 @@ def test_list_scan_plain_matches_pallas(metric, bins):
                                atol=1e-5)
 
 
+def _scan_lists(rng, d, n_lists=16, max_list=40):
+    """Random lists: list 0 full, list 1 empty, list 2 five rows."""
+    data_ = rng.normal(size=(n_lists, max_list, d)).astype(np.float32)
+    sizes = rng.integers(0, max_list + 1, size=n_lists)
+    sizes[0], sizes[1], sizes[2] = max_list, 0, 5
+    ids = np.full((n_lists, max_list), -1, np.int32)
+    nxt = 0
+    for l, s in enumerate(sizes):
+        ids[l, :s] = np.arange(nxt, nxt + s)
+        nxt += s
+    data_[ids < 0] = 0.0
+    norms = (data_ ** 2).sum(-1).astype(np.float32)
+    return data_, norms, ids
+
+
+def _blocks_by_query(cd, ci, probes, inv_pos, cap, k, sqrt):
+    """Kernel 3's decomposition in plain PyTorch: kernel 4's blocks laid
+    out per query in (list id, bin) order (kept probes ascending; the
+    dropped ones, -1, first and all +inf), then ranked by (value,
+    column) as candidate_topk ranks them."""
+    from raft_tpu_torch.ops.fused_knn import rank_candidates
+    nq = probes.shape[0]
+    kept = inv_pos < cap
+    order = torch.argsort(torch.where(kept, probes, -1), dim=1, stable=True)
+    keep = kept.gather(1, order)
+    pl = probes.gather(1, order).long()
+    slot = inv_pos.gather(1, order).clamp(max=cap - 1).long()
+    rows_d = torch.where(keep[:, :, None], cd[pl, slot].float(),
+                         torch.tensor(float("inf")))
+    rows_i = torch.where(keep[:, :, None], ci[pl, slot],
+                         torch.tensor(-1, dtype=torch.int32))
+    return rank_candidates(rows_d.reshape(nq, -1), rows_i.reshape(nq, -1),
+                           k, sqrt)
+
+
+# every value of each axis at least once: d 13/16, k 1/10/200, bins
+# 0/-1/7/64/600, cap 8 (overflows) and 200 (> 128: two query tiles a list
+# on the card, 256 queries)
+_DECOMP = [("l2", 13, 10, 0, 8), ("ip", 16, 1, -1, 8), ("l2", 16, 200, 7, 8),
+           ("ip", 13, 10, 64, 200), ("l2", 13, 200, 600, 200),
+           ("l2", 16, 1, 64, 8), ("ip", 13, 200, 0, 200),
+           ("l2", 16, 10, -1, 200)]
+
+
+@pytest.mark.parametrize("metric,d,k,bins,cap", _DECOMP)
+def test_list_blocks_merged_equal_fused_scan(metric, d, k, bins, cap):
+    """Kernel 4's blocks merged per query in (list id, bin) order equal
+    the fused scan's plain version exactly, and the JAX package's fused
+    Pallas kernel (interpret mode): ids identical, distances within 1e-5
+    relative, on every query whose kept probes are the same in both (an
+    overflowing cap may drop a different query of a tied class). Slots
+    no candidate reaches are (+inf, -1) in the port; the JAX kernel
+    repeats an id there (at +inf)."""
+    from raft_tpu.ops.pallas_ivf_scan import ivf_list_scan_pallas
+    rng = np.random.default_rng(d * 100 + k + bins % 97 + cap)
+    nq, n_probes, n_lists = (256 if cap > 128 else 32), 6, 16
+    data_, norms, ids = _scan_lists(rng, d)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    # skewed towards the low lists: some list draws more than 128 queries
+    w = 1.0 / np.arange(1, n_lists + 1)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False,
+                                  p=w / w.sum())
+                       for _ in range(nq)]).astype(np.int32)
+    tq, tp = torch.from_numpy(q), torch.from_numpy(probes)
+    td, tn, ti = (torch.from_numpy(a) for a in (data_, norms, ids))
+    qmap, inv_pos = t_scan._invert_probes(tp, n_lists, cap)
+    if cap == 8:
+        assert not bool((inv_pos < cap).all()), "the cap must overflow"
+    else:
+        assert bool((qmap[:, 128:] >= 0).any()), "two query tiles"
+    sqrt = metric == "l2"
+    rb, _ = scan_op.resolve_bins(bins, k, ids.shape[1])
+    cd, ci = scan_op.list_scan(tq, td, tn, ti, qmap, rb, metric)
+    dm, im = _blocks_by_query(cd, ci, tp, inv_pos, cap, k, sqrt)
+    df, i_f = scan_op.fused_list_scan(tq, td, tn, ti, tp, inv_pos, qmap,
+                                      cap, k, bins, sqrt, metric)
+    np.testing.assert_array_equal(im.numpy(), i_f.numpy())
+    np.testing.assert_array_equal(dm.numpy(), df.numpy())
+    dj, ij = ivf_list_scan_pallas(
+        jnp.asarray(q), jnp.asarray(data_), jnp.asarray(norms),
+        jnp.asarray(ids), jnp.asarray(probes), k, cap, bins=bins, sqrt=sqrt,
+        metric=metric, fused=True)
+    _, invj = j_scan._invert_probes(jnp.asarray(probes), n_lists, cap)
+    same = ((np.asarray(invj) < cap) == (inv_pos.numpy() < cap)).all(1)
+    assert same.sum() >= nq // 2
+    dj, ij = np.asarray(dj)[same], np.asarray(ij)[same]
+    dt, it = df.numpy()[same], i_f.numpy()[same]
+    fin = np.isfinite(dj)
+    np.testing.assert_array_equal(np.isfinite(dt), fin)
+    np.testing.assert_array_equal(it[fin], ij[fin])
+    assert (it[~fin] == -1).all()
+    np.testing.assert_allclose(dt, dj, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [13, 16, 200])
+def test_bf16x3_scores_match_jax(metric, d):
+    """The plain versions' bf16x3 scoring (the card kernels' arithmetic)
+    against the JAX package's ``dot_nt_f32(..., "bf16x3")``, within 1e-6
+    of |q|^2 + |x|^2."""
+    from raft_tpu.ops._util import dot_nt_f32
+    rng = np.random.default_rng(d)
+    data_, norms, ids = _scan_lists(rng, d)
+    q = rng.normal(size=(20, d)).astype(np.float32)
+    qmap = np.stack([rng.choice(20, 8, replace=False) for _ in range(16)])
+    qmap[3, 5:] = -1
+    sc = scan_op._list_scores(torch.from_numpy(q), torch.from_numpy(data_),
+                              torch.from_numpy(norms),
+                              torch.from_numpy(qmap.astype(np.int32)), 0,
+                              metric, "bf16x3").numpy()
+    for l in range(16):
+        qs = q[np.maximum(qmap[l], 0)]
+        ip = np.asarray(dot_nt_f32(jnp.asarray(qs), jnp.asarray(data_[l]),
+                                   "bf16x3"))
+        want = -ip if metric == "ip" else np.maximum(
+            (norms[l][None, :] + (qs * qs).sum(1)[:, None]) - 2.0 * ip, 0.0)
+        scale = (qs * qs).sum(1)[:, None] + norms[l][None, :]
+        assert (np.abs(sc[l] - want) <= 1e-6 * scale).all()
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

@@ -40,8 +40,8 @@ def test_balanced_kmeans_matches_jax(seed, n_iters):
     x = _blobs(8, 60, 16, seed)
     init = np.array(jax_sample_rows(x.shape[0], 8, seed))
     cj = np.asarray(jkm.balanced_kmeans(x, 8, n_iters=n_iters, seed=seed))
-    ct = tkm.balanced_kmeans(torch.from_numpy(x), 8, n_iters=n_iters,
-                             seed=seed, init_idx=torch.from_numpy(init))
+    ct = tkm._train_from(torch.from_numpy(x), 8, n_iters=n_iters,
+                         seed=seed, init_idx=torch.from_numpy(init))
     np.testing.assert_allclose(ct.numpy(), cj, rtol=1e-4, atol=1e-4)
     lj = np.asarray(jkm.predict(x, cj))
     lt = tkm.predict(torch.from_numpy(x), ct).numpy()
@@ -56,8 +56,8 @@ def test_balancing_reseeds_like_jax():
     init = np.asarray([0, 1, 2, x.shape[0] - 1], np.int64)
     cj = np.asarray(jkm._em(jnp.asarray(x), jnp.asarray(x[init]), 4, 4,
                             0.25))
-    ct = tkm.balanced_kmeans(torch.from_numpy(x), 4, n_iters=4,
-                             init_idx=torch.from_numpy(init))
+    ct = tkm._train_from(torch.from_numpy(x), 4, n_iters=4,
+                         init_idx=torch.from_numpy(init))
     np.testing.assert_allclose(ct.numpy(), cj, rtol=1e-4, atol=1e-4)
 
 
