@@ -29,7 +29,7 @@ for tree in parent change change parent; do
   for f in "$dir"/chiprun_out/profile_*.txt; do
     [ -e "$f" ] && mv "$f" "$out/ab_${n}_${tree}_$(basename "$f")"
   done
-  grep -E '"phase": "(build|main|wide_flat|main_pq|main_bq|profile)"|"kernel": "(ivf_flat_scan|ivf_list_scan|select_k)' \
+  grep -E '"phase": "(build|kmeans_tiers|main|wide_flat|main_pq|main_bq|profile)"|"kernel": "(fused_l2_nn|ivf_flat_scan|ivf_list_scan|ivf_bq_scan|select_k)' \
     "$log" | cut -c1-700
   tail -n 2 "$log" | cut -c1-300
 done

@@ -7,21 +7,33 @@ Phases, one line each:
               nvcc (one process per source, all at once) into
               ``raft_tpu_torch/_build``.
 2. kernels  — each kernel against its plain PyTorch version on CUDA
-              tensors at each path's shapes: fused L2-NN at
-              (262144, 128) x (1024, 128) and select-k at (128, 1024)
-              k=96 for IVF-Flat; the fused IVF-Flat scan over the real
+              tensors at each path's shapes: fused L2-NN at the card's
+              default bf16x3 (tensor cores) at the k-means sweeps'
+              (262144, 128) x (1024, 128) and the build's predict over
+              all n rows (``fused_l2_nn@predict``), and select-k at
+              (128, 1024) k=96 for IVF-Flat; the fused IVF-Flat scan over the real
               index for one 128-query batch, and the unfused list scan
               at k=512 on the same batch (after phase 3; both bf16x3 on
               the tensor cores, held to bf16x3 plain versions); on the real
               PQ index (after phase 4) both IVF-PQ scans for one
               128-query batch, the fused one at k=32 (kk=256), the
               unfused one at k=64 (kk=512), fused L2-NN at
-              (262144, 128) x (4096, 128) and select-k at (128, 4096)
-              k=128 (rows tagged ``@ivf_pq``); on the real BQ index
+              (262144, 128) x (4096, 128) and (n, 128) x (4096, 128)
+              and select-k at (128, 4096) k=128 (rows tagged
+              ``@ivf_pq``, ``@ivf_pq_predict``); on the real BQ index
               (after phase 5) both IVF-BQ scans likewise (kk=256 fused,
               kk=512 unfused) and select-k at (128, 1024) k=128
               (``select_k@ivf_bq``). Kernel, plain and library times
               from CUDA events after warm-up.
+2b. kmeans_tiers — the trainer at kernel 1's other tiers, through
+              ``balanced_kmeans`` on the 262144-row subsample: 10 sweeps
+              at ``"bf16"`` (the tensor-core kernel, one pass; row
+              ``fused_l2_nn@bf16``), then 10 sweeps at ``"highest"`` and
+              the predict over all n rows through ``fused_l2_nn`` (the
+              f32 body; rows ``fused_l2_nn@highest...`` at every shape of
+              the bf16x3 rows, so each shape has a same-run comparison);
+              each tier's seconds, launches by shape and mean squared
+              distance to the assigned centre.
 3. main     — the IVF-Flat serving path: a 10M x 128 clustered dataset
               (the benchmark's gaussian mixture, made on the card from a
               seed), IVF-Flat build (1024 lists, 10 k-means sweeps),
@@ -78,8 +90,8 @@ The exact search's truth for phases 3-5 (256 queries, k=32) comes from
 the port's own ``brute_force_knn(mode="exact")``.
 
 The build line reports the registers, shared memory and spills of the
-radix select and the tensor-core passes A of kernels 5 and 3/4
-(``nvcc -Xptxas -v``). Then a
+radix select, the tensor-core fused L2-NN and the tensor-core passes A
+of kernels 5, 3/4 and 10/11 (``nvcc -Xptxas -v``). Then a
 ``{"kernels": [...]}`` line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. There is no CPU path: without CUDA the
@@ -176,7 +188,7 @@ PAIR_EXPANDED = ("inner_product", "cosine", "correlation", "hellinger",
 
 # kernels whose compiled resources the build line reports
 PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
-                 "list_scan_tc_kernel")
+                 "list_scan_tc_kernel", "fused_l2_nn_tc_kernel")
 
 OUT_DIR = "chiprun_out"
 
@@ -355,27 +367,50 @@ def sample_rows(x, m: int, seed: int):
                             device=x.device)[:m]].contiguous()
 
 
-def check_fused_l2_nn(xa, ya, name):
-    """fused L2-NN of ``xa`` against the centres ``ya``, against its
-    plain version; ``name`` tags the path whose shapes these are."""
+# kernel 1's tiers: the plain version's arithmetic, the launch key, the
+# source and the operations of its products: (passes, rate)
+NN_TIERS = {
+    "bf16x3": ("bf16x3", "fused_l2_nn",
+               "raft_tpu_torch/csrc/fused_l2_nn_tc.cu", 3, BF16_FLOPS),
+    "bf16": ("bf16", "fused_l2_nn",
+             "raft_tpu_torch/csrc/fused_l2_nn_tc.cu", 1, BF16_FLOPS),
+    "highest": ("f32", "fused_l2_nn_f32",
+                "raft_tpu_torch/csrc/fused_l2_nn.cu", 1, FP32_FLOPS),
+}
+
+
+def check_fused_l2_nn(xa, ya, name, tier="bf16x3"):
+    """fused L2-NN of ``xa`` against the centres ``ya`` at ``tier``
+    (``kernel_precision``), against its plain version at the same
+    arithmetic; ``name`` tags the path and shape. The bf16 tier's
+    products are exact in f32 like bf16x3's, so the same rtol holds."""
     from raft_tpu_torch.ops import fused_l2_nn as op
+    precision, _, src, passes, rate = NN_TIERS[tier]
     m, n = xa.shape[0], ya.shape[0]
-    saved = op.launches
-    i_k, d_k = op.fused_l2_nn_cuda(xa, ya)
-    i_p, d_p = op.fused_l2_nn_plain(xa, ya)
-    torch.cuda.synchronize()
+    saved = (op.launches, op.launches_f32, dict(op.shapes))
+    kernel = lambda: op.fused_l2_nn_cuda(xa, ya, False, precision)  # noqa: E731
+    i_k, d_k = kernel()
+    (i_p, d_p), plain_ms = cuda_once(
+        lambda: op.fused_l2_nn_plain(xa, ya, False, precision))
     scale = (xa * xa).sum(1) + (ya * ya).sum(1)[i_p.long()]
     max_abs, agree = compare(name, d_k, i_k, d_p, i_p, False, scale)
-    ms = cuda_ms(lambda: op.fused_l2_nn_cuda(xa, ya), 10)
-    plain_ms = cuda_ms(lambda: op.fused_l2_nn_plain(xa, ya), 5)
-    op.launches = saved
-    bnd = bound(4 * (m * D + n * D) + 8 * m, (2 * m * n * D, FP32_FLOPS))
-    phase("kernels", kernel=name, shape=[m, n, D],
+    del i_k, d_k, i_p, d_p, scale
+    ms = cuda_ms(kernel, 3 if m > KM_ROWS else 10)
+    op.launches, op.launches_f32 = saved[:2]
+    op.shapes.clear()
+    op.shapes.update(saved[2])
+    bnd = bound(4 * (m * D + n * D) + 8 * m, (passes * 2 * m * n * D, rate))
+    phase("kernels", kernel=name, shape=[m, n, D], precision=precision,
           id_agreement=agree, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-          bound_ms=bnd[0])
-    return kernel_row(name, "raft_tpu_torch/csrc/fused_l2_nn.cu",
-                      "raft_tpu/ops/pallas_fused_l2_nn.py:34", max_abs, ms,
-                      plain_ms, bnd, None)
+          bound_ms=bnd[0], bound_by=bnd[1])
+    return kernel_row(name, src, "raft_tpu/ops/pallas_fused_l2_nn.py:34",
+                      max_abs, ms, plain_ms, bnd, None)
+
+
+def l2nn_shapes() -> dict:
+    """Fused L2-NN launches since the last reset, by ``"m x n"``."""
+    from raft_tpu_torch.ops import fused_l2_nn as op
+    return {f"{m}x{n}": c for (m, n), c in sorted(op.shapes.items())}
 
 
 def check_select_k(q, centers, k, name):
@@ -406,6 +441,63 @@ def check_select_k(q, centers, k, name):
     return kernel_row(name, "raft_tpu_torch/csrc/select_k.cu",
                       "raft_tpu/ops/pallas_select_k.py:47", max_abs, ms,
                       plain_ms, bnd, lib_ms)
+
+
+def run_kmeans_tiers(x, sample, cents, cents_pq):
+    """Phase 2b: ``balanced_kmeans`` on ``sample`` at each tier of kernel
+    1 (``bf16x3`` the default, ``bf16``, ``highest``), the highest run
+    followed by the predict over every row of ``x``; each run's seconds,
+    launches by shape and mean squared distance of the sample to its
+    nearest centre (by the plain f32 version). Then kernel 1 at the bf16
+    tier (the sweeps' shape) and the f32 body at every shape of the
+    bf16x3 rows, against their plain versions; the rows carry the
+    launches of their tier's run."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.cluster.kmeans_balanced import balanced_kmeans
+    from raft_tpu_torch.distance import fused_l2_nn
+    from raft_tpu_torch.ops import fused_l2_nn as op
+    launches = {}
+    # one untimed sweep first: the first call of the trainer pays one-time
+    # costs (allocator growth, the kernels' first launches)
+    balanced_kmeans(sample, N_LISTS, 1, seed=3)
+    torch.cuda.synchronize()
+    for tier in ("bf16x3", "bf16", "highest"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        centers = balanced_kmeans(sample, N_LISTS, KMEANS_ITERS, seed=3,
+                                  kernel_precision=tier)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        predict_s = None
+        if tier == "highest":
+            t0 = time.perf_counter()
+            fused_l2_nn(x, centers, kernel_precision=tier)
+            torch.cuda.synchronize()
+            predict_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        launches[tier] = counts[NN_TIERS[tier][1]]
+        if launches[tier] < KMEANS_ITERS:
+            fail(f"kmeans at {tier}: {launches[tier]} launches of "
+                 f"{NN_TIERS[tier][1]}")
+        cost = float(op.fused_l2_nn_plain(sample, centers, False,
+                                          "f32")[1].mean())
+        phase("kmeans_tiers", tier=tier, n_clusters=N_LISTS,
+              rows=sample.shape[0], sweeps=KMEANS_ITERS, train_s=train_s,
+              predict_n=x.shape[0] if predict_s else None,
+              predict_s=predict_s, mean_sq_dist=cost,
+              fused_l2_nn_shapes=l2nn_shapes(),
+              launches={k_: v for k_, v in counts.items() if v})
+        del centers
+    rows = [check_fused_l2_nn(sample, cents, "fused_l2_nn@bf16", "bf16")]
+    rows[0]["launches"] = launches["bf16"]
+    for xa, ya, name in ((sample, cents, ""), (x, cents, "_predict"),
+                         (sample, cents_pq, "_ivf_pq"),
+                         (x, cents_pq, "_ivf_pq_predict")):
+        row = check_fused_l2_nn(xa, ya, f"fused_l2_nn@highest{name}",
+                                "highest")
+        row["launches"] = launches["highest"]
+        rows.append(row)
+    return rows
 
 
 class Batch(NamedTuple):
@@ -549,8 +641,8 @@ def _bq_calls(index, params, b: Batch, q_rot, route):
          index.lists_indices)
     if route.fused:
         return (lambda: op.bq_scan_fused_cuda(
-                    *a, b.probes, b.inv_pos, b.cap, route.kk, route.bins,
-                    "l2"),
+                    *a, b.probes, b.inv_pos, b.qmap, b.cap, route.kk,
+                    route.bins, "l2"),
                 lambda: op.bq_scan_fused_plain(*a, b.qmap, route.kk,
                                                route.bins, "l2"),
                 index.norms2, route.bins)
@@ -769,6 +861,7 @@ def run_flat(x, q, q_np, truth, args):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = ops.launch_counts()
+    build_shapes = l2nn_shapes()
     t0 = time.perf_counter()
     srv = SearchServer.from_index(
         index, q_np[:128], K, params=ivf_flat.SearchParams(n_probes=N_PROBES),
@@ -784,6 +877,7 @@ def run_flat(x, q, q_np, truth, args):
     phase("main", n=x.shape[0], dim=D, n_lists=N_LISTS, max_list=
           int(index.lists_data.shape[1]), build_s=build_s, ladder_s=ladder_s,
           **served, build_launches=build_launches,
+          build_fused_l2_nn_shapes=build_shapes,
           burst_launches={k_: launches[k_] - pre_burst[k_] for k_ in launches},
           launches=launches,
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
@@ -856,6 +950,7 @@ def run_family(fam: Family, x, q, q_np, truth, args):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = ops.launch_counts()
+    build_shapes = l2nn_shapes()
     t0 = time.perf_counter()
     srv = SearchServer.from_index(
         index, q_np[:128], K, params=params,
@@ -892,6 +987,7 @@ def run_family(fam: Family, x, q, q_np, truth, args):
           ladder_s=ladder_s, **served, served_batches=n_batches,
           wide_k=WIDE_K, **{f"wide_recall_at_{K}_of_top_{K}": wide_recall},
           build_launches=build_launches,
+          build_fused_l2_nn_shapes=build_shapes,
           burst_launches={k_: pre_wide[k_] - pre_burst[k_] for k_ in launches},
           wide_launches={k_: launches[k_] - pre_wide[k_] for k_ in launches},
           launches=launches,
@@ -900,10 +996,12 @@ def run_family(fam: Family, x, q, q_np, truth, args):
     centers = index.centers.contiguous()
     rows = check_family_scans(fam, index, q, params)
     if fam.n_lists != N_LISTS:
-        # fused L2-NN at this path's k-means shape: the sampled rows
-        # against its n_lists centres
+        # fused L2-NN at this path's shapes: the sampled rows (the sweeps)
+        # and every row (the build's predict) against its n_lists centres
         rows.append(check_fused_l2_nn(sample_rows(x, KM_ROWS, 13), centers,
                                       f"fused_l2_nn@{fam.module}"))
+        rows.append(check_fused_l2_nn(x, centers,
+                                      f"fused_l2_nn@{fam.module}_predict"))
     # select-k at this path's coarse shape: n_probes of n_lists scores
     rows.append(check_select_k(q, centers, fam.n_probes,
                                f"select_k@{fam.module}"))
@@ -1209,13 +1307,17 @@ def main() -> None:
         phase("cut", n=args.n, note="dataset cut from 10,000,000 rows")
     q_np = q.cpu().numpy()
 
-    # 2a. kernels vs plain at the IVF-Flat path's k-means and coarse
-    # shapes (the sampled rows stand in for N_LISTS centres)
+    # 2a. kernels vs plain at the IVF-Flat path's k-means, predict and
+    # coarse shapes (the sampled rows stand in for N_LISTS centres)
     cent = sample_rows(x, N_LISTS, 12)
-    flat_rows = [check_fused_l2_nn(sample_rows(x, KM_ROWS, 11), cent,
-                                   "fused_l2_nn"),
+    sample = sample_rows(x, KM_ROWS, 11)
+    flat_rows = [check_fused_l2_nn(sample, cent, "fused_l2_nn"),
+                 check_fused_l2_nn(x, cent, "fused_l2_nn@predict"),
                  check_select_k(q, cent, N_PROBES, "select_k")]
-    del cent
+    # 2b. the trainer and kernel 1 at its other tiers
+    tier_rows = run_kmeans_tiers(x, sample, cent,
+                                 sample_rows(x, PQ_LISTS, 14))
+    del cent, sample
 
     # the exact truth of the 256 queries, by the port's exact scan
     from raft_tpu_torch.distance import DistanceType
@@ -1241,8 +1343,9 @@ def main() -> None:
             row["launches"] = counts["ivf_scan" if key == "ivf_flat_scan"
                                      else key]
 
-    # 6.-8. brute force and pairwise distances: rows carry their own
-    # path's launches
+    # 2b, 6.-8. kernel 1's tiers, brute force and pairwise distances:
+    # rows carry their own path's launches
+    paths.append((tier_rows, None))
     paths.append((run_bf(x, q_bf, args), None))
     paths.append((run_wide_bf(args.seed, dev), None))
     paths.append((run_pairwise(x[:L1_ROWS], q_bf[:L1_QUERIES], args.seed,

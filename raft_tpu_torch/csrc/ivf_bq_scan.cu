@@ -1,290 +1,249 @@
-// IVF-BQ fine phase straight from the 1-bit sign codes: for each (query,
-// probed list) pair, a scan of the list's bit rows into strided bins, and
-// (fused tier) the per-query top-k over every pair's bins.
+// IVF-BQ fine phase straight from the 1-bit sign codes, list-major on the
+// tensor cores: one pass A, used by
+//   * kernel 10 (raft_ivf_bq_scan): pass A alone, writing (n_lists, cap,
+//     bins) candidate blocks, merged afterwards by the caller (kk > 256);
+//   * kernel 11 (raft_ivf_bq_scan_fused): pass A into per-query candidate
+//     rows, IP centre term included, then candidate_topk_kernel
+//     (candidate_topk.cuh) keeps the k best.
 //
 // Replaces: raft_tpu/ops/pallas_ivf_scan.py:_bq_scan_kernel (unfused, kernel
 // 10; entry ivf_bq_scan_pallas(fused=False)) and :_fused_bq_scan_kernel
 // (fused, kernel 11; with _merge_state, _init_state, _finish_fused), both
-// built on _bq_list_candidates. Contract kept, per pair (query q, list l):
+// built on _bq_list_candidates (:686), which scores a whole list against its
+// probing queries on the MXU. Contract kept, per pair (query q, list l):
 //   * qsub = q_rot[q] (IP) or q_rot[q] - centers_rot[l] (L2), in f32;
 //     |qsub|^2 and the IP centre term from the unrounded qsub; the estimator
-//     product from qsub rounded to bf16 (round to nearest): the TPU feeds a
-//     bf16 query and a +-1 bf16 decode tile to the MXU with f32
-//     accumulation, and a product of +-1 and a bf16 value is exact, so the
-//     two differ only in the f32 summation order;
-//   * ip(row) = sum_j s_j * bf16(qsub_j), s_j = +1 where bit j of the row's
-//     words is set (the residual's sign >= 0), else -1; bit j lives in word
-//     j / 32 at bit j % 32 (int32 words read as unsigned), bits past d
-//     ignored;
-//   * estimate: L2 = (norms2 + |qsub|^2) - 2 * scale * ip, IP = -(scale * ip),
-//     NOT clamped at 0 (the 1-bit estimator overshoots near true neighbours;
-//     a negative estimate is a strong candidate); a row with id < 0, or
-//     beyond max_list inside the bins-padded length mlp, scores +inf, id -1;
-//   * row r goes to bin r % bins; a bin keeps its minimum, ties to the
-//     smallest id; an empty bin is (+inf, -1);
-//   * unfused (kernel 10): one pair per (list, table slot), the slot's query
-//     from qmap (-1 = empty slot, all bins (+inf, -1)), written cap-major as
-//     (n_lists, cap, bins); the IP centre term is the caller's;
-//   * fused (kernel 11): one pair per (query, probe), the probes of each
-//     query sorted by list id with dropped pairs (table slot >= cap) as -1;
-//     the IP centre term sum_j qsub_j * centers_rot[l][j] (f32) is
-//     subtracted from each bin minimum; then candidate_topk_kernel
-//     (candidate_topk.cuh, shared with the PQ scan) keeps per query the k
-//     smallest candidates under the key (score, list id, bin): the TPU's
-//     list-ascending walk in which the resident state wins ties. Slots no
-//     candidate reaches end as (+inf, -1).
+//     product from qsub rounded to bf16 (round to nearest) against the +-1
+//     decode of the row's bits, accumulated in f32: the TPU's one bf16 MXU
+//     pass. A product of +-1 and a bf16 value is exact, so the kernel and
+//     the plain version differ only in the f32 summation order;
+//   * s_j = +1 where bit j of the row's words is set (the residual's sign
+//     >= 0), else -1; bit j lives in word j / 32 at bit j % 32 (int32 words
+//     read as unsigned), bits past d ignored;
+//   * estimate: L2 = (norms2 + |qsub|^2) - 2 * scale * ip, IP = -(scale *
+//     ip), NOT clamped at 0 (the 1-bit estimator overshoots near true
+//     neighbours; a negative estimate is a strong candidate); a row with id
+//     < 0, or beyond max_list inside the bins-padded length, scores +inf,
+//     id -1;
+//   * row r goes to the strided bin r % bins; a bin keeps its minimum, ties
+//     to the smallest id; an empty bin is (+inf, -1);
+//   * kernel 10: cap-major blocks (list, slot, bin); an empty slot (qmap -1)
+//     is all (+inf, -1); the IP centre term is the caller's;
+//   * kernel 11: a (query, probe) pair whose table slot is >= cap is
+//     dropped; the IP centre term sum_j qsub_j * centers_rot[l][j] (f32) is
+//     subtracted from each bin minimum (after the minimum: subtracting
+//     first could make new ties); per query the k smallest candidates under
+//     the key (score, list id, bin): the TPU's list-ascending walk in which
+//     the resident state wins ties. Slots no candidate reaches end as
+//     (+inf, -1).
 //
-// Bound on the H100 SXM (data-sheet rates, 700 W): operations. A scored
-// (pair, row) costs d sign-flipped adds of the bf16 query against d/8 bytes
-// of codes plus 12 B of norm, scale and id: at d = 128 about 5 operations a
-// byte read once, so the rows' bytes, read once per batch, are the smaller
-// bound only when a list is scored by few pairs. At the served point (10M x
-// 128, 1024 lists, 128 probes, a 128-query batch) the clustered queries probe
-// most lists many times; chip_smoke.py computes both bounds from the batch.
-// This design reads each probed list once per probing query (pair-major),
-// mostly from the 50 MB L2, as the PQ scan does.
+// Bound on the H100 SXM (data-sheet rates, 700 W): each probed list's codes,
+// norms, scales and ids read once per batch (d/8 + 12 bytes a row) and the
+// products, 2 x pairs x rows x d at the 989 TFLOP/s bf16 tensor rate;
+// chip_smoke.py computes both from the batch (~0.08-0.10 ms at the served
+// point, 10M x 128, 1024 lists, 128 probes). The pair-major kernel this
+// replaces read each probed list once per probing query (5.08 ms per
+// 128-query batch for kernel 11, 4.24 ms for kernel 10; NVIDIA H100 80GB
+// HBM3, 700.00 W; chip_smoke.py).
 //
-// Design (simple first): bq_pairs_kernel runs one 256-thread block per pair.
-// The block puts the pair's bf16-rounded qsub in shared memory (read by every
-// thread at the same address: a broadcast) and reduces |qsub|^2 and the
-// centre term. Then it scans the list: with bins < 256, 256 / bins threads
-// share a bin and combine their partial minima through shared memory;
-// neighbouring threads read neighbouring rows' words (16-byte vectors when
-// the row holds a multiple of four words). A row's product keeps one f32
-// partial sum per 32-bit word, added in word order.
-#include <cuda_bf16.h>
+// Design: the list-major pass A of list_scan_tc.cuh (one block per (list,
+// tile of up to 64 probing table slots), lists longest first, strided
+// bins in the accumulator's layout; see its note) with BqRows below: the A
+// rows are the tile's bf16(qsub), formed per list at tile setup, with
+// |qsub|^2 and the centre term per row in shared memory (resident for d <=
+// 256, else streamed with the codes); a B tile slice is 128 rows x 64
+// features of the codes, 128 x 2 words, unpacked to +-1 bf16 straight into
+// the swizzled layout (each thread decodes one word; 0 past d, so the
+// zero-padded query columns add nothing); one wgmma pass (PASSES = 1); the
+// row terms are (norms2, 2 scale); two blocks an SM.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
-#include <climits>
-#include <cstdint>
+#include "list_scan_tc.cuh"
 
-#include "candidate_topk.cuh"
-
+namespace raft_tpu_torch {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxQueryBytes = 160 * 1024;  // the qsub row, dynamic smem
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// sum_s (bit s of wv ? qs[s] : -qs[s]) over the n <= 32 entries of one word
-__device__ __forceinline__ float word_ip(const float* qs, uint32_t wv,
-                                         int n) {
-  float part = 0.f;
-  if (n == 32) {
-#pragma unroll
-    for (int s = 0; s < 32; ++s) {
-      const float v = qs[s];
-      part += ((wv >> s) & 1u) ? v : -v;
-    }
-  } else {
-    for (int s = 0; s < n; ++s) {
-      const float v = qs[s];
-      part += ((wv >> s) & 1u) ? v : -v;
-    }
-  }
-  return part;
-}
-
-template <bool kVec4>
-__device__ __forceinline__ float row_ip(const float* qs,
-                                        const uint32_t* __restrict__ wrow,
-                                        int words, int d) {
-  float acc = 0.f;
-  if (kVec4) {
-    for (int w0 = 0; w0 < words; w0 += 4) {
-      const uint4 v = *reinterpret_cast<const uint4*>(wrow + w0);
-      const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int j0 = (w0 + t) * 32;
-        acc += word_ip(qs + j0, wv[t], min(32, d - j0));
-      }
-    }
-  } else {
-    for (int wi = 0; wi < words; ++wi)
-      acc += word_ip(qs + wi * 32, wrow[wi], min(32, d - wi * 32));
-  }
-  return acc;
-}
-
-template <bool kVec4>
-__global__ __launch_bounds__(kThreads) void bq_pairs_kernel(
-    const float* __restrict__ q_rot, const float* __restrict__ centers_rot,
-    const uint32_t* __restrict__ bits, const float* __restrict__ norms2,
-    const float* __restrict__ scales, const int* __restrict__ ids,
-    const int* __restrict__ qsel, const int* __restrict__ lsel, int div,
-    int d, int words, int max_list, int bins, int mlp, int metric_ip,
-    int center_term, float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ __align__(16) float qs[];  // d
-  __shared__ float part_d[kThreads];
-  __shared__ int part_i[kThreads];
-  __shared__ float red[2][kWarps];
-
-  const int tid = threadIdx.x;
-  const size_t pair = blockIdx.x;
-  const int q = qsel ? qsel[pair] : static_cast<int>(pair / div);
-  const int l = lsel ? lsel[pair] : static_cast<int>(pair / div);
-  float* od = out_d + pair * bins;
-  int* oi = out_i + pair * bins;
-  if (q < 0 || l < 0) {  // empty table slot or dropped pair (block-uniform)
-    for (int b = tid; b < bins; b += kThreads) {
-      od[b] = CUDART_INF_F;
-      oi[b] = -1;
-    }
-    return;
-  }
-
-  // the pair's query row: |qsub|^2 and the IP centre term from the
-  // unrounded values, the estimator operand rounded to bf16
-  float p_sq = 0.f, p_c = 0.f;
-  for (int j = tid; j < d; j += kThreads) {
-    const float a = q_rot[static_cast<size_t>(q) * d + j];
-    const float c = centers_rot[static_cast<size_t>(l) * d + j];
-    const float s = metric_ip ? a : a - c;
-    p_sq = fmaf(s, s, p_sq);
-    p_c = fmaf(s, c, p_c);
-    qs[j] = round_bf16(s);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    p_sq += __shfl_xor_sync(0xffffffffu, p_sq, o);
-    p_c += __shfl_xor_sync(0xffffffffu, p_c, o);
-  }
-  if ((tid & 31) == 0) {
-    red[0][tid >> 5] = p_sq;
-    red[1][tid >> 5] = p_c;
-  }
-  __syncthreads();
-  float qq = 0.f, corr = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    qq += red[0][w];
-    corr += red[1][w];
-  }
-
-  const size_t lbase = static_cast<size_t>(l) * max_list;
-  const int n_w = mlp / bins;  // rows per bin
-  // strided bins: bin b owns rows b, b + bins, ...; this thread walks the
-  // rows w = w0, w0 + wstep, ... of its bin
-  auto bin_min = [&](int b, int w0, int wstep, float& bd, int& bi) {
-    bd = CUDART_INF_F;
-    bi = INT_MAX;
-    for (int w = w0; w < n_w; w += wstep) {
-      const int r = w * bins + b;
-      if (r >= max_list) break;
-      const int id = ids[lbase + r];
-      if (id < 0) continue;
-      const float ip = row_ip<kVec4>(
-          qs, bits + (lbase + r) * static_cast<size_t>(words), words, d);
-      const float sc = scales[lbase + r];
-      const float est =
-          metric_ip ? -(sc * ip)
-                    : (norms2[lbase + r] + qq) - __fmul_rn(2.0f * sc, ip);
-      if (est < bd || (est == bd && id < bi)) {
-        bd = est;
-        bi = id;
-      }
-    }
-  };
-  auto emit = [&](int b, float bd, int bi) {
-    if (bi == INT_MAX) bi = -1;
-    if (center_term && metric_ip) bd -= corr;  // +inf stays +inf
-    od[b] = bd;
-    oi[b] = bi;
+// IVF-BQ lists: sign codes, one bf16 pass against the +-1 decode, the
+// row's (norms2, scale) as its terms
+struct BqRows {
+  static constexpr int kPasses = 1;
+  static constexpr bool kCentreTerm = true;
+  // 72 KB of shared memory a block at d <= 128, 105 KB at d <= 256: two
+  // blocks an SM hide each other's latencies (128 registers a thread)
+  static constexpr int kMinBlocks = 2;
+  // a B tile slice (128 rows x 64 features) is 128 x 2 sign words: thread
+  // t holds word t % 2 of row t / 2, and a mask of its features below d
+  struct RowSlice {
+    uint32_t w, valid;
   };
 
-  if (bins >= kThreads) {
-    for (int b = tid; b < bins; b += kThreads) {
-      float bd;
-      int bi;
-      bin_min(b, 0, 1, bd, bi);
-      emit(b, bd, bi);
-    }
-  } else {
-    const int g = kThreads / bins;  // threads sharing one bin
-    float bd = CUDART_INF_F;
-    int bi = INT_MAX;
-    if (tid < g * bins) bin_min(tid % bins, tid / bins, g, bd, bi);
-    part_d[tid] = bd;
-    part_i[tid] = bi;
-    __syncthreads();
-    if (tid < bins) {
-      for (int u = 1; u < g; ++u) {
-        const float v = part_d[u * bins + tid];
-        const int i = part_i[u * bins + tid];
-        if (v < bd || (v == bd && i < bi)) {
-          bd = v;
-          bi = i;
-        }
+  // qsub's features [k0, k0 + 64) of the A rows (zeros for row -1 and past
+  // d), rounded to bf16 by put_unit<1>
+  template <bool IP>
+  __device__ static void put_queries(const ListArgs& a, const int* row_q,
+                                     int l, int k0, unsigned char* hi,
+                                     unsigned char* lo) {
+    const float* c = a.centers + static_cast<long long>(l) * a.d;
+#pragma unroll
+    for (int s = 0; s < tc::kUnits; ++s) {
+      const int u = threadIdx.x + s * tc::kThreads;
+      const int row = row_q[u >> 3];
+      const int kk = k0 + 8 * (u & 7);
+      const float* p =
+          a.queries + static_cast<long long>(row < 0 ? 0 : row) * a.d;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int j = kk + e;
+        v[e] = (row >= 0 && j < a.d) ? (IP ? p[j] : p[j] - c[j]) : 0.f;
       }
-      emit(tid, bd, bi);
+      tc::put_unit<1>(v, u, hi, lo);
     }
   }
-}
+  template <bool IP>
+  __device__ static void query_terms(const ListArgs& a, int q, int l,
+                                     float& qq, float& corr) {
+    const float* p = a.queries + static_cast<long long>(q) * a.d;
+    const float* c = a.centers + static_cast<long long>(l) * a.d;
+    qq = 0.f;
+    corr = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < a.d; ++j) {
+      const float s = IP ? p[j] : p[j] - c[j];
+      qq = fmaf(s, s, qq);
+      corr = fmaf(s, c[j], corr);
+    }
+    if (!(IP && a.center_term)) corr = 0.f;
+  }
+  __device__ static void fetch_rows(RowSlice& f, const ListArgs& a,
+                                    long long lbase, int r0, int rlim,
+                                    int k0) {
+    const int r = r0 + (threadIdx.x >> 1);
+    const int word = (k0 >> 5) + (threadIdx.x & 1);
+    f.w = 0;
+    f.valid = 0;
+    if (r < rlim && word * 32 < a.d) {
+      f.w = a.bits[(lbase + r) * a.words + word];
+      const int nv = a.d - word * 32;
+      f.valid = nv >= 32 ? 0xffffffffu : (1u << nv) - 1u;
+    }
+  }
+  // the word's 32 features as bf16 +-1 pairs, four 8-feature units at
+  // put()'s swizzled positions (byte r * 128 + ((g ^ (r % 8)) * 16)): both
+  // halves of a pair start at -1 (0xBF80) and a set bit clears the sign;
+  // features past d are zero
+  __device__ static void put_rows(const RowSlice& f, unsigned char* hi,
+                                  unsigned char*) {
+    const int r = threadIdx.x >> 1, g0 = 4 * (threadIdx.x & 1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t m = f.w >> (8 * q);
+      uint32_t h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = 0xBF80BF80u ^ ((m << (15 - 2 * e)) & 0x8000u) ^
+               ((m << (30 - 2 * e)) & 0x80000000u);
+      if (f.valid != 0xffffffffu) {
+        const uint32_t vm = f.valid >> (8 * q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h[e] &= (((vm >> (2 * e)) & 1u) ? 0x0000ffffu : 0u) |
+                  (((vm >> (2 * e + 1)) & 1u) ? 0xffff0000u : 0u);
+      }
+      *reinterpret_cast<uint4*>(hi + r * 128 + (((g0 + q) ^ (r & 7)) << 4)) =
+          make_uint4(h[0], h[1], h[2], h[3]);
+    }
+  }
+  template <bool IP>
+  __device__ static void stage(const ListArgs& a, long long i, float& sa,
+                               float& sb) {
+    sa = IP ? 0.f : a.norms2[i];
+    sb = IP ? a.scales[i] : 2.0f * a.scales[i];
+  }
+  // L2 (norms2 + |qsub|^2) - 2 scale ip (one rounding of the product and
+  // the difference, where the plain version rounds each), IP -(scale ip);
+  // pads (sa = +inf, sb = 0) score +inf. The stage holds 2 scale (L2).
+  template <bool IP>
+  __device__ static float score(float acc, float sa, float sb, float qq) {
+    return IP ? (sa == 0.f ? -(sb * acc) : CUDART_INF_F)
+              : fmaf(-sb, acc, sa + qq);
+  }
+};
 
-template <bool kVec4>
-int launch_pairs(int n_pairs, size_t dyn, cudaStream_t s, const float* q_rot,
-                 const float* centers_rot, const uint32_t* bits,
+ListArgs bq_args(const float* q_rot, int d, const int* qmap, int cap,
+                 const float* centers_rot, const int* bits, int words,
                  const float* norms2, const float* scales, const int* ids,
-                 const int* qsel, const int* lsel, int div, int d, int words,
-                 int max_list, int bins, int mlp, int metric_ip,
-                 int center_term, float* out_d, int* out_i) {
-  if (dyn > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bq_pairs_kernel<kVec4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dyn));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  bq_pairs_kernel<kVec4><<<n_pairs, kThreads, dyn, s>>>(
-      q_rot, centers_rot, bits, norms2, scales, ids, qsel, lsel, div, d,
-      words, max_list, bins, mlp, metric_ip, center_term, out_d, out_i);
-  return static_cast<int>(cudaGetLastError());
+                 int max_list, int bins) {
+  ListArgs a{};
+  a.queries = q_rot;
+  a.qmap = qmap;
+  a.cap = cap;
+  a.ids = ids;
+  a.max_list = max_list;
+  a.d = d;
+  a.bins = bins;
+  a.centers = centers_rot;
+  a.bits = reinterpret_cast<const uint32_t*>(bits);
+  a.norms2 = norms2;
+  a.scales = scales;
+  a.words = words;
+  return a;
 }
 
 }  // namespace
+}  // namespace raft_tpu_torch
 
-// Pair p scores list lsel ? lsel[p] : p / div against query
-// qsel ? qsel[p] : p / div (-1 = write (+inf, -1) bins) into
-// out_d/out_i[p * bins, (p + 1) * bins). q_rot (nq, d), centers_rot
-// (n_lists, d) f32; bits (n_lists, max_list, words) int32 bit patterns,
-// words = ceil(d / 32); norms2/scales/ids (n_lists, max_list). vec4 != 0
-// requires words % 4 == 0 and 16-byte aligned bits.
-extern "C" int raft_ivf_bq_scan(const float* q_rot, const float* centers_rot,
-                                const int* bits, const float* norms2,
-                                const float* scales, const int* ids,
-                                const int* qsel, const int* lsel, int n_pairs,
-                                int div, int d, int words, int max_list,
-                                int bins, int mlp, int metric_ip,
-                                int center_term, int vec4, float* out_d,
-                                int* out_i, void* stream) {
-  const size_t dyn = static_cast<size_t>(d) * sizeof(float);
-  if (bins < 1 || mlp < max_list || mlp % bins != 0 || div < 1 || d < 1 ||
-      words != (d + 31) / 32 || dyn > kMaxQueryBytes ||
-      (vec4 && words % 4 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pairs == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(bits);
-  if (vec4)
-    return launch_pairs<true>(n_pairs, dyn, s, q_rot, centers_rot, w, norms2,
-                              scales, ids, qsel, lsel, div, d, words,
-                              max_list, bins, mlp, metric_ip, center_term,
-                              out_d, out_i);
-  return launch_pairs<false>(n_pairs, dyn, s, q_rot, centers_rot, w, norms2,
-                             scales, ids, qsel, lsel, div, d, words, max_list,
-                             bins, mlp, metric_ip, center_term, out_d, out_i);
+// Kernel 11 for queries [q_begin, q_end): q_rot (nq, d) and centers_rot
+// (n_lists, d) f32; qmap (n_lists, cap) query ids (-1 = empty slot); kp (nq,
+// n_probes) each query's kept probed lists sorted ascending (-1 =
+// dropped); bits (n_lists, max_list, words) int32 bit patterns, words =
+// ceil(d / 32); norms2/scales/ids (n_lists, max_list); cand_d/cand_i
+// scratch of (q_end - q_begin) x n_probes * bins, lists_scratch of 2 x
+// n_lists ints; out_d/out_i (nq, k), k <= 256, rows [q_begin, q_end)
+// written.
+extern "C" int raft_ivf_bq_scan_fused(
+    const float* q_rot, int d, const int* qmap, int n_lists, int cap,
+    const int* kp, int n_probes, int q_begin, int q_end,
+    const float* centers_rot, const int* bits, int words,
+    const float* norms2, const float* scales, const int* ids, int max_list,
+    int bins, int k, int metric_ip, float* cand_d, int* cand_i,
+    int* lists_scratch, float* out_d, int* out_i, void* stream) {
+  if (words != (d + 31) / 32) return static_cast<int>(cudaErrorInvalidValue);
+  raft_tpu_torch::ListArgs a = raft_tpu_torch::bq_args(
+      q_rot, d, qmap, cap, centers_rot, bits, words, norms2, scales, ids,
+      max_list, bins);
+  a.q_begin = q_begin;
+  a.q_end = q_end;
+  a.kp = kp;
+  a.n_probes = n_probes;
+  a.ncols = static_cast<long long>(n_probes) * bins;
+  a.center_term = 1;
+  return raft_tpu_torch::list_scan_fused<raft_tpu_torch::BqRows>(
+      a, n_lists, k, 0, cand_d, cand_i, lists_scratch, out_d, out_i,
+      metric_ip != 0, static_cast<cudaStream_t>(stream));
 }
 
-// cand_d/cand_i (nq, n) -> out_d/out_i (nq, k), k <= 256.
-extern "C" int raft_ivf_bq_topk(const float* cand_d, const int* cand_i,
-                                int nq, int n, int k, float* out_d,
-                                int* out_i, void* stream) {
-  return raft_tpu_torch::launch_candidate_topk(
-      cand_d, cand_i, nq, n, k, 0, out_d, out_i,
+// Kernel 10: the same inputs; out_d/out_i (n_lists, cap, bins) f32 and
+// int32, no IP centre term; lists_scratch 2 x n_lists ints.
+extern "C" int raft_ivf_bq_scan(const float* q_rot, int d, const int* qmap,
+                                int n_lists, int cap,
+                                const float* centers_rot, const int* bits,
+                                int words, const float* norms2,
+                                const float* scales, const int* ids,
+                                int max_list, int bins, int metric_ip,
+                                float* out_d, int* out_i,
+                                int* lists_scratch, void* stream) {
+  if (bins < 1 || cap < 1 || d < 1 || words != (d + 31) / 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  raft_tpu_torch::ListArgs a = raft_tpu_torch::bq_args(
+      q_rot, d, qmap, cap, centers_rot, bits, words, norms2, scales, ids,
+      max_list, bins);
+  a.q_end = 0x7fffffff;
+  a.out_d = out_d;
+  a.out_i = out_i;
+  return raft_tpu_torch::launch_list_pass_a<raft_tpu_torch::BqRows>(
+      a, n_lists, lists_scratch, metric_ip != 0,
       static_cast<cudaStream_t>(stream));
 }

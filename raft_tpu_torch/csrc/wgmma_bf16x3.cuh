@@ -1,16 +1,18 @@
 // bf16x3 products on Hopper's tensor cores, shared by fused_knn_tc.cu
-// (kernel 5's pass A) and ivf_flat_scan.cu (kernels 3 and 4): wgmma
-// m64n128k16 (bf16 in, f32 accumulate) from 128-byte-swizzled K-major
-// shared tiles, and the staging that splits f32 rows into those tiles.
+// (kernel 5's pass A), fused_l2_nn_tc.cu (kernel 1) and list_scan_tc.cuh
+// (kernels 3, 4, 10, 11): wgmma m64n128k16 and m64n64k16 (bf16 in, f32
+// accumulate) from 128-byte-swizzled K-major shared tiles, and the staging
+// that splits f32 rows into those tiles.
 //
 // A product a.b of f32 operands is taken as dot_nt_f32(a, b, "bf16x3")
 // (raft_tpu/ops/_util.py:21-50): each operand split into hi = bf16(v) and
 // lo = bf16(v - hi) (round to nearest), and hi.lo + lo.hi + hi.hi summed
 // in f32 (PASSES = 3); PASSES = 1 takes hi.hi alone (the bf16 tier). A
 // block of kThreads = two warpgroups stages 128-row x 64-feature slices:
-// each thread loads kUnits groups of 8 consecutive features (fetch,
-// fetch_rows) into registers and stores them split (put) at the swizzled
-// position the descriptors (desc_sw128) read.
+// each thread loads kUnits groups of 8 consecutive features (fetch, or
+// fetch_row_unit for gathered rows) into registers and stores them split
+// (put, put_unit) at the swizzled position the descriptors (desc_sw128)
+// read.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,6 +74,26 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64 f32 fragment) = a (64 x 16) . b (64 x 16)^T [+ d]
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -87,9 +109,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma window
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // ---- staging: f32 rows -> swizzled bf16 hi / lo tiles ----
@@ -123,28 +146,21 @@ __device__ __forceinline__ void fetch(Slice& f, const float* __restrict__ src,
   }
 }
 
-// fetch() for rows gathered by index: A row u / 8 of the slice is source
-// row rows[u / 8] (shared memory; < 0 reads zeros).
-__device__ __forceinline__ void fetch_rows(Slice& f,
-                                           const float* __restrict__ src,
-                                           const int* rows, int d, int k0,
-                                           bool vec4) {
+// fetch() for one unit of rows gathered by index: the 8 features [kk, kk +
+// 8) of source row `row` (< 0 reads zeros).
+__device__ __forceinline__ void fetch_row_unit(float (&v)[8],
+                                               const float* __restrict__ src,
+                                               int row, int d, int kk,
+                                               bool vec4) {
+  const float* p = src + static_cast<long long>(row < 0 ? 0 : row) * d + kk;
+  if (row >= 0 && vec4 && kk + 8 <= d) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
 #pragma unroll
-  for (int s = 0; s < kUnits; ++s) {
-    const int u = threadIdx.x + s * kThreads;
-    const int row = rows[u >> 3];
-    const int kk = k0 + 8 * (u & 7);
-    const float* p = src + static_cast<long long>(row < 0 ? 0 : row) * d + kk;
-    if (row >= 0 && vec4 && kk + 8 <= d) {
-      const float4 a = *reinterpret_cast<const float4*>(p);
-      const float4 b = *reinterpret_cast<const float4*>(p + 4);
-      f.v[s][0] = a.x; f.v[s][1] = a.y; f.v[s][2] = a.z; f.v[s][3] = a.w;
-      f.v[s][4] = b.x; f.v[s][5] = b.y; f.v[s][6] = b.z; f.v[s][7] = b.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        f.v[s][e] = (row >= 0 && kk + e < d) ? p[e] : 0.f;
-    }
+    for (int e = 0; e < 8; ++e) v[e] = (row >= 0 && kk + e < d) ? p[e] : 0.f;
   }
 }
 
@@ -152,31 +168,37 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat162 h) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Split the slice into hi (and, for 3 passes, lo) and store both at the
-// 128-byte-swizzled K-major position of each group: byte r * 128 +
-// ((g ^ (r % 8)) * 16) of its tile.
+// Split unit u (8 features) into hi (and, for 3 passes, lo) and store both
+// at the 128-byte-swizzled K-major position of its group: byte r * 128 +
+// ((g ^ (r % 8)) * 16) of its tile, r = u / 8, g = u % 8.
+template <int PASSES>
+__device__ __forceinline__ void put_unit(const float (&v)[8], int u,
+                                         unsigned char* hi,
+                                         unsigned char* lo) {
+  const int r = u >> 3, g = u & 7;
+  const int off = r * 128 + ((g ^ (r & 7)) << 4);
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float a = v[2 * e], b = v[2 * e + 1];
+    const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
+    h[e] = pack2(hv);
+    if constexpr (PASSES == 3)
+      l[e] = pack2(__floats2bfloat162_rn(a - __low2float(hv),
+                                         b - __high2float(hv)));
+  }
+  *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+  if constexpr (PASSES == 3)
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// Split the slice into hi (and, for 3 passes, lo) tiles (put_unit()).
 template <int PASSES>
 __device__ __forceinline__ void put(const Slice& f, unsigned char* hi,
                                     unsigned char* lo) {
 #pragma unroll
-  for (int s = 0; s < kUnits; ++s) {
-    const int u = threadIdx.x + s * kThreads;
-    const int r = u >> 3, g = u & 7;
-    const int off = r * 128 + ((g ^ (r & 7)) << 4);
-    uint32_t h[4], l[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float a = f.v[s][2 * e], b = f.v[s][2 * e + 1];
-      const __nv_bfloat162 hv = __floats2bfloat162_rn(a, b);
-      h[e] = pack2(hv);
-      if constexpr (PASSES == 3)
-        l[e] = pack2(__floats2bfloat162_rn(a - __low2float(hv),
-                                           b - __high2float(hv)));
-    }
-    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
-    if constexpr (PASSES == 3)
-      *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
+  for (int s = 0; s < kUnits; ++s)
+    put_unit<PASSES>(f.v[s], threadIdx.x + s * kThreads, hi, lo);
 }
 
 }  // namespace tc

@@ -3,7 +3,7 @@
 
 For each row of ``x``, the index and (squared, or with ``sqrt``) L2
 distance of its nearest row of ``y``, without the (m, n) matrix. The
-work goes to ``ops.fused_l2_nn``: the CUDA kernel for CUDA tensors, the
+work goes to ``ops.fused_l2_nn``: a CUDA kernel for CUDA tensors, the
 plain version for CPU tensors.
 """
 
@@ -13,8 +13,7 @@ import torch
 
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.kvp import KeyValuePair
-from raft_tpu_torch.core.precision import (check_f32_kernel_precision,
-                                           full_fp32_matmul)
+from raft_tpu_torch.core.precision import full_fp32_matmul
 from raft_tpu_torch.core.resources import ensure_resources
 from raft_tpu_torch.ops import fused_l2_nn as _op
 
@@ -24,9 +23,10 @@ def fused_l2_nn(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False,
                 res=None) -> KeyValuePair:
     """``KeyValuePair(key=int32 (m,), value=float32 (m,))``; ties go to
     the lowest index of ``y``. ``x`` and ``y`` must share a device.
-    ``kernel_precision``: ``None`` or ``"highest"`` (f32, the kernel's
-    only arithmetic so far); the bf16 tiers raise."""
-    check_f32_kernel_precision("fused_l2_nn", kernel_precision)
+    ``kernel_precision``: ``None`` (bf16x3 on the card, the TPU kernel's
+    default; f32 on the CPU, as the JAX package's interpret mode) |
+    ``"bf16x3"`` | ``"bf16"``/``"default"`` (one pass of bf16-rounded
+    operands) | ``"highest"`` (f32)."""
     expects(x.dim() == 2 and y.dim() == 2, "fused_l2_nn: inputs must be rank-2")
     expects(x.shape[1] == y.shape[1], "fused_l2_nn: dim mismatch")
     expects(x.device == y.device, "fused_l2_nn: x on %s, y on %s",
@@ -34,7 +34,8 @@ def fused_l2_nn(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False,
     expects(y.shape[0] > 0, "fused_l2_nn: y has no rows")
     ensure_resources(res, x.device)
     full_fp32_matmul()
-    idx, d = _op.fused_l2_nn(x.float(), y.float(), sqrt=bool(sqrt))
+    idx, d = _op.fused_l2_nn(x.float(), y.float(), bool(sqrt),
+                             kernel_precision)
     return KeyValuePair(idx, d)
 
 

@@ -25,10 +25,10 @@ vectors. Metrics: L2Expanded, L2SqrtExpanded, InnerProduct,
 CosineExpanded.
 
 Not ported yet: ``extend`` (raises ``NotImplementedError``).
-``kmeans_kernel_precision`` is dropped. The rotation is the port's
-``ivf_pq.make_rotation_matrix`` (QR of a numpy-seeded gaussian), not the
-JAX package's ``jax.random`` draw; an index built by either package
-searches the same in both (``index_from_numpy``,
+``kmeans_kernel_precision`` reaches the k-means trainer. The rotation is
+the port's ``ivf_pq.make_rotation_matrix`` (QR of a numpy-seeded
+gaussian), not the JAX package's ``jax.random`` draw; an index built by
+either package searches the same in both (``index_from_numpy``,
 ``serialize.load_ivf_bq``).
 """
 

@@ -17,8 +17,8 @@ chooses (``scan_order``; "auto" picks list-major when ``nq >= 64`` and
   package leaves this route to XLA too).
 
 Ported: float32 storage; metrics L2 (squared and sqrt), InnerProduct and
-Cosine. Not ported yet (each raises ``NotImplementedError``): bf16/int8
-storage, the trainer's bf16 tiers (``kmeans_kernel_precision``),
+Cosine. ``kmeans_kernel_precision`` reaches the k-means trainer. Not
+ported yet (each raises ``NotImplementedError``): bf16/int8 storage,
 ``adaptive_centers`` (it acts in ``extend``, which is not ported either).
 """
 

@@ -17,7 +17,9 @@ estimator slice or exact re-rank on the device or the host.
 Not ported yet (raising ``NotImplementedError``): building with
 ``CodebookGen.PER_CLUSTER`` (searching such an index loaded from the
 JAX package works), ``scan_mode`` "reconstruct" and "lut", ``extend``.
-``kmeans_kernel_precision`` is dropped. The rotation for ``rot_dim !=
+``kmeans_kernel_precision`` reaches the coarse k-means trainer; the
+codebook trainer computes in f32 (the JAX package maps the knob onto an
+XLA precision there). The rotation for ``rot_dim !=
 dim`` or ``force_random_rotation`` is the QR of a numpy-seeded gaussian,
 not of the JAX package's ``jax.random`` draw.
 """

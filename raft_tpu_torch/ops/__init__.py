@@ -6,6 +6,7 @@ kernels from ``csrc/``."""
 # launch-count key -> (module, counter attribute)
 KERNEL_COUNTERS = {
     "fused_l2_nn": ("fused_l2_nn", "launches"),
+    "fused_l2_nn_f32": ("fused_l2_nn", "launches_f32"),
     "select_k": ("select_k", "launches"),
     "ivf_scan": ("ivf_scan", "launches"),
     "ivf_list_scan": ("ivf_scan", "launches_list"),
@@ -26,9 +27,11 @@ def _module(name: str):
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0."""
+    """Set every kernel's launch counter to 0 (and clear fused L2-NN's
+    launches by shape)."""
     for mod, attr in KERNEL_COUNTERS.values():
         setattr(_module(mod), attr, 0)
+    _module("fused_l2_nn").shapes.clear()
 
 
 def launch_counts() -> dict:

@@ -35,9 +35,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-KERNEL_SOURCES = ("fused_l2_nn", "select_k", "ivf_flat_scan", "ivf_pq_scan",
-                  "ivf_bq_scan", "fused_knn", "fused_knn_tc",
-                  "elementwise_dist")
+KERNEL_SOURCES = ("fused_l2_nn", "fused_l2_nn_tc", "select_k",
+                  "ivf_flat_scan", "ivf_pq_scan", "ivf_bq_scan", "fused_knn",
+                  "fused_knn_tc", "elementwise_dist")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

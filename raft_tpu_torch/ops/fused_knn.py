@@ -25,7 +25,8 @@ import torch
 from raft_tpu_torch.core.precision import full_fp32_matmul
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops._build import I64, INT, PTR
-from raft_tpu_torch.ops._util import (check_cuda_tensor, round_up,
+from raft_tpu_torch.ops._util import (PRECISIONS, check_cuda_tensor, dot_nt,
+                                      resolve_precision, round_up,
                                       stable_topk_min)
 
 # k served by the kernel's top-k pass (csrc/candidate_topk.cuh kTopMaxK);
@@ -40,9 +41,6 @@ KT = 2048
 launches = 0
 launches_f32 = 0
 launches_ktiled = 0
-
-# pass A arithmetic: :func:`resolve_precision`
-PRECISIONS = ("bf16x3", "bf16", "f32")
 
 # candidates (queries x bins) per kernel launch: bounds the pass-A buffer
 _MAX_CAND_ELEMS = 1 << 28
@@ -78,28 +76,6 @@ def geometry(m: int, n: int, dim: int, k: int, tm: int = 0, tn: int = 0,
     return tm, tn, l_bins, kt
 
 
-def resolve_precision(kernel_precision, on_cuda: bool) -> str:
-    """The arithmetic of pass A for a ``kernel_precision``, with the JAX
-    package's meanings (``raft_tpu/core/precision.py``
-    ``resolve_kernel_mode``): ``"bf16x3"`` (three bf16 products of each
-    operand's hi/lo split, the TPU kernel's default), ``"bf16"`` (one
-    product of bf16-rounded operands) or ``"f32"``. ``None`` is the
-    device's default: bf16x3 on the card, f32 on the CPU (the JAX
-    package's interpret mode computes at ``HIGHEST``); ``"default"`` is
-    ``"bf16"``, ``"highest"`` is f32."""
-    if kernel_precision is None:
-        return "bf16x3" if on_cuda else "f32"
-    name = str(kernel_precision).lower()
-    if name == "bf16x3":
-        return "bf16x3"
-    if name in ("bf16", "default"):
-        return "bf16"
-    if name == "highest":
-        return "f32"
-    raise ValueError(f"kernel precision {kernel_precision!r}: want "
-                     "bf16x3|bf16|highest")
-
-
 def rank_candidates(cand_d: torch.Tensor, cand_i: torch.Tensor, k: int,
                     sqrt: bool):
     """Each row's k best candidates by (value, column): the ranking of
@@ -122,25 +98,6 @@ def rank_candidates(cand_d: torch.Tensor, cand_i: torch.Tensor, k: int,
     return vals.contiguous(), ids.contiguous()
 
 
-def _nt(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
-    """``a @ b.T`` at ``precision``; bf16x3 as
-    ``raft_tpu/ops/_util.py`` ``dot_nt_f32``: each operand split into
-    ``hi = bf16(v)`` and ``lo = bf16(v - hi)`` (round to nearest even, as
-    the kernel's ``__float2bfloat16_rn``), three full-f32 products of the
-    splits (each exact) summed hi.lo + lo.hi + hi.hi. Leading dimensions
-    batch."""
-    if precision == "f32":
-        return a @ b.transpose(-2, -1)
-    ah, bh = a.bfloat16().float(), b.bfloat16().float()
-    if precision == "bf16":
-        return ah @ bh.transpose(-2, -1)
-    al, bl = (a - ah).bfloat16().float(), (b - bh).bfloat16().float()
-    acc = ah @ bl.transpose(-2, -1)
-    acc += al @ bh.transpose(-2, -1)
-    acc += ah @ bh.transpose(-2, -1)
-    return acc
-
-
 def _product(x: torch.Tensor, y: torch.Tensor, kt: int,
              precision: str = "f32") -> torch.Tensor:
     """x @ y.T at ``precision`` (``"f32"``, ``"bf16x3"``, ``"bf16"``),
@@ -149,10 +106,10 @@ def _product(x: torch.Tensor, y: torch.Tensor, kt: int,
     full_fp32_matmul()
     dim = x.shape[1]
     if not 0 < kt < dim:
-        return _nt(x, y, precision)
-    acc = _nt(x[:, :kt], y[:, :kt], precision)
+        return dot_nt(x, y, precision)
+    acc = dot_nt(x[:, :kt], y[:, :kt], precision)
     for c in range(kt, dim, kt):
-        acc += _nt(x[:, c:c + kt], y[:, c:c + kt], precision)
+        acc += dot_nt(x[:, c:c + kt], y[:, c:c + kt], precision)
     return acc
 
 

@@ -1,6 +1,8 @@
 """IVF-BQ 1-bit scan, unfused and fused: kernel wrappers and plain versions.
 
-Kernels: ``csrc/ivf_bq_scan.cu``. :func:`bq_scan` replaces the JAX
+Kernels: ``csrc/ivf_bq_scan.cu``, one list-major pass A on the tensor
+cores (``csrc/list_scan_tc.cuh``, shared with the IVF-Flat scans) behind
+both entry points. :func:`bq_scan` replaces the JAX
 package's Pallas ``_bq_scan_kernel`` (per (list, table slot) binned
 estimator candidates, merged afterwards); :func:`bq_scan_fused`
 replaces ``_fused_bq_scan_kernel`` (the same candidates, IP centre term
@@ -13,9 +15,10 @@ Both score a list row from its sign bits as ``est = (norms2 + |qsub|^2)
 +-1>)`` (IP), not clamped, with ``qsub`` the rotated query's residual
 against the list's rotated centre (L2) or the rotated query (IP). The
 plain versions follow the TPU formulation (decode the bits to a +-1
-tile, one f32 ``einsum`` with the bf16-rounded query); the kernel adds
-the sign-flipped query entries word by word, so the two differ in f32
-summation order only. See the kernel's source note.
+tile, one f32 ``einsum`` with the bf16-rounded query); the kernel takes
+the same exact products in one bf16 ``wgmma`` pass with f32
+accumulation, so the two differ in f32 summation order only. See the
+kernel's source note.
 """
 
 from __future__ import annotations
@@ -30,8 +33,6 @@ from raft_tpu_torch.ops.ivf_scan import (bin_rows, finish_state,
                                          merge_lists_into_state)
 
 MAX_K = 256
-# the kernel's dynamic shared memory holds the (d,) f32 query row
-MAX_DIM = 40 * 1024
 
 # launches of the CUDA kernels since the last reset (plain integers)
 launches = 0
@@ -39,6 +40,9 @@ launches_fused = 0
 
 # element budget of one chunk's decode / score block in the plain versions
 _PLAIN_BLOCK = 1 << 24
+# candidates (queries x n_probes x bins) of one fused launch
+# (csrc/list_scan_tc.cuh kListMaxCand)
+_MAX_CAND = 1 << 28
 
 
 def unpack_pm1(words: torch.Tensor, d: int) -> torch.Tensor:
@@ -129,12 +133,15 @@ def bq_scan_fused_plain(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
 
 
 _SCAN = _build.Entry("ivf_bq_scan", "raft_ivf_bq_scan",
-                     [PTR] * 8 + [INT] * 10 + [PTR] * 3)
-_TOPK = _build.Entry("ivf_bq_scan", "raft_ivf_bq_topk",
-                     [PTR] * 2 + [INT] * 3 + [PTR] * 3)
+                     [PTR, INT, PTR, INT, INT, PTR, PTR, INT, PTR, PTR, PTR]
+                     + [INT] * 3 + [PTR] * 4)
+_FUSED = _build.Entry("ivf_bq_scan", "raft_ivf_bq_scan_fused",
+                      [PTR, INT, PTR, INT, INT, PTR] + [INT] * 3
+                      + [PTR, PTR, INT, PTR, PTR, PTR] + [INT] * 4
+                      + [PTR] * 6)
 
 
-def _check(q_rot, centers_rot, bits, norms2, scales, ids):
+def _check(q_rot, centers_rot, bits, norms2, scales, ids, qmap):
     check_cuda_tensor("ivf_bq_scan q_rot", q_rot, torch.float32, 2)
     check_cuda_tensor("ivf_bq_scan centers_rot", centers_rot,
                       torch.float32, 2)
@@ -142,82 +149,79 @@ def _check(q_rot, centers_rot, bits, norms2, scales, ids):
     check_cuda_tensor("ivf_bq_scan norms2", norms2, torch.float32, 2)
     check_cuda_tensor("ivf_bq_scan scales", scales, torch.float32, 2)
     check_cuda_tensor("ivf_bq_scan ids", ids, torch.int32, 2)
+    check_cuda_tensor("ivf_bq_scan qmap", qmap, torch.int32, 2)
     n_lists, max_list, words = bits.shape
     d = q_rot.shape[1]
     if (centers_rot.shape != (n_lists, d) or ids.shape != (n_lists, max_list)
             or norms2.shape != ids.shape or scales.shape != ids.shape
-            or words != -(-d // 32)):
+            or words != -(-d // 32) or qmap.shape[0] != n_lists):
         raise ValueError("ivf_bq_scan: index tensors disagree in shape")
-    if d > MAX_DIM:
-        raise ValueError(f"ivf_bq_scan: dim {d} > {MAX_DIM}, the kernel's "
-                         "shared-memory query row")
-
-
-def _launch_pairs(q_rot, centers_rot, bits, norms2, scales, ids, qsel,
-                  lsel, n_pairs, div, bins, metric, center_term, out_d,
-                  out_i):
-    n_lists, max_list, words = bits.shape
-    vec4 = words % 4 == 0 and bits.data_ptr() % 16 == 0
-    with torch.cuda.device(q_rot.device):
-        rc = _SCAN(q_rot.data_ptr(), centers_rot.data_ptr(), bits.data_ptr(),
-                   norms2.data_ptr(), scales.data_ptr(), ids.data_ptr(),
-                   qsel.data_ptr() if qsel is not None else None,
-                   lsel.data_ptr() if lsel is not None else None,
-                   n_pairs, div, q_rot.shape[1], words, max_list, bins,
-                   round_up(max_list, bins), int(metric == "ip"),
-                   int(bool(center_term)), int(vec4), out_d.data_ptr(),
-                   out_i.data_ptr(), _build.stream_handle(q_rot.device))
-    _build.check(rc, "ivf_bq_scan")
 
 
 def bq_scan_cuda(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
                  bins: int, metric: str):
-    """Launch kernel 10: one block per (list, table slot)."""
+    """Launch kernel 10: the list-major pass A, one block per (list, tile
+    of up to 64 table slots), writing the blocks."""
     global launches
-    _check(q_rot, centers_rot, bits, norms2, scales, ids)
-    check_cuda_tensor("ivf_bq_scan qmap", qmap, torch.int32, 2)
-    n_lists, cap = qmap.shape
-    if n_lists != ids.shape[0]:
-        raise ValueError("ivf_bq_scan: qmap rows != n_lists")
+    _check(q_rot, centers_rot, bits, norms2, scales, ids, qmap)
+    n_lists, max_list, words = bits.shape
+    cap = qmap.shape[1]
     dev = q_rot.device
     out_d = torch.empty((n_lists, cap, bins), dtype=torch.float32,
                         device=dev)
     out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
-    _launch_pairs(q_rot, centers_rot, bits, norms2, scales, ids, qmap,
-                  None, n_lists * cap, cap, bins, metric, False, out_d, out_i)
+    lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _SCAN(q_rot.data_ptr(), q_rot.shape[1], qmap.data_ptr(),
+                   n_lists, cap, centers_rot.data_ptr(), bits.data_ptr(),
+                   words, norms2.data_ptr(), scales.data_ptr(),
+                   ids.data_ptr(), max_list, bins, int(metric == "ip"),
+                   out_d.data_ptr(), out_i.data_ptr(), lists.data_ptr(),
+                   _build.stream_handle(dev))
+    _build.check(rc, "ivf_bq_scan")
     launches += 1
     return out_d, out_i
 
 
 def bq_scan_fused_cuda(q_rot, centers_rot, bits, norms2, scales, ids,
-                       probes, inv_pos, cap: int, k: int, bins: int,
+                       probes, inv_pos, qmap, cap: int, k: int, bins: int,
                        metric: str):
-    """Launch kernel 11: one block per (query, probe) for the binned
-    candidates (IP centre term applied), then one block per query for
-    the top-k."""
+    """Launch kernel 11 (all tensors contiguous, on one card): pass A over
+    (list, query tile) blocks into per-query candidate rows, the IP centre
+    term applied, then the top-k pass; queries in chunks of at most
+    ``_MAX_CAND`` candidates."""
     global launches_fused
-    _check(q_rot, centers_rot, bits, norms2, scales, ids)
+    _check(q_rot, centers_rot, bits, norms2, scales, ids, qmap)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"ivf_bq_scan_fused: k={k} outside [1, {MAX_K}]")
-    nq = q_rot.shape[0]
+    n_lists, max_list, words = bits.shape
+    if qmap.shape[1] != cap:
+        raise ValueError("ivf_bq_scan_fused: qmap is not (n_lists, cap)")
+    nq, d = q_rot.shape
     kp = kept_probes_sorted(probes, inv_pos, cap)
     n_probes = kp.shape[1]
+    ncols = n_probes * bins
+    step = max(1, _MAX_CAND // max(1, ncols))
     dev = q_rot.device
-    cand_d = torch.empty((nq, n_probes * bins), dtype=torch.float32,
-                         device=dev)
-    cand_i = torch.empty((nq, n_probes * bins), dtype=torch.int32,
-                         device=dev)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    _launch_pairs(q_rot, centers_rot, bits, norms2, scales, ids, None,
-                  kp, nq * n_probes, n_probes, bins, metric, True, cand_d,
-                  cand_i)
+    cand_d = torch.empty((min(nq, step), ncols), dtype=torch.float32,
+                         device=dev)
+    cand_i = torch.empty((min(nq, step), ncols), dtype=torch.int32,
+                         device=dev)
+    lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = _TOPK(cand_d.data_ptr(), cand_i.data_ptr(), nq,
-                   n_probes * bins, k, out_d.data_ptr(), out_i.data_ptr(),
-                   _build.stream_handle(dev))
-    _build.check(rc, "ivf_bq_scan_fused top-k")
-    launches_fused += 1
+        for q0 in range(0, nq, step):
+            rc = _FUSED(q_rot.data_ptr(), d, qmap.data_ptr(), n_lists, cap,
+                        kp.data_ptr(), n_probes, q0, min(nq, q0 + step),
+                        centers_rot.data_ptr(), bits.data_ptr(), words,
+                        norms2.data_ptr(), scales.data_ptr(), ids.data_ptr(),
+                        max_list, bins, k, int(metric == "ip"),
+                        cand_d.data_ptr(), cand_i.data_ptr(),
+                        lists.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                        _build.stream_handle(dev))
+            _build.check(rc, "ivf_bq_scan_fused")
+            launches_fused += 1
     return out_d, out_i
 
 
@@ -249,6 +253,6 @@ def bq_scan_fused(q_rot, centers_rot, bits, norms2, scales, ids, probes,
         return bq_scan_fused_cuda(
             q_rot.contiguous(), centers_rot.contiguous(), bits.contiguous(),
             norms2.contiguous(), scales.contiguous(), ids.contiguous(),
-            probes, inv_pos, cap, k, bins, metric)
+            probes, inv_pos, qmap.contiguous(), cap, k, bins, metric)
     return bq_scan_fused_plain(q_rot, centers_rot, bits, norms2, scales, ids,
                                qmap, k, bins, metric)

@@ -26,7 +26,7 @@ import torch
 
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops._build import INT, PTR
-from raft_tpu_torch.ops._util import check_cuda_tensor, round_up
+from raft_tpu_torch.ops._util import check_cuda_tensor, dot_nt, round_up
 
 MAX_K = 256
 
@@ -68,13 +68,12 @@ def _list_scores(queries, data, norms, qm, l0: int, metric: str,
     ``-q.x``, the products at ``precision`` (``"f32"`` or ``"bf16x3"``),
     the norms those of the unrounded rows."""
     from raft_tpu_torch.neighbors._ivf_scan import gather_query_rows
-    from raft_tpu_torch.ops.fused_knn import _nt
     l1 = l0 + qm.shape[0]
     qsub = gather_query_rows(queries, qm)                # (c, cap, d)
     if precision == "f32":
         ip = torch.einsum("gcd,gld->gcl", qsub, data[l0:l1].float())
     elif precision == "bf16x3":
-        ip = _nt(qsub, data[l0:l1].float(), precision)
+        ip = dot_nt(qsub, data[l0:l1].float(), precision)
     else:
         raise ValueError(f"ivf_flat_scan: precision {precision!r} "
                          "(want f32|bf16x3)")
@@ -272,7 +271,7 @@ def list_scan_plain(queries, data, norms, ids, qmap, bins: int,
 def list_scan_cuda(queries, data, norms, ids, qmap, bins: int, metric: str,
                    out_dtype=torch.float32):
     """Launch kernel 4: pass A alone, one block per (list, tile of up to
-    128 table slots), writing the blocks."""
+    64 table slots), writing the blocks."""
     global launches_list
     check_cuda_tensor("ivf_list_scan queries", queries, torch.float32, 2)
     check_cuda_tensor("ivf_list_scan data", data, torch.float32, 3)

@@ -177,32 +177,12 @@ def _x(n=256, d=8):
 
 
 def _unimplemented():
-    from raft_tpu_torch.cluster import kmeans_balanced
-    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
     from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq, selection
     from raft_tpu_torch.serve.types import ServeConfig
     x = _x()
     return {
-        "fused_l2_nn@bf16x3": lambda: fused_l2_nn(
-            x, x[:4], kernel_precision="bf16x3"),
-        "fused_l2_nn@bf16": lambda: fused_l2_nn(
-            x, x[:4], kernel_precision="bf16"),
-        "balanced_kmeans@bf16": lambda: kmeans_balanced.balanced_kmeans(
-            x, 4, kernel_precision="bf16"),
-        "build_hierarchical@bf16x3":
-            lambda: kmeans_balanced.build_hierarchical(
-                x, 4, kernel_precision="bf16x3"),
-        "ivf_flat.kmeans_kernel_precision": lambda: ivf_flat.build(
-            x, ivf_flat.IndexParams(n_lists=4, kmeans_kernel_precision="bf16"),
-            device="cpu"),
         "ivf_flat.adaptive_centers": lambda: ivf_flat.build(
             x, ivf_flat.IndexParams(n_lists=4, adaptive_centers=True),
-            device="cpu"),
-        "ivf_pq.kmeans_kernel_precision": lambda: ivf_pq.build(
-            x, ivf_pq.IndexParams(n_lists=4, kmeans_kernel_precision="bf16"),
-            device="cpu"),
-        "ivf_bq.kmeans_kernel_precision": lambda: ivf_bq.build(
-            x, ivf_bq.IndexParams(n_lists=4, kmeans_kernel_precision="bf16"),
             device="cpu"),
         "ivf_pq.extend": lambda: ivf_pq.extend(None, x, res=None),
         "ivf_bq.extend": lambda: ivf_bq.extend(None, x, res=None),

@@ -18,7 +18,10 @@ of it — plus that rtol). The IVF-Flat scans' kernels take their
 products as bf16x3 on the tensor cores, one accumulator per (query, row)
 in the wgmma's order, and are held to their plain versions at bf16x3
 (three full-f32 products summed): the same exact partial products
-summed in another order.
+summed in another order. Fused L2-NN is held so at each tier (bf16x3 and
+bf16 on the tensor cores, f32 on the CUDA cores), the IVF-BQ scans
+(products of bf16 queries and the +-1 decode, one tensor-core pass)
+likewise.
 """
 
 import numpy as np
@@ -49,33 +52,47 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
+# kernel_precision -> (the plain version's arithmetic, the launch counter)
+NN_TIERS = {"bf16x3": ("bf16x3", "launches"), "bf16": ("bf16", "launches"),
+            "highest": ("f32", "launches_f32")}
+
+
+@pytest.mark.parametrize("tier", sorted(NN_TIERS))
 @pytest.mark.parametrize("sqrt", [False, True])
 @pytest.mark.parametrize("m,n,d", [(1, 1, 1), (37, 23, 8), (129, 65, 17),
-                                   (300, 1000, 128)])
-def test_fused_l2_nn_matches_plain(dev, m, n, d, sqrt):
+                                   (300, 1000, 128), (257, 1000, 300),
+                                   (1000, 4096, 128)])
+def test_fused_l2_nn_matches_plain(dev, m, n, d, sqrt, tier):
+    # the tensor-core kernel at bf16x3 and bf16 (d 300: the rows stream
+    # with the centres; n 1000: a ragged last chunk of centres), the f32
+    # body at "highest"; each against the plain version at its arithmetic
     rng = np.random.default_rng(m + n + d)
     x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
     y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
-    before = nn_op.launches
-    ik, dk = nn_op.fused_l2_nn(x, y, sqrt)
+    precision, counter = NN_TIERS[tier]
+    before = getattr(nn_op, counter)
+    ik, dk = nn_op.fused_l2_nn(x, y, sqrt, tier)
     torch.cuda.synchronize()
-    assert nn_op.launches == before + 1
-    ip, dp = nn_op.fused_l2_nn_plain(x, y, sqrt)
-    np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
+    assert getattr(nn_op, counter) == before + 1
+    ip, dp = nn_op.fused_l2_nn_plain(x, y, sqrt, precision)
     scale = ((x * x).sum(1) + (y * y).sum(1).max()).cpu().numpy()
     if sqrt:
         scale = np.sqrt(scale)
+    np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
     assert (np.abs(dk.cpu().numpy() - dp.cpu().numpy())
             <= 1e-5 * scale).all()
 
 
-def test_fused_l2_nn_ties_exact(dev):
+@pytest.mark.parametrize("tier", sorted(NN_TIERS))
+def test_fused_l2_nn_ties_exact(dev, tier):
+    # integers in [-3, 3]: bf16 holds them (lo = 0), so every tier's
+    # distances are exact and the lowest index wins each tie
     rng = np.random.default_rng(7)
     base = rng.integers(-3, 4, size=(6, 4)).astype(np.float32)
     y = _t(np.concatenate([base, base[::-1], base]), dev)
     x = _t(rng.integers(-3, 4, size=(200, 4)).astype(np.float32), dev)
-    ik, dk = nn_op.fused_l2_nn(x, y)
-    ip, dp = nn_op.fused_l2_nn_plain(x, y)
+    ik, dk = nn_op.fused_l2_nn(x, y, kernel_precision=tier)
+    ip, dp = nn_op.fused_l2_nn_plain(x, y, False, NN_TIERS[tier][0])
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
 
 
@@ -142,7 +159,8 @@ def _random_index(rng, n_lists, max_list, d, dev, metric="l2"):
 def _scan_case(rng, d, cap, metric, dev, nq=32, n_probes=6):
     """A random 16-list index (40-row lists, list 0 full, list 1 with no
     rows at all) and ``nq`` queries inverted at ``cap``; above 128 slots
-    the batch grows so that some list's table fills two query tiles."""
+    the batch grows so that some list's table fills more than two query
+    tiles (64 slots each)."""
     n_lists, max_list = 16, 40
     if cap > 128:
         nq = 256
@@ -160,7 +178,7 @@ def _scan_case(rng, d, cap, metric, dev, nq=32, n_probes=6):
     if cap == 8:
         assert bool((inv_pos >= cap).any()), "cap must overflow"
     if cap > 128:
-        assert bool((qmap[:, 128:] >= 0).any()), "two query tiles"
+        assert bool((qmap[:, 128:] >= 0).any()), "three query tiles"
     return q, data, norms, ids, probes, qmap, inv_pos
 
 
@@ -378,7 +396,7 @@ def test_list_scan_matches_plain(dev, metric, d, bins, cap, out):
     # does not divide 40; 600 > 512 bins takes five bin chunks; 64 folds,
     # 128 > max_list; list 0 full, list 1 empty, short lists among the
     # rest; cap 8 overflows (the merge drops the overflow, the blocks just
-    # hold fewer slots), cap 200 fills two query tiles of a list
+    # hold fewer slots), cap 200 fills more than two query tiles of a list
     rng = np.random.default_rng(d * 7 + cap + (bins % 97))
     q, data, norms, ids, probes, qmap, inv_pos = _scan_case(
         rng, d, cap, metric, dev, nq=48)
@@ -435,7 +453,8 @@ def test_wide_flat_search_on_card_matches_cpu(dev):
     _near_tie_equal(dg, ig, dc, ic, 1e-5 * scale)
 
 
-def _bq_case(rng, dev, d, n_lists=16, max_list=100, nq=32, n_probes=6):
+def _bq_case(rng, dev, d, n_lists=16, max_list=100, nq=32, n_probes=6,
+             skew=False):
     words = -(-d // 32)
     sizes = rng.integers(0, max_list + 1, size=n_lists)
     sizes[0], sizes[1], sizes[2] = max_list, 0, 5     # full, empty, short
@@ -454,7 +473,10 @@ def _bq_case(rng, dev, d, n_lists=16, max_list=100, nq=32, n_probes=6):
         a[ids < 0] = 0
     q = rng.normal(size=(nq, d)).astype(np.float32)
     centers_rot = rng.normal(size=(n_lists, d)).astype(np.float32)
-    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+    # skewed to the low lists: some list draws more than 128 queries
+    w = 1.0 / np.arange(1, n_lists + 1) if skew else np.ones(n_lists)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False,
+                                  p=w / w.sum())
                        for _ in range(nq)]).astype(np.int32)
     scale = float(((np.abs(q) + np.abs(centers_rot).max(0)) ** 2).sum(1).max()
                   + norms2.max())
@@ -463,21 +485,28 @@ def _bq_case(rng, dev, d, n_lists=16, max_list=100, nq=32, n_probes=6):
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("d", [48, 128, 100, 13, 256])
+@pytest.mark.parametrize("d", [48, 128, 100, 13, 256, 200, 300])
 @pytest.mark.parametrize("k,bins,cap", [(1, 16, 32), (10, 128, 32),
                                         (256, 64, 32), (10, 16, 8),
-                                        (32, 7, 32), (10, 300, 32)])
+                                        (32, 7, 32), (10, 300, 32),
+                                        (10, 100, 32), (10, 16, 200)])
 def test_bq_scans_match_plain(dev, metric, d, k, bins, cap):
-    # d 48: a partial second word; 128 and 256: 16-byte word vectors;
-    # 100: vectors with a partial last word; 13: one partial word.
-    # bins 128 and 300 > max_list 100 (300 > 256 threads: a bin per
-    # thread); 7 does not divide 100; list 1 empty, list 2 holds 5 rows;
-    # cap 8 overflows
+    # d 48: a partial second word and a partial slice; 13: one partial
+    # word; 128 and 256: whole slices; 100 and 200: a partial last slice;
+    # 300: five slices, the queries stream with the codes. bins 16 and 64
+    # fold in registers; 7 (does not divide 100), 128, 300 (> max_list
+    # 100) and 100 (= max_list: one row a bin, exact) take the stripes;
+    # list 1 empty, list 2 holds 5 rows; cap 8 overflows; cap 200 with
+    # skewed probes fills more than two query tiles (64 slots each) of a
+    # list
     rng = np.random.default_rng(d + k + bins + cap)
-    (q, cr, bits, n2, sc, ids, probes), scale = _bq_case(rng, dev, d)
+    (q, cr, bits, n2, sc, ids, probes), scale = _bq_case(
+        rng, dev, d, nq=256 if cap > 128 else 32, skew=cap > 128)
     qmap, inv_pos = _ivf_scan._invert_probes(probes, ids.shape[0], cap)
     if cap == 8:
         assert bool((inv_pos >= cap).any()), "cap must overflow"
+    if cap > 128:
+        assert bool((qmap[:, 128:] >= 0).any()), "three query tiles"
     args = (q, cr, bits, n2, sc, ids)
     b_f = (bq_op.launches, bq_op.launches_fused)
     dk, ik = bq_op.bq_scan_fused(*args, probes, inv_pos, qmap, cap, k, bins,

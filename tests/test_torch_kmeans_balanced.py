@@ -95,3 +95,61 @@ def test_sample_rows_is_the_jax_numpy_stream():
     np.testing.assert_array_equal(sample_rows_np(n, m, 9),
                                   np.asarray(jax_sample_rows(n, m, 9)))
     assert sample_rows(n, m, 9).dtype == torch.int64
+
+
+def _train(entry, x, n_clusters, n_iters, prec):
+    """Centres from one trainer entry point at ``prec`` (``None`` = the
+    device's default, f32 here)."""
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
+    xt = torch.from_numpy(x)
+    if entry == "balanced_kmeans":
+        return tkm.balanced_kmeans(xt, n_clusters, n_iters=n_iters, seed=1,
+                                   kernel_precision=prec)
+    if entry == "build_hierarchical":
+        return tkm.build_hierarchical(xt, n_clusters, n_iters=n_iters,
+                                      seed=1, kernel_precision=prec)
+    mod = {"ivf_flat": ivf_flat, "ivf_pq": ivf_pq, "ivf_bq": ivf_bq}[entry]
+    kw = {"pq_dim": 4} if entry == "ivf_pq" else {}
+    return mod.build(x, mod.IndexParams(n_lists=n_clusters,
+                                        kmeans_n_iters=n_iters,
+                                        kmeans_kernel_precision=prec, **kw),
+                     device="cpu").centers
+
+
+def _partition_agreement(a, b):
+    """Share of rows whose label in ``b`` is the most common ``b`` label
+    of their ``a`` cluster (cluster numbers are arbitrary)."""
+    return sum(int(torch.bincount(b[a == k]).max())
+               for k in torch.unique(a)) / a.numel()
+
+
+@pytest.mark.parametrize("prec", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("entry", ["balanced_kmeans", "build_hierarchical",
+                                   "ivf_flat", "ivf_pq", "ivf_bq"])
+def test_kernel_precision_reaches_the_assignment(monkeypatch, entry, prec):
+    # a spy on the plain version records each assignment's arithmetic:
+    # every EM sweep takes the tier asked for; predict (which the JAX
+    # package calls without one) takes the device default, f32 here.
+    # Two far-apart blobs, two clusters: EM's only fixed point from any
+    # start is the blobs, so the tier may change the path but not the
+    # result (with more clusters than two, a blob split between two
+    # centres is stable, and its boundary's near-ties make the path, and
+    # so the partition, depend on the last bits of each distance)
+    x = _blobs(2, 240, 16, 21)
+    sweeps = 5
+    seen = []
+    plain = nn_op.fused_l2_nn_plain
+
+    def spy(xa, ya, sqrt=False, precision="f32"):
+        seen.append(precision)
+        return plain(xa, ya, sqrt, precision)
+
+    monkeypatch.setattr(nn_op, "fused_l2_nn_plain", spy)
+    centers = _train(entry, x, 2, sweeps, prec)
+    predicts = 1 if entry.startswith("ivf") else 0   # the build's labels
+    assert seen == [prec] * sweeps + ["f32"] * predicts
+    monkeypatch.setattr(nn_op, "fused_l2_nn_plain", plain)
+    ref = _train(entry, x, 2, sweeps, "highest")
+    xt = torch.from_numpy(x)
+    assert _partition_agreement(tkm.predict(xt, ref),
+                                tkm.predict(xt, centers)) >= 0.99
