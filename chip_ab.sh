@@ -9,8 +9,9 @@
 # each tree give the spread between runs of one tree). Each run's output
 # goes to $AB_OUT/ab_<n>_<tree>.log (AB_OUT defaults to ./chiprun_out),
 # its profile files beside it as ab_<n>_<tree>_profile_*.txt; the card's
-# name and power limit and each run's phase lines for the IVF paths and
-# their kernels are printed.
+# name and power limit and each run's phase lines for the IVF paths, the
+# brute-force batches and their kernels (pass B alone as select_k_payload,
+# the IVF-PQ f32 body as ivf_pq_scan...@f32) are printed.
 set -u
 parent=$(cd "$1" && pwd)
 shift
@@ -29,7 +30,7 @@ for tree in parent change change parent; do
   for f in "$dir"/chiprun_out/profile_*.txt; do
     [ -e "$f" ] && mv "$f" "$out/ab_${n}_${tree}_$(basename "$f")"
   done
-  grep -E '"phase": "(build|kmeans_tiers|main|wide_flat|main_pq|main_bq|profile)"|"kernel": "(fused_l2_nn|ivf_flat_scan|ivf_list_scan|ivf_bq_scan|select_k)' \
+  grep -E '"phase": "(build|kmeans_tiers|main|wide_flat|main_pq|pq_f32|main_bq|main_bf|profile)"|"kernel": "(fused_l2_nn|ivf_flat_scan|ivf_list_scan|ivf_pq_scan|ivf_bq_scan|select_k|fused_knn)' \
     "$log" | cut -c1-700
   tail -n 2 "$log" | cut -c1-300
 done

@@ -17,14 +17,22 @@ Phases, one line each:
               the tensor cores, held to bf16x3 plain versions); on the real
               PQ index (after phase 4) both IVF-PQ scans for one
               128-query batch, the fused one at k=32 (kk=256), the
-              unfused one at k=64 (kk=512), fused L2-NN at
+              unfused one at k=64 (kk=512), both on the list-major route
+              of the default bf16 LUT tier and on the f32 body of the
+              float32 tier (rows ``...@f32``), fused L2-NN at
               (262144, 128) x (4096, 128) and (n, 128) x (4096, 128)
               and select-k at (128, 4096) k=128 (rows tagged
               ``@ivf_pq``, ``@ivf_pq_predict``); on the real BQ index
               (after phase 5) both IVF-BQ scans likewise (kk=256 fused,
               kk=512 unfused) and select-k at (128, 1024) k=128
-              (``select_k@ivf_bq``). Kernel, plain and library times
-              from CUDA events after warm-up.
+              (``select_k@ivf_bq``). Pass B alone, the payload radix
+              select, on each fused user's candidate rows: IVF-Flat,
+              IVF-PQ and IVF-BQ (one 128-query batch each; rows
+              ``select_k_payload@ivf_flat|ivf_pq|ivf_bq``) and kernel
+              5's L2 rows in phase 6 (``select_k_payload@bf``), against
+              its plain version and ``torch.topk``; these rows carry the
+              launches of the fused scan that runs them. Kernel, plain
+              and library times from CUDA events after warm-up.
 2b. kmeans_tiers — the trainer at kernel 1's other tiers, through
               ``balanced_kmeans`` on the 262144-row subsample: 10 sweeps
               at ``"bf16"`` (the tensor-core kernel, one pass; row
@@ -51,8 +59,10 @@ Phases, one line each:
               bits, 10 sweeps, raw vectors kept), ``SearchServer`` with
               128 probes, k=32, rescore_factor 8 re-ranked on the card,
               the same burst, then one ``ivf_pq.search`` at k=64 (the
-              unfused scan); the same measurements; the index is then
-              dropped (``free``), as after phase 5.
+              unfused scan); the same measurements; then ``pq_f32``: one
+              search at k=32 and one at k=64 at ``lut_dtype`` float32
+              (the f32 body's two launch keys, counted alone); the index
+              is then dropped (``free``), as after phase 5.
 5. main_bq  — the IVF-BQ serving path on the same dataset, after the
               IVF-PQ index is freed: build (1024 lists, 10 sweeps, raw
               vectors kept; ``tools/north_star_recall.py``'s 10M BQ
@@ -90,8 +100,9 @@ The exact search's truth for phases 3-5 (256 queries, k=32) comes from
 the port's own ``brute_force_knn(mode="exact")``.
 
 The build line reports the registers, shared memory and spills of the
-radix select, the tensor-core fused L2-NN and the tensor-core passes A
-of kernels 5, 3/4 and 10/11 (``nvcc -Xptxas -v``). Then a
+radix select (both modes), the tensor-core fused L2-NN, the tensor-core
+passes A of kernels 5, 3/4, 8/9 and 10/11 and the IVF-PQ f32 body
+(``nvcc -Xptxas -v``). Then a
 ``{"kernels": [...]}`` line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. There is no CPU path: without CUDA the
@@ -102,6 +113,7 @@ printed).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import importlib
 import json
@@ -188,7 +200,8 @@ PAIR_EXPANDED = ("inner_product", "cosine", "correlation", "hellinger",
 
 # kernels whose compiled resources the build line reports
 PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
-                 "list_scan_tc_kernel", "fused_l2_nn_tc_kernel")
+                 "list_scan_tc_kernel", "fused_l2_nn_tc_kernel",
+                 "pq_pairs_kernel")
 
 OUT_DIR = "chiprun_out"
 
@@ -443,6 +456,43 @@ def check_select_k(q, centers, k, name):
                       plain_ms, bnd, lib_ms)
 
 
+def check_pass_b(name, rows_d, rows_i, k: int, launches: int,
+                 replaces: str):
+    """Pass B alone, the payload radix select, on a fused scan's candidate
+    rows ``rows_d``/``rows_i`` (m, n) at ``k``, against its plain version
+    (exact: selection does no arithmetic) and ``torch.topk`` of the same
+    rows; ``launches`` is the fused scan's (each of its launches runs pass
+    B once). Rows of the IVF batches (~2M entries) are timed by graph
+    replay, the brute-force rows eagerly."""
+    from raft_tpu_torch.ops import select_k as op
+    m, n = rows_d.shape
+    saved = op.launches_payload
+    d_k, i_k = op.select_k_payload_cuda(rows_d, rows_i, k)
+    d_p, i_p = op.select_k_payload_plain(rows_d, rows_i, k)
+    torch.cuda.synchronize()
+    max_abs, agree = compare(name, d_k, i_k, d_p, i_p, True)
+    del d_k, i_k, d_p, i_p
+    kernel = lambda: op.select_k_payload_cuda(rows_d, rows_i, k)  # noqa: E731
+    lib = lambda: torch.topk(rows_d, k, dim=1, largest=False)  # noqa: E731
+    if m * n <= 1 << 22:
+        ms, lib_ms = graph_ms(kernel), graph_ms(lib)
+    else:
+        ms, lib_ms = cuda_ms(kernel, 10), cuda_ms(lib, 10)
+    plain_ms = cuda_ms(lambda: op.select_k_payload_plain(rows_d, rows_i, k),
+                       3, warmup=1)
+    op.launches_payload = saved
+    # the values read once, the k ids of the kept columns, values and ids
+    # written; a comparison per value
+    bnd = bound(4 * m * n + 12 * m * k, (m * n, FP32_FLOPS))
+    phase("kernels", kernel=name, shape=[m, n, k], id_agreement=agree,
+          max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+          bound_ms=bnd[0], bound_by=bnd[1], launches=launches)
+    row = kernel_row(name, "raft_tpu_torch/csrc/radix_select.cuh", replaces,
+                     max_abs, ms, plain_ms, bnd, lib_ms)
+    row["launches"] = launches
+    return row
+
+
 def run_kmeans_tiers(x, sample, cents, cents_pq):
     """Phase 2b: ``balanced_kmeans`` on ``sample`` at each tier of kernel
     1 (``bf16x3`` the default, ``bf16``, ``highest``), the highest run
@@ -605,7 +655,14 @@ def check_flat_scans(index, q):
         lambda d_p, i_p: slot[:, :, None].expand_as(d_p),
         3, src, "raft_tpu/ops/pallas_ivf_scan.py:105", bound_fn,
         k=FLAT_WIDE_K, bins=bins, cap=b.cap)
-    return fused, wide
+    # kernel 3's candidate rows (pass A at the fused route's bins, through
+    # kernel 4's blocks) for pass B alone
+    saved = op.launches_list
+    fbins, _ = op.resolve_bins(0, K, index.lists_indices.shape[1])
+    rows = op.candidate_rows(*op.list_scan_cuda(*data, b.qmap, fbins, "l2"),
+                             b.probes, b.inv_pos, b.cap)
+    op.launches_list = saved
+    return fused, wide, rows
 
 
 def _pq_calls(index, params, b: Batch, q_rot, route):
@@ -621,8 +678,8 @@ def _pq_calls(index, params, b: Batch, q_rot, route):
          index.lists_indices)
     if route.fused:
         return (lambda: op.pq_scan_fused_cuda(
-                    *a, b.probes, b.inv_pos, b.cap, route.kk, bins, False,
-                    "l2", round_q, False),
+                    *a, b.probes, b.inv_pos, b.qmap, b.cap, route.kk, bins,
+                    False, "l2", round_q, False),
                 lambda: op.pq_scan_fused_plain(
                     *a, b.qmap, route.kk, bins, False, "l2", round_q, False),
                 norms, bins)
@@ -631,6 +688,18 @@ def _pq_calls(index, params, b: Batch, q_rot, route):
             lambda: op.pq_scan_plain(*a, b.qmap, bins, "l2", round_q, False,
                                      False),
             norms, bins)
+
+
+def _pq_blocks(index, params, b: Batch, q_rot, bins: int):
+    """Kernel 8's blocks at ``bins`` (the fused route's pass A, but for
+    the IP centre term)."""
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import ivf_pq_scan as op
+    books, round_q = ivf_pq._lut_books(index, params.lut_dtype)
+    norms = ivf_pq._ensure_code_norms(index, params, False, "l2")
+    return op.pq_scan_cuda(q_rot, index.centers_rot, books, index.codes,
+                           norms, index.lists_indices, b.qmap, bins, "l2",
+                           round_q, False, False)
 
 
 def _bq_calls(index, params, b: Batch, q_rot, route):
@@ -651,6 +720,14 @@ def _bq_calls(index, params, b: Batch, q_rot, route):
             index.norms2, route.bins)
 
 
+def _bq_blocks(index, params, b: Batch, q_rot, bins: int):
+    """Kernel 10's blocks at ``bins``."""
+    from raft_tpu_torch.ops import ivf_bq_scan as op
+    return op.bq_scan_cuda(q_rot, index.centers_rot, index.bits,
+                           index.norms2, index.scales, index.lists_indices,
+                           b.qmap, bins, "l2")
+
+
 class Family(NamedTuple):
     """A quantized family's served point and how the smoke drives its
     two scans (``raft_tpu_torch.ops.<op>``, launch keys ``<op>`` and
@@ -664,31 +741,35 @@ class Family(NamedTuple):
     index_params: dict   # beyond n_lists, the sweeps and keep_raw
     fields: Callable     # index -> the family's fields of its phase
     calls: Callable      # _pq_calls / _bq_calls
+    blocks: Callable     # _pq_blocks / _bq_blocks: the unfused blocks
     row_bytes: Callable  # index -> bytes of one list row (code, norms, id)
     work: Callable       # (index, params, info) -> (operations, rate) pairs
     replaces: tuple      # TPU kernels: (fused, unfused)
+    f32_tier: bool       # IVF-PQ: the float32 LUT tier takes the f32 body
 
 
 FAMILIES = (
     Family("pq", "IVF-PQ", "ivf_pq", "ivf_pq_scan", PQ_LISTS, PQ_PROBES,
            {"pq_bits": PQ_BITS, "pq_dim": 0},
            lambda index: {"pq_dim": index.pq_dim, "pq_bits": PQ_BITS},
-           _pq_calls,
+           _pq_calls, _pq_blocks,
            lambda index: index.pq_dim + 8,
-           # a table built per kept (query, list) pair, a product of
-           # the rounded query and books (bf16 operands unless the
-           # float32 tier), then a pq_dim-term f32 sum per (pair, row)
+           # bf16 and fp8 tiers (list-major): the decoded rows against
+           # the bf16 queries, a multiply and an add per (scored pair,
+           # row, dimension) on the tensor cores; float32 (the f32 body):
+           # an f32 table per kept (query, list) pair, then a pq_dim-term
+           # f32 sum per (pair, row)
            lambda index, params, info: [
                (info["pairs"] * index.pq_dim * index.pq_centers.shape[1]
-                * index.pq_len * 2,
-                FP32_FLOPS if params.lut_dtype == torch.float32
-                else BF16_FLOPS),
-               (info["pair_rows"] * index.pq_dim, FP32_FLOPS)],
+                * index.pq_len * 2, FP32_FLOPS),
+               (info["pair_rows"] * index.pq_dim, FP32_FLOPS)]
+           if params.lut_dtype == torch.float32 else [
+               (2 * info["pair_rows"] * index.rot_dim, BF16_FLOPS)],
            ("raft_tpu/ops/pallas_ivf_scan.py:499",
-            "raft_tpu/ops/pallas_ivf_scan.py:851")),
+            "raft_tpu/ops/pallas_ivf_scan.py:851"), True),
     Family("bq", "IVF-BQ", "ivf_bq", "ivf_bq_scan", BQ_LISTS, BQ_PROBES, {},
            lambda index: {},
-           _bq_calls,
+           _bq_calls, _bq_blocks,
            lambda index: index.words * 4 + 12,
            # the estimator's product of a +-1 tile and the bf16 query, a
            # multiply and an add per (scored pair, row, dimension): bf16
@@ -696,45 +777,99 @@ FAMILIES = (
            lambda index, params, info: [
                (2 * info["pair_rows"] * D, BF16_FLOPS)],
            ("raft_tpu/ops/pallas_ivf_scan.py:428",
-            "raft_tpu/ops/pallas_ivf_scan.py:737")),
+            "raft_tpu/ops/pallas_ivf_scan.py:737"), False),
 )
 
 
-def check_family_scans(fam: Family, index, q, params):
+def check_family_scans(fam: Family, index, q, params, launches: dict,
+                       f32_launches: dict):
     """Both scans of ``fam`` against their plain versions on the served
     index, one 128-query batch: the fused one at k=K (kk = 256), the
-    unfused one at k=WIDE_K (kk = 512)."""
+    unfused one at k=WIDE_K (kk = 512); for IVF-PQ the same two at the
+    float32 LUT tier (the f32 body, rows ``...@f32``, launches from the
+    ``pq_f32`` searches); then pass B alone on the fused route's candidate
+    rows. ``launches``: the path's main-path counts."""
     mod = importlib.import_module(f"raft_tpu_torch.neighbors.{fam.module}")
     op = importlib.import_module(f"raft_tpu_torch.ops.{fam.op}")
     b = probe_batch(index, q, fam.n_probes, fam.op)
     q_rot = (b.qb @ index.rotation_matrix.T).contiguous()
     c_rot = index.centers_rot
-    bound_fn = scan_bound(index, b, fam.row_bytes(index), D * 4,
-                          lambda info: fam.work(index, params, info))
+    # (params, row tag, counter and launch-key suffix, launch counts)
+    tiers = [(params, "", "", launches)]
+    if fam.f32_tier:
+        tiers.append((dataclasses.replace(params, lut_dtype=torch.float32),
+                      "@f32", "_f32", f32_launches))
     rows = []
-    for k, name, counter, replaces in (
-            (K, fam.op + "_fused", "launches_fused", fam.replaces[0]),
-            (WIDE_K, fam.op, "launches", fam.replaces[1])):
-        route = mod._Route(index, k, params)
-        kernel, plain, norms, bins = fam.calls(index, params, b, q_rot, route)
-        if route.fused:
-            # per query: the largest |qsub|^2 of its probes plus the
-            # largest row norm
-            rr = ((q_rot[:, None, :] - c_rot[b.probes.long()]) ** 2).sum(-1)
-            s = rr.max(dim=1).values + norms.max()
-            scale = lambda d_p, i_p, s=s: s[:, None].expand_as(d_p)  # noqa: E731
-        else:
-            # per (list, slot): |qsub|^2 of the slot's query plus the
-            # list's largest row norm
-            qs = q_rot[b.qmap.clamp(min=0).long()] - c_rot[:, None, :]
-            s = (qs * qs).sum(-1) + norms.max(dim=1).values[:, None]
-            del qs
-            scale = lambda d_p, i_p, s=s: s[:, :, None].expand_as(d_p)  # noqa: E731
-        rows.append(check_scan_kernel(
-            name, op, counter, kernel, plain, scale,
-            10 if route.fused else 5, f"raft_tpu_torch/csrc/{fam.op}.cu",
-            replaces, bound_fn, kk=route.kk, bins=bins, cap=b.cap))
+    for prm, tag, suffix, counts in tiers:
+        bound_fn = scan_bound(index, b, fam.row_bytes(index), D * 4,
+                              lambda info, prm=prm: fam.work(index, prm,
+                                                             info))
+        for k, key, replaces in (
+                (K, fam.op + "_fused", fam.replaces[0]),
+                (WIDE_K, fam.op, fam.replaces[1])):
+            route = mod._Route(index, k, prm)
+            kernel, plain, norms, bins = fam.calls(index, prm, b, q_rot,
+                                                   route)
+            if route.fused:
+                # per query: the largest |qsub|^2 of its probes plus the
+                # largest row norm
+                rr = ((q_rot[:, None, :] - c_rot[b.probes.long()]) ** 2
+                      ).sum(-1)
+                sc = rr.max(dim=1).values + norms.max()
+                scale = lambda d_p, i_p, sc=sc: sc[:, None].expand_as(d_p)  # noqa: E731
+            else:
+                # per (list, slot): |qsub|^2 of the slot's query plus the
+                # list's largest row norm
+                qs = q_rot[b.qmap.clamp(min=0).long()] - c_rot[:, None, :]
+                sc = (qs * qs).sum(-1) + norms.max(dim=1).values[:, None]
+                del qs
+                scale = lambda d_p, i_p, sc=sc: sc[:, :, None].expand_as(d_p)  # noqa: E731
+            counter = ("launches_fused" if route.fused else "launches") \
+                + suffix
+            row = check_scan_kernel(
+                key + tag, op, counter, kernel, plain, scale,
+                10 if route.fused else 5, f"raft_tpu_torch/csrc/{fam.op}.cu",
+                replaces, bound_fn, kk=route.kk, bins=bins, cap=b.cap,
+                **({"lut": str(prm.lut_dtype).replace("torch.", "")}
+                   if fam.f32_tier else {}))
+            row["launches"] = counts[key + suffix]
+            rows.append(row)
+    # pass B alone on the fused route's candidate rows (the unfused
+    # blocks at the fused bins; L2, so no centre term)
+    from raft_tpu_torch.ops.ivf_scan import candidate_rows
+    route = mod._Route(index, K, params)
+    bins = fam.calls(index, params, b, q_rot, route)[3]
+    saved = op.launches
+    cand = candidate_rows(*fam.blocks(index, params, b, q_rot, bins),
+                          b.probes, b.inv_pos, b.cap)
+    op.launches = saved
+    rows.append(check_pass_b(f"select_k_payload@{fam.module}", *cand,
+                             route.kk, launches[fam.op + "_fused"],
+                             "raft_tpu/ops/pallas_ivf_scan.py:241"))
     return rows
+
+
+def run_pq_f32(mod, index, q, params):
+    """The float32 LUT tier through the entry point (the f32 body): one
+    128-query search at k=K (the fused scan) and one at k=WIDE_K (the
+    unfused scan and the merge), the counts reset just before and read
+    just after."""
+    from raft_tpu_torch import ops
+    prm = dataclasses.replace(params, lut_dtype=torch.float32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for k in (K, WIDE_K):
+        d, i = mod.search(index, q[:128], k, prm)
+        if tuple(i.shape) != (128, k) or bool((i < 0).any()) or \
+                not bool(torch.isfinite(d).all()):
+            fail(f"IVF-PQ float32 tier k={k}: missing neighbours")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launched("IVF-PQ float32", launches, ("ivf_pq_scan_f32",
+                                                "ivf_pq_scan_fused_f32"))
+    phase("pq_f32", nq=128, k=[K, WIDE_K], seconds=time.perf_counter() - t0,
+          launches={k_: v for k_, v in launches.items() if v})
+    return launches
 
 
 def serve_burst(srv, q_np):
@@ -883,10 +1018,13 @@ def run_flat(x, q, q_np, truth, args):
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     wide_launches = run_wide_flat(index, q, truth)
-    row, wide_row = check_flat_scans(index, q)
-    del index, srv
+    row, wide_row, rows = check_flat_scans(index, q)
+    pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,
+                          launches["ivf_scan"],
+                          "raft_tpu/ops/pallas_ivf_scan.py:241")
+    del index, srv, rows
     free_phase("flat")
-    return [row], launches, [wide_row], wide_launches
+    return [row, pass_b], launches, [wide_row], wide_launches
 
 
 def run_wide_flat(index, q, truth):
@@ -993,8 +1131,9 @@ def run_family(fam: Family, x, q, q_np, truth, args):
           launches=launches,
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    f32_launches = run_pq_f32(mod, index, q, params) if fam.f32_tier else {}
     centers = index.centers.contiguous()
-    rows = check_family_scans(fam, index, q, params)
+    rows = check_family_scans(fam, index, q, params, launches, f32_launches)
     if fam.n_lists != N_LISTS:
         # fused L2-NN at this path's shapes: the sampled rows (the sweeps)
         # and every row (the build's predict) against its n_lists centres
@@ -1144,6 +1283,17 @@ def run_bf(x, qb, args):
             "f32" if prec == "highest" else "bf16x3",
             "raft_tpu_torch/csrc/fused_knn.cu" if prec == "highest"
             else "raft_tpu_torch/csrc/fused_knn_tc.cu"))
+        if label == "l2":
+            # pass B alone on kernel 5's candidate rows (pass A's plain
+            # version at the kernel's bf16x3, the same bins)
+            from raft_tpu_torch.ops import fused_knn as kop
+            _, tn, l_bins, kt = kop.geometry(m, n, D, K)
+            cand = kop.bin_candidates_plain(qb, x, "l2", tn, l_bins, kt,
+                                            "bf16x3")
+            rows.append(check_pass_b("select_k_payload@bf", *cand, K,
+                                     launches[key],
+                                     "raft_tpu/ops/pallas_fused_knn.py:100"))
+            del cand
         del xq, y
     return rows
 
@@ -1336,9 +1486,12 @@ def main() -> None:
     paths = [(flat_rows, flat_launches), (wide_rows, wide_launches)]
     paths += [run_family(fam, x, q, q_np, truth, args) for fam in FAMILIES]
 
-    # launches: each row's kernel over the main-path run of its path
+    # launches: each row's kernel over the main-path run of its path,
+    # where the row does not carry its own
     for rows, counts in paths:
         for row in rows:
+            if row["launches"] is not None:
+                continue
             key = row["name"].split("@")[0]
             row["launches"] = counts["ivf_scan" if key == "ivf_flat_scan"
                                      else key]

@@ -18,8 +18,8 @@
 //    state holds earlier tiles, so lower rows: the result is the k smallest
 //    bin candidates ranked by (value, row). Here pass A writes every bin's
 //    candidate, in row order, and pass B ranks each query's row of them by
-//    (value, column) with candidate_topk.cuh (k <= 256; above that the
-//    wrapper ranks with a stable sort). The TPU's filtered merge changes no
+//    (value, column) with the payload radix select of radix_select.cuh
+//    (k <= 256; above that the wrapper ranks with a stable sort). The TPU's filtered merge changes no
 //    result and has no counterpart. Padded rows never enter: a bin with no
 //    finite value keeps (+inf, -1), and pass B writes -1 for every +inf slot.
 //  - precision: f32 products ("highest"); kernel 6's bf16 tier rounds both
@@ -48,7 +48,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "candidate_topk.cuh"
+#include "radix_select.cuh"
 #include "row_norms.cuh"
 
 namespace {
@@ -256,7 +256,7 @@ extern "C" int raft_fused_knn_topk(const float* cand_d, const int* cand_i,
                                    int nq, long long nb, int k, int do_sqrt,
                                    float* out_d, int* out_i, void* stream) {
   if (nb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  return raft_tpu_torch::launch_candidate_topk(
+  return raft_tpu_torch::launch_radix_select(
       cand_d, cand_i, nq, static_cast<int>(nb), k, do_sqrt, out_d, out_i,
       static_cast<cudaStream_t>(stream));
 }

@@ -13,7 +13,7 @@
 // are fused_knn.cu's: L2 max((|y|^2 + |x|^2) - 2 acc, 0), IP -acc; each bin
 // of b = tn / l_bins rows of a tn tile gives its minimum, the lowest row
 // among equal values; padded rows never enter; a bin with no finite value
-// writes (+inf, -1). Pass B (candidate_topk.cuh) is unchanged.
+// writes (+inf, -1). Pass B (radix_select.cuh) is fused_knn.cu's.
 //
 // Bound on the H100 SXM (data-sheet rates, 700 W): operations, 3 x 2mnd
 // at the 989 TFLOP/s bf16 tensor rate: 7.8 ms at 1000 x 10M x 128 (the

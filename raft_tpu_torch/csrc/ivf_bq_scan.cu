@@ -3,8 +3,8 @@
 //   * kernel 10 (raft_ivf_bq_scan): pass A alone, writing (n_lists, cap,
 //     bins) candidate blocks, merged afterwards by the caller (kk > 256);
 //   * kernel 11 (raft_ivf_bq_scan_fused): pass A into per-query candidate
-//     rows, IP centre term included, then candidate_topk_kernel
-//     (candidate_topk.cuh) keeps the k best.
+//     rows, IP centre term included, then pass B, the payload radix select
+//     (radix_select.cuh), keeps the k best.
 //
 // Replaces: raft_tpu/ops/pallas_ivf_scan.py:_bq_scan_kernel (unfused, kernel
 // 10; entry ivf_bq_scan_pallas(fused=False)) and :_fused_bq_scan_kernel
@@ -67,7 +67,7 @@ namespace {
 
 // IVF-BQ lists: sign codes, one bf16 pass against the +-1 decode, the
 // row's (norms2, scale) as its terms
-struct BqRows {
+struct BqRows : ResidualQueries {
   static constexpr int kPasses = 1;
   static constexpr bool kCentreTerm = true;
   // 72 KB of shared memory a block at d <= 128, 105 KB at d <= 256: two
@@ -79,44 +79,6 @@ struct BqRows {
     uint32_t w, valid;
   };
 
-  // qsub's features [k0, k0 + 64) of the A rows (zeros for row -1 and past
-  // d), rounded to bf16 by put_unit<1>
-  template <bool IP>
-  __device__ static void put_queries(const ListArgs& a, const int* row_q,
-                                     int l, int k0, unsigned char* hi,
-                                     unsigned char* lo) {
-    const float* c = a.centers + static_cast<long long>(l) * a.d;
-#pragma unroll
-    for (int s = 0; s < tc::kUnits; ++s) {
-      const int u = threadIdx.x + s * tc::kThreads;
-      const int row = row_q[u >> 3];
-      const int kk = k0 + 8 * (u & 7);
-      const float* p =
-          a.queries + static_cast<long long>(row < 0 ? 0 : row) * a.d;
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int j = kk + e;
-        v[e] = (row >= 0 && j < a.d) ? (IP ? p[j] : p[j] - c[j]) : 0.f;
-      }
-      tc::put_unit<1>(v, u, hi, lo);
-    }
-  }
-  template <bool IP>
-  __device__ static void query_terms(const ListArgs& a, int q, int l,
-                                     float& qq, float& corr) {
-    const float* p = a.queries + static_cast<long long>(q) * a.d;
-    const float* c = a.centers + static_cast<long long>(l) * a.d;
-    qq = 0.f;
-    corr = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < a.d; ++j) {
-      const float s = IP ? p[j] : p[j] - c[j];
-      qq = fmaf(s, s, qq);
-      corr = fmaf(s, c[j], corr);
-    }
-    if (!(IP && a.center_term)) corr = 0.f;
-  }
   __device__ static void fetch_rows(RowSlice& f, const ListArgs& a,
                                     long long lbase, int r0, int rlim,
                                     int k0) {
@@ -134,7 +96,8 @@ struct BqRows {
   // put()'s swizzled positions (byte r * 128 + ((g ^ (r % 8)) * 16)): both
   // halves of a pair start at -1 (0xBF80) and a set bit clears the sign;
   // features past d are zero
-  __device__ static void put_rows(const RowSlice& f, unsigned char* hi,
+  __device__ static void put_rows(const RowSlice& f, const ListArgs&,
+                                  const unsigned char*, unsigned char* hi,
                                   unsigned char*) {
     const int r = threadIdx.x >> 1, g0 = 4 * (threadIdx.x & 1);
 #pragma unroll

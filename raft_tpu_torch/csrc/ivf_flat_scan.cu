@@ -1,7 +1,7 @@
 // IVF-Flat fine phase on the tensor cores: one list-major pass A, used by
 //   * kernel 3 (raft_ivf_flat_scan): pass A writes each query's binned
-//     candidates into a per-query row, then candidate_topk_kernel
-//     (candidate_topk.cuh) keeps the k best — the fused scan;
+//     candidates into a per-query row, then pass B, the payload radix
+//     select (radix_select.cuh), keeps the k best — the fused scan;
 //   * kernel 4 (raft_ivf_list_scan): pass A alone, writing (n_lists, cap,
 //     bins) candidate blocks, merged afterwards by the caller (k > 256).
 //
@@ -50,7 +50,7 @@ namespace raft_tpu_torch {
 namespace {
 
 // IVF-Flat lists: f32 rows, bf16x3 products, the row's norm as its term
-struct FlatRows {
+struct FlatRows : RowsBase, NormScore {
   static constexpr int kPasses = 3;
   static constexpr bool kCentreTerm = false;
   static constexpr int kMinBlocks = 1;  // 132 KB of tiles a block at d 128
@@ -83,22 +83,10 @@ struct FlatRows {
                                     int k0) {
     tc::fetch(f, a.data + lbase * a.d, r0, rlim, a.d, k0, a.vec4 != 0);
   }
-  __device__ static void put_rows(const RowSlice& f, unsigned char* hi,
+  __device__ static void put_rows(const RowSlice& f, const ListArgs&,
+                                  const unsigned char*, unsigned char* hi,
                                   unsigned char* lo) {
     tc::put<3>(f, hi, lo);
-  }
-  template <bool IP>
-  __device__ static void stage(const ListArgs& a, long long i, float& sa,
-                               float& sb) {
-    sa = IP ? 0.f : a.norms[i];
-    sb = 0.f;
-  }
-  // (norm + |q|^2) - 2 acc with one rounding of the difference, as the
-  // plain version's (2 acc is exact); pads (sa = +inf) stay +inf
-  template <bool IP>
-  __device__ static float score(float acc, float sa, float, float qq) {
-    return IP ? (sa == 0.f ? -acc : CUDART_INF_F)
-              : fmaxf(fmaf(-2.0f, acc, sa + qq), 0.f);
   }
 };
 

@@ -1,9 +1,12 @@
 // The list-major pass A on the tensor cores, shared by ivf_flat_scan.cu
-// (kernels 3 and 4, f32 lists, bf16x3 products) and ivf_bq_scan.cu (kernels
-// 10 and 11, 1-bit sign codes, one bf16 pass): one block per (list, tile of
-// up to 64 of the table slots that probe it), each probed list read once
-// per query tile. A policy R says what a list row is (see FlatRows in
-// ivf_flat_scan.cu and BqRows in ivf_bq_scan.cu):
+// (kernels 3 and 4, f32 lists, bf16x3 products), ivf_bq_scan.cu (kernels
+// 10 and 11, 1-bit sign codes, one bf16 pass) and ivf_pq_scan.cu (kernels
+// 8 and 9, u8 PQ codes decoded to bf16 codebook values, one bf16 pass):
+// one block per (list, tile of up to 64 of the table slots that probe it),
+// each probed list read once per query tile. A policy R says what a list
+// row is (see FlatRows in ivf_flat_scan.cu, BqRows in ivf_bq_scan.cu and
+// PqRows in ivf_pq_scan.cu; RowsBase, ResidualQueries and NormScore below
+// hold what they share):
 //   * R::kPasses: 3 (bf16x3: hi.lo + lo.hi + hi.hi) or 1 (hi.hi);
 //   * R::kMinBlocks: the blocks an SM should hold (the register budget);
 //   * R::kCentreTerm: whether the written bin minima subtract a per (query,
@@ -14,9 +17,13 @@
 //     time (put_unit());
 //     R::query_terms<IP>(a, q, l, qq, corr): an A row's |q|^2 (of the
 //     unrounded rows) and its centre term;
+//   * R::extra_smem(a) bytes of shared memory the policy keeps beside the
+//     tiles (at `ext`, 16-byte aligned), filled by R::setup(a, l, ext) once
+//     a block has rows to score;
 //   * R::RowSlice, R::fetch_rows(f, a, lbase, r0, rlim, k0) and
-//     R::put_rows(f, hi, lo): a B tile slice from registers into the
-//     swizzled layout the wgmma descriptors read (zeros past rlim and d);
+//     R::put_rows(f, a, ext, hi, lo): a B tile slice from registers into
+//     the swizzled layout the wgmma descriptors read (zeros past rlim and
+//     d);
 //   * R::stage<IP>(a, i, sa, sb) the terms of real row i of the lists, and
 //     R::score<IP>(acc, sa, sb, qq) its score; a pad row is staged as (sa,
 //     sb) = (+inf, 0), which every score maps to +inf.
@@ -29,10 +36,12 @@
 //     l's position among q's kept probes in ascending order; a (query,
 //     probe) pair whose table slot is >= cap is skipped (the TPU kernel's
 //     drop rule); columns no tile writes keep the caller's +inf fill; then
-//     candidate_topk_kernel keeps per query the k smallest under (score,
-//     list id, bin), the TPU's list-ascending merge;
-//   * unfused (kernels 4 and 10): cap-major blocks (list, slot, bin); an
-//     empty slot (qmap -1) and bins past the list's extent are (+inf, -1).
+//     pass B, the payload radix select of radix_select.cuh, keeps per query
+//     the k smallest under (score, column = (list id, bin)), the TPU's
+//     list-ascending merge;
+//   * unfused (kernels 4, 8 and 10): cap-major blocks (list, slot, bin); an
+//     empty slot (qmap -1) and bins past the list's extent are (+inf, -1);
+//     scores f32, bf16 (out_bf16) or f32 rounded to bf16 (round_out).
 //
 // Design: a pre-pass finds each list's extent (one past its last row with
 // an id) and orders the lists longest first (a counting sort on 64
@@ -67,7 +76,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "candidate_topk.cuh"
+#include "radix_select.cuh"
 #include "wgmma_bf16x3.cuh"
 
 namespace raft_tpu_torch {
@@ -99,28 +108,111 @@ struct ListArgs {
   void* out_d;           // f32, or bf16 when out_bf16
   int* out_i;
   int out_bf16;
+  int round_out;         // f32 scores rounded to bf16 (to nearest)
   // IVF-Flat lists
   const float* data;     // (n_lists, max_list, d)
   const float* norms;    // (n_lists, max_list)
   int vec4;              // 16-byte loads of queries and data
-  // IVF-BQ lists
+  // IVF-BQ and IVF-PQ lists: residuals against the rotated centres
   const float* centers;  // (n_lists, d) rotated centres
+  int center_term;       // fused IP: subtract qsub . centre (R::kCentreTerm)
+  // IVF-BQ lists
   const uint32_t* bits;  // (n_lists, max_list, words) sign bits
   const float* norms2;   // (n_lists, max_list)
   const float* scales;   // (n_lists, max_list)
-  int words, center_term;
+  int words;
+  // IVF-PQ lists (norms: the code norms)
+  const uint8_t* codes;  // (n_lists, max_list, pq_dim)
+  const __nv_bfloat16* books;  // (pq_dim or n_lists, n_codes, pq_len)
+  int pq_dim, pq_len, n_codes, per_cluster;
+  int book_res;          // the books staged in shared memory (else via L1)
 };
 
 // Shared memory (bytes, from a 1024-aligned base): query hi tiles [qt],
 // query lo tiles [qt] (3 passes), row hi tiles [2], row lo tiles [2] (3
 // passes), the row stage (sa, sb, id) [2][kBN], then per A row its output
-// offset, query, |q|^2 and centre term, and 16 words of scratch. qt is the
-// number of slices (resident queries) or 2 (a ring with the rows).
+// offset, query, |q|^2 and centre term, 16 words of scratch, and the
+// policy's own R::extra_smem(a) bytes. qt is the number of slices
+// (resident queries) or 2 (a ring with the rows).
 template <class R>
-__host__ __device__ inline size_t list_smem_bytes(int ks) {
+__host__ __device__ inline size_t list_tiles_bytes(int ks) {
   const size_t planes = R::kPasses == 3 ? 2 : 1;
   const size_t qt = ks <= kListResident ? ks : 2;
   return 1024 + planes * (qt + 2) * kTile + 2 * kBN * 12 + kBM * 20 + 64;
+}
+
+// What every policy may leave out: no shared memory of its own, no setup.
+struct RowsBase {
+  __host__ __device__ static size_t extra_smem(const ListArgs&) { return 0; }
+  __device__ static void setup(const ListArgs&, int, unsigned char*) {}
+};
+
+// A rows that are residuals of rotated queries (IVF-BQ, IVF-PQ): qsub =
+// q_rot[q] (IP) or q_rot[q] - centers[l] (L2), in f32; the A tiles hold it
+// rounded to bf16 (round to nearest), |qsub|^2 and the IP centre term
+// qsub . centers[l] come from the unrounded values.
+struct ResidualQueries : RowsBase {
+  // qsub's features [k0, k0 + 64) of the A rows (zeros for row -1 and past
+  // d), rounded to bf16 by put_unit<1>
+  template <bool IP>
+  __device__ static void put_queries(const ListArgs& a, const int* row_q,
+                                     int l, int k0, unsigned char* hi,
+                                     unsigned char* lo) {
+    const float* c = a.centers + static_cast<long long>(l) * a.d;
+#pragma unroll
+    for (int s = 0; s < kUnits; ++s) {
+      const int u = threadIdx.x + s * kThreads;
+      const int row = row_q[u >> 3];
+      const int kk = k0 + 8 * (u & 7);
+      const float* p =
+          a.queries + static_cast<long long>(row < 0 ? 0 : row) * a.d;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int j = kk + e;
+        v[e] = (row >= 0 && j < a.d) ? (IP ? p[j] : p[j] - c[j]) : 0.f;
+      }
+      put_unit<1>(v, u, hi, lo);
+    }
+  }
+  template <bool IP>
+  __device__ static void query_terms(const ListArgs& a, int q, int l,
+                                     float& qq, float& corr) {
+    const float* p = a.queries + static_cast<long long>(q) * a.d;
+    const float* c = a.centers + static_cast<long long>(l) * a.d;
+    qq = 0.f;
+    corr = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < a.d; ++j) {
+      const float s = IP ? p[j] : p[j] - c[j];
+      qq = fmaf(s, s, qq);
+      corr = fmaf(s, c[j], corr);
+    }
+    if (!(IP && a.center_term)) corr = 0.f;
+  }
+};
+
+// The row term is a norm (IVF-Flat's row norms, IVF-PQ's code norms):
+// L2 max((norm + |q|^2) - 2 acc, 0) with one rounding of the difference,
+// as the plain versions' (2 acc is exact), IP -acc; pads (sa = +inf) stay
+// +inf.
+struct NormScore {
+  template <bool IP>
+  __device__ static void stage(const ListArgs& a, long long i, float& sa,
+                               float& sb) {
+    sa = IP ? 0.f : a.norms[i];
+    sb = 0.f;
+  }
+  template <bool IP>
+  __device__ static float score(float acc, float sa, float, float qq) {
+    return IP ? (sa == 0.f ? -acc : CUDART_INF_F)
+              : fmaxf(fmaf(-2.0f, acc, sa + qq), 0.f);
+  }
+};
+
+template <class R>
+__host__ __device__ inline size_t list_smem_bytes(const ListArgs& a) {
+  return list_tiles_bytes<R>((a.d + kBK - 1) / kBK) + R::extra_smem(a);
 }
 
 struct ListCand {
@@ -140,6 +232,7 @@ __device__ __forceinline__ ListCand shfl_xor(ListCand c, int mask) {
 
 __device__ __forceinline__ void put_out(const ListArgs& a, long long at,
                                         float v, int id) {
+  if (a.round_out) v = __bfloat162float(__float2bfloat16_rn(v));
   if (a.out_bf16)
     static_cast<__nv_bfloat16*>(a.out_d)[at] = __float2bfloat16_rn(v);
   else
@@ -179,6 +272,7 @@ __global__ __launch_bounds__(kThreads, (list_min_blocks<R, G>())) void
   float* row_qq = reinterpret_cast<float*>(row_q + kBM);
   float* row_corr = row_qq + kBM;
   int* scratch = reinterpret_cast<int*>(row_corr + kBM);
+  unsigned char* ext = reinterpret_cast<unsigned char*>(scratch + 16);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int quad = lane & 3, wg = tid >> 7;
@@ -229,6 +323,7 @@ __global__ __launch_bounds__(kThreads, (list_min_blocks<R, G>())) void
     }
   }
   if (n_valid == 0) return;  // block-uniform
+  R::setup(a, l, ext);
   __syncthreads();
   const int extent = a.extent[l];
 
@@ -311,7 +406,7 @@ __global__ __launch_bounds__(kThreads, (list_min_blocks<R, G>())) void
     int r0, rlim;
     tile_rows(0, r0, rlim);
     R::fetch_rows(rs, a, lbase, r0, rlim, 0);
-    R::put_rows(rs, base + y_hi, base + y_lo);
+    R::put_rows(rs, a, ext, base + y_hi, base + y_lo);
     if (tid < kBN) stage_of(r0, rlim, st_a[tid], st_b[tid], st_i[tid]);
     // step t + 1's rows (and stage) in flight in registers
     float spa = CUDART_INF_F, spb = 0.f;
@@ -361,7 +456,8 @@ __global__ __launch_bounds__(kThreads, (list_min_blocks<R, G>())) void
       // then load step t + 2
       if (t + 1 < steps) {
         const int nT = (t + 1) / ks_n, nks = t + 1 - nT * ks_n, nst = st ^ 1;
-        R::put_rows(rs, base + y_hi + nst * kTile, base + y_lo + nst * kTile);
+        R::put_rows(rs, a, ext, base + y_hi + nst * kTile,
+                    base + y_lo + nst * kTile);
         if (nks == 0 && tid < kBN) {
           st_a[(nT & 1) * kBN + tid] = spa;
           st_b[(nT & 1) * kBN + tid] = spb;
@@ -619,7 +715,9 @@ int launch_list_pass_a(ListArgs a, int n_lists, int* lists_scratch, bool ip,
   a.extent = lists_scratch;
   a.order = lists_scratch + n_lists;
   a.tpl = (a.cap + kListM - 1) / kListM;
-  const size_t smem = list_smem_bytes<R>((a.d + kBK - 1) / kBK);
+  const size_t smem = list_smem_bytes<R>(a);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int b = a.bins;
   const int g = (b & (b - 1)) != 0 || b > 64 ? 0 : (b < 8 ? 1 : b / 8);
   if (g == 0 && (a.max_list + b - 1) / b > 65536)  // 16-bit stripes
@@ -639,14 +737,14 @@ int launch_list_pass_a(ListArgs a, int n_lists, int* lists_scratch, bool ip,
 
 // The fused scan for queries [a.q_begin, a.q_end) (a.kp, a.n_probes and
 // a.ncols set): the +inf fill of cand_d ((q_end - q_begin) x ncols), pass A
-// into it, then the top-k of each candidate row into out_d/out_i rows
-// [q_begin, q_end) of (nq, k), k <= 256.
+// into it, then pass B, the payload radix select of each candidate row,
+// into out_d/out_i rows [q_begin, q_end) of (nq, k), k <= 256.
 template <class R>
 int list_scan_fused(ListArgs a, int n_lists, int k, int do_sqrt,
                     float* cand_d, int* cand_i, int* lists_scratch,
                     float* out_d, int* out_i, bool ip, cudaStream_t s) {
   const int rows = a.q_end - a.q_begin;
-  if (k < 1 || k > kTopMaxK || a.bins < 1 || a.cap < 1 || a.d < 1 ||
+  if (k < 1 || k > kRsMaxK || a.bins < 1 || a.cap < 1 || a.d < 1 ||
       rows < 0 || a.ncols * rows > kListMaxCand || a.ncols > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
@@ -654,10 +752,11 @@ int list_scan_fused(ListArgs a, int n_lists, int k, int do_sqrt,
   a.out_d = cand_d;
   a.out_i = cand_i;
   a.out_bf16 = 0;
+  a.round_out = 0;
   int rc = static_cast<int>(cudaGetLastError());
   if (rc == 0) rc = launch_list_pass_a<R>(a, n_lists, lists_scratch, ip, s);
   if (rc != 0) return rc;
-  return launch_candidate_topk(
+  return launch_radix_select(
       cand_d, cand_i, rows, static_cast<int>(a.ncols), k, do_sqrt,
       out_d + static_cast<long long>(a.q_begin) * k,
       out_i + static_cast<long long>(a.q_begin) * k, s);

@@ -8,10 +8,13 @@ KERNEL_COUNTERS = {
     "fused_l2_nn": ("fused_l2_nn", "launches"),
     "fused_l2_nn_f32": ("fused_l2_nn", "launches_f32"),
     "select_k": ("select_k", "launches"),
+    "select_k_payload": ("select_k", "launches_payload"),
     "ivf_scan": ("ivf_scan", "launches"),
     "ivf_list_scan": ("ivf_scan", "launches_list"),
     "ivf_pq_scan": ("ivf_pq_scan", "launches"),
     "ivf_pq_scan_fused": ("ivf_pq_scan", "launches_fused"),
+    "ivf_pq_scan_f32": ("ivf_pq_scan", "launches_f32"),
+    "ivf_pq_scan_fused_f32": ("ivf_pq_scan", "launches_fused_f32"),
     "ivf_bq_scan": ("ivf_bq_scan", "launches"),
     "ivf_bq_scan_fused": ("ivf_bq_scan", "launches_fused"),
     "fused_knn": ("fused_knn", "launches"),

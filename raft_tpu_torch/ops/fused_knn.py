@@ -26,11 +26,11 @@ from raft_tpu_torch.core.precision import full_fp32_matmul
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops._build import I64, INT, PTR
 from raft_tpu_torch.ops._util import (PRECISIONS, check_cuda_tensor, dot_nt,
-                                      resolve_precision, round_up,
-                                      stable_topk_min)
+                                      resolve_precision, round_up)
+from raft_tpu_torch.ops.select_k import select_k_payload_plain
 
-# k served by the kernel's top-k pass (csrc/candidate_topk.cuh kTopMaxK);
-# above it the candidates are ranked by a stable sort
+# k served by the kernel's pass B (csrc/radix_select.cuh kRsMaxK); above
+# it the candidates are ranked by a stable sort
 MAX_K = 256
 # the dimension chunk of the JAX package's K-staged kernel (kernel 6)
 KT = 2048
@@ -74,28 +74,6 @@ def geometry(m: int, n: int, dim: int, k: int, tm: int = 0, tn: int = 0,
     while tn % l_bins:  # terminates: tn % tn == 0
         l_bins += 1
     return tm, tn, l_bins, kt
-
-
-def rank_candidates(cand_d: torch.Tensor, cand_i: torch.Tensor, k: int,
-                    sqrt: bool):
-    """Each row's k best candidates by (value, column): the ranking of
-    pass B in plain PyTorch (a stable sort); ``(+inf, -1)`` where fewer
-    than k finite candidates exist, the square root taken last."""
-    m, nb = cand_d.shape
-    v = torch.where(torch.isnan(cand_d), float("inf"), cand_d)
-    if nb < k:
-        v = torch.cat([v, torch.full((m, k - nb), float("inf"),
-                                     device=v.device)], dim=1)
-        cand_i = torch.cat([cand_i, torch.full((m, k - nb), -1,
-                                               dtype=torch.int32,
-                                               device=v.device)], dim=1)
-    vals, sel = stable_topk_min(v, k)
-    ids = torch.gather(cand_i, 1, sel)
-    empty = torch.isinf(vals) & (vals > 0)
-    ids = torch.where(empty, -1, ids).to(torch.int32)
-    if sqrt:
-        vals = torch.where(empty, vals, torch.sqrt(torch.clamp(vals, min=0.0)))
-    return vals.contiguous(), ids.contiguous()
 
 
 def _product(x: torch.Tensor, y: torch.Tensor, kt: int,
@@ -154,10 +132,11 @@ def fused_knn_plain(x: torch.Tensor, y: torch.Tensor, k: int,
                     metric: str = "l2", sqrt: bool = False, tn: int = 4096,
                     l_bins: int = 64, kt: int = 0, precision: str = "f32"):
     """Plain PyTorch version: pass A (:func:`bin_candidates_plain`) and
-    the ranking (:func:`rank_candidates`); IP scores negated back."""
+    the ranking (``select_k_payload_plain``); IP scores negated back."""
     cand_d, cand_i = bin_candidates_plain(x, y, metric, tn, l_bins, kt,
                                           precision)
-    vals, ids = rank_candidates(cand_d, cand_i, k, sqrt and metric == "l2")
+    vals, ids = select_k_payload_plain(cand_d, cand_i, k,
+                                       sqrt and metric == "l2")
     return (-vals if metric == "ip" else vals), ids
 
 
@@ -245,7 +224,7 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
                                    out_i[s].data_ptr(), stream),
                              "fused_knn top-k")
             else:
-                out_d[s:s + rows], out_i[s:s + rows] = rank_candidates(
+                out_d[s:s + rows], out_i[s:s + rows] = select_k_payload_plain(
                     cand_d, cand_i, k, do_sqrt)
             del cand_d, cand_i
     return (-out_d if metric == "ip" else out_d), out_i

@@ -5,16 +5,30 @@ package's Pallas ``_pq_scan_kernel`` (per (list, table slot) binned
 candidates, merged afterwards); :func:`pq_scan_fused` replaces
 ``_fused_pq_scan_kernel`` (the same candidates merged into a per-query
 top-k). Each dispatches on the device of its inputs: CPU tensors take
-the plain version, CUDA tensors launch the kernel (or raise).
+the plain version, CUDA tensors launch a kernel (or raise).
 
 Both score a list row from its u8 codes as ``ip = sum_s op(qsub_s) .
 op(book[c_s])`` with ``qsub`` the rotated query (IP) or its residual
 against the list's rotated centre (L2), ``op`` the LUT tier: books
 arrive already rounded (:func:`lut_operands`) and ``round_q`` rounds
 the query to bf16. The plain versions follow the TPU formulation
-(decode each row by gathering its codewords, one f32 ``einsum``); the
-kernel regroups the same sum through a per-pair table, so the two
-differ in f32 summation order only. See the kernel's source note.
+(decode each row by gathering its codewords, one f32 ``einsum``). On
+the card the tier picks the route:
+
+* bf16 and fp8 (``round_q``): list-major on the tensor cores
+  (``csrc/list_scan_tc.cuh`` with the ``PqRows`` policy): each probed
+  list's codes decoded once per query tile into bf16 codebook values and
+  scored against the tile's bf16 queries in one ``wgmma`` pass — exact
+  products, f32 sums; kernel 9's pass B is the payload radix select
+  (``csrc/radix_select.cuh``). Counters ``launches`` (kernel 8) and
+  ``launches_fused`` (kernel 9).
+* float32: the pair-major f32 body (``pq_pairs_kernel``), one block per
+  (query, list) pair summing an f32 table of subspace products; the same
+  pass B. Counters ``launches_f32`` and ``launches_fused_f32``; the
+  table's shared memory limits it to ``MAX_LUT_BYTES``.
+
+Either way the kernel and the plain version differ in f32 summation
+order only. See the kernel's source note.
 """
 
 from __future__ import annotations
@@ -29,13 +43,20 @@ from raft_tpu_torch.ops.ivf_scan import (bin_rows, finish_state,
                                          merge_lists_into_state)
 
 MAX_K = 256
-# the kernel's dynamic shared memory: (pq_dim * n_codes + rot_dim) f32
+# the f32 body's dynamic shared memory: (pq_dim * n_codes + rot_dim) f32
 MAX_LUT_BYTES = 160 * 1024
 LUT_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
 
-# launches of the CUDA kernels since the last reset (plain integers)
+# launches of the CUDA kernels since the last reset (plain integers): the
+# list-major kernels 8 and 9 (bf16, fp8), the pair-major f32 body
 launches = 0
 launches_fused = 0
+launches_f32 = 0
+launches_fused_f32 = 0
+
+# candidates (queries x n_probes x bins) of one fused list-major launch
+# (csrc/list_scan_tc.cuh kListMaxCand)
+_MAX_CAND = 1 << 28
 
 # element budget of one chunk's decode / score block in the plain versions
 _PLAIN_BLOCK = 1 << 24
@@ -43,14 +64,14 @@ _PLAIN_BLOCK = 1 << 24
 
 def lut_operands(pq_centers: torch.Tensor, lut_dtype):
     """``(books, round_q)`` for a LUT tier: the codebooks rounded to the
-    tier and widened back to f32 (bf16; fp8 e4m3 widens exactly), and
-    whether the query rounds to bf16 (every tier but float32)."""
+    tier (float32; bf16; fp8 e4m3, widened exactly to bf16) and whether
+    the query rounds to bf16 (every tier but float32)."""
     if lut_dtype not in LUT_DTYPES:
         raise ValueError(f"ivf_pq: lut_dtype must be one of {LUT_DTYPES}, "
                          f"got {lut_dtype}")
     books = pq_centers.float()
     if lut_dtype != torch.float32:
-        books = books.to(lut_dtype).float()
+        books = books.to(lut_dtype).to(torch.bfloat16)
     return books.contiguous(), lut_dtype != torch.float32
 
 
@@ -62,6 +83,7 @@ def _cells(q_rot, centers_rot, books, codes, norms, ids, qm, l0: int,
     from raft_tpu_torch.neighbors._ivf_scan import gather_query_rows
     c = qm.shape[0]
     l1 = l0 + c
+    books = books.float()
     qsub = gather_query_rows(q_rot, qm)                  # (c, cap, rot)
     if metric != "ip":
         qsub = qsub - centers_rot[l0:l1, None, :]
@@ -146,13 +168,25 @@ _SCAN = _build.Entry("ivf_pq_scan", "raft_ivf_pq_scan",
                      [PTR] * 8 + [INT] * 15 + [PTR] * 3)
 _TOPK = _build.Entry("ivf_pq_scan", "raft_ivf_pq_topk",
                      [PTR] * 2 + [INT] * 4 + [PTR] * 3)
+_LIST_SCAN = _build.Entry("ivf_pq_scan", "raft_ivf_pq_list_scan",
+                          [PTR, INT, PTR, INT, INT, PTR, PTR, PTR]
+                          + [INT] * 4 + [PTR, PTR] + [INT] * 4
+                          + [PTR] * 4)
+_LIST_FUSED = _build.Entry("ivf_pq_scan", "raft_ivf_pq_list_scan_fused",
+                           [PTR, INT, PTR, INT, INT, PTR] + [INT] * 3
+                           + [PTR] * 3 + [INT] * 4 + [PTR, PTR]
+                           + [INT] * 5 + [PTR] * 6)
 
 
-def _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster):
+def _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster,
+           round_q):
     check_cuda_tensor("ivf_pq_scan q_rot", q_rot, torch.float32, 2)
     check_cuda_tensor("ivf_pq_scan centers_rot", centers_rot,
                       torch.float32, 2)
-    check_cuda_tensor("ivf_pq_scan books", books, torch.float32, 3)
+    # books: f32 for the f32 body, the bf16 values of the bf16 and fp8
+    # tiers for the list-major kernels (lut_operands)
+    check_cuda_tensor("ivf_pq_scan books", books,
+                      torch.bfloat16 if round_q else torch.float32, 3)
     check_cuda_tensor("ivf_pq_scan codes", codes, torch.uint8, 3)
     check_cuda_tensor("ivf_pq_scan norms", norms, torch.float32, 2)
     check_cuda_tensor("ivf_pq_scan ids", ids, torch.int32, 2)
@@ -164,18 +198,25 @@ def _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster):
             or pq_dim * pq_len != rot_dim
             or books.shape[0] != (n_lists if per_cluster else pq_dim)):
         raise ValueError("ivf_pq_scan: index tensors disagree in shape")
+    if round_q:
+        # the list-major kernels: 2^pq_bits codes, pq_bits 3..8
+        if n_codes % 8 or not 8 <= n_codes <= 256:
+            raise ValueError(f"ivf_pq_scan: n_codes={n_codes}: the "
+                             "list-major scan takes 8..256, a multiple of 8")
+        return n_lists, max_list, pq_dim, rot_dim, n_codes, pq_len
     lut_bytes = (pq_dim * n_codes + rot_dim) * 4
     if lut_bytes > MAX_LUT_BYTES:
         raise ValueError(
             f"ivf_pq_scan: a (pq_dim={pq_dim}, n_codes={n_codes}) table "
-            f"needs {lut_bytes} B of shared memory; the kernel takes at "
+            f"needs {lut_bytes} B of shared memory; the f32 body takes at "
             f"most {MAX_LUT_BYTES} B")
     return n_lists, max_list, pq_dim, rot_dim, n_codes, pq_len
 
 
 def _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, qsel,
-                  lsel, n_pairs, div, bins, metric, round_q, per_cluster,
+                  lsel, n_pairs, div, bins, metric, per_cluster,
                   center_term, round_out, out_d, out_i):
+    """The f32 body: one block per (query, list) pair."""
     n_lists, max_list, pq_dim = codes.shape
     n_codes, pq_len = books.shape[1], books.shape[2]
     vec16 = pq_dim % 16 == 0 and codes.data_ptr() % 16 == 0
@@ -186,63 +227,114 @@ def _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, qsel,
                    lsel.data_ptr() if lsel is not None else None,
                    n_pairs, div, q_rot.shape[1], pq_dim, pq_len, n_codes,
                    max_list, bins, round_up(max_list, bins),
-                   int(metric == "ip"), int(bool(per_cluster)),
-                   int(bool(round_q)), int(bool(center_term)),
-                   int(bool(round_out)), int(vec16), out_d.data_ptr(),
-                   out_i.data_ptr(), _build.stream_handle(q_rot.device))
+                   int(metric == "ip"), int(bool(per_cluster)), 0,
+                   int(bool(center_term)), int(bool(round_out)), int(vec16),
+                   out_d.data_ptr(), out_i.data_ptr(),
+                   _build.stream_handle(q_rot.device))
     _build.check(rc, "ivf_pq_scan")
+
+
+def _book_args(codes, books, per_cluster):
+    """The list-major entries' book arguments: pq_dim, pq_len, n_codes,
+    per_cluster."""
+    return (codes.shape[2], books.shape[2], books.shape[1],
+            int(bool(per_cluster)))
 
 
 def pq_scan_cuda(q_rot, centers_rot, books, codes, norms, ids, qmap,
                  bins: int, metric: str, round_q: bool, per_cluster: bool,
                  round_out: bool):
-    """Launch kernel 8: one block per (list, table slot)."""
-    global launches
-    n_lists, *_ = _check(q_rot, centers_rot, books, codes, norms, ids,
-                         per_cluster)
+    """Launch kernel 8: list-major (one block per (list, tile of up to 64
+    table slots)) for the bf16 and fp8 tiers, the pair-major f32 body (one
+    block per (list, table slot)) for float32."""
+    global launches, launches_f32
+    n_lists, max_list, *_ = _check(q_rot, centers_rot, books, codes, norms,
+                                   ids, per_cluster, round_q)
     check_cuda_tensor("ivf_pq_scan qmap", qmap, torch.int32, 2)
+    if qmap.shape[0] != n_lists:
+        raise ValueError("ivf_pq_scan: qmap is not (n_lists, cap)")
     cap = qmap.shape[1]
     dev = q_rot.device
     out_d = torch.empty((n_lists, cap, bins), dtype=torch.float32,
                         device=dev)
     out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
-    _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, qmap,
-                  None, n_lists * cap, cap, bins, metric, round_q,
-                  per_cluster, False, round_out, out_d, out_i)
+    if not round_q:
+        _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, qmap,
+                      None, n_lists * cap, cap, bins, metric, per_cluster,
+                      False, round_out, out_d, out_i)
+        launches_f32 += 1
+        return out_d, out_i
+    lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _LIST_SCAN(q_rot.data_ptr(), q_rot.shape[1], qmap.data_ptr(),
+                        n_lists, cap, centers_rot.data_ptr(),
+                        books.data_ptr(), codes.data_ptr(),
+                        *_book_args(codes, books, per_cluster),
+                        norms.data_ptr(), ids.data_ptr(), max_list, bins,
+                        int(metric == "ip"), int(bool(round_out)),
+                        out_d.data_ptr(), out_i.data_ptr(), lists.data_ptr(),
+                        _build.stream_handle(dev))
+    _build.check(rc, "ivf_pq_scan")
     launches += 1
     return out_d, out_i
 
 
 def pq_scan_fused_cuda(q_rot, centers_rot, books, codes, norms, ids,
-                       probes, inv_pos, cap: int, k: int, bins: int,
+                       probes, inv_pos, qmap, cap: int, k: int, bins: int,
                        sqrt: bool, metric: str, round_q: bool,
                        per_cluster: bool):
-    """Launch kernel 9: one block per (query, probe) for the binned
-    candidates (IP centre term applied), then one block per query for
-    the top-k."""
-    global launches_fused
-    _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster)
+    """Launch kernel 9 (all tensors contiguous, on one card): for the bf16
+    and fp8 tiers the list-major pass A over (list, query tile) blocks
+    into per-query candidate rows, the IP centre term applied, then pass
+    B, queries in chunks of at most ``_MAX_CAND`` candidates; for float32
+    the pair-major f32 body, one block per (query, probe), then pass B."""
+    global launches_fused, launches_fused_f32
+    n_lists, max_list, *_ = _check(q_rot, centers_rot, books, codes, norms,
+                                   ids, per_cluster, round_q)
+    check_cuda_tensor("ivf_pq_scan_fused qmap", qmap, torch.int32, 2)
+    if qmap.shape != (n_lists, cap):
+        raise ValueError("ivf_pq_scan_fused: qmap is not (n_lists, cap)")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"ivf_pq_scan_fused: k={k} outside [1, {MAX_K}]")
     nq = q_rot.shape[0]
     kp = kept_probes_sorted(probes, inv_pos, cap)
     n_probes = kp.shape[1]
+    ncols = n_probes * bins
     dev = q_rot.device
-    cand_d = torch.empty((nq, n_probes * bins), dtype=torch.float32,
-                         device=dev)
-    cand_i = torch.empty((nq, n_probes * bins), dtype=torch.int32,
-                         device=dev)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, None,
-                  kp, nq * n_probes, n_probes, bins, metric, round_q,
-                  per_cluster, True, False, cand_d, cand_i)
+    if not round_q:
+        cand_d = torch.empty((nq, ncols), dtype=torch.float32, device=dev)
+        cand_i = torch.empty((nq, ncols), dtype=torch.int32, device=dev)
+        _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, None,
+                      kp, nq * n_probes, n_probes, bins, metric,
+                      per_cluster, True, False, cand_d, cand_i)
+        with torch.cuda.device(dev):
+            rc = _TOPK(cand_d.data_ptr(), cand_i.data_ptr(), nq, ncols, k,
+                       int(bool(sqrt)), out_d.data_ptr(), out_i.data_ptr(),
+                       _build.stream_handle(dev))
+        _build.check(rc, "ivf_pq_scan_fused pass B")
+        launches_fused_f32 += 1
+        return out_d, out_i
+    step = max(1, _MAX_CAND // max(1, ncols))
+    cand_d = torch.empty((min(nq, step), ncols), dtype=torch.float32,
+                         device=dev)
+    cand_i = torch.empty((min(nq, step), ncols), dtype=torch.int32,
+                         device=dev)
+    lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = _TOPK(cand_d.data_ptr(), cand_i.data_ptr(), nq,
-                   n_probes * bins, k, int(bool(sqrt)), out_d.data_ptr(),
-                   out_i.data_ptr(), _build.stream_handle(dev))
-    _build.check(rc, "ivf_pq_scan_fused top-k")
-    launches_fused += 1
+        for q0 in range(0, nq, step):
+            rc = _LIST_FUSED(
+                q_rot.data_ptr(), q_rot.shape[1], qmap.data_ptr(), n_lists,
+                cap, kp.data_ptr(), n_probes, q0, min(nq, q0 + step),
+                centers_rot.data_ptr(), books.data_ptr(), codes.data_ptr(),
+                *_book_args(codes, books, per_cluster), norms.data_ptr(),
+                ids.data_ptr(), max_list, bins, k, int(metric == "ip"),
+                int(bool(sqrt)), cand_d.data_ptr(), cand_i.data_ptr(),
+                lists.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                _build.stream_handle(dev))
+            _build.check(rc, "ivf_pq_scan_fused")
+            launches_fused += 1
     return out_d, out_i
 
 
@@ -279,7 +371,8 @@ def pq_scan_fused(q_rot, centers_rot, books, codes, norms, ids, probes,
         return pq_scan_fused_cuda(
             q_rot.contiguous(), centers_rot.contiguous(), books.contiguous(),
             codes.contiguous(), norms.contiguous(), ids.contiguous(), probes,
-            inv_pos, cap, k, bins, sqrt, metric, round_q, per_cluster)
+            inv_pos, qmap.contiguous(), cap, k, bins, sqrt, metric, round_q,
+            per_cluster)
     return pq_scan_fused_plain(q_rot, centers_rot, books, codes, norms, ids,
                                qmap, k, bins, sqrt, metric, round_q,
                                per_cluster)

@@ -7,7 +7,8 @@ points. :func:`fused_list_scan` replaces the JAX package's Pallas
 ``_fused_list_scan_kernel``: per query, the k smallest binned candidates
 under the key (score, list id, bin index) — see the kernel's source
 note; pass A writes each query's candidates in (list id, bin) order and
-``candidate_topk`` keeps the k best. The plain version walks lists in
+pass B, the payload radix select (``csrc/radix_select.cuh``), keeps the
+k best. The plain version walks lists in
 chunks and merges with a stable sort (list-major, like the JAX
 package's XLA tier). :func:`list_scan` replaces ``_list_scan_kernel``:
 per (list, table slot), the slot's query's binned candidates, written
@@ -167,6 +168,27 @@ def kept_probes_sorted(probes, inv_pos, cap: int):
     kept = torch.where(inv_pos < cap, probes,
                        torch.full_like(probes, -1)).to(torch.int32)
     return torch.sort(kept, dim=1).values.contiguous()
+
+
+def candidate_rows(cd, ci, probes, inv_pos, cap: int):
+    """The fused scans' candidate rows from unfused blocks: per query, the
+    (n_lists, cap, bins) blocks ``cd``/``ci`` of its kept probes in
+    ascending list id (the dropped ones, -1, first and all (+inf, -1)) →
+    ``(rows_d (nq, n_probes * bins) f32, rows_i int32)``: what pass A of
+    a fused scan hands its pass B, up to the IP centre term."""
+    nq = probes.shape[0]
+    kept = inv_pos < cap
+    order = torch.argsort(torch.where(kept, probes, -1), dim=1, stable=True)
+    keep = kept.gather(1, order)
+    pl = probes.gather(1, order).long()
+    slot = inv_pos.gather(1, order).clamp(max=cap - 1).long()
+    rows_d = torch.where(keep[:, :, None], cd[pl, slot].float(),
+                         torch.tensor(float("inf"), device=cd.device))
+    rows_i = torch.where(keep[:, :, None], ci[pl, slot],
+                         torch.tensor(-1, dtype=torch.int32,
+                                      device=cd.device))
+    return (rows_d.reshape(nq, -1).contiguous(),
+            rows_i.reshape(nq, -1).to(torch.int32).contiguous())
 
 
 def fused_list_scan_cuda(queries, data, norms, ids, probes, inv_pos, qmap,

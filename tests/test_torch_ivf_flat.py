@@ -324,22 +324,11 @@ def _scan_lists(rng, d, n_lists=16, max_list=40):
 
 def _blocks_by_query(cd, ci, probes, inv_pos, cap, k, sqrt):
     """Kernel 3's decomposition in plain PyTorch: kernel 4's blocks laid
-    out per query in (list id, bin) order (kept probes ascending; the
-    dropped ones, -1, first and all +inf), then ranked by (value,
-    column) as candidate_topk ranks them."""
-    from raft_tpu_torch.ops.fused_knn import rank_candidates
-    nq = probes.shape[0]
-    kept = inv_pos < cap
-    order = torch.argsort(torch.where(kept, probes, -1), dim=1, stable=True)
-    keep = kept.gather(1, order)
-    pl = probes.gather(1, order).long()
-    slot = inv_pos.gather(1, order).clamp(max=cap - 1).long()
-    rows_d = torch.where(keep[:, :, None], cd[pl, slot].float(),
-                         torch.tensor(float("inf")))
-    rows_i = torch.where(keep[:, :, None], ci[pl, slot],
-                         torch.tensor(-1, dtype=torch.int32))
-    return rank_candidates(rows_d.reshape(nq, -1), rows_i.reshape(nq, -1),
-                           k, sqrt)
+    out per query in (list id, bin) order, then ranked by (value, column)
+    as pass B ranks them."""
+    from raft_tpu_torch.ops.select_k import select_k_payload_plain
+    rows_d, rows_i = scan_op.candidate_rows(cd, ci, probes, inv_pos, cap)
+    return select_k_payload_plain(rows_d, rows_i, k, sqrt)
 
 
 # every value of each axis at least once: d 13/16, k 1/10/200, bins

@@ -144,24 +144,53 @@ def _both_scans(inputs, metric, lut, per_cluster, k, cap, bins, fused,
     return dt.numpy(), it.numpy(), np.asarray(dj), np.asarray(ij), scale
 
 
+def _scan_parity(metric, lut, per_cluster, pq_bits, pq_dim, pq_len, seed):
+    """Both scans' plain versions against the Pallas kernel, on CPU
+    tensors (no kernel launch)."""
+    inputs = _scan_inputs(seed, per_cluster, pq_bits, pq_dim=pq_dim,
+                          pq_len=pq_len)
+    cap, bins = 16, 16
+    n_codes = 1 << pq_bits
+    assert _jax_split(pq_dim, n_codes, pq_dim * pq_len, cap, bins,
+                      round_up(60, bins), lut == "f32") == 1
+    counters = ("launches", "launches_fused", "launches_f32",
+                "launches_fused_f32")
+    before = tuple(getattr(pq_op, c) for c in counters)
+    for fused in (True, False):
+        dt, it, dj, ij, scale = _both_scans(inputs, metric, lut,
+                                            per_cluster, K, cap, bins,
+                                            fused)
+        _same(dt, it, dj, ij, scale)
+    assert tuple(getattr(pq_op, c) for c in counters) == before
+
+
 @pytest.mark.parametrize("pq_bits", [4, 8])
 @pytest.mark.parametrize("per_cluster", [False, True],
                          ids=["per_subspace", "per_cluster"])
 @pytest.mark.parametrize("lut", ["f32", "bf16", "fp8"])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_scan_plain_matches_pallas(metric, lut, per_cluster, pq_bits):
-    inputs = _scan_inputs(pq_bits * 7 + per_cluster, per_cluster, pq_bits)
-    cap, bins = 16, 16
-    n_codes = 1 << pq_bits
-    assert _jax_split(4, n_codes, 16, cap, bins, round_up(60, bins),
-                      lut == "f32") == 1
-    before = (pq_op.launches, pq_op.launches_fused)
-    for fused in (True, False):
-        dt, it, dj, ij, scale = _both_scans(inputs, metric, lut,
-                                            per_cluster, K, cap, bins,
-                                            fused)
-        _same(dt, it, dj, ij, scale)
-    assert (pq_op.launches, pq_op.launches_fused) == before   # CPU: plain
+    _scan_parity(metric, lut, per_cluster, pq_bits, 4, 4,
+                 pq_bits * 7 + per_cluster)
+
+
+# (pq_dim, pq_len) beyond the base 4 x 4: pq_len 3, whose subspaces
+# straddle the card kernel's 8-feature units and its 64-feature slices;
+# rot_dim 264 > 256, where the card kernel streams the queries
+SCAN_SHAPES = {"pq_len3": (24, 3), "rot264": (66, 4)}
+
+
+@pytest.mark.parametrize("shape", sorted(SCAN_SHAPES))
+@pytest.mark.parametrize("pq_bits", [4, 8])
+@pytest.mark.parametrize("per_cluster", [False, True],
+                         ids=["per_subspace", "per_cluster"])
+@pytest.mark.parametrize("lut", ["f32", "bf16", "fp8"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_scan_plain_matches_pallas_shapes(metric, lut, per_cluster, pq_bits,
+                                          shape):
+    pq_dim, pq_len = SCAN_SHAPES[shape]
+    _scan_parity(metric, lut, per_cluster, pq_bits, pq_dim, pq_len,
+                 pq_bits * 7 + per_cluster + pq_dim)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])

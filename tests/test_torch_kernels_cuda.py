@@ -141,6 +141,29 @@ def test_select_k_radix_ties_and_keys(dev, k, n):
     assert torch.equal(dk1.cpu(), dp[2:3]) and torch.equal(ik1.cpu(), ip[2:3])
 
 
+@pytest.mark.parametrize("sqrt", [False, True])
+@pytest.mark.parametrize("k", [1, 32, 256])
+@pytest.mark.parametrize("n", [5, 16384, 16385, 160_000])
+def test_select_k_payload_matches_plain(dev, n, k, sqrt):
+    # the fused scans' pass B: staged rows up to 16384, unstaged above
+    # (the fused brute force's ~156k), n < k filled with (+inf, -1); ties,
+    # NaN and infinities (_select_rows), ids random with -1 at +inf
+    rng = np.random.default_rng(n + k + sqrt)
+    v = _select_rows(rng, n)
+    ids = rng.integers(0, 1 << 30, size=v.shape).astype(np.int32)
+    ids[np.isinf(v) & (v > 0)] = -1
+    vt, it = _t(v, dev), _t(ids, dev)
+    before = sel_op.launches_payload
+    dk, ik = sel_op.select_k_payload(vt, it, k, sqrt)
+    torch.cuda.synchronize()
+    assert sel_op.launches_payload == before + 1
+    # the plain version on the card: its sqrt is the card's (the CPU's
+    # vectorised sqrt may differ by an ulp)
+    dp, ip = sel_op.select_k_payload_plain(vt, it, k, sqrt)
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+
+
 def _random_index(rng, n_lists, max_list, d, dev, metric="l2"):
     sizes = rng.integers(0, max_list + 1, size=n_lists)
     sizes[0] = max_list
@@ -252,7 +275,7 @@ def test_build_on_card_launches_fused_l2_nn(dev):
 
 
 def _pq_case(rng, dev, pq_dim, bits, per_cluster, n_lists=16, max_list=100,
-             nq=32, n_probes=6, pq_len=2):
+             nq=32, n_probes=6, pq_len=2, skew=False):
     rot = pq_dim * pq_len
     n_codes = 1 << bits
     sizes = rng.integers(0, max_list + 1, size=n_lists)
@@ -271,7 +294,10 @@ def _pq_case(rng, dev, pq_dim, bits, per_cluster, n_lists=16, max_list=100,
         torch.from_numpy(ids)).numpy()
     q = rng.normal(size=(nq, rot)).astype(np.float32)
     centers_rot = rng.normal(size=(n_lists, rot)).astype(np.float32)
-    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+    # skewed to the low lists: some list draws more than 128 queries
+    w = 1.0 / np.arange(1, n_lists + 1) if skew else np.ones(n_lists)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False,
+                                  p=w / w.sum())
                        for _ in range(nq)]).astype(np.int32)
     scale = float((q ** 2).sum(1).max() + (centers_rot ** 2).sum(1).max()
                   + norms.max())
@@ -301,46 +327,80 @@ def _bf16_step(x):
                        torch.zeros_like(x))
 
 
+# the PQ tiers' routes on the card: lut dtype -> the launch counters of
+# (kernel 9, kernel 8)
+PQ_ROUTES = {torch.bfloat16: ("launches_fused", "launches"),
+             torch.float8_e4m3fn: ("launches_fused", "launches"),
+             torch.float32: ("launches_fused_f32", "launches_f32")}
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("pq_dim,bits,lut", [
-    (16, 4, torch.bfloat16), (32, 8, torch.bfloat16), (64, 8, torch.float32),
-    (64, 8, torch.float8_e4m3fn), (24, 8, torch.bfloat16)])
+@pytest.mark.parametrize("pq_dim,bits,lut,pq_len", [
+    (16, 4, torch.bfloat16, 2), (32, 8, torch.bfloat16, 2),
+    (64, 8, torch.float32, 2), (64, 8, torch.float8_e4m3fn, 2),
+    (24, 8, torch.bfloat16, 2), (32, 8, torch.bfloat16, 4),
+    (16, 8, torch.float8_e4m3fn, 8), (64, 4, torch.bfloat16, 1),
+    (24, 8, torch.bfloat16, 3), (64, 8, torch.bfloat16, 5)])
 @pytest.mark.parametrize("k,bins,cap", [(1, 16, 32), (10, 128, 32),
-                                        (256, 64, 32), (10, 16, 8)])
+                                        (256, 64, 32), (10, 16, 8),
+                                        (10, 0, 32), (10, -1, 32),
+                                        (10, 16, 200)])
 @pytest.mark.parametrize("per_cluster", [False, True])
-def test_pq_scans_match_plain(dev, metric, pq_dim, bits, lut, k, bins, cap,
-                              per_cluster):
-    # bins 128 > max_list 100: every list is shorter than its bins; list
-    # 1 is empty, list 2 holds 5 rows; cap 8 overflows
-    rng = np.random.default_rng(pq_dim + bits + k + cap)
+def test_pq_scans_match_plain(dev, metric, pq_dim, bits, lut, pq_len, k,
+                              bins, cap, per_cluster):
+    # bf16 and fp8 take the list-major kernels, float32 the pair-major f32
+    # body. pq_len 4 (the served shape), 8, 2 and 1 decode whole
+    # subspaces per 8-feature unit; pq_len 3 straddles units and slices;
+    # rot_dim 320 (pq_len 5) streams the queries. Per-subspace books of 4
+    # bits are staged in shared memory, of 8 bits read through L1; a
+    # per-cluster book is always staged. bins 128 >
+    # max_list 100: every list is shorter than its bins; bins 0 (auto)
+    # and -1 (exact: one row a bin); list 1 is empty, list 2 holds 5
+    # rows; cap 8 overflows; cap 200 with skewed probes fills more than
+    # two query tiles (64 slots each) of a list. Per cluster, kernel 8
+    # rounds its scores to bf16 (internal_distance_dtype)
+    rng = np.random.default_rng(pq_dim * pq_len + bits + k + cap + bins)
     (q, cr, books, codes, norms, ids, probes), scale = _pq_case(
-        rng, dev, pq_dim, bits, per_cluster)
+        rng, dev, pq_dim, bits, per_cluster, pq_len=pq_len,
+        nq=256 if cap > 128 else 32, skew=cap > 128)
     qmap, inv_pos = _ivf_scan._invert_probes(probes, ids.shape[0], cap)
     if cap == 8:
         assert bool((inv_pos >= cap).any()), "cap must overflow"
+    if cap > 128:
+        assert bool((qmap[:, 128:] >= 0).any()), "three query tiles"
+    bins, _ = scan_op.resolve_bins(bins, k, ids.shape[1])
     tb, round_q = pq_op.lut_operands(books, lut)
     args = (q, cr, tb, codes, norms, ids)
     sqrt = metric == "l2"
-    b_f = (pq_op.launches, pq_op.launches_fused)
+    round_out = per_cluster
+    counters = PQ_ROUTES[lut]
+    before = {c: getattr(pq_op, c) for c in sum(PQ_ROUTES.values(), ())}
     dk, ik = pq_op.pq_scan_fused(*args, probes, inv_pos, qmap, cap, k, bins,
                                  sqrt, metric, round_q, per_cluster)
     ck, cik = pq_op.pq_scan(*args, qmap, bins, metric, round_q, per_cluster,
-                            lut == torch.float32)
+                            round_out)
     torch.cuda.synchronize()
-    assert (pq_op.launches, pq_op.launches_fused) == (b_f[0] + 1,
-                                                      b_f[1] + 1)
+    assert {c: getattr(pq_op, c) - before[c] for c in before} == {
+        c: int(c in counters) for c in before}
     dp, ip = pq_op.pq_scan_fused_plain(*args, qmap, k, bins, sqrt, metric,
                                        round_q, per_cluster)
     _near_tie_equal(dk, ik, dp, ip, 1e-5 * (np.sqrt(scale) if sqrt
                                             else scale))
+    assert bool((ik[~torch.isfinite(dk)] == -1).all())
     cp, cip = pq_op.pq_scan_plain(*args, qmap, bins, metric, round_q,
-                                  per_cluster, lut == torch.float32)
-    fin = torch.isfinite(cp)
-    assert torch.equal(torch.isfinite(ck), fin)
-    # bf16-rounded scores (round_out) keep 8 bits: 2^-8 of the scale
-    tol = (2.0 ** -8 if lut == torch.float32 else 1e-5) * scale
-    assert float((ck[fin] - cp[fin]).abs().max()) <= tol
-    assert float((cik == cip).double().mean()) >= 0.99
+                                  per_cluster, False)
+    if round_out:
+        # the kernel rounds a score within rtol 1e-5 of the plain f32 one;
+        # against the plain version's own rounding, one bf16 step apart at
+        # most (a rounding boundary between the two f32 sums)
+        fin = torch.isfinite(cp)
+        tol = _bf16_step(ck) / 2 + 1e-5 * scale
+        assert bool(((ck - cp).abs() <= tol)[fin].all())
+        cp, cip = pq_op.pq_scan_plain(*args, qmap, bins, metric, round_q,
+                                      per_cluster, True)
+        _blocks_match(ck, cik, cp, cip, _bf16_step(cp) + 1e-5 * scale)
+    else:
+        _blocks_match(ck, cik, cp, cip, 1e-5 * scale)
 
 
 def test_pq_search_on_card_matches_cpu(dev):

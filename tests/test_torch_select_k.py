@@ -122,3 +122,48 @@ def test_signed_zeros_and_levels_tie_by_column(k):
     np.testing.assert_array_equal(dt.numpy(), dj)
     np.testing.assert_array_equal(it.numpy(), ij)
     np.testing.assert_array_equal(it.numpy()[2], np.arange(k))
+
+
+# (lists, bins) of each row width: the fused scans' candidate rows are
+# the bins of each query's probed lists in ascending list id
+_PAYLOAD_LAYOUT = {5: (1, 5), 300: (3, 100), 16384: (128, 128),
+                   20000: (160, 125)}
+
+
+@pytest.mark.parametrize("sqrt", [False, True])
+@pytest.mark.parametrize("k", [1, 32, 256])
+@pytest.mark.parametrize("n", sorted(_PAYLOAD_LAYOUT))
+def test_payload_select_matches_list_state_merge(n, k, sqrt):
+    # pass B of the fused scans ranks each query's candidate row by
+    # (value, column); the TPU kernels merge list after list into a
+    # resident state that wins ties (merge_lists_into_state +
+    # finish_state). The two agree because the columns are in (list id,
+    # bin) order: tie-heavy integer scores, +inf pads with id -1, NaN
+    # (read as +inf) and n < k
+    from raft_tpu_torch.ops.ivf_scan import (finish_state,
+                                             merge_lists_into_state)
+    rng = np.random.default_rng(n + k)
+    n_lists, bins = _PAYLOAD_LAYOUT[n]
+    nq = 3
+    v = rng.integers(0, 20, size=(nq, n)).astype(np.float32)
+    ids = rng.permutation(10 * n)[:nq * n].reshape(nq, n).astype(np.int32)
+    pad = rng.random((nq, n)) < np.array([[0.1], [0.95], [0.3]])
+    v[pad] = np.inf
+    ids[pad] = -1
+    v[2, rng.random(n) < 0.2] = np.nan
+    vt, it = torch.from_numpy(v), torch.from_numpy(ids)
+    dt, idt = op.select_k_payload(vt, it, k, sqrt)
+    assert dt.shape == (nq, k) and idt.dtype == torch.int32
+    # the state walk over lists in ascending id, a few lists at a time
+    cd = vt.reshape(nq, n_lists, bins).permute(1, 0, 2)  # (lists, nq, bins)
+    ci = it.reshape(nq, n_lists, bins).permute(1, 0, 2)
+    qm = torch.arange(nq, dtype=torch.int32).expand(n_lists, nq)
+    best_d = torch.full((nq, k), float("inf"))
+    best_i = torch.full((nq, k), -1, dtype=torch.int32)
+    for l0 in range(0, n_lists, 7):
+        best_d, best_i = merge_lists_into_state(
+            best_d, best_i, cd[l0:l0 + 7], ci[l0:l0 + 7], qm[l0:l0 + 7])
+    dm, im = finish_state(best_d, best_i, sqrt)
+    assert torch.equal(idt, im)
+    assert torch.equal(dt, dm)
+    assert bool((idt[torch.isinf(dt)] == -1).all())
