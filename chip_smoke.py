@@ -54,6 +54,15 @@ Phases, one line each:
               candidate merge), its recall of the top 32 and its launch
               counts; then the index is dropped (``free``: device memory
               after the ``del`` and after a collection pass).
+3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
+              burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
+              keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
+              against their plain versions (rows ``ivf_flat_scan@bf16``,
+              ``ivf_list_scan@bf16``), ``free``.
+3c. main_flat_int8 — at ``storage_dtype="int8"``: build on the first 90%
+              of the rows, ``ivf_flat.extend`` with the rest (ids
+              continuing the index's; the scale before and after), then
+              as 3b (``Int8Rows``, keys ``..._int8``, rows ``...@int8``).
 4. main_pq  — the IVF-PQ serving path on the same dataset, after the
               IVF-Flat index is freed: build (4096 lists, pq_dim 32 x 8
               bits, 10 sweeps, raw vectors kept), ``SearchServer`` with
@@ -84,8 +93,11 @@ Phases, one line each:
               ``fused_knn``, ``fused_knn@<metric>``,
               ``fused_knn@highest``).
 7. wide_bf  — 10,000 x 8192 normal rows, 1000 queries, k=32, fused: the
-              d > 4096 route (kernel 6, row ``fused_knn_ktiled``),
-              against its plain version, recall against exact.
+              d > 4096 route (kernel 6) at the card's default bf16x3 on
+              the tensor cores (row ``fused_knn_ktiled``) and at
+              ``"highest"`` (its f32 body, ``fused_knn_ktiled@highest``),
+              each against its plain version and recall against exact
+              (gate 0.95).
 8. pairwise — ``pairwise_distance`` at 8192 x 8192 x 256 on uniform
               [0, 1) data (hamming on values rounded to {0..3}) for
               every elementwise metric name (kernel 7, rows
@@ -101,8 +113,8 @@ the port's own ``brute_force_knn(mode="exact")``.
 
 The build line reports the registers, shared memory and spills of the
 radix select (both modes), the tensor-core fused L2-NN, the tensor-core
-passes A of kernels 5, 3/4, 8/9 and 10/11 and the IVF-PQ f32 body
-(``nvcc -Xptxas -v``). Then a
+passes A of kernels 5/6, 3/4 (f32, bf16 and int8 rows), 8/9 and 10/11
+and the IVF-PQ f32 body (``nvcc -Xptxas -v``). Then a
 ``{"kernels": [...]}`` line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. There is no CPU path: without CUDA the
@@ -147,6 +159,11 @@ RECALL_FLOOR = 0.5
 D, K, N_PROBES, N_LISTS, KMEANS_ITERS = 128, 32, 96, 1024, 10
 # the IVF-Flat route for k > 256: list-major, the unfused list scan
 FLAT_WIDE_K = 512
+# IVF-Flat's narrow list storages: storage_dtype -> the tag of their phase,
+# launch keys and rows; the int8 index is built on the first 1 - 1/10 of
+# the rows and extended with the rest
+FLAT_STORAGES = {"bfloat16": "bf16", "int8": "int8"}
+EXTEND_SHARE = 10
 # the IVF-PQ point: bench_suite.bench_ivf_pq(n=10M, nlists=4096,
 # n_probes=128) with its defaults (k=32, pq_bits 8, pq_dim dim/4,
 # rescore_factor 8), the re-rank kept on the card
@@ -611,21 +628,30 @@ def check_scan_kernel(name, op, counter: str, kernel, plain, scale,
     return kernel_row(name, src, replaces, max_abs, ms, plain_ms, bnd, None)
 
 
-def check_flat_scans(index, q):
+def check_flat_scans(index, q, tag: str = ""):
     """Kernels 3 and 4 against their plain versions at the kernels'
-    bf16x3 arithmetic on the served IVF-Flat index, one 128-query batch
-    at the plan's cap: the fused scan at k=K and the unfused list scan at
-    k=FLAT_WIDE_K. The kernels sum the three bf16 products in one
-    accumulator in the wgmma's order, the plain versions as three f32
-    products: ``compare``'s tolerance covers that order."""
+    arithmetic on the served IVF-Flat index, one 128-query batch at the
+    plan's cap: the fused scan at k=K and the unfused list scan at
+    k=FLAT_WIDE_K. f32 rows: bf16x3, the kernels summing the three bf16
+    products in one accumulator in the wgmma's order, the plain versions
+    as three f32 products; bf16 and int8 rows (``tag`` "bf16", "int8"):
+    one product of the rows and the bf16-rounded queries, exact either
+    way. ``compare``'s tolerance covers the order. Rows ``...@<tag>``;
+    for f32 rows, also kernel 3's candidate rows for pass B alone."""
     from raft_tpu_torch.ops import ivf_scan as op
     b = probe_batch(index, q, N_PROBES, "flat scan")
     data = (b.qb, index.lists_data, index.lists_norms, index.lists_indices)
+    scale = index.scale
+    suffix = f"_{tag}" if tag else ""
+    at = f"@{tag}" if tag else ""
     src = "raft_tpu_torch/csrc/ivf_flat_scan.cu"
-    # a dot product per kept (query, row) pair, as three bf16 products
-    # on the tensor cores (bf16x3, the TPU kernel's)
-    bound_fn = scan_bound(index, b, D * 4 + 8, 0, lambda info: [
-        (3 * 2 * info["pair_rows"] * D, BF16_FLOPS)])
+    # a dot product per kept (query, row) pair on the tensor cores: three
+    # bf16 products for f32 rows (bf16x3, the TPU kernel's), one for
+    # narrow rows; each row read once with its norm and id
+    passes = 1 if tag else 3
+    bound_fn = scan_bound(
+        index, b, D * index.lists_data.element_size() + 8, 0,
+        lambda info: [(passes * 2 * info["pair_rows"] * D, BF16_FLOPS)])
     qq = (b.qb * b.qb).sum(1)
     # fused: |q|^2 plus the norm of the row found
     ids_all = index.lists_indices.reshape(-1)
@@ -633,11 +659,12 @@ def check_flat_scans(index, q):
     norm_by_id[ids_all[ids_all >= 0].long()] = \
         index.lists_norms.reshape(-1)[ids_all >= 0]
     fused = check_scan_kernel(
-        "ivf_flat_scan", op, "launches",
+        "ivf_flat_scan" + at, op, "launches" + suffix,
         lambda: op.fused_list_scan_cuda(*data, b.probes, b.inv_pos, b.qmap,
-                                        b.cap, K, 0, False, "l2"),
+                                        b.cap, K, 0, False, "l2", scale),
         lambda: op.fused_list_scan_plain(*data, b.probes, b.inv_pos, b.qmap,
-                                         b.cap, K, 0, False, "l2", "bf16x3"),
+                                         b.cap, K, 0, False, "l2", "bf16x3",
+                                         scale),
         lambda d_p, i_p: qq[:, None] + norm_by_id[i_p.clamp(min=0).long()],
         5, src, "raft_tpu/ops/pallas_ivf_scan.py:360", bound_fn, k=K,
         cap=b.cap)
@@ -648,13 +675,16 @@ def check_flat_scans(index, q):
     slot = (qq[b.qmap.clamp(min=0).long()]
             + index.lists_norms.max(dim=1).values[:, None])
     wide = check_scan_kernel(
-        "ivf_list_scan", op, "launches_list",
-        lambda: op.list_scan_cuda(*data, b.qmap, bins, "l2"),
+        "ivf_list_scan" + at, op, "launches_list" + suffix,
+        lambda: op.list_scan_cuda(*data, b.qmap, bins, "l2", torch.float32,
+                                  scale),
         lambda: op.list_scan_plain(*data, b.qmap, bins, "l2", torch.float32,
-                                   "bf16x3"),
+                                   "bf16x3", scale),
         lambda d_p, i_p: slot[:, :, None].expand_as(d_p),
         3, src, "raft_tpu/ops/pallas_ivf_scan.py:105", bound_fn,
         k=FLAT_WIDE_K, bins=bins, cap=b.cap)
+    if tag:
+        return fused, wide, None
     # kernel 3's candidate rows (pass A at the fused route's bins, through
     # kernel 4's blocks) for pass B alone
     saved = op.launches_list
@@ -982,12 +1012,30 @@ def check_launched(path: str, launches: dict, names) -> None:
             fail(f"the {path} path never launched the {name} kernel")
 
 
+def serve_flat(index, q_np, truth, n_rows: int, profile: str):
+    """``SearchServer`` over an IVF-Flat index (96 probes, k=K) and the
+    burst: ``(ladder seconds, serve_phase's fields, the burst's
+    launches)``."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    t0 = time.perf_counter()
+    srv = SearchServer.from_index(
+        index, q_np[:128], K, params=ivf_flat.SearchParams(n_probes=N_PROBES),
+        config=ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                           max_wait_ms=2.0))
+    ladder_s = time.perf_counter() - t0
+    pre_burst = ops.launch_counts()
+    served = serve_phase(srv, q_np, truth, n_rows, profile)
+    after = ops.launch_counts()
+    return ladder_s, served, {k_: after[k_] - pre_burst[k_] for k_ in after}
+
+
 def run_flat(x, q, q_np, truth, args):
     """Phase 3: IVF-Flat build + serving; the fused scan checked against
     its plain version on the served index afterwards."""
     from raft_tpu_torch import ops
     from raft_tpu_torch.neighbors import ivf_flat
-    from raft_tpu_torch.serve import SearchServer, ServeConfig
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -997,23 +1045,15 @@ def run_flat(x, q, q_np, truth, args):
     build_s = time.perf_counter() - t0
     build_launches = ops.launch_counts()
     build_shapes = l2nn_shapes()
-    t0 = time.perf_counter()
-    srv = SearchServer.from_index(
-        index, q_np[:128], K, params=ivf_flat.SearchParams(n_probes=N_PROBES),
-        config=ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
-                           max_wait_ms=2.0))
-    ladder_s = time.perf_counter() - t0
-    pre_burst = ops.launch_counts()
-    served = serve_phase(srv, q_np, truth, x.shape[0],
-                         "flat" if args.profile else "")
+    ladder_s, served, burst = serve_flat(index, q_np, truth, x.shape[0],
+                                         "flat" if args.profile else "")
     launches = ops.launch_counts()
     check_launched("IVF-Flat", launches, ("fused_l2_nn", "select_k",
                                           "ivf_scan"))
     phase("main", n=x.shape[0], dim=D, n_lists=N_LISTS, max_list=
           int(index.lists_data.shape[1]), build_s=build_s, ladder_s=ladder_s,
           **served, build_launches=build_launches,
-          build_fused_l2_nn_shapes=build_shapes,
-          burst_launches={k_: launches[k_] - pre_burst[k_] for k_ in launches},
+          build_fused_l2_nn_shapes=build_shapes, burst_launches=burst,
           launches=launches,
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1022,14 +1062,80 @@ def run_flat(x, q, q_np, truth, args):
     pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,
                           launches["ivf_scan"],
                           "raft_tpu/ops/pallas_ivf_scan.py:241")
-    del index, srv, rows
+    del index, rows
     free_phase("flat")
     return [row, pass_b], launches, [wide_row], wide_launches
 
 
-def run_wide_flat(index, q, truth):
+def run_flat_narrow(x, q, q_np, truth, args, storage: str):
+    """Phases 3b, 3c: IVF-Flat at ``storage`` (bfloat16: built on every
+    row; int8: built on the first rows, then ``extend``-ed with the last
+    1/EXTEND_SHARE, ids continuing), served as phase 3, then its k=512
+    search; both scans against their plain versions afterwards. Returns
+    the rows, each with its kernel's launches over this path's run."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.neighbors import ivf_flat
+    tag = FLAT_STORAGES[storage]
+    n = x.shape[0]
+    params = ivf_flat.IndexParams(n_lists=N_LISTS,
+                                  kmeans_n_iters=KMEANS_ITERS,
+                                  storage_dtype=storage)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grown = {}
+    if storage == "int8":
+        n0 = n - n // EXTEND_SHARE
+        index = ivf_flat.build(x[:n0], params)
+        torch.cuda.synchronize()
+        scale0, t1 = index.scale, time.perf_counter()
+        index = ivf_flat.extend(index, x[n0:])
+        torch.cuda.synchronize()
+        ids = index.lists_indices[index.lists_indices >= 0]
+        if ids.numel() != n or int(ids.min()) != 0 or int(ids.max()) != n - 1:
+            fail(f"IVF-Flat int8 extend: {ids.numel()} ids, not 0..{n - 1}")
+        grown = dict(built_rows=n0, extended_rows=n - n0, extend_s=
+                     time.perf_counter() - t1, scale_before=scale0,
+                     scale_after=index.scale)
+        del ids
+    else:
+        index = ivf_flat.build(x, params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if index.lists_data.dtype != getattr(torch, storage) or index.size != n:
+        fail(f"IVF-Flat {storage}: lists of {index.lists_data.dtype}, "
+             f"size {index.size}")
+    build_launches = ops.launch_counts()
+    ladder_s, served, burst = serve_flat(index, q_np, truth, n,
+                                         f"flat_{tag}" if args.profile
+                                         else "")
+    launches = ops.launch_counts()
+    check_launched(f"IVF-Flat {storage}", launches,
+                   ("fused_l2_nn", "select_k", f"ivf_scan_{tag}"))
+    if launches["ivf_scan"] or launches["ivf_list_scan"]:
+        fail(f"IVF-Flat {storage}: the f32 row policy was launched")
+    phase(f"main_flat_{tag}", n=n, dim=D, n_lists=N_LISTS,
+          storage_dtype=storage, scale=index.scale, **grown,
+          max_list=int(index.lists_data.shape[1]), build_s=build_s,
+          ladder_s=ladder_s, **served, build_launches=build_launches,
+          burst_launches=burst, launches=launches,
+          index_gb=(index.lists_data.numel()
+                    * index.lists_data.element_size()) / 1e9,
+          mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    wide_launches = run_wide_flat(index, q, truth, tag)
+    fused, wide, _ = check_flat_scans(index, q, tag)
+    fused["launches"] = launches[f"ivf_scan_{tag}"]
+    wide["launches"] = wide_launches[f"ivf_list_scan_{tag}"]
+    del index
+    free_phase(f"flat_{tag}")
+    return [fused, wide]
+
+
+def run_wide_flat(index, q, truth, tag: str = ""):
     """The k > 256 route: one list-major search of 128 queries at
-    k=FLAT_WIDE_K through the unfused list scan and the merge."""
+    k=FLAT_WIDE_K through the unfused list scan (at the storage ``tag``
+    names, "" for f32) and the merge."""
     from raft_tpu_torch import ops
     from raft_tpu_torch.neighbors import ivf_flat
     params = ivf_flat.SearchParams(n_probes=N_PROBES, scan_order="list")
@@ -1040,7 +1146,8 @@ def run_wide_flat(index, q, truth):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    check_launched("wide IVF-Flat", launches, ("select_k", "ivf_list_scan"))
+    check_launched("wide IVF-Flat", launches,
+                   ("select_k", "ivf_list_scan" + (f"_{tag}" if tag else "")))
     i_w = i_w.cpu().numpy()
     if i_w.shape != (128, FLAT_WIDE_K) or (i_w < 0).any() or \
             not bool(torch.isfinite(d_w).all()) or \
@@ -1051,8 +1158,8 @@ def run_wide_flat(index, q, truth):
                             for r in range(128)])) / K
     if recall < RECALL_FLOOR:
         fail(f"wide IVF-Flat recall@{K} of the top {K} = {recall}")
-    phase("wide_flat", nq=128, k=FLAT_WIDE_K, n_probes=N_PROBES,
-          order="list", search_s=wall,
+    phase("wide_flat", storage=tag or "f32", nq=128, k=FLAT_WIDE_K,
+          n_probes=N_PROBES, order="list", search_s=wall,
           **{f"recall_at_{K}_of_top_{K}": recall}, launches=launches,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches
@@ -1189,7 +1296,8 @@ def check_fused_knn(name, xq, y, metric, replaces, launches, precision,
     m, dim = xq.shape
     n = y.shape[0]
     _, tn, l_bins, kt = op.geometry(m, n, dim, K)
-    saved = (op.launches, op.launches_f32, op.launches_ktiled)
+    saved = (op.launches, op.launches_f32, op.launches_ktiled,
+             op.launches_ktiled_f32)
     kernel = lambda: op.fused_knn_cuda(xq, y, K, metric, False, tn,  # noqa: E731
                                        l_bins, kt, precision)
     d_k, i_k = kernel()
@@ -1199,7 +1307,8 @@ def check_fused_knn(name, xq, y, metric, replaces, launches, precision,
     max_abs, agree = compare(name, d_k, i_k, d_p, i_p, False, scale)
     del d_k, i_k, d_p, i_p
     ms = cuda_ms(kernel, BF_REPS, warmup=1)
-    op.launches, op.launches_f32, op.launches_ktiled = saved
+    (op.launches, op.launches_f32, op.launches_ktiled,
+     op.launches_ktiled_f32) = saved
     # the products at the arithmetic asked for: bf16x3 (the TPU kernel's)
     # three bf16 passes on the tensor cores, f32 one pass on the CUDA cores
     ops = 2 * m * n * dim
@@ -1300,39 +1409,47 @@ def run_bf(x, qb, args):
 
 def run_wide_bf(seed: int, dev):
     """Phase 7: the d > 4096 route (kernel 6) on WIDE_N x WIDE_D normal
-    rows, BF_QUERIES queries, against exact and its plain version."""
+    rows, BF_QUERIES queries, at the card's default bf16x3 (the
+    tensor-core pass A) and at ``"highest"`` (its f32 body), each against
+    the exact scan (recall gate BF_RECALL_GATE) and its plain version at
+    the same arithmetic."""
     from raft_tpu_torch import ops
     from raft_tpu_torch.distance import DistanceType
     from raft_tpu_torch.neighbors.brute_force import brute_force_knn
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     y = torch.randn((WIDE_N, WIDE_D), generator=g, device=dev)
     qw = torch.randn((BF_QUERIES, WIDE_D), generator=g, device=dev)
-
-    def fused():
-        return brute_force_knn(y, qw, K, DistanceType.L2Expanded,
-                               mode="fused")
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    d_f, i_f = fused()
-    ms = cuda_ms(fused, BF_REPS, warmup=0)
-    launches = ops.launch_counts()
-    check_launched("wide brute force", launches, ("fused_knn_ktiled",))
-    check_knn_result("wide fused", d_f, i_f, WIDE_N, False)
-    (d_e, i_e), exact_ms = cuda_once(lambda: brute_force_knn(
+    (_, i_e), exact_ms = cuda_once(lambda: brute_force_knn(
         y, qw, K, DistanceType.L2Expanded, mode="exact"))
-    recall = recall_at(i_f, i_e)
-    if recall < RECALL_FLOOR:
-        fail(f"wide fused: recall@{K} {recall} < {RECALL_FLOOR}")
-    phase("wide_bf", n=WIDE_N, dim=WIDE_D, nq=BF_QUERIES, k=K, ms=ms,
-          qps=BF_QUERIES / (ms / 1e3), **{f"recall_at_{K}": recall},
-          exact_ms=exact_ms, launches=launches,
-          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    # kernel 6 computes the default bf16x3 in f32; its bound is that of
-    # the TPU kernel's bf16x3 products on the tensor cores
-    return [check_fused_knn("fused_knn_ktiled", qw, y, "l2",
-                            "raft_tpu/ops/pallas_fused_knn.py:121",
-                            launches["fused_knn_ktiled"], "f32",
-                            bound_as="bf16x3")]
+    rows = []
+    for prec, key, tag, src in (
+            (None, "fused_knn_ktiled", "", "fused_knn_tc.cu"),
+            ("highest", "fused_knn_ktiled_f32", "@highest", "fused_knn.cu")):
+        def fused(prec=prec):
+            return brute_force_knn(y, qw, K, DistanceType.L2Expanded,
+                                   mode="fused", kernel_precision=prec)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        d_f, i_f = fused()
+        ms = cuda_ms(fused, BF_REPS, warmup=0)
+        launches = ops.launch_counts()
+        check_launched(f"wide brute force{tag}", launches, (key,))
+        check_knn_result(f"wide fused{tag}", d_f, i_f, WIDE_N, False)
+        recall = recall_at(i_f, i_e)
+        if recall < BF_RECALL_GATE:
+            fail(f"wide fused{tag}: recall@{K} {recall} < {BF_RECALL_GATE}")
+        precision = "f32" if prec else "bf16x3"
+        phase("wide_bf", precision=prec or "bf16x3", n=WIDE_N, dim=WIDE_D,
+              nq=BF_QUERIES, k=K, ms=ms, qps=BF_QUERIES / (ms / 1e3),
+              **{f"recall_at_{K}": recall}, exact_ms=exact_ms,
+              launches={k_: v for k_, v in launches.items() if v},
+              mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del d_f, i_f
+        rows.append(check_fused_knn(
+            "fused_knn_ktiled" + tag, qw, y, "l2",
+            "raft_tpu/ops/pallas_fused_knn.py:121", launches[key], precision,
+            "raft_tpu_torch/csrc/" + src))
+    return rows
 
 
 def run_pairwise(x1m, q100, seed: int, dev):
@@ -1477,10 +1594,13 @@ def main() -> None:
                             mode="exact")[1].cpu().numpy()
     phase("truth", nq=N_QUERIES, k=K, seconds=time.perf_counter() - t0)
 
-    # 3. the IVF-Flat path, with its k > 256 search
+    # 3. the IVF-Flat path, with its k > 256 search; 3b, 3c. the same at
+    # bf16 and int8 list storage (rows carry their own launches)
     scan_rows, flat_launches, wide_rows, wide_launches = run_flat(
         x, q, q_np, truth, args)
     flat_rows += scan_rows
+    narrow_rows = [r for st in FLAT_STORAGES
+                   for r in run_flat_narrow(x, q, q_np, truth, args, st)]
 
     # 4., 5. the IVF-PQ and IVF-BQ paths
     paths = [(flat_rows, flat_launches), (wide_rows, wide_launches)]
@@ -1496,9 +1616,11 @@ def main() -> None:
             row["launches"] = counts["ivf_scan" if key == "ivf_flat_scan"
                                      else key]
 
-    # 2b, 6.-8. kernel 1's tiers, brute force and pairwise distances:
-    # rows carry their own path's launches
+    # 2b, 3b, 3c, 6.-8. kernel 1's tiers, IVF-Flat's narrow storages,
+    # brute force and pairwise distances: rows carry their own path's
+    # launches
     paths.append((tier_rows, None))
+    paths.append((narrow_rows, None))
     paths.append((run_bf(x, q_bf, args), None))
     paths.append((run_wide_bf(args.seed, dev), None))
     paths.append((run_pairwise(x[:L1_ROWS], q_bf[:L1_QUERIES], args.seed,

@@ -22,10 +22,9 @@
 //    (k <= 256; above that the wrapper ranks with a stable sort). The TPU's filtered merge changes no
 //    result and has no counterpart. Padded rows never enter: a bin with no
 //    finite value keeps (+inf, -1), and pass B writes -1 for every +inf slot.
-//  - precision: f32 products ("highest"); kernel 6's bf16 tier rounds both
-//    operands to bf16 before the product (norms from the unrounded values),
-//    as one MXU pass. Kernel 5's bf16x3 (the card's default) and bf16 tiers
-//    run on the tensor cores, in fused_knn_tc.cu.
+//  - precision: f32 products (kernel_precision "highest", kernels 5 and
+//    6). Both kernels' bf16x3 (the card's default) and bf16 tiers run on
+//    the tensor cores, in fused_knn_tc.cu.
 //
 // Bound on the H100 SXM (data-sheet rates, 700 W): operations. The TPU
 // kernel computes its 2*m*n*d products as bf16x3 (three bf16 passes), so
@@ -44,7 +43,6 @@
 // read it from L2. Kernel 5 takes the row norms from a prologue; kernel 6
 // (the d > 4096 launch, tn = 1024) accumulates them from the staged slices
 // inside its product loop, as the TPU kernel keeps them in scratch.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -58,11 +56,7 @@ constexpr int kTN = 64;  // db rows per chunk
 constexpr int kTK = 16;  // feature slice staged in shared memory
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool KTILED, bool IP, bool BF16>
+template <bool KTILED, bool IP>
 __global__ __launch_bounds__(kThreads) void knn_bins_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ xx, const float* __restrict__ yy, int m, int n,
@@ -129,15 +123,8 @@ __global__ __launch_bounds__(kThreads) void knn_bins_kernel(
       for (int kk = 0; kk < kTK; ++kk) {
         const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
         const float4 bb = *reinterpret_cast<const float4*>(&ys[kk][tx * 4]);
-        float av[4] = {a.x, a.y, a.z, a.w};
-        float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-        if constexpr (BF16) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            av[i] = round_bf16(av[i]);
-            bv[i] = round_bf16(bv[i]);
-          }
-        }
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -196,7 +183,7 @@ __global__ __launch_bounds__(kThreads) void knn_bins_kernel(
   }
 }
 
-template <bool KTILED, bool IP, bool BF16>
+template <bool KTILED, bool IP>
 int launch_bins(const float* x, const float* y, const float* xx,
                 const float* yy, int m, int n, int d, int tn, int b,
                 long long nb, float* cand_d, int* cand_i, cudaStream_t s) {
@@ -204,8 +191,8 @@ int launch_bins(const float* x, const float* y, const float* xx,
   const long long blocks =
       static_cast<long long>(q_blocks) * ((n + tn - 1) / tn);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  knn_bins_kernel<KTILED, IP, BF16><<<static_cast<unsigned>(blocks),
-                                      kThreads, 0, s>>>(
+  knn_bins_kernel<KTILED, IP><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                s>>>(
       x, y, xx, yy, m, n, d, tn, b, q_blocks, nb, cand_d, cand_i);
   return static_cast<int>(cudaGetLastError());
 }
@@ -219,35 +206,28 @@ extern "C" int raft_fused_knn_norms(const float* x, long long rows, int d,
                                           static_cast<cudaStream_t>(stream));
 }
 
-// Pass A (kernel 5 in f32, or kernel 6 with ktiled, which alone takes
-// bf16): x (m, d) queries, y (n, d)
-// database, xx/yy their norms (kernel 5, L2 only; else unused) -> cand_d /
-// cand_i (m, nb), nb = ceil(n / b), each bin's (minimum, row).
+// Pass A in f32 (kernel 5, or kernel 6 with ktiled): x (m, d) queries, y
+// (n, d) database, xx/yy their norms (kernel 5, L2 only; else unused) ->
+// cand_d / cand_i (m, nb), nb = ceil(n / b), each bin's (minimum, row).
 extern "C" int raft_fused_knn_bins(const float* x, const float* y,
                                    const float* xx, const float* yy, int m,
                                    int n, int d, int tn, int b, int ktiled,
-                                   int ip, int bf16, long long nb,
+                                   int ip, long long nb,
                                    float* cand_d, int* cand_i, void* stream) {
   if (m == 0) return 0;
   if (n < 1 || d < 1 || tn < 1 || b < 1 || tn % b != 0 ||
       nb != (n + b - 1) / b)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int sel = (ktiled ? 4 : 0) | (ip ? 2 : 0) | (bf16 ? 1 : 0);
-#define RAFT_BINS(K, I, B)                                                  \
-  case (K ? 4 : 0) | (I ? 2 : 0) | (B ? 1 : 0):                             \
-    return launch_bins<K, I, B>(x, y, xx, yy, m, n, d, tn, b, nb, cand_d,   \
-                                cand_i, s);
-  switch (sel) {
-    RAFT_BINS(false, false, false)
-    RAFT_BINS(false, true, false)
-    RAFT_BINS(true, false, false)
-    RAFT_BINS(true, false, true)
-    RAFT_BINS(true, true, false)
-    RAFT_BINS(true, true, true)
-  }
-#undef RAFT_BINS
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (ktiled)
+    return ip ? launch_bins<true, true>(x, y, xx, yy, m, n, d, tn, b, nb,
+                                        cand_d, cand_i, s)
+              : launch_bins<true, false>(x, y, xx, yy, m, n, d, tn, b, nb,
+                                         cand_d, cand_i, s);
+  return ip ? launch_bins<false, true>(x, y, xx, yy, m, n, d, tn, b, nb,
+                                       cand_d, cand_i, s)
+            : launch_bins<false, false>(x, y, xx, yy, m, n, d, tn, b, nb,
+                                        cand_d, cand_i, s);
 }
 
 // Pass B (k <= 256): each query's k best candidates by (value, column),

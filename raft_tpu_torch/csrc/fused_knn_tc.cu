@@ -1,9 +1,13 @@
-// Pass A of the fused brute-force k-NN (kernel 5) on the tensor cores:
-// every bin's (minimum, row) of the expanded L2 or inner-product scores,
-// with the products taken as bf16x3 (or one bf16 pass) by wgmma.
+// Pass A of the fused brute-force k-NN (kernels 5 and 6) on the tensor
+// cores: every bin's (minimum, row) of the expanded L2 or inner-product
+// scores, with the products taken as bf16x3 (or one bf16 pass) by wgmma.
 //
 // Replaces: raft_tpu/ops/pallas_fused_knn.py:_knn_kernel (kernel 5, d <=
-// 4096), whose products are dot_nt_f32(y, x, "bf16x3")
+// 4096) and :_knn_kernel_ktiled (kernel 6, d > 4096: the contraction
+// tiled in KT = 2048 slices, each slice's products added in f32 into a
+// scratch accumulator; here each slice's products sum in the wgmma
+// accumulator and are then added in f32 into partial sums in shared
+// memory), whose products are dot_nt_f32(y, x, "bf16x3")
 // (raft_tpu/ops/_util.py:21-50): each f32 operand is split into hi =
 // bf16(v) and lo = bf16(v - hi), and hi.lo + lo.hi + hi.hi are summed in
 // f32. PASSES = 3 takes the same three products (each exact in f32) into
@@ -17,22 +21,25 @@
 //
 // Bound on the H100 SXM (data-sheet rates, 700 W): operations, 3 x 2mnd
 // at the 989 TFLOP/s bf16 tensor rate: 7.8 ms at 1000 x 10M x 128 (the
-// database's 5.1 GB take 1.53 ms). The f32 body it replaces on the main
-// path took 122.9 ms there (NVIDIA H100 80GB HBM3, 700.00 W;
-// chip_smoke.py), 3.1x its own 38.2 ms floor on the CUDA cores.
+// database's 5.1 GB take 1.53 ms); 0.497 ms at kernel 6's 1000 x 10k x
+// 8192. The f32 body it replaces on the main path took 122.9 ms there
+// (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py), 3.1x its own 38.2 ms
+// floor on the CUDA cores; at 1000 x 10k x 8192 the f32 body took 20.9 ms.
 //
 // Design: a 256-thread block = two warpgroups owns 128 queries (64 each,
 // the wgmma M side) and one db tile, walked in chunks of 128 rows (the N
 // side) and 64-wide feature slices (128 bytes of bf16, one 128-byte
 // swizzle row). The queries' hi/lo slices stay in shared memory for the
 // whole tile when they fit (d <= 320, 3 passes); otherwise they stream
-// with the rows. Rows are split on the fly: the f32 slice for step t + 2
-// is loaded into registers behind the wgmmas of step t (and the epilogue
-// and barrier after them), and split and stored in the swizzled K-major
-// layout the wgmma descriptors read one step later (a two-stage ring, one
-// barrier a step). Pre-splitting the database once a
-// call instead would read and write 10 GB more at 10M x 128 and hold
-// 5 GB more of device memory. The epilogue reads the accumulator
+// with the rows (kernel 6's d > 4096 always: 197 KB of shared memory with
+// its partial sums, 199 KB with the WALK distances they share, whatever
+// d). Rows are split on the fly: the
+// f32 slice for step t + 2 is loaded into registers behind the wgmmas of
+// step t (and the epilogue and barrier after them), and split and stored
+// in the swizzled K-major layout the wgmma descriptors read one step later
+// (a two-stage ring, one barrier a step). Pre-splitting the database once
+// a call instead would read and write 10 GB more at 10M x 128 and hold 5
+// GB more of device memory. The epilogue reads the accumulator
 // fragment: for a power-of-two b >= 8 (REG; the default geometry's b = 64)
 // bins are reduced in registers (the column pair, then this thread's
 // 8-column groups of a bin, lower rows first, then quad shuffles on what
@@ -87,16 +94,19 @@ __device__ __forceinline__ void write_cand(float* od, int* oi, long long col,
 // Shared-memory layout (bytes, from a 1024-aligned base): query hi tiles
 // [qt], query lo tiles [qt] (3 passes), row hi tiles [2], row lo tiles [2]
 // (3 passes), the chunk norms [2][kBN] floats, then (WALK) the chunk
-// distances [kBM][kDistLd] floats. qt is the
+// distances [kBM][kDistLd] floats, which kernel 6 shares with its partial
+// sums [64][kThreads] floats (REG: the partial sums alone). qt is the
 // number of slices (resident queries) or 2 (a ring with the rows).
 __host__ __device__ inline int q_tiles(bool qres, int ks) {
   return qres ? ks : 2;
 }
 __host__ __device__ inline size_t smem_bytes(int passes, bool qres, bool reg,
-                                             int ks) {
+                                             int ks, bool kt) {
   const size_t planes = passes == 3 ? 2 : 1;
   return 1024 + planes * (q_tiles(qres, ks) + 2) * kTile + 2 * kBN * 4 +
-         (reg ? 0 : static_cast<size_t>(kBM) * kDistLd * 4);
+         (!reg  ? static_cast<size_t>(kBM) * kDistLd * 4
+          : kt ? static_cast<size_t>(kBM) * kBN * 4
+               : 0);
 }
 
 }  // namespace
@@ -104,12 +114,16 @@ __host__ __device__ inline size_t smem_bytes(int passes, bool qres, bool reg,
 namespace {
 
 // REG: b is a power of two >= 8, reduced in registers; otherwise the
-// chunk's distances go through shared memory and a walk (WALK).
-template <int PASSES, bool QRES, bool IP, bool REG>
+// chunk's distances go through shared memory and a walk (WALK). KT
+// (kernel 6): the products of each kt_steps slices (KT features)
+// accumulate on their own and are added, in f32, into partial sums in
+// shared memory, as the TPU kernel adds each KT step into its scratch (a
+// template parameter: kernel 5's loop carries none of it).
+template <int PASSES, bool QRES, bool IP, bool REG, bool KT>
 __global__ __launch_bounds__(kThreads, 1) void knn_bins_tc_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ xx, const float* __restrict__ yy, int m, int n,
-    int d, int tn, int b, int q_blocks, long long nb,
+    int d, int tn, int b, int kt_steps, int q_blocks, long long nb,
     float* __restrict__ cand_d, int* __restrict__ cand_i) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_s =
@@ -125,6 +139,7 @@ __global__ __launch_bounds__(kThreads, 1) void knn_bins_tc_kernel(
   const int y_hi = kPlanes * qt * kTile, y_lo = y_hi + 2 * kTile;
   float* ysn = reinterpret_cast<float*>(base + kPlanes * (qt + 2) * kTile);
   float* dist = ysn + 2 * kBN;
+  float* part = dist;  // kernel 6's partial sums: element i at [i][tid]
 
   const int tid = threadIdx.x, lane = tid & 31, quad = lane & 3;
   const int wg = tid >> 7;
@@ -204,7 +219,9 @@ __global__ __launch_bounds__(kThreads, 1) void knn_bins_tc_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const int accumulate = (ks == 0 && kk == 0) ? 0 : 1;
+      // a chunk's (kernel 6: a KT slice's) first product starts afresh
+      const int accumulate =
+          (kk == 0 && (KT ? ks % kt_steps : ks) == 0) ? 0 : 1;
       const uint32_t o = kk * 32;  // 16 bf16 along K inside the swizzle row
       if constexpr (PASSES == 3) {
         // dot_nt_f32's order: hi.lo, lo.hi, hi.hi
@@ -234,8 +251,27 @@ __global__ __launch_bounds__(kThreads, 1) void knn_bins_tc_kernel(
     }
     wgmma_wait_all();
     fence_acc(acc);
+    // kernel 6: a KT slice ends (the last one is added in the epilogue)
+    if constexpr (KT) {
+      if (ks != ks_n - 1 && (ks + 1) % kt_steps == 0) {
+        const bool first = ks + 1 == kt_steps;
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          part[i * kThreads + tid] =
+              first ? acc[i] : part[i * kThreads + tid] + acc[i];
+      }
+    }
 
     if (ks == ks_n - 1) {
+      if constexpr (KT) {
+        if (ks_n > kt_steps) {
+          // the earlier slices' sum plus the last slice's products
+#pragma unroll
+          for (int i = 0; i < 64; ++i)
+            acc[i] = part[i * kThreads + tid] + acc[i];
+          if constexpr (!REG) __syncthreads();  // the distances reuse part
+        }
+      }
       // epilogue: fragment element (i, n8, j) = acc[4 n8 + 2 i + j] is
       // query rbase + 8 i against chunk column 8 n8 + 2 quad + j
       const long long c0 = t0 + static_cast<long long>(chunk) * kBN;
@@ -345,12 +381,13 @@ __global__ __launch_bounds__(kThreads, 1) void knn_bins_tc_kernel(
   }
 }
 
-template <int PASSES, bool QRES, bool IP, bool REG>
+template <int PASSES, bool QRES, bool IP, bool REG, bool KT>
 int launch_tc(const float* x, const float* y, const float* xx,
               const float* yy, int m, int n, int d, int tn, int b,
-              long long nb, float* cand_d, int* cand_i, cudaStream_t s) {
-  const size_t smem = smem_bytes(PASSES, QRES, REG, (d + kBK - 1) / kBK);
-  auto kernel = knn_bins_tc_kernel<PASSES, QRES, IP, REG>;
+              int kt_steps, long long nb, float* cand_d, int* cand_i,
+              cudaStream_t s) {
+  const size_t smem = smem_bytes(PASSES, QRES, REG, (d + kBK - 1) / kBK, KT);
+  auto kernel = knn_bins_tc_kernel<PASSES, QRES, IP, REG, KT>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -360,50 +397,64 @@ int launch_tc(const float* x, const float* y, const float* xx,
       static_cast<long long>(q_blocks) * ((n + tn - 1) / tn);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-      x, y, xx, yy, m, n, d, tn, b, q_blocks, nb, cand_d, cand_i);
+      x, y, xx, yy, m, n, d, tn, b, kt_steps, q_blocks, nb, cand_d, cand_i);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Pass A of kernel 5 on the tensor cores: x (m, d) queries, y (n, d)
-// database, xx/yy their norms (L2 only; else unused), passes 3 (bf16x3) or
-// 1 (bf16) -> cand_d / cand_i (m, nb), nb = ceil(n / b), each bin's
-// (minimum, row). d <= 4096 (kernel 6 takes wider rows).
+// Pass A of kernels 5 and 6 on the tensor cores: x (m, d) queries, y (n,
+// d) database, xx/yy their norms (L2 only; else unused), passes 3 (bf16x3)
+// or 1 (bf16), kt 0 (kernel 5) or the KT features a slice (kernel 6, a
+// multiple of 64) -> cand_d / cand_i (m, nb), nb = ceil(n / b), each bin's
+// (minimum, row). Any d: above 320 the queries stream with the rows.
 extern "C" int raft_fused_knn_bins_tc(const float* x, const float* y,
                                       const float* xx, const float* yy, int m,
                                       int n, int d, int tn, int b, int ip,
-                                      int passes, long long nb, float* cand_d,
-                                      int* cand_i, void* stream) {
+                                      int passes, int kt, long long nb,
+                                      float* cand_d, int* cand_i,
+                                      void* stream) {
   if (m == 0) return 0;
-  if (n < 1 || d < 1 || d > 4096 || tn < 1 || b < 1 || tn % b != 0 ||
-      nb != (n + b - 1) / b || (passes != 1 && passes != 3))
+  if (n < 1 || d < 1 || tn < 1 || b < 1 || tn % b != 0 ||
+      nb != (n + b - 1) / b || (passes != 1 && passes != 3) || kt < 0 ||
+      kt % kBK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool reg = (b & (b - 1)) == 0 && b >= 8;
+  const int ks_n = (d + kBK - 1) / kBK, kt_steps = kt / kBK;
+  // kernel 6 streams its queries (d > 4096 never fits them resident)
+  const bool kts = kt > 0;
   const bool qres =
-      smem_bytes(passes, true, reg, (d + kBK - 1) / kBK) <= kMaxSmem;
+      !kts && smem_bytes(passes, true, reg, ks_n, false) <= kMaxSmem;
   const bool is_ip = ip != 0;
-#define RAFT_TC(P, Q, I, R)                                                 \
-  if (passes == P && qres == Q && is_ip == I && reg == R)                   \
-    return launch_tc<P, Q, I, R>(x, y, xx, yy, m, n, d, tn, b, nb, cand_d,  \
-                                 cand_i, s);
-  RAFT_TC(3, true, false, true)
-  RAFT_TC(3, true, false, false)
-  RAFT_TC(3, true, true, true)
-  RAFT_TC(3, true, true, false)
-  RAFT_TC(3, false, false, true)
-  RAFT_TC(3, false, false, false)
-  RAFT_TC(3, false, true, true)
-  RAFT_TC(3, false, true, false)
-  RAFT_TC(1, true, false, true)
-  RAFT_TC(1, true, false, false)
-  RAFT_TC(1, true, true, true)
-  RAFT_TC(1, true, true, false)
-  RAFT_TC(1, false, false, true)
-  RAFT_TC(1, false, false, false)
-  RAFT_TC(1, false, true, true)
-  RAFT_TC(1, false, true, false)
+#define RAFT_TC(P, Q, I, R, K)                                              \
+  if (passes == P && qres == Q && is_ip == I && reg == R && kts == K)       \
+    return launch_tc<P, Q, I, R, K>(x, y, xx, yy, m, n, d, tn, b, kt_steps, \
+                                    nb, cand_d, cand_i, s);
+  RAFT_TC(3, true, false, true, false)
+  RAFT_TC(3, true, false, false, false)
+  RAFT_TC(3, true, true, true, false)
+  RAFT_TC(3, true, true, false, false)
+  RAFT_TC(3, false, false, true, false)
+  RAFT_TC(3, false, false, false, false)
+  RAFT_TC(3, false, true, true, false)
+  RAFT_TC(3, false, true, false, false)
+  RAFT_TC(3, false, false, true, true)
+  RAFT_TC(3, false, false, false, true)
+  RAFT_TC(3, false, true, true, true)
+  RAFT_TC(3, false, true, false, true)
+  RAFT_TC(1, true, false, true, false)
+  RAFT_TC(1, true, false, false, false)
+  RAFT_TC(1, true, true, true, false)
+  RAFT_TC(1, true, true, false, false)
+  RAFT_TC(1, false, false, true, false)
+  RAFT_TC(1, false, false, false, false)
+  RAFT_TC(1, false, true, true, false)
+  RAFT_TC(1, false, true, false, false)
+  RAFT_TC(1, false, false, true, true)
+  RAFT_TC(1, false, false, false, true)
+  RAFT_TC(1, false, true, true, true)
+  RAFT_TC(1, false, true, false, true)
 #undef RAFT_TC
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,13 @@
 // The list-major pass A on the tensor cores, shared by ivf_flat_scan.cu
-// (kernels 3 and 4, f32 lists, bf16x3 products), ivf_bq_scan.cu (kernels
-// 10 and 11, 1-bit sign codes, one bf16 pass) and ivf_pq_scan.cu (kernels
-// 8 and 9, u8 PQ codes decoded to bf16 codebook values, one bf16 pass):
-// one block per (list, tile of up to 64 of the table slots that probe it),
-// each probed list read once per query tile. A policy R says what a list
-// row is (see FlatRows in ivf_flat_scan.cu, BqRows in ivf_bq_scan.cu and
-// PqRows in ivf_pq_scan.cu; RowsBase, ResidualQueries and NormScore below
-// hold what they share):
+// (kernels 3 and 4: f32 lists at bf16x3, bf16 and int8 lists at one bf16
+// pass), ivf_bq_scan.cu (kernels 10 and 11, 1-bit sign codes, one bf16
+// pass) and ivf_pq_scan.cu (kernels 8 and 9, u8 PQ codes decoded to bf16
+// codebook values, one bf16 pass): one block per (list, tile of up to 64 of
+// the table slots that probe it), each probed list read once per query
+// tile. A policy R says what a list row is (see FlatRows, Bf16Rows and
+// Int8Rows in ivf_flat_scan.cu, BqRows in ivf_bq_scan.cu and PqRows in
+// ivf_pq_scan.cu; RowsBase, ResidualQueries and NormScore below hold what
+// they share):
 //   * R::kPasses: 3 (bf16x3: hi.lo + lo.hi + hi.hi) or 1 (hi.hi);
 //   * R::kMinBlocks: the blocks an SM should hold (the register budget);
 //   * R::kCentreTerm: whether the written bin minima subtract a per (query,
@@ -109,10 +110,14 @@ struct ListArgs {
   int* out_i;
   int out_bf16;
   int round_out;         // f32 scores rounded to bf16 (to nearest)
-  // IVF-Flat lists
-  const float* data;     // (n_lists, max_list, d)
+  // IVF-Flat lists, in one of three storages (data, data_bf16, data_i8)
+  const float* data;     // (n_lists, max_list, d) f32
+  const __nv_bfloat16* data_bf16;  // (n_lists, max_list, d) bf16
+  const int8_t* data_i8;           // (n_lists, max_list, d) int8
+  float scale;           // int8: a row's value is its code times scale
   const float* norms;    // (n_lists, max_list)
-  int vec4;              // 16-byte loads of queries and data
+  int vec4;              // 16-byte loads of the queries (and f32 data)
+  int vec_rows;          // 16-byte loads of bf16 / int8 rows
   // IVF-BQ and IVF-PQ lists: residuals against the rotated centres
   const float* centers;  // (n_lists, d) rotated centres
   int center_term;       // fused IP: subtract qsub . centre (R::kCentreTerm)
@@ -241,10 +246,13 @@ __device__ __forceinline__ void put_out(const ListArgs& a, long long at,
 }
 
 // The blocks an SM holds: R's, but one at G = 8 (its 32 candidates a
-// thread do not fit the register budget of two)
+// thread do not fit the register budget of two), and one at G = 4 when R's
+// row slice takes more than 8 registers (Bf16Rows' 16 spilled there)
 template <class R, int G>
 constexpr int list_min_blocks() {
-  return G == 8 ? 1 : R::kMinBlocks;
+  return G == 8 || (G == 4 && sizeof(typename R::RowSlice) > 32)
+             ? 1
+             : R::kMinBlocks;
 }
 
 // G = 0: STRIPE; G = bins / 8 (1 for bins < 8): FOLD (see the note).

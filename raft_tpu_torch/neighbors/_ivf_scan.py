@@ -162,19 +162,22 @@ def merge_candidates(cand_d, cand_i, probes, inv_pos, k: int, sqrt: bool,
 
 def fused_list_search(queries, centers, data, norms, ids, *, k: int,
                       n_probes: int, cap: int, bins: int, sqrt: bool,
-                      kind: str, internal_dtype=torch.float32):
+                      kind: str, internal_dtype=torch.float32,
+                      scale: float = 1.0):
     """List-major IVF-Flat search: coarse probes, probe inversion, then
     the fused scan + top-k kernel (``k <= 256``), or the unfused list
     scan (candidate scores in ``internal_dtype``) and the candidate
-    merge, in f32. Returns (dists, ids), best first; ip scores come
-    back negated (callers postprocess)."""
+    merge, in f32. ``data`` in the index's storage (float32, bfloat16,
+    or int8 dequantized by ``scale``). Returns (dists, ids), best first;
+    ip scores come back negated (callers postprocess)."""
     probes = coarse_probes(queries, centers, n_probes, kind=kind)
     qmap, inv_pos = _invert_probes(probes, centers.shape[0], cap)
     if k <= _scan_op.MAX_K:
         return _scan_op.fused_list_scan(queries, data, norms, ids, probes,
                                         inv_pos, qmap, cap, k, bins=bins,
-                                        sqrt=sqrt, metric=kind)
+                                        sqrt=sqrt, metric=kind, scale=scale)
     bins, _ = _scan_op.resolve_bins(bins, k, ids.shape[1])
     cd, ci = _scan_op.list_scan(queries, data, norms, ids, qmap, bins,
-                                metric=kind, out_dtype=internal_dtype)
+                                metric=kind, out_dtype=internal_dtype,
+                                scale=scale)
     return merge_candidates(cd, ci, probes, inv_pos, k, sqrt, cap=cap)

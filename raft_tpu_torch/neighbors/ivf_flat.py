@@ -16,10 +16,13 @@ chooses (``scan_order``; "auto" picks list-major when ``nq >= 64`` and
   every query's p-th list and a merge into the running top-k (the JAX
   package leaves this route to XLA too).
 
-Ported: float32 storage; metrics L2 (squared and sqrt), InnerProduct and
-Cosine. ``kmeans_kernel_precision`` reaches the k-means trainer. Not
-ported yet (each raises ``NotImplementedError``): bf16/int8 storage,
-``adaptive_centers`` (it acts in ``extend``, which is not ported either).
+List storage (``IndexParams.storage_dtype``): float32, bfloat16 (rows
+rounded to nearest) or int8 (one global ``scale``, codes
+``clip(round(x / scale), -127, 127)``); the norms are those of the stored
+rows. Metrics L2 (squared and sqrt), InnerProduct and Cosine.
+``kmeans_kernel_precision`` reaches the k-means trainer. :func:`extend`
+adds rows with the centres fixed, as the JAX package does whatever
+``adaptive_centers`` says.
 """
 
 from __future__ import annotations
@@ -53,6 +56,11 @@ _SIM_METRICS = (DistanceType.InnerProduct, DistanceType.CosineExpanded)
 
 # rows per block when computing list-row norms at build
 _NORM_ROWS = 1 << 20
+# lists per block when narrowing the list storage
+_QUANT_LISTS = 64
+# the list storages: torch dtype -> IndexParams.storage_dtype
+_STORAGE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                  torch.int8: "int8"}
 
 
 @dataclass
@@ -61,11 +69,13 @@ class IndexParams:
     metric: DistanceType = DistanceType.L2Expanded
     kmeans_n_iters: int = 20
     kmeans_trainset_fraction: float = 0.5
-    # True only matters to extend (not ported)
+    # accepted; extend keeps the centres fixed either way (the JAX
+    # package's behaviour)
     adaptive_centers: bool = False
-    # the trainer's fused L2-NN tier: None / "highest" (f32) only
+    # the trainer's fused L2-NN tier (kernel 1): None, "bf16x3", "bf16",
+    # "highest"
     kmeans_kernel_precision: object = None
-    # only "float32" is ported
+    # list storage: "float32" | "bfloat16" | "int8"
     storage_dtype: str = "float32"
 
 
@@ -88,12 +98,14 @@ class SearchParams:
 
 @dataclass
 class Index:
-    """IVF-Flat index: centres and padded per-list rows, ids, norms."""
+    """IVF-Flat index: centres and padded per-list rows, ids, norms.
+    ``lists_data`` is float32, bfloat16 or int8; ``scale`` dequantizes
+    int8 (a value is its code times ``scale``)."""
 
     centers: torch.Tensor          # (n_lists, dim) f32
-    lists_data: torch.Tensor       # (n_lists, max_list, dim) f32
+    lists_data: torch.Tensor       # (n_lists, max_list, dim) f32|bf16|int8
     lists_indices: torch.Tensor    # (n_lists, max_list) int32, -1 = pad
-    lists_norms: torch.Tensor      # (n_lists, max_list) f32
+    lists_norms: torch.Tensor      # (n_lists, max_list) f32, stored rows
     list_sizes: torch.Tensor       # (n_lists,) int32
     metric: DistanceType
     size: int
@@ -179,7 +191,8 @@ def _bucketize(x: torch.Tensor, labels: torch.Tensor, n_lists: int,
 def build(dataset, params: IndexParams = IndexParams(), res=None,
           device=None) -> Index:
     """Train + populate on ``device`` (default ``cuda``; ``"cpu"`` only
-    when asked). Cosine datasets are row-normalized at build."""
+    when asked), the lists stored as ``params.storage_dtype``. Cosine
+    datasets are row-normalized at build."""
     res = ensure_resources(res, device)
     full_fp32_matmul()
     x = torch.as_tensor(dataset, dtype=torch.float32).to(res.device)
@@ -187,14 +200,8 @@ def build(dataset, params: IndexParams = IndexParams(), res=None,
     expects(params.n_lists <= n, "ivf_flat.build: n_lists > n_samples")
     expects(params.metric in _METRICS, "ivf_flat: unsupported metric %s",
             params.metric)
-    if params.storage_dtype != "float32":
-        raise NotImplementedError(
-            f"ivf_flat.build: storage_dtype={params.storage_dtype!r} is "
-            "not ported yet (float32 only)")
-    if params.adaptive_centers:
-        raise NotImplementedError(
-            "ivf_flat.build: adaptive_centers=True acts in extend, which "
-            "is not ported yet (ROADMAP.md queue 1 item 1)")
+    expects(params.storage_dtype in _STORAGE_NAMES.values(),
+            "ivf_flat: storage_dtype must be float32|bfloat16|int8")
     obs.counter("raft.ivf_flat.build.total").inc()
     obs.counter("raft.ivf_flat.build.rows").inc(n)
     if params.metric == DistanceType.CosineExpanded:
@@ -208,29 +215,139 @@ def build(dataset, params: IndexParams = IndexParams(), res=None,
     del trainset
     labels = kmeans_balanced.predict(x, centers)
     data, ids, norms, counts = _bucketize(x, labels, params.n_lists)
+    del x, labels
+    data, norms, scale = _quantize_lists(data, norms, params.storage_dtype)
     return Index(centers=centers, lists_data=data, lists_indices=ids,
                  lists_norms=norms, list_sizes=counts, metric=params.metric,
-                 size=n, scale=1.0)
+                 size=n, scale=scale)
+
+
+def _quantize_lists(data: torch.Tensor, norms: torch.Tensor,
+                    storage_dtype: str):
+    """Narrow the bucketed f32 rows ``data`` (n_lists, max_list, dim) to
+    ``storage_dtype``, as the JAX package's ``_quantize_lists`` does:
+    ``"bfloat16"`` rounds to nearest; ``"int8"`` takes one global ``scale
+    = max(max|x|, 1e-30) / 127`` (one host sync) and stores
+    ``clip(round(x / scale), -127, 127)``, half to even. Narrow norms are
+    those of the stored rows (rounded, or dequantized ``code * scale``),
+    in f32; ``"float32"`` keeps ``norms``. Returns ``(data, norms,
+    scale)``; works through blocks of lists, so its f32 temporaries stay
+    small."""
+    expects(storage_dtype in _STORAGE_NAMES.values(),
+            "ivf_flat: storage_dtype must be float32|bfloat16|int8")
+    if storage_dtype == "float32":
+        return data, norms, 1.0
+    dev = data.device
+    int8 = storage_dtype == "int8"
+    scale = 1.0
+    if int8:  # max |x| without an |x| temporary
+        max_abs = float(torch.maximum(data.max(), -data.min()))
+        scale = max(max_abs, 1e-30) / 127.0
+    s = torch.tensor(scale, dtype=torch.float32, device=dev)
+    out = torch.empty(data.shape, device=dev,
+                      dtype=torch.int8 if int8 else torch.bfloat16)
+    out_norms = torch.empty(data.shape[:2], dtype=torch.float32, device=dev)
+    for l0 in range(0, data.shape[0], _QUANT_LISTS):
+        blk = data[l0:l0 + _QUANT_LISTS]
+        if int8:
+            q = torch.clamp(torch.round(blk / s), -127, 127).to(torch.int8)
+            deq = q.float() * s
+        else:
+            q = blk.bfloat16()
+            deq = q.float()
+        out[l0:l0 + _QUANT_LISTS] = q
+        out_norms[l0:l0 + _QUANT_LISTS] = (deq * deq).sum(dim=2)
+    return out, out_norms, scale
+
+
+def _dequantize(rows: torch.Tensor, scale: float) -> torch.Tensor:
+    """Stored list rows as f32: int8 codes times ``scale``, bf16 widened."""
+    if rows.dtype == torch.int8:
+        return rows.float() * torch.tensor(scale, dtype=torch.float32,
+                                           device=rows.device)
+    return rows.float()
+
+
+def extend(index: Index, new_vectors, new_indices=None, res=None) -> Index:
+    """A new index holding ``index``'s rows and ``new_vectors`` (ids
+    ``new_indices``, default ``size .. size + n_new``), on the index's
+    device: the JAX package's ``extend``. Cosine rows are normalized; the
+    stored rows are dequantized, every row is assigned again to the fixed
+    centres (``kmeans_balanced.predict``), bucketed and stored again in
+    the index's storage (int8: the scale recomputed over all rows, so old
+    rows' codes can change)."""
+    res = ensure_resources(res, index.device)
+    full_fp32_matmul()
+    dev = index.device
+    x_new = torch.as_tensor(new_vectors, dtype=torch.float32).to(dev)
+    expects(x_new.dim() == 2 and x_new.shape[1] == index.dim,
+            "ivf_flat.extend: dim mismatch")
+    if index.metric == DistanceType.CosineExpanded:
+        x_new = _normalize_rows(x_new)
+    storage = _STORAGE_NAMES[index.lists_data.dtype]
+    valid = (index.lists_indices >= 0).reshape(-1)
+    old = _dequantize(index.lists_data.reshape(-1, index.dim)[valid],
+                      index.scale)
+    old_ids = index.lists_indices.reshape(-1)[valid]
+    n_new = x_new.shape[0]
+    if new_indices is None:
+        new_ids = torch.arange(index.size, index.size + n_new,
+                               dtype=torch.int32, device=dev)
+    else:
+        new_ids = torch.as_tensor(new_indices).to(dev, torch.int32)
+    expects(new_ids.shape == (n_new,),
+            "ivf_flat.extend: %d new ids for %d rows", new_ids.numel(), n_new)
+    all_data = torch.cat([old, x_new])
+    del old, x_new
+    all_ids = torch.cat([old_ids, new_ids])
+    labels = kmeans_balanced.predict(all_data, index.centers)
+    data, ids, norms, counts = _bucketize(all_data, labels, index.n_lists,
+                                          row_ids=all_ids)
+    del all_data, labels
+    data, norms, scale = _quantize_lists(data, norms, storage)
+    return Index(centers=index.centers, lists_data=data, lists_indices=ids,
+                 lists_norms=norms, list_sizes=counts, metric=index.metric,
+                 size=index.size + n_new, scale=scale)
+
+
+def _host_array(a, dtype=None) -> np.ndarray:
+    """``a`` as a contiguous numpy array of ``dtype``, copied if it is
+    read-only (a torch tensor must not share read-only memory)."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    return a if a.flags.writeable else a.copy()
+
+
+def _list_rows(a) -> torch.Tensor:
+    """List rows from a host array: float32 and int8 as they are;
+    bfloat16 given as a torch tensor, or as a numpy array of the JAX
+    package's bfloat16 type (recognised by its dtype name) whose bits are
+    viewed as they are."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = _host_array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def index_from_numpy(arrays: dict, metric, size: int, scale: float = 1.0,
                      device="cuda") -> Index:
-    """An :class:`Index` from numpy arrays (the fields the JAX package's
+    """An :class:`Index` from host arrays (the fields the JAX package's
     ``ivf_flat.Index`` holds: ``centers``, ``lists_data``,
-    ``lists_indices``, ``lists_norms``, ``list_sizes``) on ``device``."""
+    ``lists_indices``, ``lists_norms``, ``list_sizes``) on ``device``.
+    ``lists_data`` is float32, int8 (dequantized by ``scale``) or
+    bfloat16 (see :func:`_list_rows`)."""
     dev = ensure_resources(None, device).device
-    data = np.asarray(arrays["lists_data"])
-    if data.dtype != np.float32:
-        raise NotImplementedError(
-            f"index_from_numpy: list storage {data.dtype} is not ported "
-            "yet (float32 only)")
+    data = _list_rows(arrays["lists_data"])
+    expects(data.dtype in _STORAGE_NAMES,
+            "index_from_numpy: list storage %s is not float32, bfloat16 "
+            "or int8", data.dtype)
 
     def put(name, dtype):
-        return torch.from_numpy(
-            np.ascontiguousarray(arrays[name], dtype=dtype)).to(dev)
+        return torch.from_numpy(_host_array(arrays[name], dtype)).to(dev)
 
     return Index(centers=put("centers", np.float32),
-                 lists_data=put("lists_data", np.float32),
+                 lists_data=data.contiguous().to(dev),
                  lists_indices=put("lists_indices", np.int32),
                  lists_norms=put("lists_norms", np.float32),
                  list_sizes=put("list_sizes", np.int32),
@@ -239,13 +356,24 @@ def index_from_numpy(arrays: dict, metric, size: int, scale: float = 1.0,
 
 
 def _score_probe(queries, qq, lists_data, lists_norms, lists_indices,
-                 list_id, kind: str):
+                 list_id, kind: str, scale: float = 1.0):
     """One probe rank: every query's scores against its ``list_id``
-    list → ((nq, max_list) scores, ids); pads score +inf."""
+    list → ((nq, max_list) scores, ids); pads score +inf. Narrow rows as
+    the JAX package's probe-major route scores them: bf16 rows against
+    the queries rounded to bf16 (exact products, f32 sums: the operands
+    go to f32 first, as a bf16 ``bmm`` would round its sums); int8 rows
+    against the f32 queries at f32, times ``scale`` (these queries are
+    not rounded, unlike the list-major kernels')."""
     lid = list_id.long()
     data = lists_data[lid]                       # (nq, max_list, dim)
     ids = lists_indices[lid]                     # (nq, max_list)
-    ip = torch.bmm(data, queries[:, :, None])[..., 0]
+    if data.dtype == torch.bfloat16:
+        ip = torch.bmm(data.float(),
+                       queries.bfloat16().float()[:, :, None])[..., 0]
+    elif data.dtype == torch.int8:
+        ip = scale * torch.bmm(data.float(), queries[:, :, None])[..., 0]
+    else:
+        ip = torch.bmm(data, queries[:, :, None])[..., 0]
     inf = torch.full_like(ip, float("inf"))
     if kind == "ip":
         return torch.where(ids >= 0, -ip, inf), ids
@@ -254,7 +382,7 @@ def _score_probe(queries, qq, lists_data, lists_norms, lists_indices,
 
 
 def _fine_phase(queries, lists_data, lists_norms, lists_indices, probes,
-                k: int, sqrt: bool, kind: str):
+                k: int, sqrt: bool, kind: str, scale: float = 1.0):
     """Probe-major fine phase: per probe rank, score and merge into the
     running top-k (stable: the state wins ties, as ``lax.top_k`` does)."""
     nq = queries.shape[0]
@@ -264,7 +392,7 @@ def _fine_phase(queries, lists_data, lists_norms, lists_indices, probes,
                         device=queries.device)
     for p in range(probes.shape[1]):
         d, ids = _score_probe(queries, qq, lists_data, lists_norms,
-                              lists_indices, probes[:, p], kind)
+                              lists_indices, probes[:, p], kind, scale)
         cat_d = torch.cat([best_d, d], dim=1)
         cat_i = torch.cat([best_i, ids], dim=1)
         best_d, sel = stable_topk_min(cat_d, k)
@@ -275,24 +403,18 @@ def _fine_phase(queries, lists_data, lists_norms, lists_indices, probes,
 
 
 def _search_impl(queries, centers, lists_data, lists_indices, lists_norms,
-                 k: int, n_probes: int, sqrt: bool, kind: str = "l2"):
+                 k: int, n_probes: int, sqrt: bool, kind: str = "l2",
+                 scale: float = 1.0):
     """Probe-major search: coarse GEMM + top-``n_probes``, fine phase."""
     coarse = _ivf_scan.coarse_scores(queries, centers, kind)
     probes = stable_topk_min(coarse, n_probes)[1]
     return _fine_phase(queries, lists_data, lists_norms, lists_indices,
-                       probes, k, sqrt, kind)
+                       probes, k, sqrt, kind, scale)
 
 
 def _as_queries(index: Index, queries) -> torch.Tensor:
     q = torch.as_tensor(queries, dtype=torch.float32)
     return q.to(index.device).contiguous()
-
-
-def _check_storage(index: Index) -> None:
-    if index.lists_data.dtype != torch.float32:
-        raise NotImplementedError(
-            f"ivf_flat.search: {index.lists_data.dtype} list storage is "
-            "not ported yet (float32 only)")
 
 
 def _check_params(params: SearchParams) -> None:
@@ -320,7 +442,6 @@ def search(index: Index, queries, k: int,
     index's device (``res``, if given, must name it)."""
     ensure_resources(res, index.device)
     full_fp32_matmul()
-    _check_storage(index)
     q = _as_queries(index, queries)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "ivf_flat.search: dim mismatch")
@@ -348,9 +469,10 @@ def search(index: Index, queries, k: int,
             q, index.centers, index.lists_data, index.lists_norms,
             index.lists_indices, k=k, n_probes=n_probes, cap=cap,
             bins=params.scan_bins, sqrt=sqrt, kind=kind,
-            internal_dtype=params.internal_distance_dtype)
+            internal_dtype=params.internal_distance_dtype,
+            scale=index.scale)
     else:
         d, i = _search_impl(q, index.centers, index.lists_data,
                             index.lists_indices, index.lists_norms, k,
-                            n_probes, sqrt, kind=kind)
+                            n_probes, sqrt, kind=kind, scale=index.scale)
     return _postprocess(d, index.metric), i

@@ -166,10 +166,13 @@ class Index:
 
 
 def make_rotation_matrix(dim: int, rot_dim: int, force_random: bool = False,
-                         seed: int = 7, device="cpu") -> torch.Tensor:
-    """(rot_dim, dim): the identity when ``rot_dim == dim`` and not
-    forced, else the orthogonal factor of the QR of ``g.T g + 1e-4 I``
-    for a numpy-seeded gaussian ``g`` (rows beyond ``dim`` are zero)."""
+                         seed: int = 7, device=None) -> torch.Tensor:
+    """(rot_dim, dim) on ``device`` (default ``cuda``, through
+    ``ensure_resources``; ``"cpu"`` only when asked): the identity when
+    ``rot_dim == dim`` and not forced, else the orthogonal factor of the
+    QR of ``g.T g + 1e-4 I`` for a numpy-seeded gaussian ``g`` (rows
+    beyond ``dim`` are zero)."""
+    device = ensure_resources(None, device).device
     if rot_dim == dim and not force_random:
         return torch.eye(dim, dtype=torch.float32, device=device)
     g = np.random.default_rng(seed).standard_normal(

@@ -79,7 +79,6 @@ class SearchPlan:
 def _flat_builder(index, k: int, params):
     """``make(nq, cap) -> (fn, key_bits)`` for an IVF-Flat index. ``fn``
     holds the index's arrays, not the index (see ``ivf_pq._Route``)."""
-    ivf_flat._check_storage(index)
     ivf_flat._check_params(params)
     n_probes = min(params.n_probes, index.n_lists)
     metric = index.metric
@@ -88,7 +87,7 @@ def _flat_builder(index, k: int, params):
     cosine = metric == DistanceType.CosineExpanded
     n_lists = index.n_lists
     centers, data = index.centers, index.lists_data
-    norms, ids = index.lists_norms, index.lists_indices
+    norms, ids, scale = index.lists_norms, index.lists_indices, index.scale
 
     def make(nq: int, cap: int):
         use_list = ivf_flat.use_list_order(params, nq, n_probes, n_lists)
@@ -103,10 +102,12 @@ def _flat_builder(index, k: int, params):
                 d, i = _ivf_scan.fused_list_search(
                     q, centers, data, norms, ids, k=k, n_probes=n_probes,
                     cap=cap, bins=params.scan_bins, sqrt=sqrt, kind=kind,
-                    internal_dtype=params.internal_distance_dtype)
+                    internal_dtype=params.internal_distance_dtype,
+                    scale=scale)
             else:
                 d, i = ivf_flat._search_impl(q, centers, data, ids, norms,
-                                             k, n_probes, sqrt, kind=kind)
+                                             k, n_probes, sqrt, kind=kind,
+                                             scale=scale)
             return ivf_flat._postprocess(d, metric), i
 
         return fn, ("list" if use_list else "probe", params.scan_bins,

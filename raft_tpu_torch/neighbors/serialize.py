@@ -7,7 +7,11 @@ packages: a numpy ``.npz`` whose ``__meta__`` entry is a JSON object
 scale``; IVF-PQ: ``metric, size, pq_bits, codebook_kind, has_raw``;
 IVF-BQ: ``metric, size, has_raw``; the metric as its ``DistanceType``
 integer) beside one array per index field. IVF-BQ bits are stored as
-uint32, as the JAX package holds them.
+uint32, as the JAX package holds them. numpy has no bfloat16, so a
+bfloat16 field (IVF-Flat's bf16 list rows) is stored as its uint16 bit
+patterns and named in ``bf16_fields``, as the JAX package stores it, and
+loaded as a ``torch.bfloat16`` tensor; int8 rows are stored as int8, their
+``scale`` in the meta.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from raft_tpu_torch.core.error import expects
 
@@ -29,9 +34,21 @@ _BQ_FIELDS = ("centers", "centers_rot", "rotation_matrix", "bits", "norms2",
 
 
 def _pack(path: str, fmt: str, meta: dict, arrays: dict) -> None:
-    meta = dict(meta, format=fmt, version=_VERSION, bf16_fields=[])
+    """Write ``arrays`` (numpy arrays or torch tensors) and ``meta``;
+    bfloat16 tensors as uint16 bit patterns named in ``bf16_fields``."""
+    out, bf16_fields = {}, []
+    for name, a in arrays.items():
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu()
+            if a.dtype == torch.bfloat16:
+                a = a.view(torch.int16).numpy().view(np.uint16)
+                bf16_fields.append(name)
+            else:
+                a = a.numpy()
+        out[name] = a
+    meta = dict(meta, format=fmt, version=_VERSION, bf16_fields=bf16_fields)
     np.savez(path, __meta__=np.frombuffer(json.dumps(meta).encode(),
-                                          dtype=np.uint8), **arrays)
+                                          dtype=np.uint8), **out)
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         os.replace(path + ".npz", path)
 
@@ -44,10 +61,12 @@ def _unpack(path: str, fmt: str, fields):
                 meta.get("format"), fmt)
         expects(meta.get("version") == _VERSION,
                 "serialize: unsupported version %s", meta.get("version"))
-        if meta.get("bf16_fields"):
-            raise NotImplementedError(
-                f"load_{fmt}: bfloat16 fields are not ported yet")
         arrays = {f: z[f] for f in fields if f in z.files}
+    for f in meta.get("bf16_fields") or ():
+        if f in arrays:  # uint16 bit patterns -> torch.bfloat16
+            arrays[f] = torch.from_numpy(
+                np.ascontiguousarray(arrays[f]).view(np.int16)).view(
+                    torch.bfloat16)
     return meta, arrays
 
 
@@ -57,16 +76,17 @@ def _host(t) -> np.ndarray:
 
 def save_ivf_flat(index, path: str) -> None:
     """Write an IVF-Flat :class:`~raft_tpu_torch.neighbors.ivf_flat.Index`
-    to ``path`` (exactly that path, even without ``.npz``)."""
+    to ``path`` (exactly that path, even without ``.npz``), in its list
+    storage."""
     _pack(path, "ivf_flat",
           {"metric": int(index.metric), "size": int(index.size),
            "scale": float(index.scale)},
-          {f: _host(getattr(index, f)) for f in _FIELDS})
+          {f: getattr(index, f) for f in _FIELDS})
 
 
 def load_ivf_flat(path: str, device="cuda"):
     """Read an IVF-Flat index written by either package onto ``device``
-    (default ``cuda``). bf16/int8 storage is not ported yet."""
+    (default ``cuda``), in the list storage it was saved in."""
     from raft_tpu_torch.neighbors.ivf_flat import index_from_numpy
     meta, arrays = _unpack(path, "ivf_flat", _FIELDS)
     return index_from_numpy(arrays, meta["metric"], meta["size"],

@@ -10,7 +10,11 @@ KERNEL_COUNTERS = {
     "select_k": ("select_k", "launches"),
     "select_k_payload": ("select_k", "launches_payload"),
     "ivf_scan": ("ivf_scan", "launches"),
+    "ivf_scan_bf16": ("ivf_scan", "launches_bf16"),
+    "ivf_scan_int8": ("ivf_scan", "launches_int8"),
     "ivf_list_scan": ("ivf_scan", "launches_list"),
+    "ivf_list_scan_bf16": ("ivf_scan", "launches_list_bf16"),
+    "ivf_list_scan_int8": ("ivf_scan", "launches_list_int8"),
     "ivf_pq_scan": ("ivf_pq_scan", "launches"),
     "ivf_pq_scan_fused": ("ivf_pq_scan", "launches_fused"),
     "ivf_pq_scan_f32": ("ivf_pq_scan", "launches_f32"),
@@ -20,6 +24,7 @@ KERNEL_COUNTERS = {
     "fused_knn": ("fused_knn", "launches"),
     "fused_knn_f32": ("fused_knn", "launches_f32"),
     "fused_knn_ktiled": ("fused_knn", "launches_ktiled"),
+    "fused_knn_ktiled_f32": ("fused_knn", "launches_ktiled_f32"),
     "elementwise_dist": ("elementwise_dist", "launches"),
 }
 

@@ -3,13 +3,13 @@ version and the tile geometry.
 
 Kernels (replacing the JAX package's Pallas ``_knn_kernel``, kernel 5,
 and ``_knn_kernel_ktiled``, kernel 6, the latter launched for d > 4096):
-``csrc/fused_knn_tc.cu``, kernel 5's pass A on the tensor cores (bf16x3,
-the TPU kernel's arithmetic and the card's default, or one bf16 pass);
-``csrc/fused_knn.cu``, kernel 5's f32 body (``"highest"``), kernel 6, the
-row norms and pass B. :func:`fused_knn` picks the JAX package's geometry
-(:func:`geometry`) and dispatches on the device of its inputs: CPU
-tensors take :func:`fused_knn_plain`, CUDA tensors launch the kernels
-(or raise).
+``csrc/fused_knn_tc.cu``, the pass A of both on the tensor cores (bf16x3,
+the TPU kernels' arithmetic and the card's default, or one bf16 pass;
+kernel 6 streams the queries with the rows); ``csrc/fused_knn.cu``, both
+kernels' f32 bodies (``"highest"``), the row norms and pass B.
+:func:`fused_knn` picks the JAX package's geometry (:func:`geometry`)
+and dispatches on the device of its inputs: CPU tensors take
+:func:`fused_knn_plain`, CUDA tensors launch the kernels (or raise).
 
 The result is the JAX kernel's: each db tile of ``tn`` rows is cut into
 ``l_bins`` contiguous bins, each bin contributes its minimum (lowest row
@@ -37,10 +37,11 @@ KT = 2048
 
 # launches of the CUDA kernels since the last reset (plain integers):
 # kernel 5 on the tensor cores (bf16x3, bf16), kernel 5's f32 body
-# ("highest") and the K-staged kernel 6
+# ("highest"), kernel 6 (d > 4096) on the tensor cores and its f32 body
 launches = 0
 launches_f32 = 0
 launches_ktiled = 0
+launches_ktiled_f32 = 0
 
 # candidates (queries x bins) per kernel launch: bounds the pass-A buffer
 _MAX_CAND_ELEMS = 1 << 28
@@ -143,11 +144,11 @@ def fused_knn_plain(x: torch.Tensor, y: torch.Tensor, k: int,
 _NORMS = _build.Entry("fused_knn", "raft_fused_knn_norms",
                       [PTR, I64, INT, PTR, PTR])
 _BINS = _build.Entry("fused_knn", "raft_fused_knn_bins",
-                     [PTR] * 4 + [INT] * 8 + [I64] + [PTR] * 3)
+                     [PTR] * 4 + [INT] * 7 + [I64] + [PTR] * 3)
 _TOPK = _build.Entry("fused_knn", "raft_fused_knn_topk",
                      [PTR] * 2 + [INT, I64] + [INT] * 2 + [PTR] * 3)
 _BINS_TC = _build.Entry("fused_knn_tc", "raft_fused_knn_bins_tc",
-                        [PTR] * 4 + [INT] * 7 + [I64] + [PTR] * 3)
+                        [PTR] * 4 + [INT] * 8 + [I64] + [PTR] * 3)
 
 
 def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
@@ -155,12 +156,14 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
                    l_bins: int = 64, kt: int = 0, precision: str = "f32"):
     """Launch pass A and pass B on contiguous float32 CUDA tensors, one
     launch of each per chunk of queries (the candidate buffer stays under
-    2^28 entries). Pass A: kernel 5 on the tensor cores
+    2^28 entries). Pass A: on the tensor cores
     (``csrc/fused_knn_tc.cu``) for ``precision`` ``"bf16x3"`` (3 passes)
-    or ``"bf16"`` (1 pass); kernel 5's f32 body (``csrc/fused_knn.cu``)
-    for ``"f32"``; kernel 6 when ``0 < kt < dim``, in f32 or, for
-    ``"bf16"``, on bf16-rounded operands (it has no bf16x3 body)."""
-    global launches, launches_f32, launches_ktiled
+    or ``"bf16"`` (1 pass), the f32 body (``csrc/fused_knn.cu``) for
+    ``"f32"``; kernel 6 when ``0 < kt < dim`` (each ``kt``-feature
+    slice's products summed on their own, then added in f32, as the TPU
+    kernel's scratch; its f32 body accumulates the row norms itself),
+    else kernel 5."""
+    global launches, launches_f32, launches_ktiled, launches_ktiled_f32
     check_cuda_tensor("fused_knn x", x, torch.float32, 2)
     check_cuda_tensor("fused_knn y", y, torch.float32, 2)
     m, dim = x.shape
@@ -171,18 +174,17 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
         raise ValueError(f"fused_knn: bad metric {metric!r}, n={n}, "
                          f"tn={tn} or l_bins={l_bins}")
     ktiled = 0 < kt < dim
-    if precision not in PRECISIONS or (ktiled and precision == "bf16x3"):
-        raise ValueError(f"fused_knn: precision {precision!r} "
-                         f"{'at d > 4096 ' if ktiled else ''}(want "
-                         f"{'f32|bf16' if ktiled else '|'.join(PRECISIONS)})")
-    tc = not ktiled and precision != "f32"
+    if precision not in PRECISIONS:
+        raise ValueError(f"fused_knn: precision {precision!r} (want "
+                         f"{'|'.join(PRECISIONS)})")
+    tc = precision != "f32"
     b = tn // l_bins
     nb = -(-n // b)
     dev = x.device
     stream = _build.stream_handle(dev)
     xx = yy = None
     with torch.cuda.device(dev):
-        if metric == "l2" and not ktiled:
+        if metric == "l2" and (tc or not ktiled):
             xx = torch.empty(m, dtype=torch.float32, device=dev)
             yy = torch.empty(n, dtype=torch.float32, device=dev)
             _build.check(_NORMS(x.data_ptr(), m, dim, xx.data_ptr(),
@@ -201,19 +203,21 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
             if tc:
                 rc = _BINS_TC(x[s].data_ptr(), y.data_ptr(), *norm_ptrs,
                               rows, n, dim, tn, b, int(metric == "ip"),
-                              3 if precision == "bf16x3" else 1, nb,
-                              cand_d.data_ptr(), cand_i.data_ptr(), stream)
+                              3 if precision == "bf16x3" else 1,
+                              kt if ktiled else 0, nb, cand_d.data_ptr(),
+                              cand_i.data_ptr(), stream)
             else:
                 rc = _BINS(x[s].data_ptr(), y.data_ptr(), *norm_ptrs,
                            rows, n, dim, tn, b, int(ktiled),
-                           int(metric == "ip"), int(precision == "bf16"),
-                           nb, cand_d.data_ptr(), cand_i.data_ptr(),
-                           stream)
+                           int(metric == "ip"), nb, cand_d.data_ptr(),
+                           cand_i.data_ptr(), stream)
             _build.check(rc, "fused_knn")
-            if tc:
-                launches += 1
-            elif ktiled:
+            if ktiled and tc:
                 launches_ktiled += 1
+            elif ktiled:
+                launches_ktiled_f32 += 1
+            elif tc:
+                launches += 1
             else:
                 launches_f32 += 1
             do_sqrt = bool(sqrt) and metric == "l2"
@@ -237,8 +241,6 @@ def _fused_knn_call(x: torch.Tensor, y: torch.Tensor, k: int, metric: str,
     queries on the TPU and changes no result)."""
     del tm
     precision = resolve_precision(kernel_precision, x.is_cuda)
-    if 0 < kt < x.shape[1] and precision == "bf16x3":
-        precision = "f32"  # kernel 6 keeps its f32 body
     if x.is_cuda:
         return fused_knn_cuda(x.float().contiguous(), y.float().contiguous(),
                               int(k), metric, bool(sqrt), int(tn),
@@ -257,8 +259,7 @@ def fused_knn(x: torch.Tensor, y: torch.Tensor, k: int, metric: str = "l2",
     the per-tile candidates; ``l_bins == tn`` is exact.
     ``kernel_precision`` (:func:`resolve_precision`): ``None`` (bf16x3
     on the card, f32 on the CPU) | ``"bf16x3"`` | ``"bf16"`` (operands
-    rounded to bf16) | ``"highest"`` (f32); above d = 4096 (kernel 6)
-    bf16x3 computes in f32."""
+    rounded to bf16) | ``"highest"`` (f32), at every d."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"fused_knn: metric={metric!r}: want l2|ip")
     m, dim = x.shape

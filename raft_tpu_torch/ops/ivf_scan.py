@@ -2,8 +2,11 @@
 versions.
 
 Kernels: ``csrc/ivf_flat_scan.cu``, one list-major pass A on the tensor
-cores (bf16x3 products, the TPU kernel's arithmetic) behind both entry
-points. :func:`fused_list_scan` replaces the JAX package's Pallas
+cores behind both entry points, in the list storage of the index: f32
+rows at bf16x3 (the TPU kernel's arithmetic), bf16 rows and int8 rows
+(with the index's ``scale``) at one bf16 pass against the queries rounded
+to bf16, as the TPU kernel's ``_flat_list_candidates`` computes them.
+:func:`fused_list_scan` replaces the JAX package's Pallas
 ``_fused_list_scan_kernel``: per query, the k smallest binned candidates
 under the key (score, list id, bin index) — see the kernel's source
 note; pass A writes each query's candidates in (list id, bin) order and
@@ -15,10 +18,10 @@ per (list, table slot), the slot's query's binned candidates, written
 as (n_lists, cap, bins) blocks for
 ``neighbors._ivf_scan.merge_candidates`` (k > 256). Each dispatches on
 the device of its inputs: CPU tensors take the plain version, CUDA
-tensors launch the kernel (or raise). The plain versions take the
-products' ``precision``: ``"f32"`` (the CPU's, as the JAX package's
+tensors launch the kernel (or raise). The plain versions take the f32
+rows' ``precision``: ``"f32"`` (the CPU's, as the JAX package's
 interpret mode) or ``"bf16x3"`` (the kernel's, for comparing on the
-card).
+card); bf16 and int8 rows have one arithmetic on both devices.
 """
 
 from __future__ import annotations
@@ -26,15 +29,22 @@ from __future__ import annotations
 import torch
 
 from raft_tpu_torch.ops import _build
-from raft_tpu_torch.ops._build import INT, PTR
+from raft_tpu_torch.ops._build import F32, INT, PTR
 from raft_tpu_torch.ops._util import check_cuda_tensor, dot_nt, round_up
 
 MAX_K = 256
 
-# launches of the CUDA kernels since the last reset (plain integers):
-# the fused scan, the unfused list scan
+# launches of the CUDA kernels since the last reset (plain integers), by
+# list storage: the fused scan (kernel 3) and the unfused list scan
+# (kernel 4) on f32 rows (FlatRows), bf16 rows (Bf16Rows), int8 rows
+# (Int8Rows)
 launches = 0
+launches_bf16 = 0
+launches_int8 = 0
 launches_list = 0
+launches_list_bf16 = 0
+launches_list_int8 = 0
+_COUNTER_SUFFIX = ("", "_bf16", "_int8")
 
 # element budget of one (lists, cap, rows) score block of the plain version
 _PLAIN_BLOCK = 1 << 24
@@ -42,13 +52,25 @@ _PLAIN_BLOCK = 1 << 24
 # (csrc/ivf_flat_scan.cu kMaxCand)
 _MAX_CAND = 1 << 28
 
+# list storages: the kernels' storage codes (csrc/ivf_flat_scan.cu Storage)
+STORAGES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _count(counter: str, storage: int) -> None:
+    """One launch of ``counter`` (``"launches"`` or ``"launches_list"``)
+    on rows of ``storage``."""
+    name = counter + _COUNTER_SUFFIX[storage]
+    globals()[name] += 1
+
+
 _FUSED_SCAN = _build.Entry(
     "ivf_flat_scan", "raft_ivf_flat_scan",
-    [PTR, INT, PTR, INT, INT, PTR] + [INT] * 3 + [PTR] * 3 + [INT] * 6
-    + [PTR] * 6)
+    [PTR, INT, PTR, INT, INT, PTR] + [INT] * 3 + [PTR, INT, F32, PTR, PTR]
+    + [INT] * 7 + [PTR] * 6)
 _LIST_SCAN = _build.Entry(
     "ivf_flat_scan", "raft_ivf_list_scan",
-    [PTR, INT, PTR, INT, INT] + [PTR] * 3 + [INT] * 5 + [PTR] * 4)
+    [PTR, INT, PTR, INT, INT, PTR, INT, F32, PTR, PTR] + [INT] * 6
+    + [PTR] * 4)
 
 
 def resolve_bins(bins: int, k: int, max_list: int):
@@ -63,21 +85,29 @@ def resolve_bins(bins: int, k: int, max_list: int):
 
 
 def _list_scores(queries, data, norms, qm, l0: int, metric: str,
-                 precision: str = "f32"):
+                 precision: str = "f32", scale: float = 1.0):
     """(c, cap, ML) scores of the lists [l0, l0 + c) against the queries
-    ``qm`` (c, cap) names: L2 ``max((norm + |q|^2) - 2 q.x, 0)`` or IP
-    ``-q.x``, the products at ``precision`` (``"f32"`` or ``"bf16x3"``),
-    the norms those of the unrounded rows."""
+    ``qm`` (c, cap) names: L2 ``max((norm + |q|^2) - 2 ip, 0)`` or IP
+    ``-ip``, |q|^2 from the f32 queries and the norms the caller's. ``ip``:
+    f32 rows at ``precision`` (``"f32"`` or ``"bf16x3"``); bf16 rows
+    against the queries rounded to bf16; int8 rows likewise, times
+    ``scale`` (``_flat_list_candidates``' branches; the products are
+    exact, the sums f32)."""
     from raft_tpu_torch.neighbors._ivf_scan import gather_query_rows
-    l1 = l0 + qm.shape[0]
-    qsub = gather_query_rows(queries, qm)                # (c, cap, d)
-    if precision == "f32":
-        ip = torch.einsum("gcd,gld->gcl", qsub, data[l0:l1].float())
-    elif precision == "bf16x3":
-        ip = dot_nt(qsub, data[l0:l1].float(), precision)
-    else:
+    if precision not in ("f32", "bf16x3"):
         raise ValueError(f"ivf_flat_scan: precision {precision!r} "
                          "(want f32|bf16x3)")
+    l1 = l0 + qm.shape[0]
+    qsub = gather_query_rows(queries, qm)                # (c, cap, d)
+    y = data[l0:l1]
+    if y.dtype == torch.float32 and precision == "bf16x3":
+        ip = dot_nt(qsub, y, precision)
+    elif y.dtype == torch.float32:
+        ip = torch.einsum("gcd,gld->gcl", qsub, y)
+    else:
+        ip = torch.einsum("gcd,gld->gcl", qsub.bfloat16().float(), y.float())
+        if y.dtype == torch.int8:
+            ip = scale * ip
     if metric == "ip":
         return -ip
     qq = (qsub * qsub).sum(dim=2)
@@ -87,7 +117,8 @@ def _list_scores(queries, data, norms, qm, l0: int, metric: str,
 
 def fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
                           qmap, cap: int, k: int, bins: int, sqrt: bool,
-                          metric: str, precision: str = "f32"):
+                          metric: str, precision: str = "f32",
+                          scale: float = 1.0):
     """Plain PyTorch version (list-major, chunked over lists so the
     (lists, cap, rows) score block stays bounded on the card)."""
     nq = queries.shape[0]
@@ -102,7 +133,8 @@ def fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
         qm = qmap[l0:l1]                                 # (c, cap)
         if not bool((qm >= 0).any()):
             continue
-        sc = _list_scores(queries, data, norms, qm, l0, metric, precision)
+        sc = _list_scores(queries, data, norms, qm, l0, metric, precision,
+                          scale)
         cd, ci = bin_rows(sc, ids[l0:l1], bins, mlp)
         best_d, best_i = merge_lists_into_state(best_d, best_i, cd, ci, qm)
     return finish_state(best_d, best_i, sqrt)
@@ -191,15 +223,39 @@ def candidate_rows(cd, ci, probes, inv_pos, cap: int):
             rows_i.reshape(nq, -1).to(torch.int32).contiguous())
 
 
+def _check_data(name: str, data) -> int:
+    """The storage code of list rows ``data``; raises unless they are a
+    contiguous rank-3 CUDA tensor of float32, bfloat16 or int8."""
+    if data.dtype not in STORAGES:
+        raise TypeError(f"{name}: list storage {data.dtype} is not "
+                        "float32, bfloat16 or int8")
+    check_cuda_tensor(name, data, data.dtype, 3)
+    return STORAGES[data.dtype]
+
+
+def _vec_flags(queries, data):
+    """``(vec4, vec_rows)``: 16-byte loads of the queries (with f32 rows,
+    of the rows too: ``FlatRows`` reads one flag), and of bf16 or int8
+    rows (8 or 16 features a load): ``d`` a multiple of the features a
+    load carries and 16-byte aligned bases."""
+    d = queries.shape[1]
+    q_ok = d % 4 == 0 and queries.data_ptr() % 16 == 0
+    rows_ok = (d % (16 // data.element_size()) == 0
+               and data.data_ptr() % 16 == 0)
+    if data.dtype == torch.float32:
+        return int(q_ok and rows_ok), 0
+    return int(q_ok), int(rows_ok)
+
+
 def fused_list_scan_cuda(queries, data, norms, ids, probes, inv_pos, qmap,
                          cap: int, k: int, bins: int, sqrt: bool,
-                         metric: str):
+                         metric: str, scale: float = 1.0):
     """Launch kernel 3 (all tensors contiguous, on one card): pass A over
     (list, query tile) blocks into per-query candidate rows, then the
-    top-k pass; queries in chunks of at most ``_MAX_CAND`` candidates."""
-    global launches
+    top-k pass; queries in chunks of at most ``_MAX_CAND`` candidates.
+    ``data`` float32, bfloat16 or int8 (dequantized by ``scale``)."""
     check_cuda_tensor("ivf_flat_scan queries", queries, torch.float32, 2)
-    check_cuda_tensor("ivf_flat_scan data", data, torch.float32, 3)
+    storage = _check_data("ivf_flat_scan data", data)
     check_cuda_tensor("ivf_flat_scan norms", norms, torch.float32, 2)
     check_cuda_tensor("ivf_flat_scan ids", ids, torch.int32, 2)
     check_cuda_tensor("ivf_flat_scan qmap", qmap, torch.int32, 2)
@@ -223,49 +279,47 @@ def fused_list_scan_cuda(queries, data, norms, ids, probes, inv_pos, qmap,
     cand_i = torch.empty((min(nq, step), ncols), dtype=torch.int32,
                          device=dev)
     lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
+    vec4, vec_rows = _vec_flags(queries, data)
     with torch.cuda.device(dev):
         for q0 in range(0, nq, step):
             rc = _FUSED_SCAN(
                 queries.data_ptr(), d, qmap.data_ptr(), n_lists, cap,
                 kp.data_ptr(), n_probes, q0, min(nq, q0 + step),
-                data.data_ptr(), norms.data_ptr(), ids.data_ptr(), max_list,
-                bins, k, int(metric == "ip"), int(bool(sqrt)),
-                int(_vec4(queries, data)), cand_d.data_ptr(),
+                data.data_ptr(), storage, float(scale), norms.data_ptr(),
+                ids.data_ptr(), max_list, bins, k, int(metric == "ip"),
+                int(bool(sqrt)), vec4, vec_rows, cand_d.data_ptr(),
                 cand_i.data_ptr(), lists.data_ptr(), out_d.data_ptr(),
                 out_i.data_ptr(), _build.stream_handle(dev))
             _build.check(rc, "ivf_flat_scan")
-            launches += 1
+            _count("launches", storage)
     return out_d, out_i
-
-
-def _vec4(queries, data) -> bool:
-    """16-byte loads of the rows: d % 4 == 0 and aligned bases."""
-    return (queries.shape[1] % 4 == 0 and queries.data_ptr() % 16 == 0
-            and data.data_ptr() % 16 == 0)
 
 
 def fused_list_scan(queries, data, norms, ids, probes, inv_pos, qmap,
                     cap: int, k: int, bins: int = 0, sqrt: bool = False,
-                    metric: str = "l2"):
+                    metric: str = "l2", scale: float = 1.0):
     """IVF-Flat fine phase → ``(dists (nq, k), ids (nq, k))``, best first.
 
     ``probes`` (nq, n_probes) list ids with ``inv_pos`` (nq, n_probes)
     their slots in the inverted table ``qmap`` (n_lists, cap) (see
     ``neighbors._ivf_scan._invert_probes``); pairs with ``inv_pos >=
     cap`` are dropped. ``metric`` "l2" (squared, ``sqrt`` optional) or
-    "ip" (negated similarities). ``bins``: see :func:`resolve_bins`."""
+    "ip" (negated similarities). ``bins``: see :func:`resolve_bins`.
+    ``data`` float32, bfloat16 or int8 rows (int8 values ``code *
+    scale``), ``norms`` those of the stored rows."""
     if queries.is_cuda:
         return fused_list_scan_cuda(
             queries.contiguous(), data.contiguous(), norms.contiguous(),
             ids.contiguous(), probes, inv_pos, qmap.contiguous(), cap, k,
-            bins, sqrt, metric)
+            bins, sqrt, metric, scale)
     return fused_list_scan_plain(queries, data, norms, ids, probes, inv_pos,
-                                 qmap, cap, k, bins, sqrt, metric)
+                                 qmap, cap, k, bins, sqrt, metric,
+                                 scale=scale)
 
 
 def list_scan_plain(queries, data, norms, ids, qmap, bins: int,
                     metric: str, out_dtype=torch.float32,
-                    precision: str = "f32"):
+                    precision: str = "f32", scale: float = 1.0):
     """Plain version of :func:`list_scan` (chunked over lists)."""
     n_lists, max_list = ids.shape
     cap = qmap.shape[1]
@@ -280,7 +334,8 @@ def list_scan_plain(queries, data, norms, ids, qmap, bins: int,
         qm = qmap[l0:l0 + chunk]
         if not bool((qm >= 0).any()):
             continue
-        sc = _list_scores(queries, data, norms, qm, l0, metric, precision)
+        sc = _list_scores(queries, data, norms, qm, l0, metric, precision,
+                          scale)
         cd, ci = bin_rows(sc, ids[l0:l0 + chunk], bins, mlp)
         empty = (qm < 0)[:, :, None]
         out_d[l0:l0 + chunk] = torch.where(
@@ -291,12 +346,12 @@ def list_scan_plain(queries, data, norms, ids, qmap, bins: int,
 
 
 def list_scan_cuda(queries, data, norms, ids, qmap, bins: int, metric: str,
-                   out_dtype=torch.float32):
+                   out_dtype=torch.float32, scale: float = 1.0):
     """Launch kernel 4: pass A alone, one block per (list, tile of up to
-    64 table slots), writing the blocks."""
-    global launches_list
+    64 table slots), writing the blocks. ``data`` as for
+    :func:`fused_list_scan_cuda`."""
     check_cuda_tensor("ivf_list_scan queries", queries, torch.float32, 2)
-    check_cuda_tensor("ivf_list_scan data", data, torch.float32, 3)
+    storage = _check_data("ivf_list_scan data", data)
     check_cuda_tensor("ivf_list_scan norms", norms, torch.float32, 2)
     check_cuda_tensor("ivf_list_scan ids", ids, torch.int32, 2)
     check_cuda_tensor("ivf_list_scan qmap", qmap, torch.int32, 2)
@@ -313,30 +368,34 @@ def list_scan_cuda(queries, data, norms, ids, qmap, bins: int, metric: str,
     out_d = torch.empty((n_lists, cap, bins), dtype=out_dtype, device=dev)
     out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
     lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
+    vec4, vec_rows = _vec_flags(queries, data)
     with torch.cuda.device(dev):
         rc = _LIST_SCAN(queries.data_ptr(), d, qmap.data_ptr(), n_lists, cap,
-                        data.data_ptr(), norms.data_ptr(), ids.data_ptr(),
-                        max_list, bins, int(metric == "ip"),
-                        int(_vec4(queries, data)),
+                        data.data_ptr(), storage, float(scale),
+                        norms.data_ptr(), ids.data_ptr(), max_list, bins,
+                        int(metric == "ip"), vec4, vec_rows,
                         int(out_dtype == torch.bfloat16), out_d.data_ptr(),
                         out_i.data_ptr(), lists.data_ptr(),
                         _build.stream_handle(dev))
     _build.check(rc, "ivf_list_scan")
-    launches_list += 1
+    _count("launches_list", storage)
     return out_d, out_i
 
 
 def list_scan(queries, data, norms, ids, qmap, bins: int,
-              metric: str = "l2", out_dtype=torch.float32):
+              metric: str = "l2", out_dtype=torch.float32,
+              scale: float = 1.0):
     """Kernel 4: binned candidates of every (list, table slot) pair →
     ``(cd, ci)`` (n_lists, cap, bins), cap-major; an empty slot (qmap
     -1) is all (+inf, -1). ``bins`` >= 1 (resolved, see
     :func:`resolve_bins`) divides the bins-padded list length.
     ``out_dtype`` bfloat16 rounds the scores to nearest
-    (``internal_distance_dtype``). IP scores come back negated."""
+    (``internal_distance_dtype``). IP scores come back negated. ``data``
+    and ``scale`` as for :func:`fused_list_scan`."""
     if queries.is_cuda:
         return list_scan_cuda(queries.contiguous(), data.contiguous(),
                               norms.contiguous(), ids.contiguous(),
-                              qmap.contiguous(), bins, metric, out_dtype)
+                              qmap.contiguous(), bins, metric, out_dtype,
+                              scale)
     return list_scan_plain(queries, data, norms, ids, qmap, bins, metric,
-                           out_dtype)
+                           out_dtype, scale=scale)

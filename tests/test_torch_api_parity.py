@@ -177,13 +177,10 @@ def _x(n=256, d=8):
 
 
 def _unimplemented():
-    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq, selection
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_pq, selection
     from raft_tpu_torch.serve.types import ServeConfig
     x = _x()
     return {
-        "ivf_flat.adaptive_centers": lambda: ivf_flat.build(
-            x, ivf_flat.IndexParams(n_lists=4, adaptive_centers=True),
-            device="cpu"),
         "ivf_pq.extend": lambda: ivf_pq.extend(None, x, res=None),
         "ivf_bq.extend": lambda: ivf_bq.extend(None, x, res=None),
         "select_k@approx": lambda: selection.select_k(
@@ -214,6 +211,22 @@ def test_f32_kernel_precision_is_honoured():
         kv = fused_l2_nn(x, x[:16], kernel_precision=prec)
         assert torch.equal(kv.key, base.key)
         assert torch.equal(kv.value, base.value)
+
+
+def test_adaptive_centers_builds_the_same_index():
+    """``adaptive_centers=True`` is accepted and, as in the JAX package,
+    changes nothing: build and extend keep the centres fixed."""
+    from raft_tpu_torch.neighbors import ivf_flat
+    x = _x(512, 8)
+    idx = {a: ivf_flat.build(x, ivf_flat.IndexParams(
+        n_lists=8, kmeans_n_iters=2, adaptive_centers=a), device="cpu")
+        for a in (False, True)}
+    for f in ("centers", "lists_data", "lists_indices", "lists_norms",
+              "list_sizes"):
+        assert torch.equal(getattr(idx[True], f), getattr(idx[False], f))
+    grown = ivf_flat.extend(idx[True], _x(64, 8) + 1.0)
+    assert torch.equal(grown.centers, idx[True].centers)
+    assert grown.size == 576
 
 
 def test_res_is_honoured():

@@ -104,6 +104,35 @@ def test_ktiled_route_matches_jax():
                 x, y)
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ktiled_bf16x3_matches_jax(monkeypatch, metric):
+    """Kernel 6's arithmetic: at d = 4160 (KT slices of 2048, 2048, 64)
+    and ``kernel_precision="bf16x3"``, the port's plain k-tiled product
+    (three products of the hi/lo splits per slice, summed in f32) against
+    the JAX package's ``_knn_kernel_ktiled`` taking the same bf16x3 split
+    (interpret mode computes f32 whatever is asked, so its precision is
+    pinned to the TPU's bf16x3 here). Tolerance: ids identical, distances
+    within 1e-5 of |x|^2 + |y|^2 (exact products summed in another
+    order)."""
+    import raft_tpu.ops.pallas_fused_knn as pfk
+    monkeypatch.setattr(pfk, "resolve_kernel_mode",
+                        lambda name, interpret=False: "bf16x3")
+    x, y = _normal((12, 4160), 24), _normal((1100, 4160), 25)
+    assert op.geometry(12, 1100, 4160, 8)[3] == 2048
+    want = fused_knn_pallas(x, y, 8, metric=metric,
+                            kernel_precision="bf16x3")
+    got = op.fused_knn(_t(x), _t(y), 8, metric=metric,
+                       kernel_precision="bf16x3")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[np.asarray(want[1])]
+    assert (np.abs(got[0].numpy() - np.asarray(want[0]))
+            <= 1e-5 * scale).all()
+    # bf16x3 is not f32: the port's plain f32 product differs somewhere
+    f32 = op.fused_knn(_t(x), _t(y), 8, metric=metric,
+                       kernel_precision="highest")
+    assert not torch.equal(f32[0], got[0])
+
+
 def test_ktiled_call_at_small_dim_matches_jax():
     x, y = _normal((16, 64), 5), _normal((300, 64), 6)
     want = j_call(x, y, 5, "l2", False, 16, 64, 16, True, kt=32)

@@ -1,10 +1,12 @@
 """Parity of the port's IVF-Flat (raft_tpu_torch) with the JAX package's.
 
 A JAX-built index is saved with ``raft_tpu.neighbors.serialize`` and
-loaded by the port, so search parity is free of k-means noise. The JAX
-side runs its Pallas kernels in interpret mode; the port runs its plain
-versions (CPU tensors). Tolerance: ids identical, distances within rtol
-1e-5 / atol 1e-5.
+loaded by the port (bf16 and int8 indexes are carried across by
+``index_from_numpy``), so search parity is free of k-means noise. The
+JAX side runs its Pallas kernels in interpret mode; the port runs its
+plain versions (CPU tensors). Tolerance: ids identical, distances within
+rtol 1e-5 / atol 1e-5 (narrow storage: within 1e-5 of the expanded-L2
+scale |q|^2 + |x|^2; exact products summed in another order).
 """
 
 import numpy as np
@@ -210,10 +212,6 @@ def test_batched_search_pins_route(indexes, data, monkeypatch):
 
 def test_unported_features_raise(indexes, data):
     x, q = data
-    with pytest.raises(NotImplementedError, match="storage_dtype"):
-        tflat.build(x, tflat.IndexParams(n_lists=4,
-                                         storage_dtype="bfloat16"),
-                    device="cpu")
     _, tidx = indexes[DistanceType.L2Expanded]
     with pytest.raises(LogicError, match="internal_distance_dtype"):
         tflat.search(tidx, q, K, tflat.SearchParams(
@@ -424,3 +422,241 @@ def test_default_device_is_cuda():
         tflat.build(x, tflat.IndexParams(n_lists=4))
     with pytest.raises(LogicError, match="device='cpu'"):
         tflat.index_from_numpy({}, DistanceType.L2Expanded, 0)
+
+
+# --- bf16 and int8 list storage (kernels 3 and 4's narrow branches) -------
+
+STORAGES = ["bfloat16", "int8"]
+
+
+@pytest.fixture(scope="module")
+def narrow_indexes(data):
+    """(storage, metric) -> (JAX index, the port's index from its arrays)."""
+    x, _ = data
+    out = {}
+    for st in STORAGES:
+        for m in METRICS:
+            jidx = jflat.build(x, jflat.IndexParams(
+                n_lists=N_LISTS, metric=JDT(int(m)), kmeans_n_iters=4,
+                storage_dtype=st))
+            out[st, m] = (jidx, _port_index(jidx))
+    return out
+
+
+def _port_index(jidx):
+    arrays = {f: np.asarray(getattr(jidx, f)) for f in
+              ("centers", "lists_data", "lists_indices", "lists_norms",
+               "list_sizes")}
+    return tflat.index_from_numpy(arrays, jidx.metric, jidx.size,
+                                  jidx.scale, device="cpu")
+
+
+def _assert_narrow_match(dt, dj, it, ij, q, tidx, metric):
+    """Distances within ``tol`` = 1e-5 of |q|^2 + the stored norm of the
+    row found (IP and cosine alike: the same ip feeds every metric); ids
+    identical but where two rows tie within ``tol`` and the packages'
+    summation orders rank them the other way round (ids agree on >= 99%
+    of the slots)."""
+    norm = torch.zeros(int(tidx.lists_indices.max()) + 1)
+    ids = tidx.lists_indices.reshape(-1)
+    norm[ids[ids >= 0].long()] = tidx.lists_norms.reshape(-1)[ids >= 0]
+    qn = q if metric != DistanceType.CosineExpanded else \
+        q / np.linalg.norm(q, axis=1, keepdims=True)
+    tol = 1e-5 * ((qn * qn).sum(1)[:, None]
+                  + norm.numpy()[np.maximum(it, 0)])
+    fin = np.isfinite(dj)
+    np.testing.assert_array_equal(np.isfinite(dt), fin)
+    assert (np.abs(dt[fin] - dj[fin]) <= tol[fin]).all()
+    for r, c in np.argwhere(it != ij):
+        pos = np.flatnonzero(ij[r] == it[r, c])
+        other = dj[r, pos[0]] if pos.size else dt[r, c]
+        assert abs(other - dj[r, c]) <= tol[r, c], (r, c)
+    assert (it == ij).mean() >= 0.99
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m.name)
+@pytest.mark.parametrize("order", ["probe", "list"])
+@pytest.mark.parametrize("k", [32, 300])
+def test_narrow_search_matches_jax(narrow_indexes, data, storage, metric,
+                                   order, k):
+    """k = 32 list-major is kernel 3's plain version, k = 300 kernel 4's
+    and the merge; probe-major is plain torch on both sides (int8: the
+    f32 queries unrounded there, rounded to bf16 in the kernels)."""
+    jidx, tidx = narrow_indexes[storage, metric]
+    assert tidx.lists_data.dtype == getattr(torch, storage)
+    _, q = data
+    before = (scan_op.launches, scan_op.launches_list)
+    dj, ij, dt, it = _search_both(jidx, tidx, q, k, n_probes=4,
+                                  scan_order=order)
+    assert (scan_op.launches, scan_op.launches_list) == before
+    assert it.shape == (NQ, k) and it.dtype == np.int32
+    _assert_narrow_match(dt, dj, it, ij, q, tidx, metric)
+
+
+def _narrow_lists(rng, storage, d, n_lists=12, max_list=70):
+    """Random lists (an empty one, a short one, a full one) stored as
+    ``storage`` by the JAX package's ``_quantize_lists``: (data, norms,
+    ids, scale) as numpy / JAX arrays."""
+    data_ = rng.normal(size=(n_lists, max_list, d)).astype(np.float32)
+    sizes = rng.integers(0, max_list + 1, size=n_lists)
+    sizes[0], sizes[1], sizes[2] = max_list, 0, 5
+    ids = np.full((n_lists, max_list), -1, np.int32)
+    nxt = 0
+    for l, s in enumerate(sizes):
+        ids[l, :s] = np.arange(nxt, nxt + s)
+        nxt += s
+    data_[ids < 0] = 0.0
+    norms = (data_ ** 2).sum(-1).astype(np.float32)
+    qd, qn, scale = jflat._quantize_lists(jnp.asarray(data_),
+                                          jnp.asarray(norms), storage)
+    return qd, qn, ids, scale
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_narrow_list_scans_plain_match_pallas(storage, metric, fused):
+    """``fused_list_scan_plain`` (k = 10) and ``list_scan_plain`` (k =
+    300, merged) on bf16 / int8 lists against the JAX Pallas kernels in
+    interpret mode: ids identical, distances within 1e-5 of |q|^2 plus
+    the largest norm."""
+    from raft_tpu.ops.pallas_ivf_scan import ivf_list_scan_pallas
+    rng = np.random.default_rng(len(storage) + 3 * fused)
+    d, nq, n_probes, cap = 13, 40, 6, 32
+    k = 10 if fused else 300
+    qd, qn, ids, scale = _narrow_lists(rng, storage, d)
+    n_lists = ids.shape[0]
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(nq)]).astype(np.int32)
+    dj, ij = ivf_list_scan_pallas(
+        jnp.asarray(q), qd, qn, jnp.asarray(ids), jnp.asarray(probes), k,
+        cap, scale=scale, bins=0, metric=metric, fused=fused)
+    tq, tp = torch.from_numpy(q), torch.from_numpy(probes)
+    td = tflat._list_rows(np.asarray(qd))
+    tn, ti = torch.from_numpy(np.array(qn)), torch.from_numpy(ids)
+    assert td.dtype == getattr(torch, storage)
+    qmap, inv_pos = t_scan._invert_probes(tp, n_lists, cap)
+    if fused:
+        dt, it = scan_op.fused_list_scan(tq, td, tn, ti, tp, inv_pos, qmap,
+                                         cap, k, 0, False, metric, scale)
+    else:
+        rb, _ = scan_op.resolve_bins(0, k, ids.shape[1])
+        cd, ci = scan_op.list_scan(tq, td, tn, ti, qmap, rb, metric,
+                                   scale=scale)
+        dt, it = t_scan.merge_candidates(cd, ci, tp, inv_pos, k, False, cap)
+    dj, ij, dt, it = np.asarray(dj), np.asarray(ij), dt.numpy(), it.numpy()
+    fin = np.isfinite(dj)
+    np.testing.assert_array_equal(np.isfinite(dt), fin)
+    np.testing.assert_array_equal(it[fin], ij[fin])
+    tol = 1e-5 * ((q * q).sum(1).max() + float(np.asarray(qn).max()))
+    assert (np.abs(dt[fin] - dj[fin]) <= tol).all()
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+def test_quantize_lists_matches_jax(storage):
+    """The same bucketed rows narrowed by both packages: codes (bf16 bit
+    patterns, int8 values) and scale equal, norms within rtol 1e-6 (the
+    same f32 squares summed in another order)."""
+    rng = np.random.default_rng(21)
+    data_ = (rng.normal(size=(9, 40, 24)) * 3).astype(np.float32)
+    data_[2, 30:] = 0.0
+    norms = (data_ ** 2).sum(-1).astype(np.float32)
+    jd, jn, js = jflat._quantize_lists(jnp.asarray(data_),
+                                       jnp.asarray(norms), storage)
+    td, tn, ts = tflat._quantize_lists(torch.from_numpy(data_),
+                                       torch.from_numpy(norms), storage)
+    assert ts == js
+    assert td.dtype == getattr(torch, storage)
+    np.testing.assert_array_equal(td.view(torch.int16 if storage ==
+                                          "bfloat16" else torch.int8)
+                                  .numpy(),
+                                  np.asarray(jd).view(np.int16 if storage
+                                                      == "bfloat16"
+                                                      else np.int8))
+    np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-6)
+    # the narrowed norms are those of the stored rows
+    deq = td.float() * (ts if storage == "int8" else 1.0)
+    torch.testing.assert_close(tn, (deq * deq).sum(-1))
+
+
+@pytest.mark.parametrize("storage", ["float32"] + STORAGES)
+@pytest.mark.parametrize("metric,custom_ids", [
+    (DistanceType.L2Expanded, False), (DistanceType.L2Expanded, True),
+    (DistanceType.CosineExpanded, False)], ids=["l2", "l2-ids", "cosine"])
+def test_extend_matches_jax(indexes, narrow_indexes, data, storage, metric,
+                            custom_ids):
+    """``extend`` of the same index by both packages: the same lists,
+    ids and rows (int8: the scale recomputed over every row), norms
+    within rtol 1e-6, and the same search results afterwards."""
+    x, q = data
+    if storage == "float32":
+        jidx, tidx = indexes[metric]
+    else:
+        jidx, tidx = narrow_indexes[storage, metric]
+    rng = np.random.default_rng(31)
+    new = (rng.normal(size=(150, D)) * 2).astype(np.float32)
+    new_ids = (np.arange(150, dtype=np.int32) * 7 + 50_000
+               if custom_ids else None)
+    je = jflat.extend(jidx, new, new_ids)
+    te = tflat.extend(tidx, new, None if new_ids is None
+                      else torch.from_numpy(new_ids))
+    assert te.size == je.size == N + 150
+    assert te.lists_data.dtype == tidx.lists_data.dtype
+    assert te.scale == je.scale
+    if storage == "int8" and metric == DistanceType.L2Expanded:
+        assert te.scale != tidx.scale   # the larger new rows widen it
+    np.testing.assert_array_equal(te.list_sizes.numpy(),
+                                  np.asarray(je.list_sizes))
+    np.testing.assert_array_equal(te.lists_indices.numpy(),
+                                  np.asarray(je.lists_indices))
+    got = _port_index(je).lists_data
+    if metric == DistanceType.L2Expanded:
+        assert torch.equal(te.lists_data, got)
+    else:
+        # the new rows are normalized by each package's own norm (an ulp
+        # apart at most): the stored rows within one step of the storage
+        a, b = te.lists_data.float(), got.float()
+        step = {"float32": 1e-6 * b.abs() + 1e-7,
+                "bfloat16": 2.0 ** -8 * b.abs(),
+                "int8": torch.ones_like(b)}[storage]
+        assert bool(((a - b).abs() <= step).all())
+    np.testing.assert_allclose(te.lists_norms.numpy(),
+                               np.asarray(je.lists_norms), rtol=1e-6,
+                               atol=1e-6)
+    if custom_ids:
+        assert set(new_ids) <= set(te.lists_indices.reshape(-1).tolist())
+    dj, ij, dt, it = _search_both(je, te, q, K, n_probes=4,
+                                  scan_order="list")
+    _assert_narrow_match(dt, dj, it, ij, q, te, metric)
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+def test_narrow_save_roundtrip_both_directions(narrow_indexes, tmp_path,
+                                               storage):
+    """bf16 rows travel as uint16 bit patterns named in ``bf16_fields``,
+    int8 rows as int8 with the scale in the meta, both ways."""
+    jidx, tidx = narrow_indexes[storage, DistanceType.L2Expanded]
+    fields = ("centers", "lists_data", "lists_indices", "lists_norms",
+              "list_sizes")
+    jpath = str(tmp_path / "from_jax.npz")
+    jser.save_ivf_flat(jidx, jpath)
+    loaded = tser.load_ivf_flat(jpath, device="cpu")
+    tpath = str(tmp_path / "from_port")
+    tser.save_ivf_flat(tidx, tpath)
+    back = jser.load_ivf_flat(tpath)
+    for f in fields:
+        assert torch.equal(getattr(loaded, f), getattr(tidx, f)), f
+        want = np.asarray(getattr(jidx, f))
+        got = np.asarray(getattr(back, f))
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    assert loaded.scale == back.scale == jidx.scale
+    with np.load(tpath) as z:
+        import json
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        assert meta["bf16_fields"] == (["lists_data"]
+                                       if storage == "bfloat16" else [])
+        assert z["lists_data"].dtype == (np.uint16 if storage == "bfloat16"
+                                         else np.int8)

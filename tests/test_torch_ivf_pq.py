@@ -451,3 +451,24 @@ def test_default_device_is_cuda():
         tpq.index_from_numpy({}, DistanceType.L2Expanded, 0, 8)
     with pytest.raises(LogicError, match="device='cpu'"):
         t_refine(x, x[:4], np.zeros((4, 8), np.int32), 2)
+
+
+@pytest.mark.parametrize("dim,rot_dim,force", [(8, 8, False), (8, 8, True),
+                                               (8, 12, True)])
+def test_make_rotation_matrix_runs_where_asked(dim, rot_dim, force):
+    """The rotation defaults to the card (through ``ensure_resources``) and
+    runs on the CPU only when asked; the identity is JAX's, a forced
+    rotation orthonormal, with rows past ``dim`` zero."""
+    rot = tpq.make_rotation_matrix(dim, rot_dim, force, device="cpu")
+    assert rot.device.type == "cpu" and rot.shape == (rot_dim, dim)
+    if not force:
+        np.testing.assert_array_equal(
+            rot.numpy(), np.asarray(jpq.make_rotation_matrix(dim, rot_dim)))
+    torch.testing.assert_close(rot[:dim] @ rot[:dim].T, torch.eye(dim),
+                               rtol=0, atol=1e-5)
+    assert not bool(rot[dim:].any())
+    if torch.cuda.is_available():
+        assert tpq.make_rotation_matrix(dim, rot_dim, force).is_cuda
+    else:
+        with pytest.raises(LogicError, match="device='cpu'"):
+            tpq.make_rotation_matrix(dim, rot_dim, force)

@@ -21,7 +21,9 @@ in the wgmma's order, and are held to their plain versions at bf16x3
 summed in another order. Fused L2-NN is held so at each tier (bf16x3 and
 bf16 on the tensor cores, f32 on the CUDA cores), the IVF-BQ scans
 (products of bf16 queries and the +-1 decode, one tensor-core pass)
-likewise.
+likewise, as are the IVF-Flat scans on bf16 and int8 lists (one bf16
+pass against the queries rounded to bf16; int8 times its scale) and
+fused k-NN at d > 4096 (kernel 6, bf16x3 or bf16 on the tensor cores).
 """
 
 import numpy as np
@@ -229,6 +231,138 @@ def test_fused_scan_matches_plain(dev, metric, d, bins, k, cap):
                                            sqrt, metric, "bf16x3")
     scale = float((q * q).sum(1).max() + norms.max())
     _near_tie_equal(dk, ik, dp, ip, 1e-5 * scale)
+
+
+def _narrow_case(rng, d, cap, metric, dev, storage, nq=32):
+    """``_scan_case``'s lists stored as ``storage`` by
+    ``ivf_flat._quantize_lists`` (norms those of the stored rows)."""
+    q, data, norms, ids, probes, qmap, inv_pos = _scan_case(
+        rng, d, cap, metric, dev, nq=nq)
+    data, norms, scale = ivf_flat._quantize_lists(data, norms, storage)
+    return q, data, norms, ids, probes, qmap, inv_pos, scale
+
+
+# each storage's kernel-3 launch counter (kernel 4: "launches_list_...")
+NARROW_COUNTER = {"bfloat16": "launches_bf16", "int8": "launches_int8"}
+
+# d 128 and 320 (queries streamed) take 16-byte row loads in both
+# storages; 96 takes them too, its second feature slice ragged; 100 and 13
+# load feature by feature (bf16 needs d % 8, int8 d % 16)
+NARROW_D = [128, 96, 100, 13, 320]
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", NARROW_D)
+@pytest.mark.parametrize("bins", [0, 7, 16, 32, 64])
+@pytest.mark.parametrize("k,cap", [(10, 32), (10, 8), (200, 200)])
+def test_narrow_fused_scan_matches_plain(dev, storage, metric, d, bins, k,
+                                         cap):
+    # Bf16Rows / Int8Rows in kernel 3: bins 0 (every row of the 40-row
+    # lists) and 7 on the stripe epilogue, 16, 32 and 64 on the fold (G 2,
+    # 4, 8); cap 8 drops pairs, cap 200 fills several query tiles of a list
+    rng = np.random.default_rng(d * 13 + k + cap + bins + len(storage))
+    q, data, norms, ids, probes, qmap, inv_pos, scale = _narrow_case(
+        rng, d, cap, metric, dev, storage)
+    assert data.dtype == getattr(torch, storage)
+    sqrt = metric == "l2"
+    key = NARROW_COUNTER[storage]
+    before = (getattr(scan_op, key), scan_op.launches)
+    dk, ik = scan_op.fused_list_scan(q, data, norms, ids, probes, inv_pos,
+                                     qmap, cap, k, bins, sqrt, metric, scale)
+    torch.cuda.synchronize()
+    assert (getattr(scan_op, key), scan_op.launches) == (before[0] + 1,
+                                                         before[1])
+    dp, ip = scan_op.fused_list_scan_plain(q, data, norms, ids, probes,
+                                           inv_pos, qmap, cap, k, bins,
+                                           sqrt, metric, scale=scale)
+    if sqrt:
+        dk, dp = dk * dk, dp * dp
+    tol = 1e-5 * float((q * q).sum(1).max() + norms.max())
+    _near_tie_equal(dk, ik, dp, ip, tol)
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", NARROW_D)
+@pytest.mark.parametrize("bins", [0, 7, 64, 128])
+@pytest.mark.parametrize("cap", [32, 8, 200])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_narrow_list_scan_matches_plain(dev, storage, metric, d, bins, cap,
+                                        out):
+    # Bf16Rows / Int8Rows in kernel 4 at k = 300, out_bf16 for
+    # internal_distance_dtype=bfloat16; held as test_list_scan_matches_plain
+    rng = np.random.default_rng(d * 5 + cap + bins + len(storage))
+    q, data, norms, ids, probes, qmap, inv_pos, scale = _narrow_case(
+        rng, d, cap, metric, dev, storage, nq=48)
+    k = 300
+    rb, _ = scan_op.resolve_bins(bins, k, ids.shape[1])
+    key = NARROW_COUNTER[storage].replace("launches", "launches_list")
+    before = getattr(scan_op, key)
+    ck, cik = scan_op.list_scan(q, data, norms, ids, qmap, rb, metric, out,
+                                scale)
+    torch.cuda.synchronize()
+    assert getattr(scan_op, key) == before + 1
+    assert ck.dtype == out and ck.shape == (ids.shape[0], cap, rb)
+    tol = 1e-5 * float((q * q).sum(1).max() + norms.max())
+    cp, cip = scan_op.list_scan_plain(q, data, norms, ids, qmap, rb, metric,
+                                      torch.float32, scale=scale)
+    if out == torch.bfloat16:
+        fin = torch.isfinite(cp)
+        assert bool(((ck.float() - cp).abs()
+                     <= _bf16_step(ck) / 2 + tol)[fin].all())
+        cp, cip = scan_op.list_scan_plain(q, data, norms, ids, qmap, rb,
+                                          metric, out, scale=scale)
+        _blocks_match(ck, cik, cp, cip, _bf16_step(cp) + tol)
+    else:
+        _blocks_match(ck, cik, cp, cip, tol)
+    dk, ik = _ivf_scan.merge_candidates(ck, cik, probes, inv_pos, k, False,
+                                        cap)
+    dp, ip = _ivf_scan.merge_candidates(cp, cip, probes, inv_pos, k, False,
+                                        cap)
+    _near_tie_equal(dk, ik, dp, ip, tol + (_bf16_step(dp).cpu().numpy()
+                                           if out == torch.bfloat16
+                                           else 0.0))
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_narrow_search_on_card_matches_cpu(dev, storage):
+    """A narrow index built on the CPU and carried to the card: both
+    routes agree with the CPU's (one arithmetic for narrow rows on both
+    devices); ``extend`` on the card keeps the storage and every id."""
+    rng = np.random.default_rng(len(storage))
+    c = rng.normal(size=(16, 32)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 16, 3000)]
+         + rng.normal(size=(3000, 32))).astype(np.float32)
+    q = (c[rng.integers(0, 16, 64)]
+         + rng.normal(size=(64, 32))).astype(np.float32)
+    cpu = ivf_flat.build(x, ivf_flat.IndexParams(
+        n_lists=16, kmeans_n_iters=4, storage_dtype=storage), device="cpu")
+    arrays = {f: getattr(cpu, f) if f == "lists_data"
+              else getattr(cpu, f).numpy() for f in
+              ("centers", "lists_data", "lists_indices", "lists_norms",
+               "list_sizes")}
+    gpu = ivf_flat.index_from_numpy(arrays, cpu.metric, cpu.size, cpu.scale,
+                                    device=dev)
+    assert gpu.lists_data.dtype == getattr(torch, storage)
+    tol = 1e-5 * float((q ** 2).sum(1).max() + cpu.lists_norms.max())
+    fused_key = NARROW_COUNTER[storage]
+    for order, k, key in (("list", 10, fused_key),
+                          ("list", 300, fused_key.replace("launches",
+                                                          "launches_list")),
+                          ("probe", 10, None)):
+        sp = ivf_flat.SearchParams(n_probes=6, scan_order=order)
+        before = getattr(scan_op, key) if key else None
+        dg, ig = ivf_flat.search(gpu, q, k, sp)
+        if key:
+            assert getattr(scan_op, key) == before + 1
+        dc, ic = ivf_flat.search(cpu, q, k, sp)
+        _near_tie_equal(dg, ig, dc, ic, tol)
+    grown = ivf_flat.extend(gpu, x[:200] + 0.5)
+    assert grown.lists_data.dtype == gpu.lists_data.dtype
+    ids = grown.lists_indices[grown.lists_indices >= 0]
+    assert torch.equal(torch.sort(ids).values.cpu(),
+                       torch.arange(3200, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("metric", [ivf_flat.DistanceType.L2Expanded,
@@ -628,15 +762,9 @@ def test_fused_knn_matches_plain(dev, m, n, d, k, metric, sqrt, precision):
     x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
     y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
     _, tn, l_bins, kt = knn_op.geometry(m, n, d, k)
-    if kt and precision == "bf16x3":
-        # kernel 6 has no bf16x3 body: the wrapper refuses, the entry
-        # point computes in f32
-        with pytest.raises(ValueError):
-            knn_op.fused_knn_cuda(x, y, k, metric, sqrt, tn, l_bins, kt,
-                                  precision)
-        precision = "f32"
-    key = ("launches_ktiled" if kt else
-           "launches_f32" if precision == "f32" else "launches")
+    # kernel 6 (d > 4096) or 5; the tensor cores, or the f32 body
+    key = ("launches_ktiled" if kt else "launches") + \
+        ("_f32" if precision == "f32" else "")
     before = getattr(knn_op, key)
     dk, ik = knn_op.fused_knn_cuda(x, y, k, metric, sqrt, tn, l_bins, kt,
                                    precision)
@@ -683,6 +811,30 @@ def test_fused_knn_tc_bins_match_plain(dev, m, n, d, tn, l_bins, metric,
                                   precision)
     tol = 1e-5 * float(((x * x).sum(1).max() + (y * y).sum(1).max()))
     _near_tie_equal(*got, *want, tol)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [8192, 4100])
+def test_fused_knn_ktiled_tc_matches_plain(dev, d, metric, precision):
+    # kernel 6 on the tensor cores: the queries stream with the rows
+    # (128 feature slices at d 8192; 4100 ends on a 4-feature slice), two
+    # query blocks, a ragged last tile of the 1024-row geometry
+    rng = np.random.default_rng(d + len(metric) + len(precision))
+    m, n, k = 130, 2100, 16
+    x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
+    y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
+    _, tn, l_bins, kt = knn_op.geometry(m, n, d, k)
+    assert (tn, kt) == (1024, 2048)
+    before = (knn_op.launches_ktiled, knn_op.launches_ktiled_f32)
+    dk, ik = knn_op.fused_knn(x, y, k, metric, kernel_precision=precision)
+    torch.cuda.synchronize()
+    assert (knn_op.launches_ktiled, knn_op.launches_ktiled_f32) == \
+        (before[0] + 1, before[1])
+    dp, ip = knn_op.fused_knn_plain(x, y, k, metric, False, tn, l_bins, kt,
+                                    precision)
+    tol = 1e-5 * float(((x * x).sum(1).max() + (y * y).sum(1).max()))
+    _near_tie_equal(dk, ik, dp, ip, tol)
 
 
 def test_highest_launches_the_f32_body(dev):
