@@ -103,7 +103,8 @@ Phases, one line each:
               every elementwise metric name (kernel 7, rows
               ``elementwise_dist@<name>``), each against its plain
               version, with one ``torch.cdist`` call as the library time
-              where one computes the same function; the expanded
+              where one computes the same function (hamming: the p=0
+              count, divided by the dim for its error); the expanded
               metrics' times for context; one exact L1 ``brute_force_knn``
               of 100 queries over the first 1M rows (kernel 7 inside the
               exact scan).
@@ -113,9 +114,9 @@ the port's own ``brute_force_knn(mode="exact")``.
 
 The build line reports the registers, shared memory and spills of the
 radix select (both modes), the tensor-core fused L2-NN, the tensor-core
-passes A of kernels 5/6, 3/4 (f32, bf16 and int8 rows), 8/9 and 10/11
-and the IVF-PQ f32 body (``nvcc -Xptxas -v``). Then a
-``{"kernels": [...]}`` line, the card's name and power limit, and the
+passes A of kernels 5/6, 3/4 (f32, bf16 and int8 rows), 8/9 and 10/11,
+the IVF-PQ f32 body and every core of kernel 7 (``nvcc -Xptxas -v``).
+Then a ``{"kernels": [...]}`` line, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. There is no CPU path: without CUDA the
 script fails. ``--n`` cuts the dataset of every path (the cut is
@@ -191,7 +192,8 @@ L1_ROWS, L1_QUERIES = 1_000_000, 100
 # differ by up to ~2 x 256 x 2^-24 relative (logarithm cores alike)
 ELT_RTOL, ELT_ATOL = 1e-4, 1e-5
 # the elementwise metric names: name -> (core, sqrt, torch.cdist p giving
-# the same function or None)
+# the same function or None; p=0 counts the differing coordinates, which
+# hamming divides by the dim)
 PAIR_NAMES = {
     "cityblock": ("l1", False, 1.0),
     "sqeuclidean": ("l2unexp", False, None),
@@ -199,7 +201,7 @@ PAIR_NAMES = {
     "chebyshev": ("linf", False, float("inf")),
     "canberra": ("canberra", False, None),
     "minkowski": ("minkowski", False, 3.0),
-    "hamming": ("hamming", False, None),
+    "hamming": ("hamming", False, 0.0),
     "jensenshannon": ("jensen_shannon", False, None),
     "kl_divergence": ("kl", False, None),
     "braycurtis": ("braycurtis", False, None),
@@ -218,7 +220,7 @@ PAIR_EXPANDED = ("inner_product", "cosine", "correlation", "hellinger",
 # kernels whose compiled resources the build line reports
 PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
                  "list_scan_tc_kernel", "fused_l2_nn_tc_kernel",
-                 "pq_pairs_kernel")
+                 "pq_pairs_kernel", "elementwise_dist_kernel")
 
 OUT_DIR = "chiprun_out"
 
@@ -1501,7 +1503,11 @@ def run_pairwise(x1m, q100, seed: int, dev):
             def lib(xa=xa, ya=ya, p_lib=p_lib):
                 return torch.cdist(xa, ya, p=p_lib,
                                    compute_mode="donot_use_mm_for_euclid_dist")
-            lib_err = float((lib() - d_k).abs().max())
+            d_l = lib()
+            if p_lib == 0.0:  # the count, timed alone; hamming divides
+                d_l = d_l / PAIR_D
+            lib_err = float((d_l - d_k).abs().max())
+            del d_l
             lib_ms = cuda_ms(lib, 5)
         del d_k
         fp, sfu = ELT_WORK[tag]

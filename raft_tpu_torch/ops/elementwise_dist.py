@@ -25,7 +25,8 @@ launches = 0
 
 # peak (rows, n, dim) f32 elements of one row tile of the plain version
 _TILE_BUDGET_ELEMS = 1 << 24
-# rows of x per kernel launch: the kernel's grid holds 65535 row tiles
+# rows of x per kernel launch: the kernel's grid holds 65535 row tiles of
+# 64 rows or more (csrc/elementwise_dist.cu, Cfg::kBM)
 _KERNEL_ROWS = 65535 * 64
 
 
@@ -79,8 +80,8 @@ def elementwise_dist_cuda(x: torch.Tensor, y: torch.Tensor, metric: str,
     n = y.shape[0]
     if y.shape[1] != d or x.device != y.device:
         raise ValueError("elementwise_dist: x and y disagree on dim or device")
-    if d < 1:
-        raise ValueError("elementwise_dist: dim must be >= 1")
+    if not 1 <= d < 1 << 24:
+        raise ValueError("elementwise_dist: dim must be in [1, 2^24)")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         for s in range(0, m, _KERNEL_ROWS):

@@ -876,23 +876,90 @@ def test_fused_knn_exact_bins_equal_exact_scan(dev, precision):
 ELT_CASES = [(t, False) for t in elt_cores.TAGS] + [("l2unexp", True)]
 
 
+def _elt_data(rng, rows, d, kind):
+    # "unit": uniform [0, 1) with zeros (the guards of canberra, js, kl);
+    # "signed": uniform [-0.5, 1) with zeros (a <= 0, b <= 0, m <= 0);
+    # "subnormal": "unit" with every third feature subnormal (~1e-40) or
+    # zero in every row, so js takes lg2 of subnormal means and canberra
+    # subnormal denominators. The subnormals share their features across
+    # x and y: a ratio a / b of a normal over a subnormal would overflow
+    # float32, where the reference's kl term is inf and the kernel's
+    # finite (ROADMAP.md's known differences).
+    v = rng.random((rows, d)).astype(np.float32)
+    if kind == "signed":
+        v = (1.5 * v - 0.5).astype(np.float32)
+    v[np.abs(v) < 0.1] = 0.0
+    if kind == "subnormal":
+        tiny = (1e-40 * (0.5 + rng.random((rows, d)))).astype(np.float32)
+        tiny[rng.random((rows, d)) < 0.3] = 0.0
+        v[:, 2::3] = tiny[:, 2::3]
+    return v
+
+
+def _elt_check(got, want, tag):
+    rtol = 1e-4 if tag in ("jensen_shannon", "kl") else 1e-5
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["unit", "signed", "subnormal"])
 @pytest.mark.parametrize("tag,sqrt", ELT_CASES)
-@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (70, 65, 127), (33, 129, 5000)])
-def test_elementwise_dist_matches_plain(dev, tag, sqrt, m, n, d):
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (70, 65, 127), (33, 129, 5000),
+                                   (128, 128, 32), (129, 257, 33),
+                                   (1, 300, 4)])
+def test_elementwise_dist_matches_plain(dev, tag, sqrt, m, n, d, kind):
+    # 128 x 128 x 32: one whole tile, two whole chunks; 129 x 257 x 33:
+    # ragged edge tiles and a one-feature last chunk; 1 x 300 x 4: one row,
+    # the 16-byte loads of a chunk shorter than its 16 features
     rng = np.random.default_rng(m + n + d)
-    x = rng.random((m, d)).astype(np.float32)
-    y = rng.random((n, d)).astype(np.float32)
-    x[x < 0.1] = 0.0
-    y[y < 0.1] = 0.0
-    x, y = _t(x, dev), _t(y, dev)
+    x = _t(_elt_data(rng, m, d, kind), dev)
+    y = _t(_elt_data(rng, n, d, kind), dev)
     before = elt_op.launches
     got = elt_op.elementwise_dist(x, y, tag, p=3.0, sqrt=sqrt)
     torch.cuda.synchronize()
     assert elt_op.launches == before + 1
     want = elt_op.elementwise_dist_plain(x, y, tag, p=3.0, sqrt=sqrt)
-    rtol = 1e-4 if tag in ("jensen_shannon", "kl") else 1e-5
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=rtol, atol=1e-5)
+    _elt_check(got, want, tag)
+
+
+@pytest.mark.parametrize("tag,sqrt", ELT_CASES)
+def test_elementwise_dist_self_diagonal_is_zero(dev, tag, sqrt):
+    # x against itself: every core's diagonal is exactly 0 in the plain
+    # version, and in the kernel (jensen_shannon's and kl's logs of a, b and
+    # the mean go through one lg2, so equal inputs cancel exactly)
+    rng = np.random.default_rng(17)
+    x = _elt_data(rng, 150, 70, "signed")
+    x[:, 2::3] = _elt_data(rng, 150, 70, "subnormal")[:, 2::3]
+    x = _t(x, dev)
+    got = elt_op.elementwise_dist(x, x, tag, p=3.0, sqrt=sqrt)
+    want = elt_op.elementwise_dist_plain(x, x, tag, p=3.0, sqrt=sqrt)
+    torch.cuda.synchronize()
+    assert bool((torch.diagonal(want) == 0).all())
+    assert bool((torch.diagonal(got) == 0).all())
+    _elt_check(got, want, tag)
+
+
+@pytest.mark.parametrize("tag,sqrt", ELT_CASES)
+@pytest.mark.parametrize("d", [6, 8])
+def test_elementwise_dist_unaligned_rows(dev, tag, sqrt, d):
+    # row-offset views whose pointers are not 16-byte aligned: d = 6 as
+    # big[1:] (24 bytes in), d = 8 cut 4 bytes into a flat buffer (d % 4
+    # == 0, yet the kernel must take its scalar loads)
+    rng = np.random.default_rng(d)
+    m, n = 131, 70
+    if d == 6:
+        x = _t(_elt_data(rng, m + 1, d, "unit"), dev)[1:]
+        y = _t(_elt_data(rng, n + 1, d, "unit"), dev)[1:]
+    else:
+        x = _t(_elt_data(rng, 1, m * d + 1, "unit"), dev)[0, 1:].view(m, d)
+        y = _t(_elt_data(rng, 1, n * d + 1, "unit"), dev)[0, 1:].view(n, d)
+    assert x.data_ptr() % 16 and y.data_ptr() % 16 and x.is_contiguous()
+    before = elt_op.launches
+    got = elt_op.elementwise_dist(x, y, tag, p=3.0, sqrt=sqrt)
+    torch.cuda.synchronize()
+    assert elt_op.launches == before + 1
+    _elt_check(got, elt_op.elementwise_dist_plain(x, y, tag, p=3.0,
+                                                  sqrt=sqrt), tag)
 
 
 def test_elementwise_hamming_on_integers_is_exact(dev):

@@ -81,6 +81,67 @@ def test_plain_version_row_tiles(monkeypatch):
     assert torch.equal(whole, tiled)
 
 
+def _kernel_forms(metric, x, y, p=3.0):
+    """The CUDA kernel's arithmetic (``csrc/elementwise_dist.cu``) spelled
+    in float32 torch: kl and jensen_shannon as split logs in log2 (each
+    operand's taken once, guarded as staged; jensen_shannon's log(a / m)
+    as log2(a + a) - log2(a + b)) with ln 2 at the finish, minkowski as
+    exp2(p log2|a - b|), canberra as num * (1 / den) with den floored at
+    2^-149 and both scaled by 2^24 below 2^-126 (``__fdividef``)."""
+    a, b = x[:, None, :], y[None, :, :]
+    zero = torch.zeros(())
+    ln2 = float(np.log(2.0))
+    if metric == "kl":
+        pa = torch.where(a > 0, a, zero)
+        la = torch.where(a > 0, torch.log2(a), zero)
+        lb = torch.where(b > 0, torch.log2(b), zero)
+        return ln2 * (pa * (la - lb)).sum(-1)
+    if metric == "jensen_shannon":
+        ab = a + b
+        lab = torch.log2(torch.where(ab > 0, ab, 2.0))
+        s = (torch.where(a > 0, a, zero)
+             * (torch.where(a > 0, torch.log2(a + a), zero) - lab)
+             + torch.where(b > 0, b, zero)
+             * (torch.where(b > 0, torch.log2(b + b), zero) - lab)).sum(-1)
+        return torch.sqrt(torch.clamp(0.5 * ln2 * s, min=0.0))
+    if metric == "minkowski":
+        s = torch.exp2(p * torch.log2((a - b).abs())).sum(-1)
+        return s ** (1.0 / p)
+    if metric == "canberra":
+        den = torch.clamp(a.abs() + b.abs(), min=2.0 ** -149)
+        scale = torch.where(den < 2.0 ** -126, 2.0 ** 24, 1.0)
+        return ((a - b).abs() * scale
+                * torch.reciprocal(den * scale)).sum(-1)
+    raise ValueError(metric)
+
+
+@pytest.mark.parametrize("metric", ["kl", "jensen_shannon", "minkowski",
+                                    "canberra"])
+def test_kernel_arithmetic_matches_jax_kernel(metric):
+    # the kernel's rewritten forms and guards, which only run on the card,
+    # held here against the Pallas kernel (interpret mode) and the plain
+    # version at the card tests' tolerances, on data with zeros, negative
+    # values and rows of x repeated in y
+    rng = np.random.default_rng(11)
+    x = (1.5 * rng.random((23, 37)) - 0.5).astype(np.float32)
+    y = (1.5 * rng.random((19, 37)) - 0.5).astype(np.float32)
+    x[np.abs(x) < 0.1] = 0.0
+    y[np.abs(y) < 0.1] = 0.0
+    y[3], y[11] = x[5], x[0]
+    got = _kernel_forms(metric, torch.from_numpy(x), torch.from_numpy(y))
+    assert got.dtype == torch.float32
+    want = np.asarray(elementwise_dist_pallas(x, y, metric, p=3.0))
+    plain = op.elementwise_dist_plain(torch.from_numpy(x),
+                                      torch.from_numpy(y), metric, p=3.0)
+    rtol = 1e-4 if metric in LOG_CORES else 1e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=rtol,
+                               atol=1e-5)
+    # equal rows: every form, like the plain version, gives exactly 0
+    for i, j in ((5, 3), (0, 11)):
+        assert float(got[i, j]) == 0.0 and float(plain[i, j]) == 0.0
+
+
 @pytest.mark.parametrize("metric", tdist.SUPPORTED_DISTANCES)
 def test_pairwise_distance_matches_jax(metric):
     d = 2 if metric == "haversine" else 21
