@@ -31,7 +31,7 @@ for tree in parent change change parent; do
   for f in "$dir"/chiprun_out/profile_*.txt; do
     [ -e "$f" ] && mv "$f" "$out/ab_${n}_${tree}_$(basename "$f")"
   done
-  grep -E '"phase": "(build|kmeans_tiers|main|wide_flat|main_flat_bf16|main_flat_int8|main_pq|pq_f32|main_bq|main_bf|wide_bf|pairwise|profile)"|"kernel": "(fused_l2_nn|ivf_flat_scan|ivf_list_scan|ivf_pq_scan|ivf_bq_scan|select_k|fused_knn)' \
+  grep -E '"phase": "(build|kmeans_tiers|main|wide_flat|main_flat_bf16|main_flat_int8|main_pq|pq_f32|main_bq|main_pq_pc|pq_scan_modes|main_bq_extend|kmeans_two_level|main_bf|wide_bf|pairwise|profile)"|"kernel": "(fused_l2_nn|ivf_flat_scan|ivf_list_scan|ivf_pq_scan|ivf_bq_scan|select_k|fused_knn)' \
     "$log" | cut -c1-700
   tail -n 2 "$log" | cut -c1-300
 done

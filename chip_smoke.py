@@ -41,7 +41,11 @@ Phases, one line each:
               f32 body; rows ``fused_l2_nn@highest...`` at every shape of
               the bf16x3 rows, so each shape has a same-run comparison);
               each tier's seconds, launches by shape and mean squared
-              distance to the assigned centre.
+              distance to the assigned centre. Reproducible builds: two
+              runs at one seed at bf16x3, bit for bit after each sweep
+              and at the end (the smoke fails otherwise), and whether
+              ``index_add_``, the fixed-order segment sum and
+              ``torch.topk`` give the same bits twice on the card.
 3. main     — the IVF-Flat serving path: a 10M x 128 clustered dataset
               (the benchmark's gaussian mixture, made on the card from a
               seed), IVF-Flat build (1024 lists, 10 k-means sweeps),
@@ -80,6 +84,22 @@ Phases, one line each:
               scan serves every batch), the same burst, then one
               ``ivf_bq.search`` at k=64 (kk=512, the unfused scan); the
               same measurements.
+5b. main_pq_pc — phase 4's point with ``codebook_kind=PER_CLUSTER``,
+              built on the first 90% of the rows and ``ivf_pq.extend``-ed
+              with the rest (build and extend seconds), the same burst and
+              k=64 search (main_pq's recall beside), both PQ scans against
+              their plain versions (rows ``ivf_pq_scan_fused@per_cluster``,
+              ``ivf_pq_scan@per_cluster``), then ``pq_scan_modes``: one
+              128-query search at ``scan_mode="reconstruct"`` (list-major)
+              and one at ``"lut"``, each with recall@32, seconds and the
+              decode cache's device memory.
+5c. main_bq_extend — phase 5's point built on 90% and ``ivf_bq.extend``-ed
+              with the rest: the burst, recall@32, extend seconds and the
+              launches of kernels 10 and 11.
+5d. kmeans_two_level — ``build_hierarchical`` at 32768 lists on the
+              10M rows (the two-level trainer), then the predict of every
+              row: seconds, kernel 1's launches by shape, list sizes and
+              the mean squared distance to the assigned centre.
 6. main_bf  — brute-force k-NN on the same 10M x 128 dataset (the
               reference's ``knn.cuh`` case): 1000 queries from the same
               mixture, k=32, ``brute_force_knn(mode="fused")`` for
@@ -107,7 +127,10 @@ Phases, one line each:
               count, divided by the dim for its error); the expanded
               metrics' times for context; one exact L1 ``brute_force_knn``
               of 100 queries over the first 1M rows (kernel 7 inside the
-              exact scan).
+              exact scan). Two more rows: canberra where |a| + |b| lies in
+              (2^126, 2^128) (``elementwise_dist@canberra_big``) and
+              minkowski at p = 0 (``elementwise_dist@minkowski_p0``, +inf
+              everywhere at dim 256), each against its plain version.
 
 The exact search's truth for phases 3-5 (256 queries, k=32) comes from
 the port's own ``brute_force_knn(mode="exact")``.
@@ -177,6 +200,8 @@ BQ_LISTS, BQ_PROBES = 1024, 128
 # search at k=64 (kk = 512 > 256) takes the unfused scan and the merge
 RESCORE, WIDE_K = 8, 64
 KM_ROWS = 1 << 18             # the k-means trainer's subsample
+# the two-level trainer's point: about sqrt(n) lists for a billion rows
+TWO_LEVEL_LISTS = 32768
 BATCH_SIZES = (1, 8, 32, 128)
 N_QUERIES, N_REQUESTS, N_THREADS = 256, 512, 128
 # brute force: the reference's cpp/bench/neighbors/knn.cuh:380-389 cases
@@ -216,6 +241,9 @@ ELT_WORK = {"l1": (2, 0), "l2unexp": (2, 0), "linf": (2, 0),
             "jensen_shannon": (8, 1), "kl": (2, 0), "braycurtis": (4, 0)}
 PAIR_EXPANDED = ("inner_product", "cosine", "correlation", "hellinger",
                  "russellrao", "jaccard", "dice")
+
+# the pairwise_distance names of the rows that are not PAIR_NAMES keys
+PAIR_ENTRY = {"canberra_big": "canberra", "minkowski_p0": "minkowski"}
 
 # kernels whose compiled resources the build line reports
 PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
@@ -557,6 +585,7 @@ def run_kmeans_tiers(x, sample, cents, cents_pq):
               fused_l2_nn_shapes=l2nn_shapes(),
               launches={k_: v for k_, v in counts.items() if v})
         del centers
+    check_determinism(sample)
     rows = [check_fused_l2_nn(sample, cents, "fused_l2_nn@bf16", "bf16")]
     rows[0]["launches"] = launches["bf16"]
     for xa, ya, name in ((sample, cents, ""), (x, cents, "_predict"),
@@ -567,6 +596,49 @@ def run_kmeans_tiers(x, sample, cents, cents_pq):
         row["launches"] = launches["highest"]
         rows.append(row)
     return rows
+
+
+def check_determinism(sample):
+    """Reproducible builds: two runs of the trainer at one seed at the
+    card's default bf16x3, compared bit for bit after each sweep (its own
+    sweep, ``kmeans_balanced._em``, one at a time) and at the end of two
+    ``balanced_kmeans`` calls; fails unless every comparison is equal.
+    Beside it, on the labels of the last sweep, whether ``index_add_``
+    (the sums the trainer took before) and the fixed-order
+    ``segment_sum`` give the same bits twice, and whether ``torch.topk``
+    of the costs (the reseed's earlier selection) gives the same rows
+    twice."""
+    from raft_tpu_torch.cluster import kmeans_balanced as kb
+    from raft_tpu_torch.util.host_sample import sample_rows as host_rows
+    from raft_tpu_torch.util.segment import segment_sum
+    c0 = sample[host_rows(sample.shape[0], N_LISTS, 3, sample.device)]
+    ca, cb, equal_after = c0, c0, []
+    for _ in range(KMEANS_ITERS):
+        ca = kb._em(sample, ca, N_LISTS, 1, 0.25)
+        cb = kb._em(sample, cb, N_LISTS, 1, 0.25)
+        equal_after.append(bool(torch.equal(ca, cb)))
+    t1 = kb.balanced_kmeans(sample, N_LISTS, KMEANS_ITERS, seed=3)
+    t2 = kb.balanced_kmeans(sample, N_LISTS, KMEANS_ITERS, seed=3)
+    trained_equal = bool(torch.equal(t1, t2))
+    labels, d = kb._nn(sample, ca)
+    lab = labels.long()
+    ia = [torch.zeros((N_LISTS, D), device=sample.device).index_add_(
+        0, lab, sample) for _ in range(2)]
+    ss = [segment_sum(sample, lab, N_LISTS)[0] for _ in range(2)]
+    tk = [torch.topk(d, N_LISTS).indices for _ in range(2)]
+    phase("kmeans_tiers", check="determinism", tier="bf16x3",
+          rows=sample.shape[0], n_clusters=N_LISTS, sweeps=KMEANS_ITERS,
+          sweeps_equal=equal_after, trained_equal=trained_equal,
+          index_add_equal=bool(torch.equal(*ia)),
+          index_add_max_abs_diff=float((ia[0] - ia[1]).abs().max()),
+          index_add_rows_differing=int((ia[0] != ia[1]).any(1).sum()),
+          segment_sum_equal=bool(torch.equal(*ss)),
+          segment_sum_max_abs_diff_vs_index_add=float(
+              (ss[0] - ia[0]).abs().max()),
+          topk_equal=bool(torch.equal(*tk)))
+    if not (all(equal_after) and trained_equal):
+        fail(f"kmeans at one seed is not reproducible: sweeps "
+             f"{equal_after}, trained {trained_equal}")
 
 
 class Batch(NamedTuple):
@@ -704,20 +776,21 @@ def _pq_calls(index, params, b: Batch, q_rot, route):
     from raft_tpu_torch.ops import ivf_pq_scan as op
     from raft_tpu_torch.ops.ivf_scan import resolve_bins
     books, round_q = ivf_pq._lut_books(index, params.lut_dtype)
-    norms = ivf_pq._ensure_code_norms(index, params, False, "l2")
+    pc = route.per_cluster
+    norms = ivf_pq._ensure_code_norms(index, params, pc, "l2")
     bins, _ = resolve_bins(route.bins, route.kk, index.codes.shape[1])
     a = (q_rot, index.centers_rot, books, index.codes, norms,
          index.lists_indices)
     if route.fused:
         return (lambda: op.pq_scan_fused_cuda(
                     *a, b.probes, b.inv_pos, b.qmap, b.cap, route.kk, bins,
-                    False, "l2", round_q, False),
+                    False, "l2", round_q, pc),
                 lambda: op.pq_scan_fused_plain(
-                    *a, b.qmap, route.kk, bins, False, "l2", round_q, False),
+                    *a, b.qmap, route.kk, bins, False, "l2", round_q, pc),
                 norms, bins)
-    return (lambda: op.pq_scan_cuda(*a, b.qmap, bins, "l2", round_q, False,
+    return (lambda: op.pq_scan_cuda(*a, b.qmap, bins, "l2", round_q, pc,
                                     False),
-            lambda: op.pq_scan_plain(*a, b.qmap, bins, "l2", round_q, False,
+            lambda: op.pq_scan_plain(*a, b.qmap, bins, "l2", round_q, pc,
                                      False),
             norms, bins)
 
@@ -778,6 +851,12 @@ class Family(NamedTuple):
     work: Callable       # (index, params, info) -> (operations, rate) pairs
     replaces: tuple      # TPU kernels: (fused, unfused)
     f32_tier: bool       # IVF-PQ: the float32 LUT tier takes the f32 body
+    grow: bool = False   # build on the first rows, extend with the rest
+    row_tag: str = ""    # suffix of its scan rows' names
+    # its rows: "all" (scans at each tier, pass B, kernel 1 and select-k
+    # at its shapes), "scans" (the two scans), "none"
+    rows: str = "all"
+    scan_modes: bool = False  # IVF-PQ: one search at "reconstruct", "lut"
 
 
 FAMILIES = (
@@ -811,6 +890,21 @@ FAMILIES = (
            ("raft_tpu/ops/pallas_ivf_scan.py:428",
             "raft_tpu/ops/pallas_ivf_scan.py:737"), False),
 )
+# the same two points grown by extend: IVF-PQ with per-cluster books
+# (phase main_pq_pc: rows "...@per_cluster" of kernels 8 and 9, and the
+# "reconstruct" and "lut" scans) and IVF-BQ (phase main_bq_extend)
+GROWN = (
+    FAMILIES[0]._replace(
+        tag="pq_pc", label="IVF-PQ per-cluster",
+        index_params={"pq_bits": PQ_BITS, "pq_dim": 0,
+                      "codebook_kind": 1},
+        fields=lambda index: {"pq_dim": index.pq_dim, "pq_bits": PQ_BITS,
+                              "codebook_kind": "PER_CLUSTER"},
+        f32_tier=False, grow=True, row_tag="@per_cluster", rows="scans",
+        scan_modes=True),
+    FAMILIES[1]._replace(tag="bq_extend", label="IVF-BQ extended", grow=True,
+                         rows="none"),
+)
 
 
 def check_family_scans(fam: Family, index, q, params, launches: dict,
@@ -827,7 +921,7 @@ def check_family_scans(fam: Family, index, q, params, launches: dict,
     q_rot = (b.qb @ index.rotation_matrix.T).contiguous()
     c_rot = index.centers_rot
     # (params, row tag, counter and launch-key suffix, launch counts)
-    tiers = [(params, "", "", launches)]
+    tiers = [(params, fam.row_tag, "", launches)]
     if fam.f32_tier:
         tiers.append((dataclasses.replace(params, lut_dtype=torch.float32),
                       "@f32", "_f32", f32_launches))
@@ -866,6 +960,8 @@ def check_family_scans(fam: Family, index, q, params, launches: dict,
                    if fam.f32_tier else {}))
             row["launches"] = counts[key + suffix]
             rows.append(row)
+    if fam.rows == "scans":
+        return rows
     # pass B alone on the fused route's candidate rows (the unfused
     # blocks at the fused bins; L2, so no centre term)
     from raft_tpu_torch.ops.ivf_scan import candidate_rows
@@ -951,14 +1047,18 @@ def profile_run(run, tag: str, out_name: str) -> None:
     ``torch.profiler``: device time by kernel into
     ``chiprun_out/<out_name>.txt``, and the device's busy share of the
     wall time (kernels on one stream do not overlap, so their summed self
-    time is the busy time)."""
+    time is the busy time). Only the device's own records (kernels,
+    copies, fills) count: an operator's row repeats its kernels' time,
+    as the table's "Self CUDA time total" leaves it out."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run()
     ka = prof.key_averages()
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in ka
-                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     with open(os.path.join(OUT_DIR, f"{out_name}.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
@@ -1178,22 +1278,48 @@ def free_phase(path: str) -> None:
           allocated_gb_after_gc=torch.cuda.memory_allocated() / 1e9)
 
 
-def run_family(fam: Family, x, q, q_np, truth, args):
-    """Phases 4 and 5: ``fam``'s build + serving + one k=WIDE_K search;
-    both scans, and the path's k-means and coarse shapes, checked
-    against their plain versions on the served index; then the index is
-    dropped."""
+def run_family(fam: Family, x, q, q_np, truth, args, beside=None):
+    """Phases 4 and 5, and their grown forms: ``fam``'s build (for a
+    ``grow`` point on the first 1 - 1/EXTEND_SHARE of the rows, then
+    ``extend`` with the rest) + serving + one k=WIDE_K search; the scans
+    named by ``fam.rows``, and the path's k-means and coarse shapes,
+    checked against their plain versions on the served index; then the
+    index is dropped. ``beside``: fields printed with the phase (the
+    point's recall before it grew). Returns (rows, launches, the served
+    recall)."""
     from raft_tpu_torch import ops
     from raft_tpu_torch.serve import SearchServer, ServeConfig
     mod = importlib.import_module(f"raft_tpu_torch.neighbors.{fam.module}")
     params = mod.SearchParams(n_probes=fam.n_probes, rescore_factor=RESCORE,
                               rescore_on_device="always")
+    index_params = mod.IndexParams(
+        n_lists=fam.n_lists, kmeans_n_iters=KMEANS_ITERS, keep_raw=True,
+        **fam.index_params)
+    n = x.shape[0]
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    index = mod.build(x, mod.IndexParams(
-        n_lists=fam.n_lists, kmeans_n_iters=KMEANS_ITERS, keep_raw=True,
-        **fam.index_params))
+    grown = {}
+    if fam.grow:
+        n0 = n - n // EXTEND_SHARE
+        index = mod.build(x[:n0], index_params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        built = ops.launch_counts()
+        index = mod.extend(index, x[n0:])
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        ids = index.lists_indices[index.lists_indices >= 0]
+        if ids.numel() != n or int(ids.min()) != 0 or int(ids.max()) != n - 1 \
+                or index.size != n or index.raw.shape[0] != n:
+            fail(f"{fam.label} extend: {ids.numel()} ids, not 0..{n - 1}")
+        grown = dict(built_rows=n0, extended_rows=n - n0,
+                     build_only_s=t1 - t0, extend_s=time.perf_counter() - t1,
+                     extend_launches={k_: after[k_] - built[k_]
+                                      for k_ in after if after[k_] - built[k_]})
+        del ids
+    else:
+        index = mod.build(x, index_params)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = ops.launch_counts()
@@ -1205,8 +1331,7 @@ def run_family(fam: Family, x, q, q_np, truth, args):
                            max_wait_ms=2.0))
     ladder_s = time.perf_counter() - t0
     pre_burst = ops.launch_counts()
-    served = serve_phase(srv, q_np, truth, x.shape[0],
-                         fam.tag if args.profile else "")
+    served = serve_phase(srv, q_np, truth, n, fam.tag if args.profile else "")
     pre_wide = ops.launch_counts()
     d_w, i_w = mod.search(index, q[:128], WIDE_K, params)
     torch.cuda.synchronize()
@@ -1228,10 +1353,11 @@ def run_family(fam: Family, x, q, q_np, truth, args):
     if wide_recall < RECALL_FLOOR:
         fail(f"the k={WIDE_K} {fam.label} search: recall@{K} of the top "
              f"{K} = {wide_recall}")
-    phase(f"main_{fam.tag}", n=x.shape[0], dim=D, n_lists=fam.n_lists,
+    phase(f"main_{fam.tag}", n=n, dim=D, n_lists=fam.n_lists,
           **fam.fields(index), n_probes=fam.n_probes, rescore_factor=RESCORE,
-          max_list=int(index.lists_indices.shape[1]), build_s=build_s,
-          ladder_s=ladder_s, **served, served_batches=n_batches,
+          **grown, max_list=int(index.lists_indices.shape[1]),
+          build_s=build_s, ladder_s=ladder_s, **served, **(beside or {}),
+          served_batches=n_batches,
           wide_k=WIDE_K, **{f"wide_recall_at_{K}_of_top_{K}": wide_recall},
           build_launches=build_launches,
           build_fused_l2_nn_shapes=build_shapes,
@@ -1241,21 +1367,116 @@ def run_family(fam: Family, x, q, q_np, truth, args):
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     f32_launches = run_pq_f32(mod, index, q, params) if fam.f32_tier else {}
+    if fam.scan_modes:
+        run_scan_modes(mod, index, q, truth, params, args.profile)
     centers = index.centers.contiguous()
-    rows = check_family_scans(fam, index, q, params, launches, f32_launches)
-    if fam.n_lists != N_LISTS:
+    rows = (check_family_scans(fam, index, q, params, launches, f32_launches)
+            if fam.rows != "none" else [])
+    if fam.rows == "all" and fam.n_lists != N_LISTS:
         # fused L2-NN at this path's shapes: the sampled rows (the sweeps)
         # and every row (the build's predict) against its n_lists centres
         rows.append(check_fused_l2_nn(sample_rows(x, KM_ROWS, 13), centers,
                                       f"fused_l2_nn@{fam.module}"))
         rows.append(check_fused_l2_nn(x, centers,
                                       f"fused_l2_nn@{fam.module}_predict"))
-    # select-k at this path's coarse shape: n_probes of n_lists scores
-    rows.append(check_select_k(q, centers, fam.n_probes,
-                               f"select_k@{fam.module}"))
+    if fam.rows == "all":
+        # select-k at this path's coarse shape: n_probes of n_lists scores
+        rows.append(check_select_k(q, centers, fam.n_probes,
+                                   f"select_k@{fam.module}"))
     del index, srv, centers
     free_phase(fam.tag)
-    return rows, launches
+    return rows, launches, served[f"recall_at_{K}"]
+
+
+def run_scan_modes(mod, index, q, truth, params, profile: bool):
+    """IVF-PQ's torch-op scans through the entry point: one 128-query
+    search at ``scan_mode="reconstruct"`` (list-major, the first call
+    filling the bf16 decode cache) and one at ``"lut"``, each at k=K with
+    the served point's re-rank; recall@K, the first and a second call's
+    seconds, the cache's device memory and the launches. ``profile``:
+    trace a third reconstruct search (``profile_pq_reconstruct.txt``)."""
+    from raft_tpu_torch import ops
+    for mode in ("reconstruct", "lut"):
+        prm = dataclasses.replace(params, scan_mode=mode,
+                                  scan_order="list")
+        mem0 = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        d, i = mod.search(index, q[:128], K, prm)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        cache_b = (index.decoded.numel() * index.decoded.element_size()
+                   if index.decoded is not None else 0)
+        t0 = time.perf_counter()
+        mod.search(index, q[:128], K, prm)
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t0
+        if profile and mode == "reconstruct":
+            def wall_s():
+                t0 = time.perf_counter()
+                mod.search(index, q[:128], K, prm)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+            profile_run(wall_s, "pq_reconstruct", "profile_pq_reconstruct")
+        i = i.cpu().numpy()
+        if i.shape != (128, K) or (i < 0).any() or \
+                not bool(torch.isfinite(d).all()):
+            fail(f"IVF-PQ {mode}: missing neighbours")
+        recall = float(np.mean([len(set(i[r]) & set(truth[r]))
+                                for r in range(128)])) / K
+        if recall < RECALL_FLOOR:
+            fail(f"IVF-PQ {mode}: recall@{K} = {recall} < {RECALL_FLOOR}")
+        phase("pq_scan_modes", mode=mode, nq=128, k=K,
+              n_probes=params.n_probes, rescore_factor=RESCORE,
+              order="list" if mode == "reconstruct" else "probe",
+              **{f"recall_at_{K}": recall}, first_s=first_s, again_s=again_s,
+              again_ms_per_query=again_s * 1e3 / 128,
+              decode_cache_gb=cache_b / 1e9,
+              mem_added_gb=(torch.cuda.memory_allocated() - mem0) / 1e9,
+              launches={k_: v for k_, v in launches.items() if v})
+    index.decoded = index.decoded_norms = None
+
+
+def run_two_level(x):
+    """Phase 5d: ``build_hierarchical`` at TWO_LEVEL_LISTS centres over
+    the dataset (the two-level path: isqrt(k) mesoclusters, fine centres
+    in each, two balancing sweeps over all), then the predict of every
+    row; seconds, kernel 1's launches by shape, list sizes and the mean
+    squared distance to the assigned centre."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.cluster.kmeans_balanced import build_hierarchical
+    from raft_tpu_torch.distance import fused_l2_nn
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    centers = build_hierarchical(x, TWO_LEVEL_LISTS, KMEANS_ITERS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_shapes = l2nn_shapes()
+    launches = ops.launch_counts()
+    check_launched("two-level k-means", launches, ("fused_l2_nn",))
+    if tuple(centers.shape) != (TWO_LEVEL_LISTS, D) or \
+            not bool(torch.isfinite(centers).all()):
+        fail(f"two-level k-means: centres of shape {tuple(centers.shape)}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kv = fused_l2_nn(x, centers)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    sizes = torch.bincount(kv.key.long(), minlength=TWO_LEVEL_LISTS)
+    phase("kmeans_two_level", n=x.shape[0], dim=D,
+          n_clusters=TWO_LEVEL_LISTS, sweeps=KMEANS_ITERS, train_s=train_s,
+          predict_s=predict_s, fused_l2_nn_shapes=train_shapes,
+          distinct_shapes=len(train_shapes),
+          predict_fused_l2_nn_shapes=l2nn_shapes(),
+          list_size_max=int(sizes.max()),
+          list_size_mean=float(sizes.float().mean()),
+          empty_lists=int((sizes == 0).sum()),
+          mean_sq_dist=float(kv.value.double().mean()),
+          launches={k_: v for k_, v in launches.items() if v},
+          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del centers, kv, sizes
 
 
 def cuda_once(fn):
@@ -1454,76 +1675,101 @@ def run_wide_bf(seed: int, dev):
     return rows
 
 
+def pair_row(name, tag, sqrt, p_lib, xa, ya, p: float = 3.0):
+    """One ``elementwise_dist@<name>`` row: ``pairwise_distance`` of the
+    metric ``tag`` names at exponent ``p`` (launches counted), the kernel
+    against its plain version (hamming exactly) and, where ``p_lib`` is
+    not None, one ``torch.cdist`` call as the library time."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.distance import pairwise_distance
+    from raft_tpu_torch.ops import elementwise_dist as op
+    metric = PAIR_ENTRY.get(name, name)
+    m, dim = xa.shape
+    n = ya.shape[0]
+
+    def entry():
+        return pairwise_distance(xa, ya, metric, p=p)
+
+    def kernel():
+        return op.elementwise_dist_cuda(xa, ya, tag, p, sqrt)
+    ops.reset_launch_counts()
+    out = entry()
+    entry_ms = cuda_ms(entry, 3, warmup=0)
+    launches = ops.launch_counts()["elementwise_dist"]
+    if launches < 4:
+        fail(f"pairwise {name}: {launches} elementwise_dist launches")
+    saved = op.launches
+    d_k = kernel()
+    d_p, plain_ms = cuda_once(lambda: op.elementwise_dist_plain(
+        xa, ya, tag, p, sqrt))
+    fin = torch.isfinite(d_p)
+    err = torch.where(fin, d_k - d_p, torch.zeros_like(d_k)).abs()
+    max_abs = float(err.max())
+    exact = name == "hamming" or p == 0.0
+    if not torch.equal(torch.isfinite(d_k), fin) or not torch.equal(out, d_k) \
+            or (exact and not torch.equal(d_k, d_p)) \
+            or bool((err > ELT_ATOL + ELT_RTOL * d_p.abs()).any()):
+        fail(f"pairwise {name}: kernel differs from its plain version "
+             f"by up to {max_abs}")
+    del out, d_p, err, fin
+    ms = cuda_ms(kernel, 5)
+    op.launches = saved
+    lib_ms = lib_err = None
+    if p_lib is not None:
+        def lib():
+            return torch.cdist(xa, ya, p=p_lib,
+                               compute_mode="donot_use_mm_for_euclid_dist")
+        d_l = lib()
+        if p_lib == 0.0:  # the count, timed alone; hamming divides
+            d_l = d_l / dim
+        lib_err = float((d_l - d_k).abs().max())
+        del d_l
+        lib_ms = cuda_ms(lib, 5)
+    del d_k
+    fp, sfu = ELT_WORK[tag]
+    elems = m * n * dim
+    bnd = bound(4 * (m + n) * dim + 4 * m * n, (fp * elems, FP32_INSTR),
+                (sfu * elems, SFU_OPS))
+    phase("pairwise", metric=name, core=tag, sqrt=sqrt, p=p,
+          shape=[m, n, dim], entry_ms=entry_ms, ms=ms,
+          plain_ms=plain_ms, library_ms=lib_ms,
+          library_max_abs_err=lib_err, max_abs_err=max_abs,
+          bound_ms=bnd[0], bound_by=bnd[1], launches=launches)
+    row = kernel_row(f"elementwise_dist@{name}",
+                     "raft_tpu_torch/csrc/elementwise_dist.cu",
+                     "raft_tpu/ops/pallas_elementwise_dist.py:49",
+                     max_abs, ms, plain_ms, bnd, lib_ms)
+    row["launches"] = launches
+    return row
+
+
 def run_pairwise(x1m, q100, seed: int, dev):
     """Phase 8: every elementwise metric name through ``pairwise_distance``
     at PAIR_N x PAIR_N x PAIR_D (kernel 7), each against its plain version
-    and, where one computes the same function, ``torch.cdist``; the
-    expanded metrics' times; one exact L1 scan through kernel 7."""
+    and, where one computes the same function, ``torch.cdist``; canberra
+    on data whose |a| + |b| lies in (2^126, 2^128) and minkowski at p = 0
+    (rows ``@canberra_big``, ``@minkowski_p0``); the expanded metrics'
+    times; one exact L1 scan through kernel 7."""
     from raft_tpu_torch import ops
     from raft_tpu_torch.distance import DistanceType, pairwise_distance
     from raft_tpu_torch.neighbors.brute_force import brute_force_knn
-    from raft_tpu_torch.ops import elementwise_dist as op
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     a = torch.rand((PAIR_N, PAIR_D), generator=g, device=dev)
     b = torch.rand((PAIR_N, PAIR_D), generator=g, device=dev)
     ai, bi = torch.floor(a * 4), torch.floor(b * 4)  # {0, 1, 2, 3}
-    elems = PAIR_N * PAIR_N * PAIR_D
     rows = []
     for name, (tag, sqrt, p_lib) in PAIR_NAMES.items():
         xa, ya = (ai, bi) if name == "hamming" else (a, b)
-
-        def entry(xa=xa, ya=ya, name=name):
-            return pairwise_distance(xa, ya, name, p=3.0)
-
-        def kernel(xa=xa, ya=ya, tag=tag, sqrt=sqrt):
-            return op.elementwise_dist_cuda(xa, ya, tag, 3.0, sqrt)
-        ops.reset_launch_counts()
-        out = entry()
-        entry_ms = cuda_ms(entry, 3, warmup=0)
-        launches = ops.launch_counts()["elementwise_dist"]
-        if launches < 4:
-            fail(f"pairwise {name}: {launches} elementwise_dist launches")
-        saved = op.launches
-        d_k = kernel()
-        d_p, plain_ms = cuda_once(lambda: op.elementwise_dist_plain(
-            xa, ya, tag, 3.0, sqrt))
-        err = (d_k - d_p).abs()
-        max_abs = float(err.max())
-        exact = name == "hamming"
-        if not bool(torch.isfinite(d_k).all()) or not torch.equal(out, d_k) \
-                or (exact and not torch.equal(d_k, d_p)) \
-                or bool((err > ELT_ATOL + ELT_RTOL * d_p.abs()).any()):
-            fail(f"pairwise {name}: kernel differs from its plain version "
-                 f"by up to {max_abs}")
-        del out, d_p, err
-        ms = cuda_ms(kernel, 5)
-        op.launches = saved
-        lib_ms = lib_err = None
-        if p_lib is not None:
-            def lib(xa=xa, ya=ya, p_lib=p_lib):
-                return torch.cdist(xa, ya, p=p_lib,
-                                   compute_mode="donot_use_mm_for_euclid_dist")
-            d_l = lib()
-            if p_lib == 0.0:  # the count, timed alone; hamming divides
-                d_l = d_l / PAIR_D
-            lib_err = float((d_l - d_k).abs().max())
-            del d_l
-            lib_ms = cuda_ms(lib, 5)
-        del d_k
-        fp, sfu = ELT_WORK[tag]
-        bnd = bound(4 * 2 * PAIR_N * PAIR_D + 4 * PAIR_N * PAIR_N,
-                    (fp * elems, FP32_INSTR), (sfu * elems, SFU_OPS))
-        phase("pairwise", metric=name, core=tag, sqrt=sqrt,
-              shape=[PAIR_N, PAIR_N, PAIR_D], entry_ms=entry_ms, ms=ms,
-              plain_ms=plain_ms, library_ms=lib_ms,
-              library_max_abs_err=lib_err, max_abs_err=max_abs,
-              bound_ms=bnd[0], bound_by=bnd[1], launches=launches)
-        row = kernel_row(f"elementwise_dist@{name}",
-                         "raft_tpu_torch/csrc/elementwise_dist.cu",
-                         "raft_tpu/ops/pallas_elementwise_dist.py:49",
-                         max_abs, ms, plain_ms, bnd, lib_ms)
-        row["launches"] = launches
-        rows.append(row)
+        rows.append(pair_row(name, tag, sqrt, p_lib, xa, ya))
+    # |a|, |b| in [2^125, 2^126) with random signs: |a| + |b| in
+    # [2^126, 2^127), where a lone __fdividef would return 0
+    sign = torch.where(b < 0.5, -1.0, 1.0)
+    big_a, big_b = (1.0 + a) * 2.0 ** 125 * sign, (1.0 + b) * 2.0 ** 125
+    rows.append(pair_row("canberra_big", "canberra", False, None, big_a,
+                         big_b))
+    del big_a, big_b, sign
+    rows.append(pair_row("minkowski_p0", "minkowski", False, None, a, b,
+                         p=0.0))
     expanded = {name: cuda_ms(lambda name=name: pairwise_distance(a, b, name),
                               3) for name in PAIR_EXPANDED}
     # kernel 7 inside the exact scan: L1 k-NN of 100 queries over 1M rows
@@ -1608,9 +1854,23 @@ def main() -> None:
     narrow_rows = [r for st in FLAT_STORAGES
                    for r in run_flat_narrow(x, q, q_np, truth, args, st)]
 
-    # 4., 5. the IVF-PQ and IVF-BQ paths
+    # 4., 5. the IVF-PQ and IVF-BQ paths; 5b, 5c. the same points grown by
+    # extend (IVF-PQ with per-cluster books), their recall beside the
+    # first's
     paths = [(flat_rows, flat_launches), (wide_rows, wide_launches)]
-    paths += [run_family(fam, x, q, q_np, truth, args) for fam in FAMILIES]
+    recalls = {}
+    for fam in FAMILIES:
+        rows, counts, recalls[fam.module] = run_family(fam, x, q, q_np,
+                                                       truth, args)
+        paths.append((rows, counts))
+    for fam in GROWN:
+        rows, counts, _ = run_family(
+            fam, x, q, q_np, truth, args,
+            {f"main_{fam.tag.split('_')[0]}_recall_at_{K}":
+             recalls[fam.module]})
+        paths.append((rows, counts))
+    # 5d. the two-level trainer at the 10M rows
+    run_two_level(x)
 
     # launches: each row's kernel over the main-path run of its path,
     # where the row does not carry its own

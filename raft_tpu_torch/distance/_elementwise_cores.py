@@ -12,6 +12,8 @@ and finalize divides.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 TAGS = ("l1", "l2unexp", "linf", "canberra", "minkowski", "hamming",
@@ -67,7 +69,9 @@ def finalize(metric: str, d, p: float, dim: int, sqrt: bool):
     if metric == "l2unexp" and sqrt:
         return torch.sqrt(torch.clamp(d, min=0.0))
     if metric == "minkowski":
-        return d ** (1.0 / p)
+        # p = 0: every term is 1, d is the dim, and the root dim^(1/0)
+        # its limit: +inf, or 1 at dim 1
+        return d ** (math.inf if p == 0 else 1.0 / p)
     if metric == "hamming":
         # a tensor divisor: PyTorch turns division by a Python scalar on
         # CUDA into a product with its reciprocal, one ulp off the

@@ -24,7 +24,7 @@ The estimator (see ``ops.ivf_bq_scan``): ``|q_l|^2 + |r|^2 - 2 s
 vectors. Metrics: L2Expanded, L2SqrtExpanded, InnerProduct,
 CosineExpanded.
 
-Not ported yet: ``extend`` (raises ``NotImplementedError``).
+:func:`extend` adds rows with the centres and rotation frozen.
 ``kmeans_kernel_precision`` reaches the k-means trainer. The rotation is
 the port's ``ivf_pq.make_rotation_matrix`` (QR of a numpy-seeded
 gaussian), not the JAX package's ``jax.random`` draw; an index built by
@@ -244,8 +244,58 @@ def index_from_numpy(arrays: dict, metric, size: int, raw=None,
 
 def extend(index: Index, new_vectors, new_indices=None,
            res=None) -> Index:
-    raise NotImplementedError("ivf_bq.extend is not ported yet "
-                              "(ROADMAP.md queue 1 item 2)")
+    """A new index holding ``index``'s rows and ``new_vectors`` (ids
+    ``new_indices``, default ``size .. size + n_new``), on the index's
+    device: new rows (normalized for cosine) labelled with the frozen
+    centres (``kmeans_balanced.predict``) and sign-encoded with the
+    frozen rotation; old payloads are moved, never encoded again, and old
+    and new are bucketed again. Custom ids only without ``raw`` (the exact
+    re-rank reads ``raw`` by id); new rows are appended to ``raw``."""
+    ensure_resources(res, index.device)
+    full_fp32_matmul()
+    dev = index.device
+    x = torch.as_tensor(new_vectors, dtype=torch.float32).to(dev)
+    expects(x.dim() == 2 and x.shape[1] == index.dim,
+            "ivf_bq.extend: dim mismatch")
+    if index.metric == DistanceType.CosineExpanded:
+        x = ivf_flat._normalize_rows(x)
+    n_new = x.shape[0]
+    new_ids = (torch.arange(index.size, index.size + n_new,
+                            dtype=torch.int32, device=dev)
+               if new_indices is None
+               else torch.as_tensor(new_indices).to(dev, torch.int32))
+    expects(tuple(new_ids.shape) == (n_new,),
+            "ivf_bq.extend: bad new_indices")
+    expects(bool((new_ids >= 0).all()),
+            "ivf_bq.extend: new_indices must be non-negative")
+    expects(index.raw is None or new_indices is None,
+            "ivf_bq.extend: custom new_indices are only supported on "
+            "keep_raw=False indexes (raw rescore rows are id-indexed)")
+    n_lists, ml, w = index.bits.shape
+    valid = (index.lists_indices >= 0).reshape(-1)
+    old_labels = torch.arange(n_lists, dtype=torch.int32,
+                              device=dev).repeat_interleave(ml)[valid]
+    old_payload = torch.cat(
+        [index.bits.reshape(-1, w)[valid],
+         index.norms2.reshape(-1)[valid].view(torch.int32)[:, None],
+         index.scales.reshape(-1)[valid].view(torch.int32)[:, None]], dim=1)
+    labels = kmeans_balanced.predict(x, index.centers)
+    new_payload, _ = _encode_payload(x, index.centers, labels,
+                                     index.rotation_matrix)
+    bucketed, idx, _, counts = ivf_flat._bucketize(
+        torch.cat([old_payload, new_payload]),
+        torch.cat([old_labels, labels]), n_lists,
+        row_ids=torch.cat([index.lists_indices.reshape(-1)[valid], new_ids]),
+        compute_norms=False)
+    del old_payload, new_payload
+    bits, norms2, scales = _split_payload(bucketed, w)
+    return Index(centers=index.centers, centers_rot=index.centers_rot,
+                 rotation_matrix=index.rotation_matrix, bits=bits,
+                 norms2=norms2, scales=scales, lists_indices=idx,
+                 list_sizes=counts, metric=index.metric,
+                 size=index.size + n_new,
+                 raw=(np.concatenate([index.raw, x.cpu().numpy()])
+                      if index.raw is not None else None))
 
 
 def _exact_rescore_device(raw_dev: torch.Tensor, q: torch.Tensor,

@@ -44,7 +44,6 @@ from raft_tpu_torch.neighbors.ann_types import (MAX_QUERY_BATCH,
                                                 batched_search,
                                                 list_order_auto,
                                                 pin_scan_order)
-from raft_tpu_torch.ops._util import stable_topk_min
 from raft_tpu_torch.ops.ivf_scan import MAX_K as _FUSED_MAX_K
 from raft_tpu_torch.util.host_sample import sample_rows, take_rows
 
@@ -381,35 +380,16 @@ def _score_probe(queries, qq, lists_data, lists_norms, lists_indices,
     return torch.where(ids >= 0, torch.clamp(d, min=0.0), inf), ids
 
 
-def _fine_phase(queries, lists_data, lists_norms, lists_indices, probes,
-                k: int, sqrt: bool, kind: str, scale: float = 1.0):
-    """Probe-major fine phase: per probe rank, score and merge into the
-    running top-k (stable: the state wins ties, as ``lax.top_k`` does)."""
-    nq = queries.shape[0]
-    qq = (queries * queries).sum(dim=1)
-    best_d = torch.full((nq, k), float("inf"), device=queries.device)
-    best_i = torch.full((nq, k), -1, dtype=torch.int32,
-                        device=queries.device)
-    for p in range(probes.shape[1]):
-        d, ids = _score_probe(queries, qq, lists_data, lists_norms,
-                              lists_indices, probes[:, p], kind, scale)
-        cat_d = torch.cat([best_d, d], dim=1)
-        cat_i = torch.cat([best_i, ids], dim=1)
-        best_d, sel = stable_topk_min(cat_d, k)
-        best_i = torch.gather(cat_i, 1, sel)
-    if sqrt:
-        best_d = torch.sqrt(torch.clamp(best_d, min=0.0))
-    return best_d, best_i
-
-
 def _search_impl(queries, centers, lists_data, lists_indices, lists_norms,
                  k: int, n_probes: int, sqrt: bool, kind: str = "l2",
                  scale: float = 1.0):
-    """Probe-major search: coarse GEMM + top-``n_probes``, fine phase."""
-    coarse = _ivf_scan.coarse_scores(queries, centers, kind)
-    probes = stable_topk_min(coarse, n_probes)[1]
-    return _fine_phase(queries, lists_data, lists_norms, lists_indices,
-                       probes, k, sqrt, kind, scale)
+    """Probe-major search: coarse GEMM + top-``n_probes``, then per probe
+    rank :func:`_score_probe` merged into the running top-k."""
+    qq = (queries * queries).sum(dim=1)
+    return _ivf_scan.probe_major_search(
+        queries, centers, n_probes, k, sqrt, kind,
+        lambda lid: _score_probe(queries, qq, lists_data, lists_norms,
+                                 lists_indices, lid, kind, scale))
 
 
 def _as_queries(index: Index, queries) -> torch.Tensor:

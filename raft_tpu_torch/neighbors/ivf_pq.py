@@ -7,26 +7,35 @@ one u8 code per subspace per row in padded list buckets (n_lists,
 max_list, pq_dim), ids -1 on pad slots, exact decoded-residual norms.
 
 Build = balanced k-means on a subsample, nearest-centre labels (the
-``fused_l2_nn`` kernel), rotated residuals, per-subspace codebooks
-trained by the grouped balanced EM, encoding, bucketing. Search = the
-"codes" scan: coarse GEMM + ``select_k`` kernel, probe inversion, then
-the fused PQ scan kernel (``kk = rescore_factor * k <= 256``) or the
-unfused one with a candidate merge (``kk > 256``), and the epilogue:
-estimator slice or exact re-rank on the device or the host.
+``fused_l2_nn`` kernel), rotated residuals, then per-subspace codebooks
+trained by the grouped balanced EM and encoding, or (``PER_CLUSTER``)
+one codebook per list trained by a batched masked k-means over the
+list's first subvectors and encoding in place; bucketing. :func:`extend`
+encodes new rows with the frozen centres, rotation and books and
+buckets old and new codes again. Search, by ``scan_mode``:
 
-Not ported yet (raising ``NotImplementedError``): building with
-``CodebookGen.PER_CLUSTER`` (searching such an index loaded from the
-JAX package works), ``scan_mode`` "reconstruct" and "lut", ``extend``.
-``kmeans_kernel_precision`` reaches the coarse k-means trainer; the
-codebook trainer computes in f32 (the JAX package maps the knob onto an
-XLA precision there). The rotation for ``rot_dim !=
-dim`` or ``force_random_rotation`` is the QR of a numpy-seeded gaussian,
-not of the JAX package's ``jax.random`` draw.
+* "codes" ("auto"): coarse GEMM + ``select_k`` kernel, probe inversion,
+  then the fused PQ scan kernel (``kk = rescore_factor * k <= 256``) or
+  the unfused one with a candidate merge (``kk > 256``);
+* "reconstruct": a bf16 cache of the decoded lists, filled at the first
+  such search, scored in torch ops: probe-major, or list-major for L2
+  (``scan_order``, as the JAX package chooses);
+* "lut": per probe rank a lookup table per query and a gather of the
+  codes, in torch ops (the CUDA formulation the JAX package keeps);
+
+then the epilogue: estimator slice or exact re-rank on the device or the
+host. ``kmeans_kernel_precision`` reaches the coarse k-means trainer;
+the codebook trainers compute in f32 (the JAX package maps the knob onto
+an XLA precision there). The rotation for ``rot_dim != dim`` or
+``force_random_rotation`` is the QR of a numpy-seeded gaussian, and a
+PER_CLUSTER list's initial codewords a numpy-seeded draw, where the JAX
+package draws from ``jax.random``.
 """
 
 from __future__ import annotations
 
 import enum
+import threading
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -41,13 +50,16 @@ from raft_tpu_torch.core.resources import ensure_resources
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.neighbors import _ivf_scan, ivf_flat
 from raft_tpu_torch.neighbors.ann_types import (MAX_QUERY_BATCH,
-                                                batched_search)
+                                                batched_search,
+                                                list_order_auto,
+                                                pin_scan_order)
 from raft_tpu_torch.neighbors.ivf_bq import finish_search, resolve_raw_device
 from raft_tpu_torch.ops import ivf_pq_scan as pq_op
 from raft_tpu_torch.ops._util import stable_topk_min
 from raft_tpu_torch.ops.ivf_scan import resolve_bins
 from raft_tpu_torch.util.host_sample import (sample_rows, sample_rows_np,
                                              take_rows)
+from raft_tpu_torch.util.segment import segment_sum
 
 _METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
             DistanceType.L2Unexpanded, DistanceType.L2SqrtUnexpanded,
@@ -58,6 +70,10 @@ _SCAN_MODES = ("auto", "codes", "reconstruct", "lut")
 # rows per block of the build's row-wise passes (residuals, encoding)
 _ROWS = 1 << 20
 _ENCODE_ROWS = 1 << 15
+# the PER_CLUSTER trainer's subvectors per list
+_PC_TRAIN_SUBS = 4096
+# guards the lazy fill of the "reconstruct" cache (Index.decoded)
+_DECODE_LOCK = threading.Lock()
 
 
 class CodebookGen(enum.IntEnum):
@@ -90,7 +106,10 @@ class SearchParams:
     ``torch.float32`` or ``torch.float8_e4m3fn`` (books stored fp8,
     computed in bf16). ``internal_distance_dtype``: the unfused scan's
     candidate scores, float32 or bfloat16. ``scan_mode``: "auto" and
-    "codes" run the code scan. ``rescore_factor``: kk = factor * k
+    "codes" run the code scan, "reconstruct" the bf16 decoded-list scan,
+    "lut" the lookup-table scan (float8 only with "codes"). ``scan_order``:
+    "probe" | "list" | "auto", the reconstruct scan's route for L2 (IP
+    is probe-major). ``rescore_factor``: kk = factor * k
     estimator candidates re-ranked exactly against the raw vectors
     (keep_raw builds); ``rescore_on_device`` "auto" | "always" |
     "never" places that re-rank. ``scan_bins``, ``probe_cap``: as for
@@ -123,8 +142,9 @@ class Index:
     codebook_kind: CodebookGen = CodebookGen.PER_SUBSPACE
     # exact decoded-residual squared norms (n_lists, max_list), 0 on pads
     code_norms: Optional[torch.Tensor] = None
-    # the "reconstruct" scan's decoded lists and their norms (lazy in
-    # the JAX package); that scan is not ported, so they stay None
+    # the "reconstruct" scan's bf16 decoded lists (n_lists, max_list,
+    # rot_dim), pad slots 0, and their norms (the code norms): filled at
+    # the first such search; not serialized
     decoded: Optional[torch.Tensor] = None
     decoded_norms: Optional[torch.Tensor] = None
     # the same over the fp8-rounded books (fp8 LUT tier, lazy)
@@ -209,7 +229,9 @@ def _train_books_grouped(residuals_rot, cb_idx, valid, init_idx,
                          reseed_threshold: float = 0.25):
     """All subspace codebooks by one batched balanced EM (the JAX
     package's grouped trainer): per sweep, nearest-codeword assignment
-    and masked means per subspace, row-chunked; codewords under
+    and masked means per subspace, row-chunked, the coordinate sums in a
+    fixed order (``segment_sum``; the counts of 0/1 flags are exact in
+    any order); codewords under
     ``reseed_threshold`` of the average count re-seed from the
     highest-cost rows. ``cb_idx`` (m,) trainset rows padded cyclically
     to a chunk multiple, ``valid`` (m,) marks real rows, ``init_idx``
@@ -240,9 +262,10 @@ def _train_books_grouped(residuals_rot, cb_idx, valid, init_idx,
             assign = d.argmin(dim=2)                       # (S, B)
             dmin = torch.gather(d, 2, assign[:, :, None])[:, :, 0]
             slot = (row_of_s + assign).reshape(-1)
+            # counts of 0/1 flags are exact in any order of adding
             counts.index_add_(0, slot, vb.expand(pq_dim, -1).reshape(-1))
-            sums.index_add_(0, slot, (xb * vb[None, :, None]).reshape(
-                -1, pq_len))
+            sums += segment_sum((xb * vb[None, :, None]).reshape(
+                -1, pq_len), slot, pq_dim * n_codes)[0]
             # running top-n_codes worst-cost rows per subspace (the
             # reseed pool; padded rows never qualify), ties to the
             # earlier entry as lax.top_k breaks them
@@ -292,6 +315,120 @@ def _train_codebooks_per_subspace(residuals_rot, pq_dim: int, pq_len: int,
         torch.from_numpy(valid).to(dev),
         torch.from_numpy(init_idx.astype(np.int64)).to(dev), pq_dim,
         pq_len, n_codes, n_iters, chunk, reseed_threshold)
+
+
+def _list_chunk(n_lists: int, per_list_elems: int,
+                budget: int = 1 << 26) -> int:
+    """Largest divisor of ``n_lists`` whose chunk keeps
+    ``per_list_elems * chunk`` under ``budget`` elements (bounds the
+    per-cluster trainer's and encoder's (chunk, M, C) blocks)."""
+    return _ivf_scan.largest_divisor_at_most(
+        n_lists, max(1, budget // max(1, per_list_elems)))
+
+
+def _initial_codewords(valid: torch.Tensor, n_codes: int,
+                       seed: int) -> torch.Tensor:
+    """(L, n_codes) positions of each list's initial codewords: a random
+    order of the list's valid rows (numpy-seeded), valid rows first, as
+    the JAX package orders them from its ``jax.random`` draw."""
+    rng = np.random.default_rng(seed)
+    score = torch.from_numpy(rng.random(tuple(valid.shape),
+                                        dtype=np.float32)).to(valid.device)
+    score = score + torch.where(valid, 0.0, 2.0)
+    return torch.argsort(score, dim=1, stable=True)[:, :n_codes]
+
+
+def _train_books_per_cluster(data: torch.Tensor, valid: torch.Tensor,
+                             n_codes: int, n_iters: int, chunk: int,
+                             first: torch.Tensor) -> torch.Tensor:
+    """One k-means per list over its masked rows (the JAX package's
+    ``_batched_masked_kmeans``), ``chunk`` lists at a time: per sweep,
+    nearest codeword by an f32 ``bmm``, then each codeword's mean of its
+    valid rows as a one-hot ``bmm`` (a sum in a fixed order); a codeword
+    with no row keeps its place. ``data`` (L, M, D) f32, ``valid`` (L, M)
+    bool, ``first`` (L, n_codes) initial row positions → (L, n_codes, D)."""
+    full_fp32_matmul()
+    L, M, D = data.shape
+    out = torch.empty((L, n_codes, D), dtype=torch.float32,
+                      device=data.device)
+    for l0 in range(0, L, chunk):
+        db = data[l0:l0 + chunk]
+        vb = valid[l0:l0 + chunk].float()
+        c = torch.gather(db, 1, first[l0:l0 + chunk].long()[:, :, None]
+                         .expand(-1, -1, D))
+        xx = (db * db).sum(dim=2)[:, :, None]
+        for _ in range(n_iters):
+            cc = (c * c).sum(dim=2)[:, None, :]
+            d = (xx + cc) - 2.0 * torch.bmm(db, c.transpose(1, 2))
+            oh = torch.nn.functional.one_hot(d.argmin(dim=2), n_codes).float()
+            oh = oh * vb[:, :, None]
+            counts = oh.sum(dim=1)
+            sums = torch.bmm(oh.transpose(1, 2), db)
+            newc = sums / torch.clamp(counts, min=1.0)[:, :, None]
+            c = torch.where(counts[:, :, None] > 0, newc, c)
+        out[l0:l0 + chunk] = c
+    return out
+
+
+def _nearest_code(sub: torch.Tensor, books: torch.Tensor) -> torch.Tensor:
+    """argmin_j ||sub - books[j]||² over the last axis, batched over the
+    leading dims: ``sub`` (..., S, l), ``books`` (..., C, l) → (..., S)
+    uint8. The one per-cluster encoding equation, shared by the build and
+    :func:`extend`."""
+    full_fp32_matmul()
+    ip = sub @ books.transpose(-2, -1)
+    bb = (books * books).sum(dim=-1)[..., None, :]
+    ss = (sub * sub).sum(dim=-1)[..., :, None]
+    return ((ss + bb) - 2.0 * ip).argmin(dim=-1).to(torch.uint8)
+
+
+def _encode_per_cluster(bucketed: torch.Tensor, books: torch.Tensor,
+                        chunk: int) -> torch.Tensor:
+    """codes[l, i, s] = nearest codeword of list l's book to subvector s
+    of bucketed row (l, i), ``chunk`` lists at a time → (L, M, pq_dim)
+    uint8."""
+    L, M, rot_dim = bucketed.shape
+    pq_len = books.shape[2]
+    pq_dim = rot_dim // pq_len
+    out = torch.empty((L, M, pq_dim), dtype=torch.uint8,
+                      device=bucketed.device)
+    for l0 in range(0, L, chunk):
+        rb = bucketed[l0:l0 + chunk]
+        sub = rb.reshape(rb.shape[0], M * pq_dim, pq_len)
+        out[l0:l0 + chunk] = _nearest_code(
+            sub, books[l0:l0 + chunk]).reshape(-1, M, pq_dim)
+    return out
+
+
+def _build_per_cluster(residuals_rot, labels, n_lists: int, pq_dim: int,
+                       pq_len: int, n_codes: int, n_iters: int, seed: int):
+    """The PER_CLUSTER branch of :func:`build`: bucket the rotated
+    residuals, train each list's book on its first ``_PC_TRAIN_SUBS``
+    subvectors (short lists repeated up to ``n_codes``) from the
+    numpy-seeded initial codewords, encode each list in place →
+    (books, codes_b, ids, counts)."""
+    bucketed, idx, _, counts = ivf_flat._bucketize(
+        residuals_rot, labels, n_lists, compute_norms=False)
+    L, M, _ = bucketed.shape
+    t_sub = min(M * pq_dim, _PC_TRAIN_SUBS)
+    rows = -(-t_sub // pq_dim)
+    tr_sub = bucketed[:, :rows].reshape(L, rows * pq_dim, pq_len)[:, :t_sub]
+    tr_valid = (idx[:, :rows] >= 0).repeat_interleave(pq_dim, dim=1)[
+        :, :t_sub]
+    if t_sub < n_codes:
+        # short lists: repeat the slice up to n_codes rows (duplicate
+        # seeds are harmless: an empty codeword keeps its place)
+        reps = -(-n_codes // t_sub)
+        tr_sub = tr_sub.repeat(1, reps, 1)[:, :n_codes]
+        tr_valid = tr_valid.repeat(1, reps)[:, :n_codes]
+    books = _train_books_per_cluster(
+        tr_sub.contiguous(), tr_valid, n_codes, n_iters,
+        _list_chunk(L, tr_sub.shape[1] * n_codes),
+        _initial_codewords(tr_valid, n_codes, seed))
+    del tr_sub
+    codes_b = _encode_per_cluster(bucketed, books,
+                                  _list_chunk(L, M * pq_dim * n_codes))
+    return books, codes_b, idx, counts
 
 
 def _encode(residuals_rot: torch.Tensor, pq_centers: torch.Tensor):
@@ -352,8 +489,9 @@ def _bucketize_codes(codes, labels, pq_centers, n_lists: int):
 def build(dataset, params: IndexParams = IndexParams(), seed: int = 0,
           res=None, device=None) -> Index:
     """Train + encode on ``device`` (default ``cuda``; ``"cpu"`` only
-    when asked): balanced k-means coarse centres, rotation, per-subspace
-    codebooks on rotated residuals, encoding, bucketing."""
+    when asked): balanced k-means coarse centres, rotation, codebooks on
+    rotated residuals (per subspace, or per list for ``PER_CLUSTER``),
+    encoding, bucketing."""
     res = ensure_resources(res, device)
     full_fp32_matmul()
     x = torch.as_tensor(dataset, dtype=torch.float32).to(res.device)
@@ -362,11 +500,6 @@ def build(dataset, params: IndexParams = IndexParams(), seed: int = 0,
     expects(params.metric in _METRICS,
             "ivf_pq: L2-family and InnerProduct metrics are supported "
             "(got %s)", params.metric)
-    if params.codebook_kind == CodebookGen.PER_CLUSTER:
-        raise NotImplementedError(
-            "ivf_pq.build: codebook_kind=PER_CLUSTER is not ported yet "
-            "(searching a PER_CLUSTER index loaded with index_from_numpy "
-            "or serialize.load_ivf_pq works)")
     pq_dim = params.pq_dim if params.pq_dim > 0 else max(1, dim // 4)
     rot_dim = -(-dim // pq_dim) * pq_dim
     pq_len = rot_dim // pq_dim
@@ -387,6 +520,19 @@ def build(dataset, params: IndexParams = IndexParams(), seed: int = 0,
     rot = make_rotation_matrix(dim, rot_dim, params.force_random_rotation,
                                seed=seed + 1, device=x.device)
     labels, centers_rot, residuals_rot = _labels_and_prep(x, centers, rot)
+    raw = x.cpu().numpy() if params.keep_raw else None
+    if params.codebook_kind == CodebookGen.PER_CLUSTER:
+        books, codes_b, idx, counts = _build_per_cluster(
+            residuals_rot, labels, params.n_lists, pq_dim, pq_len, n_codes,
+            params.kmeans_n_iters, seed + 2)
+        del residuals_rot
+        return Index(centers=centers, centers_rot=centers_rot,
+                     rotation_matrix=rot, pq_centers=books, codes=codes_b,
+                     lists_indices=idx, list_sizes=counts,
+                     metric=params.metric, pq_bits=params.pq_bits, size=n,
+                     codebook_kind=CodebookGen.PER_CLUSTER,
+                     code_norms=_code_norms_per_cluster(codes_b, books, idx),
+                     raw=raw)
     n_cb_train = min(n, 1 << 16)
     cb_idx = (sample_rows_np(n, n_cb_train, seed + 3)
               if n_cb_train < n else None)
@@ -401,8 +547,7 @@ def build(dataset, params: IndexParams = IndexParams(), seed: int = 0,
     return Index(centers=centers, centers_rot=centers_rot,
                  rotation_matrix=rot, pq_centers=pq_centers, codes=codes_b,
                  lists_indices=idx, list_sizes=counts, metric=params.metric,
-                 pq_bits=params.pq_bits, size=n, code_norms=norms,
-                 raw=x.cpu().numpy() if params.keep_raw else None)
+                 pq_bits=params.pq_bits, size=n, code_norms=norms, raw=raw)
 
 
 def index_from_numpy(arrays: dict, metric, size: int, pq_bits: int,
@@ -416,8 +561,8 @@ def index_from_numpy(arrays: dict, metric, size: int, pq_bits: int,
     dev = ensure_resources(None, device).device
 
     def put(name, dtype):
-        return torch.from_numpy(
-            np.ascontiguousarray(arrays[name], dtype=dtype)).to(dev)
+        return torch.from_numpy(ivf_flat._host_array(arrays[name],
+                                                     dtype)).to(dev)
 
     kind = CodebookGen(int(codebook_kind))
     index = Index(centers=put("centers", np.float32),
@@ -438,8 +583,193 @@ def index_from_numpy(arrays: dict, metric, size: int, pq_bits: int,
 
 def extend(index: Index, new_vectors, new_indices=None,
            res=None) -> Index:
-    raise NotImplementedError("ivf_pq.extend is not ported yet "
-                              "(ROADMAP.md queue 1 item 2)")
+    """A new index holding ``index``'s codes and ``new_vectors`` (ids
+    ``new_indices``, default ``size .. size + n_new``), on the index's
+    device: each new row labelled with the frozen centres
+    (``kmeans_balanced.predict``), its rotated residual encoded with the
+    frozen books (its list's book for ``PER_CLUSTER``), old and new codes
+    bucketed again (old rows are moved, never encoded again), the code
+    norms recomputed. Custom ids only without ``raw`` (the exact re-rank
+    reads ``raw`` by id); new rows are appended to ``raw``."""
+    ensure_resources(res, index.device)
+    full_fp32_matmul()
+    dev = index.device
+    x = torch.as_tensor(new_vectors, dtype=torch.float32).to(dev)
+    expects(x.dim() == 2 and x.shape[1] == index.dim,
+            "ivf_pq.extend: dim mismatch")
+    n_new = x.shape[0]
+    new_ids = (torch.arange(index.size, index.size + n_new,
+                            dtype=torch.int32, device=dev)
+               if new_indices is None
+               else torch.as_tensor(new_indices).to(dev, torch.int32))
+    expects(tuple(new_ids.shape) == (n_new,),
+            "ivf_pq.extend: bad new_indices")
+    expects(bool((new_ids >= 0).all()),
+            "ivf_pq.extend: new_indices must be non-negative (negative "
+            "ids are the padding sentinel)")
+    expects(index.raw is None or new_indices is None,
+            "ivf_pq.extend: custom new_indices are only supported on "
+            "keep_raw=False indexes (raw rescore rows are id-indexed)")
+    per_cluster = index.codebook_kind == CodebookGen.PER_CLUSTER
+    labels = kmeans_balanced.predict(x, index.centers)
+    pq_dim, pq_len = index.pq_dim, index.pq_len
+    new_codes = torch.empty((n_new, pq_dim), dtype=torch.uint8, device=dev)
+    for s in range(0, n_new, _ENCODE_ROWS):
+        lab = labels[s:s + _ENCODE_ROWS].long()
+        r = (x[s:s + _ENCODE_ROWS] - index.centers[lab]) \
+            @ index.rotation_matrix.T
+        new_codes[s:s + _ENCODE_ROWS] = (
+            _nearest_code(r.reshape(-1, pq_dim, pq_len),
+                          index.pq_centers[lab])
+            if per_cluster else _encode(r, index.pq_centers))
+    n_lists, max_list = index.lists_indices.shape
+    flat_ids = index.lists_indices.reshape(-1)
+    valid = flat_ids >= 0
+    old_list = torch.arange(n_lists, dtype=torch.int32,
+                            device=dev).repeat_interleave(max_list)
+    codes_b, idx, _, counts = ivf_flat._bucketize(
+        torch.cat([index.codes.reshape(-1, pq_dim)[valid], new_codes]),
+        torch.cat([old_list[valid], labels]), n_lists,
+        row_ids=torch.cat([flat_ids[valid], new_ids]), compute_norms=False)
+    return Index(centers=index.centers, centers_rot=index.centers_rot,
+                 rotation_matrix=index.rotation_matrix,
+                 pq_centers=index.pq_centers, codes=codes_b,
+                 lists_indices=idx, list_sizes=counts, metric=index.metric,
+                 pq_bits=index.pq_bits, size=index.size + n_new,
+                 codebook_kind=index.codebook_kind,
+                 code_norms=_norms_fn(per_cluster)(codes_b, index.pq_centers,
+                                                   idx),
+                 raw=(np.concatenate([index.raw, x.cpu().numpy()])
+                      if index.raw is not None else None))
+
+
+def _decode_lists(codes_b: torch.Tensor, books: torch.Tensor,
+                  lists_indices: torch.Tensor,
+                  per_cluster: bool) -> torch.Tensor:
+    """The "reconstruct" cache: each slot's decoded rotated residual in
+    bf16, (n_lists, max_list, rot_dim), pad slots 0; subspace s of a row
+    decodes through book s, or its list's book (``per_cluster``). One
+    gather per subspace."""
+    L, M, pq_dim = codes_b.shape
+    n_codes, pq_len = books.shape[1], books.shape[2]
+    out = torch.empty((L, M, pq_dim * pq_len), dtype=torch.bfloat16,
+                      device=codes_b.device)
+    flat = books.reshape(-1, pq_len)
+    base = (torch.arange(L, device=codes_b.device) * n_codes)[:, None]
+    valid = (lists_indices >= 0)[:, :, None]
+    for s in range(pq_dim):
+        c = codes_b[:, :, s].long()
+        dec = flat[base + c] if per_cluster else books[s][c]
+        out[:, :, s * pq_len:(s + 1) * pq_len] = torch.where(
+            valid, dec, torch.zeros_like(dec)).bfloat16()
+    return out
+
+
+def _ensure_decoded(index: Index, per_cluster: bool) -> None:
+    """Fill the "reconstruct" cache once, under a lock (two serving
+    threads must not decode it twice); its norms are the exact code
+    norms."""
+    if index.decoded is not None and index.decoded_norms is not None:
+        return
+    with _DECODE_LOCK:
+        if index.decoded is None:
+            index.decoded = _decode_lists(index.codes, index.pq_centers,
+                                          index.lists_indices, per_cluster)
+        if index.decoded_norms is None:
+            if index.code_norms is None:
+                index.code_norms = _norms_fn(per_cluster)(
+                    index.codes, index.pq_centers, index.lists_indices)
+            index.decoded_norms = index.code_norms
+
+
+def _score_probe_reconstruct(q_rot, centers_rot, decoded, decoded_norms,
+                             lists_indices, list_id, kind: str):
+    """One probe rank on the reconstruct cache: every query against its
+    ``list_id`` list → ((nq, max_list) scores, ids), pads +inf. L2:
+    ``|r|^2 + |dec|^2 - 2 r.dec`` with ``r`` the bf16-rounded rotated
+    residual; IP: ``-(q.dec + q.c_l)``, the first product on the bf16
+    query. One bf16 product with f32 sums (``_ivf_scan.bf16_dot``)."""
+    lid = list_id.long()
+    data = decoded[lid]                               # (nq, ml, rot_dim)
+    ids = lists_indices[lid]
+    inf = torch.full(ids.shape, float("inf"), device=ids.device)
+    if kind == "ip":
+        ip = _ivf_scan.bf16_dot(q_rot[:, None, :], data)[:, 0]
+        cq = (q_rot * centers_rot[lid]).sum(dim=1)
+        return torch.where(ids >= 0, -(ip + cq[:, None]), inf), ids
+    resid = (q_rot - centers_rot[lid]).bfloat16().float()
+    ip = _ivf_scan.bf16_dot(resid[:, None, :], data)[:, 0]
+    rr = (resid * resid).sum(dim=1)
+    d = (rr[:, None] + decoded_norms[lid]) - 2.0 * ip
+    return torch.where(ids >= 0, torch.clamp(d, min=0.0), inf), ids
+
+
+def _search_impl_reconstruct(q, centers, centers_rot, rot, decoded,
+                             decoded_norms, lists_indices, k: int,
+                             n_probes: int, sqrt: bool, kind: str = "l2"):
+    """Probe-major scan of the reconstruct cache → (dists, ids)."""
+    full_fp32_matmul()
+    q_rot = q @ rot.T
+    return _ivf_scan.probe_major_search(
+        q, centers, n_probes, k, sqrt, kind,
+        lambda lid: _score_probe_reconstruct(q_rot, centers_rot, decoded,
+                                             decoded_norms, lists_indices,
+                                             lid, kind))
+
+
+def _search_impl(q, centers, centers_rot, rot, pq_centers, codes,
+                 lists_indices, k: int, n_probes: int, sqrt: bool,
+                 kind: str = "l2", per_cluster: bool = False):
+    """The "lut" scan, probe-major (the JAX package's ``_search_impl``):
+    per probe rank a per-query table ``lut[q, s, j]`` — ``|r_s -
+    book_j|^2`` of the rotated residual's subvector, or ``q_s.book_j``
+    for IP (built once for per-subspace books, the centre term added
+    after the gather) — then the gather of each row's codes and the sum
+    over subspaces → (dists, ids)."""
+    full_fp32_matmul()
+    nq = q.shape[0]
+    pq_dim, pq_len = codes.shape[2], pq_centers.shape[2]
+    n_codes = pq_centers.shape[1]
+    q_rot = q @ rot.T
+    q_sub = q_rot.reshape(nq, pq_dim, pq_len)
+    bb = (pq_centers * pq_centers).sum(dim=2)            # (pq_dim|L, C)
+    ip_lut = None
+    if kind == "ip" and not per_cluster:
+        ip_lut = torch.einsum("qsl,sjl->qsj", q_sub, pq_centers)
+    col = (torch.arange(pq_dim, device=q.device) * n_codes)[None, None, :]
+
+    def score_probe(list_id):
+        lid = list_id.long()
+        if per_cluster:
+            books = pq_centers[lid]                      # (nq, C, l)
+            if kind == "ip":
+                lut = torch.einsum("qsl,qjl->qsj", q_sub, books)
+            else:
+                sub = (q_rot - centers_rot[lid]).reshape(nq, pq_dim, pq_len)
+                ip = torch.einsum("qsl,qjl->qsj", sub, books)
+                ss = (sub * sub).sum(dim=2)
+                lut = (ss[:, :, None] + bb[lid][:, None, :]) - 2.0 * ip
+        elif kind == "ip":
+            lut = ip_lut
+        else:
+            sub = (q_rot - centers_rot[lid]).reshape(nq, pq_dim, pq_len)
+            ip = torch.einsum("qsl,sjl->qsj", sub, pq_centers)
+            ss = (sub * sub).sum(dim=2)
+            lut = (ss[:, :, None] + bb[None, :, :]) - 2.0 * ip
+        pcodes = codes[lid].long()                       # (nq, ml, pq_dim)
+        ids = lists_indices[lid]
+        ml = pcodes.shape[1]
+        d = torch.gather(lut.reshape(nq, -1), 1,
+                         (pcodes + col).reshape(nq, -1)).reshape(
+                             nq, ml, pq_dim).sum(dim=2)
+        inf = torch.full_like(d, float("inf"))
+        if kind == "ip":
+            cq = (q_rot * centers_rot[lid]).sum(dim=1)
+            return torch.where(ids >= 0, -(d + cq[:, None]), inf), ids
+        return torch.where(ids >= 0, torch.clamp(d, min=0.0), inf), ids
+
+    return _ivf_scan.probe_major_search(q, centers, n_probes, k, sqrt, kind,
+                                        score_probe)
 
 
 def _ensure_code_norms(index: Index, params: SearchParams,
@@ -471,10 +801,6 @@ def _lut_books(index: Index, lut_dtype):
 def _check_params(params: SearchParams) -> None:
     expects(params.scan_mode in _SCAN_MODES,
             "ivf_pq.search: unknown scan_mode %r", params.scan_mode)
-    if params.scan_mode in ("reconstruct", "lut"):
-        raise NotImplementedError(
-            f"ivf_pq.search: scan_mode={params.scan_mode!r} is not ported "
-            "yet (use 'auto' or 'codes')")
     expects(params.scan_order in ("auto", "probe", "list"),
             "ivf_pq.search: unknown scan_order %r", params.scan_order)
     expects(params.rescore_factor >= 0,
@@ -517,24 +843,35 @@ def code_scan(q_rot, centers_rot, books, round_q: bool, codes, norms, ids,
 
 
 class _Route:
-    """What one (index, k, params) point resolves to: the kk estimator
-    depth, bins, sqrt placement and whether the fused kernel takes it.
-    It holds the index's arrays that a search reads, never the index
-    itself: a plan keeps its route, the index keeps its plans
+    """What one (index, k, params) point resolves to: the scan mode, the
+    kk estimator depth, bins, sqrt placement and whether the fused kernel
+    takes it. It holds the index's arrays that a search reads, never the
+    index itself: a plan keeps its route, the index keeps its plans
     (``plan_cache``), and a reference back would keep a dropped index's
-    device memory until a cyclic garbage-collection pass."""
+    device memory until a cyclic garbage-collection pass. A
+    "reconstruct" route fills the index's decode cache."""
 
     def __init__(self, index: Index, k: int, params: SearchParams):
         _check_params(params)
+        # "auto" is the code scan, where the kernels are
+        self.scan_mode = ("codes" if params.scan_mode == "auto"
+                          else params.scan_mode)
+        expects(params.lut_dtype != torch.float8_e4m3fn
+                or self.scan_mode == "codes",
+                "ivf_pq: lut_dtype=float8_e4m3fn requires scan_mode='codes' "
+                "(resolved scan_mode is %r)", self.scan_mode)
         self.centers, self.centers_rot = index.centers, index.centers_rot
         self.rotation_matrix = index.rotation_matrix
         self.codes, self.ids = index.codes, index.lists_indices
+        self.pq_centers = index.pq_centers
         self.metric, self.raw = index.metric, index.raw
         self.k = k
+        self.n_lists = index.n_lists
         self.n_probes = min(params.n_probes, index.n_lists)
         self.kind = ivf_flat._metric_kind(index.metric)
         self.sqrt = index.metric in _SQRT_METRICS
         self.per_cluster = index.codebook_kind == CodebookGen.PER_CLUSTER
+        self.scan_order = params.scan_order
         self.rescoring = params.rescore_factor > 0 and index.raw is not None
         self.kk = max(params.rescore_factor, 1) * k
         # sqrt moves to the epilogue unless the scan's top-k is final
@@ -546,14 +883,49 @@ class _Route:
             bins = min(max(128, (32 * self.kk) // max(self.n_probes, 1)),
                        index.codes.shape[1])
         self.bins = bins
-        self.fused = self.kk <= pq_op.MAX_K
+        self.fused = self.scan_mode == "codes" and self.kk <= pq_op.MAX_K
         self.internal_bf16 = params.internal_distance_dtype == torch.bfloat16
+        if self.scan_mode == "reconstruct":
+            _ensure_decoded(index, self.per_cluster)
+            self.decoded = index.decoded
+            self.decoded_norms = index.decoded_norms
 
-    def device_phase(self, q: torch.Tensor, cap: int, books, round_q: bool,
-                     norms: torch.Tensor):
-        """Coarse probes, query rotation and the code scan → kk
-        estimator candidates (dists, ids), best first."""
+    def list_major(self, nq: int) -> bool:
+        """Whether ``nq`` queries take a list-major scan: the code scan
+        always, the reconstruct scan for L2 by ``scan_order`` ("auto":
+        ``list_order_auto``), the LUT scan never."""
+        if self.scan_mode == "codes":
+            return True
+        return (self.scan_mode == "reconstruct" and self.kind == "l2"
+                and (self.scan_order == "list"
+                     or (self.scan_order == "auto"
+                         and list_order_auto(nq, self.n_probes,
+                                             self.n_lists))))
+
+    def device_phase(self, q: torch.Tensor, cap: int, books=None,
+                     round_q: bool = False, norms=None):
+        """Coarse probes, query rotation and the scan of the route's mode
+        → kk estimator candidates (dists, ids), best first. The code
+        scan takes the LUT tier's ``books``, ``round_q`` and ``norms``;
+        ``cap`` is read by the list-major scans."""
         full_fp32_matmul()
+        if self.scan_mode == "reconstruct":
+            if self.list_major(q.shape[0]):
+                return _ivf_scan.fused_reconstruct_list_search(
+                    q, self.centers, self.centers_rot, self.rotation_matrix,
+                    self.decoded, self.decoded_norms, self.ids, k=self.kk,
+                    n_probes=self.n_probes, cap=cap, bins=self.bins,
+                    sqrt=self.dev_sqrt)
+            return _search_impl_reconstruct(
+                q, self.centers, self.centers_rot, self.rotation_matrix,
+                self.decoded, self.decoded_norms, self.ids, self.kk,
+                self.n_probes, self.dev_sqrt, kind=self.kind)
+        if self.scan_mode == "lut":
+            return _search_impl(q, self.centers, self.centers_rot,
+                                self.rotation_matrix, self.pq_centers,
+                                self.codes, self.ids, self.kk, self.n_probes,
+                                self.dev_sqrt, kind=self.kind,
+                                per_cluster=self.per_cluster)
         probes = _ivf_scan.coarse_probes(q, self.centers, self.n_probes,
                                          kind=self.kind)
         q_rot = (q @ self.rotation_matrix.T).contiguous()
@@ -586,14 +958,19 @@ def search(index: Index, queries, k: int,
             "ivf_pq.search: dim mismatch")
     route = _Route(index, k, params)
     if q.shape[0] > MAX_QUERY_BATCH:
-        return batched_search(lambda qb: search(index, qb, k, params), q,
+        pinned = pin_scan_order(params, q.shape[0], index.n_lists)
+        return batched_search(lambda qb: search(index, qb, k, pinned), q,
                               max_batch=MAX_QUERY_BATCH)
     obs.counter("raft.ivf_pq.search.queries").inc(q.shape[0])
-    cap = _ivf_scan.resolve_cap(index.cap_cache, q, index.centers, params,
-                                route.n_probes, index.n_lists,
-                                kind=route.kind)
-    norms = _ensure_code_norms(index, params, route.per_cluster, route.kind)
-    books, round_q = _lut_books(index, params.lut_dtype)
+    cap = (_ivf_scan.resolve_cap(index.cap_cache, q, index.centers, params,
+                                 route.n_probes, index.n_lists,
+                                 kind=route.kind)
+           if route.list_major(q.shape[0]) else 0)
+    books, round_q, norms = None, False, None
+    if route.scan_mode == "codes":
+        norms = _ensure_code_norms(index, params, route.per_cluster,
+                                   route.kind)
+        books, round_q = _lut_books(index, params.lut_dtype)
     if route.fused:
         obs.counter("raft.ivf_scan.fused.total", family="ivf_pq").inc()
         obs.counter("raft.ivf_scan.fused.queries").inc(q.shape[0])

@@ -1,6 +1,6 @@
 """Search plans: prepared, host-sync-free IVF serving callables
-(counterpart of ``raft_tpu.neighbors.plan``: IVF-Flat, IVF-PQ and
-IVF-BQ).
+(counterpart of ``raft_tpu.neighbors.plan``: IVF-Flat, IVF-PQ's code
+and reconstruct scans, and IVF-BQ).
 
 A :class:`SearchPlan` fixes one serving point (index, nq, k, params):
 its operands are bound, its route (list- or probe-major) is decided,
@@ -119,14 +119,21 @@ def _flat_builder(index, k: int, params):
 def _pq_builder(index, k: int, params):
     """``make(nq, cap) -> (fn, key_bits)`` for an IVF-PQ index: the code
     scan (fused kernel at kk <= 256, else the unfused kernel and the
-    candidate merge), then the exact re-rank, on the device when the raw
-    corpus has a device copy, else on the host."""
+    candidate merge) or the reconstruct scan (list- or probe-major, the
+    decode cache filled here), then the exact re-rank, on the device
+    when the raw corpus has a device copy, else on the host. The "lut"
+    scan has no plan, as in the JAX package."""
+    expects(params.scan_mode != "lut",
+            "plan: ivf_pq scan_mode %r has no serving plan (use 'auto', "
+            "'codes' or 'reconstruct')", params.scan_mode)
     route = ivf_pq._Route(index, k, params)
     raw_dev = (ivf_bq.resolve_raw_device(index, params.rescore_on_device)
                if route.rescoring else None)
-    norms = ivf_pq._ensure_code_norms(index, params, route.per_cluster,
-                                      route.kind)
-    books, round_q = ivf_pq._lut_books(index, params.lut_dtype)
+    books, round_q, norms = None, False, None
+    if route.scan_mode == "codes":
+        norms = ivf_pq._ensure_code_norms(index, params, route.per_cluster,
+                                          route.kind)
+        books, round_q = ivf_pq._lut_books(index, params.lut_dtype)
 
     def make(nq: int, cap: int):
         if route.fused:
@@ -136,7 +143,8 @@ def _pq_builder(index, k: int, params):
             d, i = route.device_phase(q, cap, books, round_q, norms)
             return route.epilogue(d, i, q, raw_dev)
 
-        key_bits = ("codes", route.fused, str(params.lut_dtype),
+        key_bits = (route.scan_mode, route.list_major(nq), route.fused,
+                    str(params.lut_dtype),
                     str(params.internal_distance_dtype), route.bins,
                     route.kk, route.rescoring, raw_dev is not None)
         return fn, key_bits

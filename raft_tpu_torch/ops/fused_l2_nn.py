@@ -27,8 +27,10 @@ launches = 0
 launches_f32 = 0
 shapes: dict = {}
 
-# rows of x per block of the plain version: bounds its (rows, n) matrix
+# the plain version's blocks of x rows: at most _PLAIN_ROWS rows and
+# _PLAIN_ELEMS entries of the (rows, n) distance matrix
 _PLAIN_ROWS = 1 << 16
+_PLAIN_ELEMS = 1 << 26
 
 
 def fused_l2_nn_plain(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False,
@@ -48,8 +50,9 @@ def fused_l2_nn_plain(x: torch.Tensor, y: torch.Tensor, sqrt: bool = False,
     yy = (y * y).sum(dim=1)
     idx = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
     dist = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    for s in range(0, x.shape[0], _PLAIN_ROWS):
-        xb = x[s:s + _PLAIN_ROWS]
+    rows = max(1, min(_PLAIN_ROWS, _PLAIN_ELEMS // max(1, y.shape[0])))
+    for s in range(0, x.shape[0], rows):
+        xb = x[s:s + rows]
         xx = (xb * xb).sum(dim=1)
         d = torch.clamp((yy[None, :] + xx[:, None])
                         - 2.0 * dot_nt(xb, y, precision), min=0.0)

@@ -177,12 +177,10 @@ def _x(n=256, d=8):
 
 
 def _unimplemented():
-    from raft_tpu_torch.neighbors import ivf_bq, ivf_pq, selection
+    from raft_tpu_torch.neighbors import selection
     from raft_tpu_torch.serve.types import ServeConfig
     x = _x()
     return {
-        "ivf_pq.extend": lambda: ivf_pq.extend(None, x, res=None),
-        "ivf_bq.extend": lambda: ivf_bq.extend(None, x, res=None),
         "select_k@approx": lambda: selection.select_k(
             x, 4, mode="approx", recall_target=0.9),
         "ServeConfig.dispatch_timeout_ms": lambda: ServeConfig(

@@ -226,16 +226,18 @@ def test_search_matches_jax(indexes, data, metric, rescore, where):
                                   rescore_factor=rescore,
                                   rescore_on_device=where)
     assert it.dtype == np.int32 and dt.shape == (NQ, K)
-    if rescore:
-        _same(dt, it, dj, ij)
-        return
-    # estimator scores: the scale is |qsub|^2 + norms2 (for the ip core
-    # the centre term's |q||c| joins it)
+    _same(dt, it, dj, ij,
+          None if rescore else _estimator_scale(jidx, q, metric))
+
+
+def _estimator_scale(jidx, q, metric):
+    """The scale of the estimator's scores, (NQ, 1): |qsub|^2 + norms2
+    (for the ip core the centre term's |q||c| joins it)."""
     qn = q / np.linalg.norm(q, axis=1, keepdims=True) \
         if metric == DistanceType.CosineExpanded else q
     cn = np.asarray(jidx.centers)
     scale = ((np.abs(qn)[:, None, :] + np.abs(cn)[None]) ** 2).sum(-1).max(1)
-    _same(dt, it, dj, ij, scale[:, None] + np.asarray(jidx.norms2).max())
+    return scale[:, None] + np.asarray(jidx.norms2).max()
 
 
 def test_wide_kk_takes_the_unfused_kernel(indexes, data, monkeypatch):
@@ -348,12 +350,87 @@ def test_save_roundtrip_both_directions(indexes, data, tmp_path):
 # --- (e) features not ported yet, (f) the default device ---------------
 
 def test_unported_features_raise(indexes, data):
-    x, q = data
+    # what stays refused: negative scan_bins
+    _, q = data
     _, tidx = indexes[DistanceType.L2Expanded]
-    with pytest.raises(NotImplementedError, match="extend"):
-        tbq.extend(tidx, x[:10])
     with pytest.raises(LogicError, match="scan_bins"):
         tbq.search(tidx, q, K, tbq.SearchParams(scan_bins=-1))
+
+
+def _new_rows(n=500, seed=7):
+    rng = np.random.default_rng(seed)
+    c = np.random.default_rng(0).normal(size=(24, D)).astype(np.float32) * 2
+    return (c[rng.integers(0, 24, n)]
+            + rng.normal(size=(n, D))).astype(np.float32)
+
+
+BQ_FIELDS = ("bits", "norms2", "scales", "lists_indices", "list_sizes")
+
+
+def _same_bq(t, j):
+    """Extended indexes agree: ids and list sizes exactly; the sign bits
+    (the port's int32 words against the JAX package's uint32 bit
+    patterns) on >= 99.99% of positions, as at build; ``norms2`` and
+    ``scales`` within rtol 1e-5."""
+    np.testing.assert_array_equal(t.lists_indices.numpy(),
+                                  np.asarray(j.lists_indices))
+    np.testing.assert_array_equal(t.list_sizes.numpy(),
+                                  np.asarray(j.list_sizes))
+    same = t.bits.numpy().view(np.uint32) == np.asarray(j.bits)
+    assert same.mean() >= 0.9999
+    np.testing.assert_allclose(t.norms2.numpy(), np.asarray(j.norms2),
+                               rtol=1e-5)
+    np.testing.assert_allclose(t.scales.numpy(), np.asarray(j.scales),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.CosineExpanded],
+                         ids=lambda m: m.name)
+def test_extend_matches_jax(indexes, data, metric):
+    # default ids on a keep_raw index: the same lists and payloads, raw
+    # rows appended (normalized for cosine), the same search results
+    jidx, tidx = indexes[metric]
+    _, q = data
+    xn = _new_rows()
+    je, te = jbq.extend(jidx, xn), tbq.extend(tidx, xn)
+    assert te.size == je.size == N + len(xn)
+    _same_bq(te, je)
+    np.testing.assert_allclose(te.raw, je.raw, rtol=1e-6, atol=1e-7)
+    for rescore in (0, 4):
+        dt, it, dj, ij = _search_both(je, te, q, K, n_probes=6,
+                                      rescore_factor=rescore)
+        _same(dt, it, dj, ij,
+              None if rescore else _estimator_scale(je, q, metric))
+
+
+@pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
+                                    DistanceType.CosineExpanded],
+                         ids=lambda m: m.name)
+def test_extend_custom_ids_and_the_raw_refusal(data, tmp_path, metric):
+    x, q = data
+    jidx = jbq.build(x, jbq.IndexParams(n_lists=N_LISTS, kmeans_n_iters=3,
+                                        metric=JDT(int(metric)),
+                                        keep_raw=False))
+    path = str(tmp_path / "bq.npz")
+    jser.save_ivf_bq(jidx, path)
+    tidx = tser.load_ivf_bq(path, device="cpu")
+    xn = _new_rows(300, 9)
+    ids = np.arange(50_000, 50_300, dtype=np.int32)[::-1].copy()
+    je, te = jbq.extend(jidx, xn, ids), tbq.extend(tidx, xn, ids)
+    _same_bq(te, je)
+    assert te.raw is None
+    dt, it, dj, ij = _search_both(je, te, q, K, n_probes=6,
+                                  rescore_factor=0)
+    assert (it == ij).mean() >= 0.99
+    with pytest.raises(LogicError, match="non-negative"):
+        tbq.extend(tidx, xn[:2], np.array([3, -1], np.int32))
+    with pytest.raises(LogicError, match="dim mismatch"):
+        tbq.extend(tidx, xn[:, :16])
+    traw = tser.load_ivf_bq(path, device="cpu")
+    traw.raw = x.copy()
+    with pytest.raises(LogicError, match="keep_raw=False"):
+        tbq.extend(traw, xn[:3], np.arange(3, dtype=np.int32))
 
 
 def test_default_device_is_cuda():

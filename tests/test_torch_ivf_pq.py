@@ -12,6 +12,10 @@ Tolerances, and why:
   decodes rows and takes one dot product, the port regroups it per
   subspace); ids identical except where two candidates' scores lie
   within that tolerance (an f32 near-tie the order can flip);
+* the "reconstruct" and "lut" scans: as the code scan (both sides take
+  the same bf16 or f32 products and add them in another order);
+* extend: list sizes, ids and codes identical (the new rows' labels and
+  codes are argmins whose near-ties the data does not hold);
 * build: centres within 1e-4 (the tolerance of the IVF-Flat build parity
   test); codebooks within 5e-3, because the grouped trainer's sums run
   in another order and one residual changing its nearest codeword among
@@ -23,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from raft_tpu.distance.distance_types import DistanceType as JDT
 from raft_tpu.neighbors import ivf_pq as jpq
@@ -34,6 +39,7 @@ from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.neighbors import _ivf_scan as t_scan
 from raft_tpu_torch.neighbors import ivf_pq as tpq
+from raft_tpu_torch.neighbors import plan as tplan
 from raft_tpu_torch.neighbors.refine import refine as t_refine
 from raft_tpu_torch.neighbors import serialize as tser
 from raft_tpu_torch.ops import ivf_pq_scan as pq_op
@@ -250,7 +256,8 @@ def data():
 
 
 BUILDS = {"l2": (JDT.L2Expanded, 0), "sqrt": (JDT.L2SqrtExpanded, 0),
-          "ip": (JDT.InnerProduct, 0), "l2_pc": (JDT.L2Expanded, 1)}
+          "ip": (JDT.InnerProduct, 0), "l2_pc": (JDT.L2Expanded, 1),
+          "ip_pc": (JDT.InnerProduct, 1)}
 
 
 @pytest.fixture(scope="module")
@@ -406,6 +413,244 @@ def test_save_roundtrip_both_directions(indexes, data, tmp_path):
     torch.testing.assert_close(again.code_norms, tidx.code_norms)
 
 
+# --- (d2) extend, PER_CLUSTER builds, the other scan modes -------------
+
+def _new_rows(n=600, seed=7):
+    rng = np.random.default_rng(seed)
+    c = np.random.default_rng(0).normal(size=(24, D)).astype(np.float32)
+    return (c[rng.integers(0, 24, n)]
+            + rng.normal(size=(n, D))).astype(np.float32)
+
+
+def _same_index(t, j, fields=("list_sizes", "lists_indices", "codes")):
+    for f in fields:
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("name", ["l2", "l2_pc", "ip_pc"])
+def test_extend_matches_jax(indexes, data, name):
+    # one JAX-built index, carried across, extended in both packages with
+    # the same rows: the same lists, ids, codes, norms and raw rows, and
+    # the same search results
+    jidx, tidx = indexes[name]
+    _, q = data
+    xn = _new_rows()
+    je = jpq.extend(jidx, xn)
+    te = tpq.extend(tidx, xn)
+    assert te.size == je.size == N + len(xn)
+    assert te.codebook_kind == tidx.codebook_kind
+    _same_index(te, je)
+    np.testing.assert_allclose(te.code_norms.numpy(),
+                               np.asarray(je.code_norms), rtol=1e-6)
+    np.testing.assert_array_equal(te.raw, je.raw)
+    assert te.decoded is None and not te.cap_cache and not te.plan_cache
+    dt, it, dj, ij = _search_both(je, te, q, K, n_probes=6,
+                                  rescore_factor=4)
+    _same(dt, it, dj, ij)
+
+
+def test_extend_custom_ids_and_refusals(data):
+    x, _ = data
+    jidx = jpq.build(x, jpq.IndexParams(n_lists=N_LISTS, kmeans_n_iters=2,
+                                        pq_dim=4, pq_bits=5))
+    tidx = tpq.index_from_numpy(
+        {f: np.asarray(getattr(jidx, f)) for f in tser._PQ_FIELDS},
+        DistanceType.L2Expanded, jidx.size, jidx.pq_bits, device="cpu")
+    xn = _new_rows(300, 9)
+    ids = np.arange(10_000, 10_300, dtype=np.int32)[::-1].copy()
+    _same_index(tpq.extend(tidx, xn, ids), jpq.extend(jidx, xn, ids))
+    with pytest.raises(LogicError, match="non-negative"):
+        tpq.extend(tidx, xn[:2], np.array([1, -1], np.int32))
+    with pytest.raises(LogicError, match="dim mismatch"):
+        tpq.extend(tidx, xn[:, :8])
+    with pytest.raises(LogicError, match="bad new_indices"):
+        tpq.extend(tidx, xn[:2], np.array([1, 2, 3], np.int32))
+
+
+def test_extend_refuses_custom_ids_with_raw(indexes):
+    _, tidx = indexes["l2"]
+    with pytest.raises(LogicError, match="keep_raw=False"):
+        tpq.extend(tidx, _new_rows(4), np.arange(4, dtype=np.int32))
+
+
+def _jax_first(valid, n_codes, seed):
+    """The JAX package's initial codeword positions for the masked
+    per-cluster trainer (its ``jax.random`` draw, block by block)."""
+    L, t = valid.shape
+    chunk = jpq._list_chunk(L, t * n_codes)
+    keys = jax.random.split(jax.random.key(seed), L // chunk)
+    v = jnp.asarray(np.asarray(valid)).reshape(-1, chunk, t)
+    out = [jnp.argsort(jax.random.uniform(keys[b], (chunk, t))
+                       + jnp.where(v[b], 0.0, 2.0), axis=1)[:, :n_codes]
+           for b in range(L // chunk)]
+    return torch.from_numpy(np.asarray(jnp.concatenate(out)).astype(np.int64))
+
+
+def test_per_cluster_stages_match_jax_on_same_inputs():
+    rng = np.random.default_rng(11)
+    L, M, pl, n_codes = 6, 300, 4, 32
+    data = rng.normal(size=(L, M, pl)).astype(np.float32)
+    valid = rng.random((L, M)) < 0.8
+    valid[2] = False                                  # an empty list
+    chunk = jpq._list_chunk(L, M * n_codes)
+    bj = np.asarray(jpq._batched_masked_kmeans(
+        jnp.asarray(data), jnp.asarray(valid), n_codes, 5,
+        jax.random.key(3), chunk))
+    bt = tpq._train_books_per_cluster(
+        torch.from_numpy(data), torch.from_numpy(valid), n_codes, 5, chunk,
+        _jax_first(valid, n_codes, 3))
+    np.testing.assert_allclose(bt.numpy(), bj, atol=1e-5)
+    # encoding, decoding and norms on the same books: exact
+    bucketed = rng.normal(size=(L, 40, 16)).astype(np.float32)
+    ct = tpq._encode_per_cluster(torch.from_numpy(bucketed), bt, 2)
+    cj = np.asarray(jpq._encode_per_cluster(jnp.asarray(bucketed),
+                                            jnp.asarray(bt.numpy()), 2))
+    np.testing.assert_array_equal(ct.numpy(), cj)
+    ids = np.arange(L * 40, dtype=np.int32).reshape(L, 40)
+    ids[4, 30:] = -1
+    dt = tpq._decode_lists(ct, bt, torch.from_numpy(ids), True)
+    dj = jpq._decode_lists_per_cluster(jnp.asarray(cj), jnp.asarray(
+        bt.numpy()), jnp.asarray(ids))
+    np.testing.assert_array_equal(dt.float().numpy(),
+                                  np.asarray(dj, np.float32))
+    books = rng.normal(size=(4, n_codes, pl)).astype(np.float32)
+    dt = tpq._decode_lists(ct, torch.from_numpy(books),
+                           torch.from_numpy(ids), False)
+    dj = jpq._decode_lists(jnp.asarray(cj), jnp.asarray(books),
+                           jnp.asarray(ids))
+    np.testing.assert_array_equal(dt.float().numpy(),
+                                  np.asarray(dj, np.float32))
+
+
+def test_per_cluster_build_matches_jax(monkeypatch):
+    # n > 65536 and trainset fraction 1.0: the coarse stage draws the
+    # same rows in both packages; each list's initial codewords are the
+    # JAX package's draw, passed to the port's trainer
+    rng = np.random.default_rng(2)
+    c = rng.normal(size=(8, 16)).astype(np.float32) * 20
+    x = (c[rng.integers(0, 8, 70000)]
+         + rng.normal(size=(70000, 16))).astype(np.float32)
+    kw = dict(n_lists=8, kmeans_n_iters=3, kmeans_trainset_fraction=1.0,
+              pq_dim=4, pq_bits=6)
+    j = jpq.build(x, jpq.IndexParams(
+        codebook_kind=jpq.CodebookGen.PER_CLUSTER, **kw))
+    monkeypatch.setattr(tpq, "_initial_codewords", _jax_first)
+    t = tpq.build(x, tpq.IndexParams(
+        codebook_kind=tpq.CodebookGen.PER_CLUSTER, **kw), device="cpu")
+    assert t.codebook_kind == tpq.CodebookGen.PER_CLUSTER
+    assert tuple(t.pq_centers.shape) == (8, 64, 4)
+    for f in ("list_sizes", "lists_indices"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)))
+    np.testing.assert_allclose(t.centers.numpy(), np.asarray(j.centers),
+                               atol=1e-4)
+    np.testing.assert_allclose(t.pq_centers.numpy(),
+                               np.asarray(j.pq_centers), atol=5e-3)
+    same = t.codes.numpy() == np.asarray(j.codes)
+    assert same.mean() >= 0.9999
+    rows = same.all(axis=2) & (t.lists_indices.numpy() >= 0)
+    np.testing.assert_allclose(t.code_norms.numpy()[rows],
+                               np.asarray(j.code_norms)[rows], rtol=1e-3)
+
+
+SCAN_CASES = [("reconstruct", "probe"), ("reconstruct", "list"),
+              ("lut", "auto")]
+
+
+@pytest.mark.parametrize("rescore", [0, 4])
+@pytest.mark.parametrize("mode,order", SCAN_CASES,
+                         ids=["-".join(c) for c in SCAN_CASES])
+@pytest.mark.parametrize("name", ["l2", "sqrt", "ip", "l2_pc", "ip_pc"])
+def test_scan_modes_match_jax(indexes, data, name, mode, order, rescore):
+    # "reconstruct" list-major is L2 only: IP takes the probe-major scan
+    # in both packages whatever scan_order says
+    jidx, tidx = indexes[name]
+    _, q = data
+    sp = dict(n_probes=6, scan_mode=mode, scan_order=order,
+              rescore_factor=rescore, probe_cap=64)
+    dj, ij = jpq.search(jidx, q, K, jpq.SearchParams(**sp))
+    dt, it = tpq.search(tidx, q, K, tpq.SearchParams(**sp))
+    _same(dt.numpy(), it.numpy(), np.asarray(dj), np.asarray(ij))
+    if mode == "reconstruct":
+        assert tidx.decoded.dtype == torch.bfloat16
+        assert tidx.decoded_norms is tidx.code_norms
+        np.testing.assert_array_equal(tidx.decoded.float().numpy(),
+                                      np.asarray(jidx.decoded, np.float32))
+
+
+def test_reconstruct_list_major_takes_the_inverted_scan(indexes, data,
+                                                        monkeypatch):
+    _, tidx = indexes["l2"]
+    _, q = data
+    calls = []
+    real = t_scan.inverted_scan
+    monkeypatch.setattr(t_scan, "inverted_scan",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    sp = tpq.SearchParams(n_probes=6, scan_mode="reconstruct")
+    tpq.search(tidx, q, K, sp)                   # 64 x 6 >= 4 x 16: lists
+    assert calls == [1]
+    tpq.search(tidx, q[:8], K, sp)               # 8 queries: probe-major
+    assert calls == [1]
+
+
+@pytest.mark.parametrize("order", ["probe", "list"])
+def test_reconstruct_plan_serves_like_search(indexes, data, order):
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    _, tidx = indexes["l2_pc"]
+    _, q = data
+    sp = tpq.SearchParams(n_probes=6, scan_mode="reconstruct",
+                          scan_order=order, rescore_factor=4, probe_cap=64)
+    srv = SearchServer.from_index(tidx, q[:8], K, params=sp,
+                                  config=ServeConfig(batch_sizes=(1, 4, 8)))
+    try:
+        served = [srv.search(q[r:r + 3], timeout=300) for r in (0, 3, 30)]
+    finally:
+        srv.close()
+    for r, (d, i) in zip((0, 3, 30), served):
+        dd, ii = tpq.search(tidx, q[r:r + 3], K, sp)
+        np.testing.assert_array_equal(np.asarray(i), ii.numpy())
+        np.testing.assert_allclose(np.asarray(d), dd.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_per_cluster_and_extended_save_load_both_ways(indexes, data,
+                                                      tmp_path):
+    x, q = data
+    # a port-built PER_CLUSTER index, read by the JAX package
+    t = tpq.build(x, tpq.IndexParams(
+        n_lists=N_LISTS, kmeans_n_iters=3, pq_dim=4, pq_bits=6,
+        keep_raw=True, codebook_kind=tpq.CodebookGen.PER_CLUSTER),
+        device="cpu")
+    path = str(tmp_path / "pc.npz")
+    tser.save_ivf_pq(t, path)
+    back = jser.load_ivf_pq(path)
+    assert back.codebook_kind == jpq.CodebookGen.PER_CLUSTER
+    for f in tser._PQ_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(back, f)),
+                                      getattr(t, f).numpy())
+    sp = dict(n_probes=6, rescore_factor=4)
+    dj, ij = jpq.search(back, q, K, jpq.SearchParams(scan_mode="codes", **sp))
+    dt, it = tpq.search(t, q, K, tpq.SearchParams(**sp))
+    _same(dt.numpy(), it.numpy(), np.asarray(dj), np.asarray(ij))
+    # a JAX-extended index read by the port equals the port's extend; the
+    # port's extended index read by the JAX package likewise
+    jidx, tidx = indexes["l2_pc"]
+    xn = _new_rows(200, 5)
+    je, te = jpq.extend(jidx, xn), tpq.extend(tidx, xn)
+    tpq.search(te, q[:4], K, tpq.SearchParams(scan_mode="reconstruct"))
+    jser.save_ivf_pq(je, path)
+    got = tser.load_ivf_pq(path, device="cpu")
+    _same_index(got, je)
+    np.testing.assert_array_equal(got.raw, te.raw)
+    tser.save_ivf_pq(te, path)
+    back = jser.load_ivf_pq(path)
+    _same_index(te, back)
+    assert back.size == je.size and back.decoded is None
+    with np.load(path) as z:                     # the cache is not saved
+        assert "decoded" not in z.files
+
+
 # --- (e) refine ------------------------------------------------------------
 
 @pytest.mark.parametrize("metric", [DistanceType.L2Expanded,
@@ -426,19 +671,18 @@ def test_refine_matches_jax(data, metric):
 # --- (f) features not ported yet, (g) the default device ---------------
 
 def test_unported_features_raise(indexes, data):
-    x, q = data
-    with pytest.raises(NotImplementedError, match="PER_CLUSTER"):
-        tpq.build(x, tpq.IndexParams(
-            n_lists=4, codebook_kind=tpq.CodebookGen.PER_CLUSTER),
-            device="cpu")
+    # what stays refused: an unknown scan mode, the fp8 LUT tier outside
+    # the code scan, and a serving plan for the "lut" scan
+    _, q = data
     _, tidx = indexes["l2"]
-    for mode in ("reconstruct", "lut"):
-        with pytest.raises(NotImplementedError, match=mode):
-            tpq.search(tidx, q, K, tpq.SearchParams(scan_mode=mode))
     with pytest.raises(LogicError, match="scan_mode"):
         tpq.search(tidx, q, K, tpq.SearchParams(scan_mode="bogus"))
-    with pytest.raises(NotImplementedError, match="extend"):
-        tpq.extend(tidx, x[:10])
+    for mode in ("reconstruct", "lut"):
+        with pytest.raises(LogicError, match="float8_e4m3fn requires"):
+            tpq.search(tidx, q, K, tpq.SearchParams(
+                scan_mode=mode, lut_dtype=torch.float8_e4m3fn))
+    with pytest.raises(LogicError, match="no serving plan"):
+        tplan.build_plan(tidx, q[:8], K, tpq.SearchParams(scan_mode="lut"))
 
 
 def test_default_device_is_cuda():

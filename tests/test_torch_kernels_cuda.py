@@ -24,6 +24,11 @@ bf16 on the tensor cores, f32 on the CUDA cores), the IVF-BQ scans
 likewise, as are the IVF-Flat scans on bf16 and int8 lists (one bf16
 pass against the queries rounded to bf16; int8 times its scale) and
 fused k-NN at d > 4096 (kernel 6, bf16x3 or bf16 on the tensor cores).
+Two builds of one index at one seed on the card are bit-identical. An
+index extended on the card matches the same extend on the CPU: ids and
+list sizes identical, codes and search ids on >= 99.9% of entries (the
+card's labels take kernel 1 at bf16x3, the CPU's f32, so a near-tie can
+fall either way).
 """
 
 import numpy as np
@@ -994,3 +999,171 @@ def test_brute_force_entry_points_launch_on_card(dev):
     # one launch per db tile of the exact scan
     tiles = -(-3000 // brute_force._db_tile(40, 3000))
     assert tiles == 2 and elt_op.launches == before[1] + tiles
+
+
+@pytest.mark.parametrize("m,n,d", [(33, 40, 7), (70, 129, 300)])
+def test_elementwise_canberra_big_and_subnormal_denominators(dev, m, n, d):
+    # |a| + |b| in (2^126, 2^128), where __fdividef alone returns 0, and
+    # in the subnormal range, against the plain version's true ratio
+    rng = np.random.default_rng(d)
+    x = _elt_data(rng, m, d, "signed")
+    y = _elt_data(rng, n, d, "signed")
+    big = (2.0 ** 126 * (0.5 + rng.random((m + n, d)))).astype(np.float32)
+    sign = np.where(rng.random((m + n, d)) < 0.5, -1.0, 1.0)
+    x[:, 0::3] = (big[:m] * sign[:m])[:, 0::3]
+    y[:, 0::3] = (big[m:] * sign[m:])[:, 0::3]
+    tiny = (1e-40 * (0.5 + rng.random((m + n, d)))).astype(np.float32)
+    x[:, 1::3] = tiny[:m, 1::3]
+    y[:, 1::3] = -tiny[m:, 1::3]
+    x, y = _t(x, dev), _t(y, dev)
+    den = x[:, None, 0::3].abs() + y[None, :, 0::3].abs()
+    assert float(den.max()) > 2.0 ** 126 and float(den.min()) < 2.0 ** 128
+    got = elt_op.elementwise_dist(x, y, "canberra")
+    want = elt_op.elementwise_dist_plain(x, y, "canberra")
+    torch.cuda.synchronize()
+    _elt_check(got, want, "canberra")
+
+
+@pytest.mark.parametrize("d", [1, 2, 37])
+def test_elementwise_minkowski_p0(dev, d):
+    # every term |a - b|^0 is 1 (zero differences included), the sum is
+    # the dim and its 1/0-th root +inf, or 1 at dim 1
+    rng = np.random.default_rng(d)
+    x = _t(_elt_data(rng, 20, d, "unit"), dev)
+    y = torch.cat([x[:5], _t(_elt_data(rng, 30, d, "unit"), dev)])
+    before = elt_op.launches
+    got = elt_op.elementwise_dist(x, y, "minkowski", p=0.0)
+    torch.cuda.synchronize()
+    assert elt_op.launches == before + 1
+    want = elt_op.elementwise_dist_plain(x, y, "minkowski", p=0.0)
+    expect = torch.full_like(want, 1.0 if d == 1 else float("inf"))
+    assert torch.equal(want, expect) and torch.equal(got, expect)
+
+
+def _family_build(family, x, dev):
+    """One build of ``family`` on the card at seed 0, as its ``IndexParams``
+    default trainer draws it; the fields two builds must share."""
+    if family == "ivf_flat":
+        idx = ivf_flat.build(x, ivf_flat.IndexParams(
+            n_lists=64, kmeans_n_iters=6), device=dev)
+        return idx, ("centers", "lists_data", "lists_indices", "list_sizes")
+    if family == "ivf_pq":
+        idx = ivf_pq.build(x, ivf_pq.IndexParams(
+            n_lists=64, kmeans_n_iters=6, pq_dim=16), device=dev)
+        return idx, ("centers", "pq_centers", "codes", "lists_indices",
+                     "list_sizes")
+    if family == "ivf_pq_pc":
+        idx = ivf_pq.build(x, ivf_pq.IndexParams(
+            n_lists=64, kmeans_n_iters=6, pq_dim=16,
+            codebook_kind=ivf_pq.CodebookGen.PER_CLUSTER), device=dev)
+        return idx, ("centers", "pq_centers", "codes", "lists_indices",
+                     "list_sizes")
+    idx = ivf_bq.build(x, ivf_bq.IndexParams(n_lists=64, kmeans_n_iters=6),
+                       device=dev)
+    return idx, ("centers", "bits", "norms2", "lists_indices", "list_sizes")
+
+
+@pytest.mark.parametrize("family", ["ivf_flat", "ivf_pq", "ivf_pq_pc",
+                                    "ivf_bq"])
+def test_builds_on_card_are_reproducible(dev, family):
+    # two builds at one seed: bit-identical centres, lists and ids (the
+    # trainers' sums run in a fixed order; index_add_ on the card did not)
+    rng = np.random.default_rng(21)
+    c = rng.normal(size=(64, 32)).astype(np.float32) * 3
+    x = _t((c[rng.integers(0, 64, 70000)]
+            + rng.normal(size=(70000, 32))).astype(np.float32), dev)
+    a, fields = _family_build(family, x, dev)
+    b, _ = _family_build(family, x, dev)
+    for f in fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _clustered(rng, n, d, nq):
+    c = rng.normal(size=(16, d)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 16, n)] + rng.normal(size=(n, d))).astype(
+        np.float32)
+    q = (c[rng.integers(0, 16, nq)] + rng.normal(size=(nq, d))).astype(
+        np.float32)
+    return x, q
+
+
+@pytest.mark.parametrize("per_cluster", [False, True])
+def test_pq_extend_on_card_matches_cpu(dev, per_cluster):
+    rng = np.random.default_rng(22)
+    x, q = _clustered(rng, 5000, 32, 64)
+    kind = ivf_pq.CodebookGen(int(per_cluster))
+    cpu = ivf_pq.build(x[:4000], ivf_pq.IndexParams(
+        n_lists=16, kmeans_n_iters=4, pq_dim=16, keep_raw=True,
+        codebook_kind=kind), device="cpu")
+    arrays = {f: getattr(cpu, f).numpy() for f in
+              ("centers", "centers_rot", "rotation_matrix", "pq_centers",
+               "codes", "lists_indices", "list_sizes")}
+    gpu = ivf_pq.index_from_numpy(arrays, cpu.metric, cpu.size, cpu.pq_bits,
+                                  codebook_kind=kind, raw=cpu.raw,
+                                  device=dev)
+    before = nn_op.launches
+    ge = ivf_pq.extend(gpu, x[4000:])
+    assert nn_op.launches > before               # predict on the card
+    ce = ivf_pq.extend(cpu, x[4000:])
+    for f in ("list_sizes", "lists_indices"):
+        np.testing.assert_array_equal(getattr(ge, f).cpu().numpy(),
+                                      getattr(ce, f).numpy())
+    assert (ge.codes.cpu() == ce.codes).double().mean() >= 0.999
+    np.testing.assert_array_equal(ge.raw, ce.raw)
+    sp = ivf_pq.SearchParams(n_probes=6, rescore_factor=4,
+                             rescore_on_device="always")
+    dg, ig = ivf_pq.search(ge, q, 10, sp)
+    dc, ic = ivf_pq.search(ce, q, 10, sp)
+    assert (ig.cpu() == ic).double().mean() >= 0.999
+    for mode in ("reconstruct", "lut"):
+        spm = ivf_pq.SearchParams(n_probes=6, rescore_factor=4,
+                                  scan_mode=mode, rescore_on_device="always")
+        dg, ig = ivf_pq.search(ge, q, 10, spm)
+        dc, ic = ivf_pq.search(ce, q, 10, spm)
+        assert (ig.cpu() == ic).double().mean() >= 0.999, mode
+
+
+@pytest.mark.parametrize("metric", [ivf_flat.DistanceType.L2Expanded,
+                                    ivf_flat.DistanceType.CosineExpanded])
+def test_bq_extend_on_card_matches_cpu(dev, metric):
+    rng = np.random.default_rng(23)
+    x, q = _clustered(rng, 5000, 48, 64)
+    cpu = ivf_bq.build(x[:4000], ivf_bq.IndexParams(
+        n_lists=16, metric=metric, kmeans_n_iters=4), device="cpu")
+    arrays = {f: getattr(cpu, f).numpy() for f in
+              ("centers", "centers_rot", "rotation_matrix", "bits", "norms2",
+               "scales", "lists_indices", "list_sizes")}
+    arrays["bits"] = arrays["bits"].view(np.uint32)
+    gpu = ivf_bq.index_from_numpy(arrays, cpu.metric, cpu.size, raw=cpu.raw,
+                                  device=dev)
+    ge = ivf_bq.extend(gpu, x[4000:])
+    ce = ivf_bq.extend(cpu, x[4000:])
+    for f in ("list_sizes", "lists_indices"):
+        np.testing.assert_array_equal(getattr(ge, f).cpu().numpy(),
+                                      getattr(ce, f).numpy())
+    assert (ge.bits.cpu() == ce.bits).double().mean() >= 0.999
+    sp = ivf_bq.SearchParams(n_probes=6, rescore_factor=4,
+                             rescore_on_device="always")
+    before = bq_op.launches_fused
+    dg, ig = ivf_bq.search(ge, q, 10, sp)
+    assert bq_op.launches_fused > before
+    dc, ic = ivf_bq.search(ce, q, 10, sp)
+    assert (ig.cpu() == ic).double().mean() >= 0.999
+
+
+@pytest.mark.parametrize("shape", [(3, 1, 64, 40), (5, 17, 300, 128)])
+def test_bf16_dot_on_card_is_the_widened_product(dev, shape):
+    # the reconstruct scans' product: one bf16 bmm into f32 on the card
+    # against the CPU's widened f32 product of the same bf16 operands;
+    # each product is exact in f32, so only the order of the f32 sums
+    # differs: within 1e-5 of the sum of |products|
+    b, m, n, d = shape
+    rng = np.random.default_rng(b)
+    a = torch.from_numpy(rng.normal(size=(b, m, d)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(b, n, d)).astype(np.float32))
+    got = _ivf_scan.bf16_dot(a.to(dev), w.to(dev).bfloat16())
+    assert got.dtype == torch.float32 and got.shape == (b, m, n)
+    want = _ivf_scan.bf16_dot(a, w.bfloat16())
+    mag = a.bfloat16().float().abs() @ w.bfloat16().float().abs() \
+        .transpose(1, 2)
+    assert ((got.cpu() - want).abs() <= 1e-5 * mag + 1e-30).all()

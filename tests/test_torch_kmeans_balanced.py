@@ -3,7 +3,8 @@ package's, on well-separated blobs (``n_clusters`` = number of blobs),
 from the same initial rows.
 
 Tolerance: labels identical, centres within rtol 1e-4 (per-cluster sums
-reduce in a different order: ``segment_sum`` vs ``index_add_``). Small
+reduce in a different order: the JAX ``segment_sum`` vs the port's
+stable-sorted segment reduction). Small
 ``n`` uses explicit initial rows taken from the JAX package's own draw;
 ``build_hierarchical`` runs at ``n > 65536``, where both packages draw
 the same numpy stream on their own.
@@ -17,8 +18,10 @@ import jax.numpy as jnp
 from raft_tpu.cluster import kmeans_balanced as jkm
 from raft_tpu.util.host_sample import sample_rows as jax_sample_rows
 from raft_tpu_torch.cluster import kmeans_balanced as tkm
+from raft_tpu_torch.core.error import LogicError
 from raft_tpu_torch.ops import fused_l2_nn as nn_op
 from raft_tpu_torch.util.host_sample import sample_rows, sample_rows_np
+from raft_tpu_torch.util.segment import segment_sum
 
 
 @pytest.fixture(autouse=True)
@@ -84,10 +87,58 @@ def test_build_hierarchical_flat_path_matches_jax():
         np.asarray(jkm.predict(x, cj)))
 
 
-def test_two_level_path_is_not_ported():
-    x = torch.zeros((10, 2))
-    with pytest.raises(NotImplementedError, match="two-level"):
-        tkm.build_hierarchical(x, 20000)
+def test_two_level_path_counts_and_refusals():
+    # the two-level path (n_clusters > 16384) is ported now: it counts
+    # its path and balancing sweeps and returns every centre; too few
+    # rows for its mesoclusters is a LogicError, as for the flat path
+    from raft_tpu_torch import obs
+    with pytest.raises(LogicError, match="n_clusters"):
+        tkm.build_hierarchical(torch.zeros((10, 2)), 20000)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(16500, 2)).astype(np.float32))
+    before = obs.snapshot()["counters"]
+    c = tkm.build_hierarchical(x, 16400, n_iters=1)
+    after = obs.snapshot()["counters"]
+    assert c.shape == (16400, 2) and bool(torch.isfinite(c).all())
+    key = 'raft.kmeans_balanced.build.total{path="two_level"}'
+    rounds = "raft.kmeans_balanced.balancing_rounds"
+    assert after.get(key, 0) - before.get(key, 0) == 1
+    assert after[rounds] - before.get(rounds, 0) == 2
+
+
+def test_two_level_matches_jax(monkeypatch):
+    # 16385 clusters: 128 mesoclusters of 129 fine centres, then two
+    # balancing sweeps. Both packages draw their initial rows from the
+    # numpy stream (the JAX package's own draw for n > 65536; its
+    # mesoclusters are smaller, so the test hands it that stream); its
+    # assignments run in interpret mode, whose distances are the plain
+    # version's bit for bit, so the reseeds pick the same rows.
+    # Tolerance: centres within 1e-4 (as above; equal in practice)
+    monkeypatch.setattr(jkm, "sample_rows", lambda n, m, seed: jnp.asarray(
+        sample_rows_np(n, m, seed).astype(np.int32)))
+    x = np.random.default_rng(0).normal(size=(65540, 8)).astype(np.float32)
+    cj = np.asarray(jkm.build_hierarchical(x, 16385, n_iters=2))
+    ct = tkm.build_hierarchical(torch.from_numpy(x), 16385, n_iters=2)
+    np.testing.assert_allclose(ct.numpy(), cj, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("width", [1, 5])
+def test_segment_sum_is_index_add_in_a_fixed_order(width):
+    # the trainers' per-cluster sums: index_add_ within f32 rounding (on
+    # the CPU both add a segment's rows in row order: equal), counts
+    # exact, and two runs bit for bit the same
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.normal(size=(5000, width)).astype(np.float32))
+    x = x.reshape(-1) if width == 1 else x
+    lab = torch.from_numpy(rng.integers(0, 300, 5000))
+    lab[lab == 7] = 8                      # an empty segment
+    sums, counts = segment_sum(x, lab, 300)
+    ref = torch.zeros((300,) + tuple(x.shape[1:])).index_add_(0, lab, x)
+    torch.testing.assert_close(sums, ref, rtol=1e-6, atol=1e-5)
+    assert torch.equal(counts, torch.bincount(lab, minlength=300))
+    assert float(sums[7].abs().sum()) == 0.0 and int(counts[7]) == 0
+    again, _ = segment_sum(x, lab, 300)
+    assert torch.equal(again, sums)
 
 
 def test_sample_rows_is_the_jax_numpy_stream():
