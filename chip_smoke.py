@@ -131,6 +131,35 @@ Phases, one line each:
               (2^126, 2^128) (``elementwise_dist@canberra_big``) and
               minkowski at p = 0 (``elementwise_dist@minkowski_p0``, +inf
               everywhere at dim 256), each against its plain version.
+9. cluster  — the host-side users of the distances. ``kmeans.fit`` on the
+              first 1M rows, k = 1024, 20 iterations, Random then
+              k-means++ init (kernel 1 at bf16x3 for every assignment):
+              seconds, iterations, inertia, kernel 1's launches by shape;
+              a second fit at one seed bit for bit and the inertia within
+              1e-3 of ``cluster_cost`` (fails otherwise); row
+              ``fused_l2_nn@kmeans`` at (1M, 128) x (1024, 128).
+              ``single_linkage`` over the kNN graph of the first 100,000
+              rows (c = 15, 100 clusters): the seconds of the kNN graph,
+              of each connectivity round (with the components before it),
+              of the MST and of the dendrogram; the dendrogram checked
+              (n - 1 merges of rising height, the last of size n, 100
+              labels); then PAIRWISE on 4,096 rows against
+              ``scipy.cluster.hierarchy.linkage(method="single")`` cut at
+              100 clusters (labels equal up to renaming, heights within
+              1e-4). ``silhouette_score`` of 50,000 rows at the fit's
+              labels, euclidean and cityblock, each within 1e-4 of the
+              port's CPU run on 5,000 of them (row
+              ``elementwise_dist@silhouette_l1`` at (256, 50000, 128)). The
+              sparse stack: the repo's wide case (512 x 256 rows of
+              100,000 features, 64 nonzeros, col_tile 4096) against the
+              dense distance of the densified rows; a narrow case (8192 x
+              8192 rows of 1024 features at 5%) at cityblock and
+              jensenshannon, bit for bit against the dense distance (rows
+              ``elementwise_dist@sparse_narrow_l1|js``); a sparse k-NN of
+              2000 queries over 50,000 rows of the wide form, k = 32, its
+              first queries against ``torch.sparse.mm``. ``select_k`` at
+              ``mode="approx"`` on one (128, 4096) batch at k = 128: the
+              exact mode's ids, and kernel 2 launched.
 
 The exact search's truth for phases 3-5 (256 queries, k=32) comes from
 the port's own ``brute_force_knn(mode="exact")``.
@@ -244,6 +273,26 @@ PAIR_EXPANDED = ("inner_product", "cosine", "correlation", "hellinger",
 
 # the pairwise_distance names of the rows that are not PAIR_NAMES keys
 PAIR_ENTRY = {"canberra_big": "canberra", "minkowski_p0": "minkowski"}
+
+# phase 9, cluster: Lloyd k-means on the first KM_FIT_ROWS rows (the
+# survey's 1M-row k-means workload at the smoke's width), k = 1024, 20
+# iterations, Random then k-means++ init; single-linkage on the first
+# SL_ROWS rows (kNN graph, c = 15) and SL_PAIR_ROWS rows (pairwise),
+# SL_CLUSTERS clusters; the silhouette of SIL_ROWS rows at the fit's
+# labels, held to the CPU on SIL_SUB of them; the sparse cases: the
+# repo's wide case (bench_suite.py bench_sparse_wide: 512 x 256 rows of
+# 100,000 features, 64 nonzeros a row, col_tile 4096), a narrow one
+# (8192 x 8192 rows of 1024 features at 5% density) and a k-NN (2000
+# queries over 50,000 rows of the wide rows' form, k = 32); select_k at
+# mode="approx" on one (128, 4096) batch at k = 128
+KM_FIT_ROWS, KM_FIT_CLUSTERS, KM_FIT_ITERS = 1_000_000, 1024, 20
+SL_ROWS, SL_C, SL_CLUSTERS, SL_PAIR_ROWS = 100_000, 15, 100, 4096
+SIL_ROWS, SIL_SUB, SIL_TOL = 50_000, 5_000, 1e-4
+SP_WIDE = (512, 256, 100_000, 64, 4096)     # m, n, features, nnz, col_tile
+SP_NARROW = (8192, 8192, 1024, 0.05)        # m, n, features, density
+SP_KNN = (2000, 50_000, 32, 64)             # queries, rows, k, checked
+SP_TOL = 1e-4
+APPROX = (128, 4096, 128)
 
 # kernels whose compiled resources the build line reports
 PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
@@ -1790,6 +1839,297 @@ def run_pairwise(x1m, q100, seed: int, dev):
     return rows
 
 
+def elt_row(name, tag, xa, ya, launches, p_lib=None):
+    """Kernel 7 at one path's shape, ``(xa, ya)`` under core ``tag``,
+    against its plain version (``ELT_ATOL + ELT_RTOL * |plain|``), with
+    ``torch.cdist`` at ``p_lib`` as the library time where it computes
+    the same function; ``launches`` are the path's."""
+    from raft_tpu_torch.ops import elementwise_dist as op
+    m, dim = xa.shape
+    n = ya.shape[0]
+    saved = op.launches
+    kernel = lambda: op.elementwise_dist_cuda(xa, ya, tag)  # noqa: E731
+    d_k = kernel()
+    d_p, plain_ms = cuda_once(lambda: op.elementwise_dist_plain(xa, ya,
+                                                                tag))
+    err = (d_k - d_p).abs()
+    max_abs = float(err.max())
+    if bool((err > ELT_ATOL + ELT_RTOL * d_p.abs()).any()):
+        fail(f"{name}: kernel differs from its plain version by up to "
+             f"{max_abs}")
+    del d_k, d_p, err
+    ms = cuda_ms(kernel, 3)
+    op.launches = saved
+    lib_ms = None
+    if p_lib is not None:
+        lib_ms = cuda_ms(lambda: torch.cdist(
+            xa, ya, p=p_lib, compute_mode="donot_use_mm_for_euclid_dist"), 3)
+    fp, sfu = ELT_WORK[tag]
+    elems = m * n * dim
+    bnd = bound(4 * (m + n) * dim + 4 * m * n, (fp * elems, FP32_INSTR),
+                (sfu * elems, SFU_OPS))
+    phase("kernels", kernel=name, core=tag, shape=[m, n, dim],
+          max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+          bound_ms=bnd[0], bound_by=bnd[1], launches=launches)
+    row = kernel_row(name, "raft_tpu_torch/csrc/elementwise_dist.cu",
+                     "raft_tpu/ops/pallas_elementwise_dist.py:49",
+                     max_abs, ms, plain_ms, bnd, lib_ms)
+    row["launches"] = launches
+    return row
+
+
+def run_kmeans_fit(xk):
+    """Phase 9a: ``kmeans.fit`` at KM_FIT_CLUSTERS centres, Random then
+    k-means++ init; each fit's seconds, iterations, inertia and kernel
+    1's launches by shape; a second fit at one seed bit for bit; the
+    inertia against ``cluster_cost`` of the centres. Returns the Random
+    fit's centres, the kernel 1 row and the launches of both fits."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
+    total, kept = 0, None
+    for init in (InitMethod.Random, InitMethod.KMeansPlusPlus):
+        params = KMeansParams(n_clusters=KM_FIT_CLUSTERS, init=init,
+                              max_iter=KM_FIT_ITERS, seed=7, n_init=1)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        centers, inertia, n_iter = kmeans.fit(xk, params)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        shapes = l2nn_shapes()
+        launches = ops.launch_counts()
+        check_launched(f"kmeans.fit {init.name}", launches, ("fused_l2_nn",))
+        total += launches["fused_l2_nn"]
+        again = kmeans.fit(xk, params)
+        repeat = bool(torch.equal(again[0], centers)
+                      and torch.equal(again[1], inertia))
+        cost = float(kmeans.cluster_cost(xk, centers))
+        rel = abs(float(inertia) - cost) / cost
+        phase("cluster", part="kmeans.fit", init=init.name,
+              rows=xk.shape[0], n_clusters=KM_FIT_CLUSTERS,
+              max_iter=KM_FIT_ITERS, seconds=fit_s, n_iter=n_iter,
+              inertia=float(inertia), cluster_cost=cost,
+              inertia_vs_cost_rel=rel, repeat_bit_identical=repeat,
+              fused_l2_nn_shapes=shapes,
+              launches={k_: v for k_, v in launches.items() if v})
+        if not repeat:
+            fail(f"kmeans.fit {init.name}: two fits at one seed differ")
+        if rel > 1e-3 or not bool(torch.isfinite(centers).all()):
+            fail(f"kmeans.fit {init.name}: inertia {float(inertia)} vs "
+                 f"cluster_cost {cost}")
+        if kept is None:
+            kept = centers
+    row = check_fused_l2_nn(xk, kept, "fused_l2_nn@kmeans")
+    row["launches"] = total
+    return kept, row
+
+
+def run_single_linkage(x):
+    """Phase 9b: ``single_linkage`` over the kNN graph of SL_ROWS rows
+    (its parts' seconds and the components before each connectivity
+    round; a valid dendrogram: n - 1 merges of rising height ending at
+    size n, SL_CLUSTERS labels), then PAIRWISE on SL_PAIR_ROWS rows
+    against ``scipy.cluster.hierarchy.linkage(method="single")``."""
+    import importlib
+    from scipy.cluster.hierarchy import cut_tree, linkage
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.cluster import LinkageDistance, single_linkage
+    sl = importlib.import_module("raft_tpu_torch.cluster.single_linkage")
+    for route, n in (("KNN_GRAPH", SL_ROWS), ("PAIRWISE", SL_PAIR_ROWS)):
+        xs = x[:n].contiguous()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        labels, children = single_linkage(xs, SL_CLUSTERS,
+                                          LinkageDistance[route], SL_C)
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        run = dict(sl.last_run)
+        heights = run.pop("heights")
+        ch = children.cpu().numpy()
+        size = np.ones(2 * n - 1, np.int64)
+        for e, (a, b) in enumerate(ch):
+            size[n + e] = size[a] + size[b]
+        lab = labels.cpu().numpy()
+        valid = (ch.shape == (n - 1, 2) and bool(np.all(np.diff(heights)
+                                                        >= 0))
+                 and int(size[-1]) == n
+                 and len(np.unique(lab)) == SL_CLUSTERS)
+        fields = {}
+        if route == "PAIRWISE":
+            t1 = time.perf_counter()
+            z = linkage(xs.cpu().double().numpy(), method="single")
+            ref = cut_tree(z, n_clusters=SL_CLUSTERS).reshape(-1)
+            fields = {"scipy_s": time.perf_counter() - t1,
+                      "heights_max_rel_err": float(np.max(np.abs(
+                          np.sort(z[:, 2]) - heights)
+                          / np.maximum(np.sort(z[:, 2]), 1e-30))),
+                      "label_pairs": len(set(zip(lab.tolist(),
+                                                 ref.tolist())))}
+        phase("cluster", part="single_linkage", route=route, rows=n,
+              c=SL_C, n_clusters=SL_CLUSTERS, seconds=seconds,
+              dendrogram_valid=valid, **run, **fields,
+              launches={k_: v for k_, v in launches.items() if v})
+        if not valid:
+            fail(f"single_linkage {route}: invalid dendrogram")
+        if route == "PAIRWISE" and (fields["heights_max_rel_err"] > 1e-4
+                                    or fields["label_pairs"] != SL_CLUSTERS):
+            fail(f"single_linkage PAIRWISE: differs from scipy {fields}")
+        del labels, children, xs
+
+
+def run_silhouette(x, centers):
+    """Phase 9c: ``silhouette_score`` of SIL_ROWS rows at the fit's
+    labels, euclidean and cityblock, each held to the port's CPU run on
+    SIL_SUB of them; the cityblock run's tiles make the kernel 7 row."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.stats import silhouette_score
+    xs = x[:SIL_ROWS].contiguous()
+    labels = kmeans.predict(xs, centers)
+    row = None
+    for metric in ("euclidean", "cityblock"):
+        ops.reset_launch_counts()
+        score, ms = cuda_once(lambda: silhouette_score(xs, labels,
+                                                       metric=metric))
+        launches = ops.launch_counts()
+        sub = float(silhouette_score(xs[:SIL_SUB], labels[:SIL_SUB],
+                                     metric=metric))
+        t0 = time.perf_counter()
+        cpu = float(silhouette_score(xs[:SIL_SUB].cpu(),
+                                     labels[:SIL_SUB].cpu(), metric=metric))
+        cpu_s = time.perf_counter() - t0
+        phase("cluster", part="silhouette", metric=metric, rows=SIL_ROWS,
+              score=float(score), ms=ms, subset=SIL_SUB, subset_score=sub,
+              subset_cpu_score=cpu, cpu_s=cpu_s,
+              launches={k_: v for k_, v in launches.items() if v})
+        if not (abs(sub - cpu) <= SIL_TOL and -1.0 <= float(score) <= 1.0):
+            fail(f"silhouette {metric}: card {sub} vs CPU {cpu}")
+        if metric == "cityblock":
+            check_launched("silhouette cityblock", launches,
+                           ("elementwise_dist",))
+            row = elt_row("elementwise_dist@silhouette_l1", "l1",
+                          xs[:256].contiguous(), xs,
+                          launches["elementwise_dist"], 1.0)
+    return row
+
+
+def sparse_rows(g, m: int, k: int, nnz: int, dev):
+    """CSR rows of ``bench_suite.bench_sparse_wide``'s form: ``nnz``
+    random columns of ``k`` a row (a repeat keeps one value) with
+    uniform values, made on the card."""
+    from raft_tpu_torch import sparse
+    dense = torch.zeros((m, k), device=dev)
+    cols = torch.randint(0, k, (m, nnz), generator=g, device=dev)
+    dense.scatter_(1, cols, torch.rand((m, nnz), generator=g, device=dev))
+    out = sparse.dense_to_csr(dense)
+    del dense
+    return out
+
+
+def run_sparse(seed: int, dev):
+    """Phase 9d: the wide case against dense ``pairwise_distance`` of the
+    densified rows; the narrow case at cityblock and jensenshannon, bit
+    for bit against the dense function (kernel 7 rows); the sparse
+    k-NN, its first SP_KNN[3] queries against ``torch.sparse.mm`` of the
+    CSR rows."""
+    from raft_tpu_torch import ops, sparse
+    from raft_tpu_torch.distance import DistanceType, pairwise_distance
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    m, n, k, nnz, tile = SP_WIDE
+    a, b = sparse_rows(g, m, k, nnz, dev), sparse_rows(g, n, k, nnz, dev)
+    wide = lambda: sparse.pairwise_distance(  # noqa: E731
+        a, b, DistanceType.L2SqrtExpanded, col_tile=tile)
+    got = wide()
+    want = pairwise_distance(a.todense(), b.todense(), "euclidean")
+    err = float((got - want).abs().max())
+    wide_ms = cuda_ms(wide, 3)
+    phase("cluster", part="sparse_wide", shape=[m, n, k], nnz_per_row=nnz,
+          col_tile=tile, ms=wide_ms, max_abs_err_vs_dense=err)
+    if err > SP_TOL * (1.0 + float(want.abs().max())):
+        fail(f"sparse wide: {err} from the dense distance")
+    del a, b, got, want
+    rows = []
+    m, n, k, density = SP_NARROW
+    dense_a = torch.rand((m, k), generator=g, device=dev)
+    dense_a *= torch.rand((m, k), generator=g, device=dev) < density
+    dense_b = torch.rand((n, k), generator=g, device=dev)
+    dense_b *= torch.rand((n, k), generator=g, device=dev) < density
+    a, b = sparse.dense_to_csr(dense_a), sparse.dense_to_csr(dense_b)
+    for name, tag, p_lib in (("cityblock", "l1", 1.0),
+                             ("jensenshannon", "jensen_shannon", None)):
+        from raft_tpu_torch.distance import DISTANCE_TYPES
+        ops.reset_launch_counts()
+        got, ms = cuda_once(lambda: sparse.pairwise_distance(
+            a, b, DISTANCE_TYPES[name]))
+        launches = ops.launch_counts()
+        check_launched(f"sparse narrow {name}", launches,
+                       ("elementwise_dist",))
+        same = bool(torch.equal(got, pairwise_distance(dense_a, dense_b,
+                                                       name)))
+        phase("cluster", part="sparse_narrow", metric=name,
+              shape=[m, n, k], density=density, ms=ms,
+              equal_to_dense=same,
+              launches={k_: v for k_, v in launches.items() if v})
+        if not same:
+            fail(f"sparse narrow {name}: differs from the dense distance")
+        del got
+        rows.append(elt_row(
+            f"elementwise_dist@sparse_narrow_{'l1' if tag == 'l1' else 'js'}",
+            tag, dense_a, dense_b, launches["elementwise_dist"], p_lib))
+    del a, b, dense_a, dense_b
+    nq, n, kk, checked = SP_KNN
+    k, nnz = SP_WIDE[2], SP_WIDE[3]
+    db, q = sparse_rows(g, n, k, nnz, dev), sparse_rows(g, nq, k, nnz, dev)
+    (d, i), ms = cuda_once(lambda: sparse.brute_force_knn(db, q, kk))
+    # the first queries by torch.sparse: |q|^2 + |x|^2 - 2 <q, x>
+    qd = sparse.csr_slice_rows(q, 0, checked).todense()
+    dbs = torch.sparse_csr_tensor(db.indptr.long(), db.indices.long(),
+                                  db.data, db.shape, check_invariants=False)
+    ip = torch.sparse.mm(dbs, qd.T).T
+    xx = torch.zeros(n, device=dev).index_add_(
+        0, db.row_ids().long(), db.data * db.data)
+    ref = (qd * qd).sum(1)[:, None] + xx[None, :] - 2.0 * ip
+    d_ref, i_ref = torch.topk(ref, kk, dim=1, largest=False)
+    agree = float((i[:checked].long() == i_ref).double().mean())
+    derr = float((d[:checked] - d_ref).abs().max())
+    phase("cluster", part="sparse_knn", queries=nq, rows=n, features=k,
+          nnz_per_row=nnz, k=kk, ms=ms, checked=checked,
+          id_agreement=agree, max_abs_err=derr)
+    if agree < MIN_ID_AGREEMENT or derr > SP_TOL * float(d_ref.max()):
+        fail(f"sparse knn: ids agree on {agree}, distances off by {derr}")
+    return rows
+
+
+def run_select_approx(dev):
+    """Phase 9e: ``select_k(mode="approx")`` on one batch: the ids of
+    ``mode="exact"`` and kernel 2's launches risen."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.neighbors.selection import select_k
+    rows, cols, k = APPROX
+    v = torch.randn((rows, cols), device=dev)
+    ops.reset_launch_counts()
+    d_a, i_a = select_k(v, k, mode="approx", recall_target=0.9)
+    launches = ops.launch_counts()["select_k"]
+    d_e, i_e = select_k(v, k)
+    same = bool(torch.equal(i_a, i_e) and torch.equal(d_a, d_e))
+    phase("cluster", part="select_k_approx", shape=[rows, cols, k],
+          equal_to_exact=same, select_k_launches=launches)
+    if not same or launches < 1:
+        fail(f"select_k approx: equal to exact {same}, launches {launches}")
+
+
+def run_cluster(x, seed: int, dev):
+    """Phase 9: the host-side users of kernels 1, 7 and 2."""
+    t0 = time.perf_counter()
+    centers, km_row = run_kmeans_fit(x[:KM_FIT_ROWS].contiguous())
+    run_single_linkage(x)
+    rows = [km_row, run_silhouette(x, centers)]
+    rows += run_sparse(seed, dev)
+    run_select_approx(dev)
+    phase("cluster", seconds=time.perf_counter() - t0)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=10_000_000,
@@ -1882,7 +2222,7 @@ def main() -> None:
             row["launches"] = counts["ivf_scan" if key == "ivf_flat_scan"
                                      else key]
 
-    # 2b, 3b, 3c, 6.-8. kernel 1's tiers, IVF-Flat's narrow storages,
+    # 2b, 3b, 3c, 6.-9. kernel 1's tiers, IVF-Flat's narrow storages,
     # brute force and pairwise distances: rows carry their own path's
     # launches
     paths.append((tier_rows, None))
@@ -1891,6 +2231,8 @@ def main() -> None:
     paths.append((run_wide_bf(args.seed, dev), None))
     paths.append((run_pairwise(x[:L1_ROWS], q_bf[:L1_QUERIES], args.seed,
                                dev), None))
+    # 9. the host-side users of the distances
+    paths.append((run_cluster(x, args.seed, dev), None))
 
     kernels = [r for rows, _ in paths for r in rows]
     print(json.dumps({"kernels": kernels}), flush=True)

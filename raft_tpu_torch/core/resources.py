@@ -76,3 +76,13 @@ def ensure_resources(res: Optional[Resources],
                 f"res.device={res.device}")
         return res
     return Resources(device) if device is not None else default_resources()
+
+
+def resources_for(x, res: Optional[Resources] = None) -> Resources:
+    """The handle an entry point given the input ``x`` runs on: ``res``
+    if given, else the device of ``x`` when it is a tensor, else
+    :func:`default_resources` (``cuda``). A tensor on one device type
+    with ``res`` on another is an error."""
+    if isinstance(x, torch.Tensor):
+        return ensure_resources(res, x.device)
+    return ensure_resources(res)

@@ -4,6 +4,12 @@ The JAX package's split is kept: ``k <= 256`` on a 2-D float input with
 at least ``2k`` columns goes to the exact ``select_k`` kernel (plain
 version on the CPU); anything else goes to ``torch.topk`` (the JAX
 package's ``lax.top_k``).
+
+``mode="approx"`` takes the same exact route. The JAX package answers it
+with ``lax.approx_{min,max}_k`` (the TPU's partial-reduce selection at
+``recall_target``); the exact top-k has recall 1.0, which meets any
+target, and equals the JAX operator's result wherever that is exact (on
+the CPU).
 """
 
 from __future__ import annotations
@@ -31,12 +37,8 @@ def select_k(values: torch.Tensor, k: int, select_min: bool = True,
              res=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row exact k smallest (or largest) values with their int32
     indices. ``input_indices`` maps columns to global ids (``-1`` stays
-    ``-1``). The JAX package's ``mode="approx"`` (and with it
-    ``recall_target``) is not ported and raises."""
-    if mode == "approx":
-        raise NotImplementedError(
-            f"select_k: mode={mode!r} is not ported yet (ROADMAP.md queue "
-            "1 item 5)")
+    ``-1``). ``mode``: ``"exact"`` or ``"approx"``, both exact here (see
+    the module note), so ``recall_target`` is met whatever it is."""
     v = values if isinstance(values, torch.Tensor) else torch.as_tensor(values)
     ensure_resources(res, v.device)
     expects(v.dim() == 2, "select_k: values must be (n_rows, n_cols)")

@@ -1,17 +1,20 @@
-"""IVF-Flat, IVF-PQ and IVF-BQ save/load (counterpart of
+"""IVF-Flat, IVF-PQ, IVF-BQ and ball-cover save/load, and the
+type-dispatching ``save``/``load`` (counterpart of
 ``raft_tpu.neighbors.serialize``).
 
 Same file format as the JAX package, so an index moves between the two
 packages: a numpy ``.npz`` whose ``__meta__`` entry is a JSON object
 ``{format, version, bf16_fields, ...}`` (IVF-Flat: ``metric, size,
 scale``; IVF-PQ: ``metric, size, pq_bits, codebook_kind, has_raw``;
-IVF-BQ: ``metric, size, has_raw``; the metric as its ``DistanceType``
+IVF-BQ: ``metric, size, has_raw``; ball cover: ``metric, size``; the metric as its ``DistanceType``
 integer) beside one array per index field. IVF-BQ bits are stored as
 uint32, as the JAX package holds them. numpy has no bfloat16, so a
 bfloat16 field (IVF-Flat's bf16 list rows) is stored as its uint16 bit
 patterns and named in ``bf16_fields``, as the JAX package stores it, and
 loaded as a ``torch.bfloat16`` tensor; int8 rows are stored as int8, their
-``scale`` in the meta.
+``scale`` in the meta. The JAX package's host-memory IVF-Flat and
+mutable-index formats are not ported: ``load`` raises
+``NotImplementedError`` on them.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ _FIELDS = ("centers", "lists_data", "lists_indices", "lists_norms",
            "list_sizes")
 _PQ_FIELDS = ("centers", "centers_rot", "rotation_matrix", "pq_centers",
               "codes", "lists_indices", "list_sizes")
+_BALL_FIELDS = ("landmarks", "lists_data", "lists_indices", "radii")
 _BQ_FIELDS = ("centers", "centers_rot", "rotation_matrix", "bits", "norms2",
               "scales", "lists_indices", "list_sizes")
 
@@ -141,3 +145,56 @@ def load_ivf_bq(path: str, device="cuda"):
     return index_from_numpy(arrays, meta["metric"], meta["size"],
                             raw=arrays.get("raw") if meta.get("has_raw")
                             else None, device=device)
+
+
+def save_ball_cover(index, path: str) -> None:
+    """Write a :class:`~raft_tpu_torch.neighbors.ball_cover.BallCoverIndex`
+    to ``path``."""
+    _pack(path, "ball_cover",
+          {"metric": int(index.metric), "size": int(index.size)},
+          {f: getattr(index, f) for f in _BALL_FIELDS})
+
+
+def load_ball_cover(path: str, device="cuda"):
+    """Read a ball-cover index written by either package onto ``device``
+    (default ``cuda``)."""
+    from raft_tpu_torch.neighbors.ball_cover import index_from_numpy
+    meta, arrays = _unpack(path, "ball_cover", _BALL_FIELDS)
+    return index_from_numpy(arrays, meta["metric"], meta["size"],
+                            device=device)
+
+
+# formats of the JAX package the port does not hold yet, by ROADMAP.md item
+_NOT_PORTED = {"host_ivf_flat": "queue 1 item 7", "mutable": "queue 1 item 4"}
+
+
+def save(index, path: str) -> None:
+    """Type-dispatching save for the port's index types."""
+    from raft_tpu_torch.neighbors import ball_cover, ivf_bq, ivf_flat, ivf_pq
+    if isinstance(index, ivf_flat.Index):
+        save_ivf_flat(index, path)
+    elif isinstance(index, ivf_pq.Index):
+        save_ivf_pq(index, path)
+    elif isinstance(index, ivf_bq.Index):
+        save_ivf_bq(index, path)
+    elif isinstance(index, ball_cover.BallCoverIndex):
+        save_ball_cover(index, path)
+    else:
+        raise TypeError(f"serialize.save: unsupported index {type(index)}")
+
+
+def load(path: str, device="cuda"):
+    """Type-dispatching load: reads the format tag and returns the
+    matching index type on ``device`` (default ``cuda``)."""
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+    fmt = meta.get("format")
+    readers = {"ivf_flat": load_ivf_flat, "ivf_pq": load_ivf_pq,
+               "ivf_bq": load_ivf_bq, "ball_cover": load_ball_cover}
+    if fmt in readers:
+        return readers[fmt](path, device=device)
+    if fmt in _NOT_PORTED:
+        raise NotImplementedError(
+            f"serialize.load: the {fmt!r} format is not ported yet "
+            f"(ROADMAP.md {_NOT_PORTED[fmt]})")
+    raise ValueError(f"serialize.load: unknown format {fmt!r} in {path}")

@@ -50,6 +50,8 @@ ALLOWED_EXTRA = {
     ("neighbors.plan", "SearchPlan", "device"):
         "the device the plan's operands live on",
     ("neighbors.refine", "refine", "device"): _DEVICE,
+    ("neighbors.serialize", "load", "device"): _DEVICE,
+    ("neighbors.serialize", "load_ball_cover", "device"): _DEVICE,
     ("neighbors.serialize", "load_ivf_bq", "device"): _DEVICE,
     ("neighbors.serialize", "load_ivf_flat", "device"): _DEVICE,
     ("neighbors.serialize", "load_ivf_pq", "device"): _DEVICE,
@@ -177,12 +179,8 @@ def _x(n=256, d=8):
 
 
 def _unimplemented():
-    from raft_tpu_torch.neighbors import selection
     from raft_tpu_torch.serve.types import ServeConfig
-    x = _x()
     return {
-        "select_k@approx": lambda: selection.select_k(
-            x, 4, mode="approx", recall_target=0.9),
         "ServeConfig.dispatch_timeout_ms": lambda: ServeConfig(
             dispatch_timeout_ms=50.0),
         "ServeConfig.max_retries": lambda: ServeConfig(max_retries=2),

@@ -1167,3 +1167,110 @@ def test_bf16_dot_on_card_is_the_widened_product(dev, shape):
     mag = a.bfloat16().float().abs() @ w.bfloat16().float().abs() \
         .transpose(1, 2)
     assert ((got.cpu() - want).abs() <= 1e-5 * mag + 1e-30).all()
+
+
+def _blob_rows(rng, n_blobs, n, d, spread):
+    c = rng.normal(size=(n_blobs, d)).astype(np.float32) * spread
+    return (c[rng.integers(0, n_blobs, n)]
+            + rng.normal(size=(n, d))).astype(np.float32)
+
+
+def test_kmeans_fit_on_card_matches_cpu(dev):
+    # Lloyd k-means through kernel 1 (bf16x3) on the card against the
+    # CPU's f32 plain version, from one row of each well-separated blob
+    # (no row lies near two centres): labels identical, inertia within
+    # 1e-3 relative; two fits on the card bit-identical, at Array and at
+    # k-means++ init
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.cluster.kmeans_types import InitMethod, KMeansParams
+    rng = np.random.default_rng(31)
+    c = rng.normal(size=(16, 32)).astype(np.float32) * 8.0
+    lab = rng.integers(0, 16, 20000)
+    x = (c[lab] + rng.normal(size=(20000, 32))).astype(np.float32)
+    c0 = x[[int(np.flatnonzero(lab == j)[0]) for j in range(16)]]
+    params = KMeansParams(n_clusters=16, init=InitMethod.Array, max_iter=25)
+    before = nn_op.launches
+    cg, ig, ng = kmeans.fit(_t(x, dev), params, None, _t(c0, dev))
+    assert nn_op.launches - before >= ng + 1
+    cc, ic, nc = kmeans.fit(torch.from_numpy(x), params, None,
+                            torch.from_numpy(c0))
+    assert ng == nc
+    np.testing.assert_array_equal(
+        kmeans.predict(_t(x, dev), cg).cpu().numpy(),
+        kmeans.predict(torch.from_numpy(x), cc).numpy())
+    assert abs(float(ig) - float(ic)) <= 1e-3 * float(ic)
+    cg2, ig2, _ = kmeans.fit(_t(x, dev), params, None, _t(c0, dev))
+    assert torch.equal(cg, cg2) and torch.equal(ig, ig2)
+    pp = [kmeans.fit(_t(x, dev), KMeansParams(n_clusters=16, seed=5,
+                                              max_iter=5))[0]
+          for _ in range(2)]
+    assert torch.equal(*pp)
+
+
+@pytest.mark.parametrize("metric", ["cityblock", "jensenshannon"])
+def test_sparse_narrow_tier_is_dense_distance_on_card(dev, metric):
+    # the narrow tier densifies the rows and launches kernel 7 on them:
+    # bit-equal to pairwise_distance of the densified rows
+    from raft_tpu_torch import sparse
+    from raft_tpu_torch.distance import DISTANCE_TYPES, pairwise_distance
+    rng = np.random.default_rng(32)
+    a = rng.random((700, 300)).astype(np.float32)
+    a[rng.random(a.shape) > 0.05] = 0.0
+    b = rng.random((500, 300)).astype(np.float32)
+    b[rng.random(b.shape) > 0.05] = 0.0
+    ca, cb = sparse.dense_to_csr(_t(a, dev)), sparse.dense_to_csr(_t(b, dev))
+    before = elt_op.launches
+    got = sparse.pairwise_distance(ca, cb, DISTANCE_TYPES[metric])
+    assert elt_op.launches > before
+    want = pairwise_distance(ca.todense(), cb.todense(), metric)
+    assert torch.equal(got, want)
+
+
+def test_sparse_wide_tier_on_card_matches_cpu(dev):
+    # the column-tiled tier on the card against the CPU: squared L2
+    # within 1e-5 of the norms' scale (the tiles' f32 products sum in
+    # another order), L1 within rtol 1e-5
+    from raft_tpu_torch import sparse
+    from raft_tpu_torch.distance import DistanceType
+    rng = np.random.default_rng(33)
+    a, b = (rng.random((m, 5000)).astype(np.float32) for m in (60, 45))
+    a[rng.random(a.shape) > 0.01] = 0.0
+    b[rng.random(b.shape) > 0.01] = 0.0
+    scale = torch.from_numpy((a * a).sum(1)[:, None] + (b * b).sum(1)[None])
+    for metric in (DistanceType.L2Expanded, DistanceType.L1):
+        cpu = sparse.pairwise_distance(
+            sparse.dense_to_csr(torch.from_numpy(a)),
+            sparse.dense_to_csr(torch.from_numpy(b)), metric, col_tile=1024)
+        card = sparse.pairwise_distance(
+            sparse.dense_to_csr(_t(a, dev)), sparse.dense_to_csr(_t(b, dev)),
+            metric, col_tile=1024).cpu()
+        if metric == DistanceType.L2Expanded:
+            assert ((card - cpu).abs() <= 1e-5 * scale).all()
+        else:
+            torch.testing.assert_close(card, cpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("route", ["PAIRWISE", "KNN_GRAPH"])
+def test_single_linkage_on_card_matches_cpu(dev, route):
+    # n = 2000 in eight separate groups (the kNN graph at c = 2 falls
+    # into components, so the fix-up runs on the card); small integer
+    # coordinates make every squared distance exact in f32 in any order,
+    # so children and labels must be identical to the CPU run
+    from raft_tpu_torch.cluster import LinkageDistance, single_linkage
+    rng = np.random.default_rng(34)
+    x = rng.integers(0, 6, (2000, 16)).astype(np.float32)
+    g = rng.integers(0, 8, 2000)
+    x[np.arange(2000), g] += 40.0
+    lg, cg = single_linkage(_t(x, dev), 8, LinkageDistance[route], 2)
+    lc, cc = single_linkage(torch.from_numpy(x), 8, LinkageDistance[route], 2)
+    assert torch.equal(cg.cpu(), cc) and torch.equal(lg.cpu(), lc)
+
+
+def test_select_k_approx_launches_kernel_2(dev):
+    from raft_tpu_torch.neighbors.selection import select_k
+    v = torch.randn((128, 4096), device=dev)
+    before = sel_op.launches
+    da, ia = select_k(v, 128, mode="approx")
+    assert sel_op.launches > before
+    de, ie = select_k(v, 128)
+    assert torch.equal(ia, ie) and torch.equal(da, de)

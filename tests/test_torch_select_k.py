@@ -167,3 +167,32 @@ def test_payload_select_matches_list_state_merge(n, k, sqrt):
     assert torch.equal(idt, im)
     assert torch.equal(dt, dm)
     assert bool((idt[torch.isinf(dt)] == -1).all())
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("shape,k", [((16, 512), 32), ((8, 300), 200),
+                                     ((6, 1000), 400)])
+def test_approx_mode_matches_jax(shape, k, select_min):
+    # the JAX package's lax.approx_{min,max}_k is exact on the CPU; the
+    # port's approx mode is the exact route (the kernel's plain version
+    # at k <= 256 and 2k columns, torch.topk above): the same values and
+    # ids, recall 1.0 whatever the target
+    rng = np.random.default_rng(k)
+    v = rng.normal(size=shape).astype(np.float32)
+    dj, ij = jax_select_k(v, k, select_min=select_min, mode="approx",
+                          recall_target=0.9)
+    dt, it = select_k(torch.from_numpy(v), k, select_min=select_min,
+                      mode="approx", recall_target=0.9)
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    de, ie = select_k(torch.from_numpy(v), k, select_min=select_min)
+    assert torch.equal(it, ie) and torch.equal(dt, de)
+
+
+def test_approx_mode_maps_input_indices_like_exact():
+    rng = np.random.default_rng(3)
+    v = torch.from_numpy(rng.normal(size=(5, 64)).astype(np.float32))
+    ids = torch.arange(64, dtype=torch.int32) * 10 + 7
+    a = select_k(v, 6, input_indices=ids, mode="approx")
+    e = select_k(v, 6, input_indices=ids)
+    assert torch.equal(a[1], e[1]) and torch.equal(a[0], e[0])
