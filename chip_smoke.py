@@ -160,6 +160,34 @@ Phases, one line each:
               first queries against ``torch.sparse.mm``. ``select_k`` at
               ``mode="approx"`` on one (128, 4096) batch at k = 128: the
               exact mode's ids, and kernel 2 launched.
+10. primitives — the dense primitives and spectral partitioning.
+              ``random.make_blobs`` of 1,048,576 x 32 points round 16
+              centres on the card; their kNN graph at k = 15 in
+              ``knn_graph``'s form (unit weights, CSR) from the fused
+              brute force (kernel 5 and its pass B);
+              ``spectral.partition`` into 16 clusters (normalized
+              Laplacian, Lanczos, k-means on the 16-d embedding: kernel 1
+              at (1,048,576, 16) x 16), ``analyze_partition``,
+              ``analyze_modularity``, then ``modularity_maximization``:
+              each part's seconds, the eigenvalues, the adjusted Rand index
+              against the blob labels, edge cut, cost, modularity and
+              kernel 1's launches by shape; fails unless the labels lie in
+              [0, 16), everything is finite, the Laplacian's eigenvalues
+              ascend within [-1e-3, 2 + 1e-3] and kernel 1 was launched;
+              row ``fused_l2_nn@spectral`` (the embedding against the
+              partition's centroids). Dense linear algebra: ``rsvd`` at
+              rank 64 of a 262,144 x 1024 rank-64-plus-noise matrix (its
+              singular values within 1e-2 of ``torch.linalg.svdvals``),
+              ``eig_dc`` and ``svd_qr`` at 4096 x 4096 and ``lstsq_qr`` at
+              262,144 x 256 (reconstruction and normal-equations residuals
+              within 1e-4), ``stats.cov`` and ``stats.meanvar`` of the
+              blobs against float64. ``linear_assignment`` at 2048 x 2048
+              on integer costs in [0, 1000): a permutation, its objective
+              beside scipy's and the auction rounds of each phase. R-MAT at
+              Graph500's scale 20, edge factor 16, theta (0.57, 0.19, 0.19,
+              0.05): the top-level quadrant shares within 0.01 of theta;
+              ``make_regression`` at 1,048,576 x 128: the noise-free targets
+              within 1e-4 of x @ coef + bias.
 
 The exact search's truth for phases 3-5 (256 queries, k=32) comes from
 the port's own ``brute_force_knn(mode="exact")``.
@@ -293,6 +321,22 @@ SP_NARROW = (8192, 8192, 1024, 0.05)        # m, n, features, density
 SP_KNN = (2000, 50_000, 32, 64)             # queries, rows, k, checked
 SP_TOL = 1e-4
 APPROX = (128, 4096, 128)
+
+# phase 10, primitives: spectral partition of SPEC_N blob points
+# (SPEC_D features, SPEC_CLUSTERS centres) on their kNN graph at
+# SPEC_KNN (unit weights); rsvd of a RSVD_SHAPE matrix of rank RSVD_K plus
+# noise (a PCA sketch of embeddings), eig_dc and svd_qr at DENSE_N,
+# lstsq_qr at LSTSQ_SHAPE, the auction at LAP_N on integer costs in
+# [0, 1000); R-MAT at Graph500's scale and edge factor and theta;
+# make_regression at REG_SHAPE. Residual gates: float32 factorisations
+# give ~1e-6 (the CPU at these sizes), so 1e-4 catches a wrong result
+SPEC_N, SPEC_D, SPEC_CLUSTERS, SPEC_KNN = 1 << 20, 32, 16, 15
+RSVD_SHAPE, RSVD_K, RSVD_TOL = (262_144, 1024), 64, 1e-2
+DENSE_N, LSTSQ_SHAPE, RESID_TOL = 4096, (262_144, 256), 1e-4
+LAP_N = 2048
+RMAT_SCALE, RMAT_EDGE_FACTOR = 20, 16
+RMAT_THETA, RMAT_TOL = (0.57, 0.19, 0.19, 0.05), 0.01
+REG_SHAPE, REG_TOL = (1 << 20, 128), 1e-4
 
 # kernels whose compiled resources the build line reports
 PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
@@ -495,7 +539,7 @@ def check_fused_l2_nn(xa, ya, name, tier="bf16x3"):
     products are exact in f32 like bf16x3's, so the same rtol holds."""
     from raft_tpu_torch.ops import fused_l2_nn as op
     precision, _, src, passes, rate = NN_TIERS[tier]
-    m, n = xa.shape[0], ya.shape[0]
+    (m, dim), n = xa.shape, ya.shape[0]
     saved = (op.launches, op.launches_f32, dict(op.shapes))
     kernel = lambda: op.fused_l2_nn_cuda(xa, ya, False, precision)  # noqa: E731
     i_k, d_k = kernel()
@@ -508,8 +552,9 @@ def check_fused_l2_nn(xa, ya, name, tier="bf16x3"):
     op.launches, op.launches_f32 = saved[:2]
     op.shapes.clear()
     op.shapes.update(saved[2])
-    bnd = bound(4 * (m * D + n * D) + 8 * m, (passes * 2 * m * n * D, rate))
-    phase("kernels", kernel=name, shape=[m, n, D], precision=precision,
+    bnd = bound(4 * (m * dim + n * dim) + 8 * m,
+                (passes * 2 * m * n * dim, rate))
+    phase("kernels", kernel=name, shape=[m, n, dim], precision=precision,
           id_agreement=agree, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
           bound_ms=bnd[0], bound_by=bnd[1])
     return kernel_row(name, src, "raft_tpu/ops/pallas_fused_l2_nn.py:34",
@@ -2130,6 +2175,228 @@ def run_cluster(x, seed: int, dev):
     return rows
 
 
+def spectral_graph(x, k: int):
+    """The kNN graph of ``x`` in ``sparse.neighbors.knn_graph``'s form
+    (self edges dropped, mirrored edges merged) with unit weights, as
+    CSR; the neighbours from the fused brute force (kernel 5 and its
+    pass B) where ``knn_graph`` takes the exact tile scan."""
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.neighbors.brute_force import brute_force_knn
+    from raft_tpu_torch.sparse import COO, coo_to_csr, symmetrize
+    n = x.shape[0]
+    _, idx = brute_force_knn(x, x, k + 1, DistanceType.L2Expanded,
+                             mode="fused", device=x.device)
+    rows = torch.arange(n, dtype=torch.int32,
+                        device=x.device).repeat_interleave(k + 1)
+    cols = idx.reshape(-1)
+    keep = rows != cols
+    ones = torch.ones(int(keep.sum()), device=x.device)
+    return coo_to_csr(symmetrize(COO(rows[keep], cols[keep], ones, (n, n)),
+                                 "max"))
+
+
+def timed(fn):
+    """``(fn(), seconds)`` with the device synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_spectral(x, truth, blobs_s: float):
+    """Phase 10a: ``spectral.partition`` of the blob points ``x`` on their
+    kNN graph, its quality measures, then ``modularity_maximization`` on
+    the same graph; kernel 1 held to its plain version at the k-means
+    shape (the embedding against the partition's centroids)."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.spectral import (analyze_modularity,
+                                         analyze_partition,
+                                         modularity_maximization, partition)
+    from raft_tpu_torch.spectral.partition import _transform_eigen_matrix
+    from raft_tpu_torch.stats import adjusted_rand_index
+    from raft_tpu_torch.util.segment import segment_sum
+    k = SPEC_CLUSTERS
+    ops.reset_launch_counts()
+    graph, graph_s = timed(lambda: spectral_graph(x, SPEC_KNN))
+    graph_launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    (labels, evals, evecs), part_s = timed(lambda: partition(graph, k))
+    part_shapes, part_l1 = l2nn_shapes(), ops.launch_counts()["fused_l2_nn"]
+    (cut, cost), cut_s = timed(lambda: analyze_partition(graph, labels, k))
+    q, q_s = timed(lambda: analyze_modularity(graph, labels, k))
+    ops.reset_launch_counts()
+    (m_labels, m_evals, m_evecs), mod_s = timed(
+        lambda: modularity_maximization(graph, k))
+    mod_shapes, mod_l1 = l2nn_shapes(), ops.launch_counts()["fused_l2_nn"]
+    m_q = analyze_modularity(graph, m_labels, k)
+    ari = float(adjusted_rand_index(truth, labels))
+    m_ari = float(adjusted_rand_index(truth, m_labels))
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        evals, evecs, cut, cost, q, m_evals, m_evecs, m_q))
+    in_range = all(int(lab.min()) >= 0 and int(lab.max()) < k
+                   for lab in (labels, m_labels))
+    ascending = bool((evals[1:] >= evals[:-1]).all()) and \
+        -1e-3 <= float(evals[0]) and float(evals[-1]) <= 2 + 1e-3
+    phase("primitives", part="spectral", n=SPEC_N, dim=SPEC_D, k=k,
+          knn=SPEC_KNN, nnz=graph.nnz, seconds={
+              "make_blobs": blobs_s, "knn_graph": graph_s,
+              "partition": part_s, "analyze_partition": cut_s,
+              "analyze_modularity": q_s, "modularity_maximization": mod_s},
+          graph_launches={k_: v for k_, v in graph_launches.items() if v},
+          eigenvalues=evals.tolist(), ari=ari, edge_cut=float(cut),
+          cost=float(cost), modularity=float(q),
+          modularity_eigenvalues=m_evals.tolist(), modularity_ari=m_ari,
+          modularity_max_modularity=float(m_q),
+          partition_fused_l2_nn_shapes=part_shapes,
+          modularity_fused_l2_nn_shapes=mod_shapes)
+    if not (finite and in_range and ascending):
+        fail(f"spectral: finite {finite}, labels in [0, {k}) {in_range}, "
+             f"eigenvalues ascending in [-1e-3, 2 + 1e-3] {ascending}")
+    if part_l1 < 1 or mod_l1 < 1:
+        fail(f"spectral: kernel 1 launches {part_l1} (partition), "
+             f"{mod_l1} (modularity_maximization)")
+    emb = _transform_eigen_matrix(evecs).contiguous()
+    sums, counts = segment_sum(emb, labels, k)
+    cents = (sums / counts.clamp(min=1)[:, None].float()).contiguous()
+    row = check_fused_l2_nn(emb, cents, "fused_l2_nn@spectral")
+    row["launches"] = part_l1 + mod_l1
+    return row
+
+
+def run_dense(x, seed: int, dev):
+    """Phase 10b: rsvd of a low-rank-plus-noise matrix against
+    ``torch.linalg.svdvals``; eig_dc and svd_qr with their reconstruction
+    residuals; lstsq_qr with its normal-equations residual; cov and
+    meanvar of the blobs against float64."""
+    from raft_tpu_torch import linalg, stats
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m, n = RSVD_SHAPE
+
+    def orth(rows):
+        return torch.linalg.qr(torch.randn((rows, RSVD_K), generator=g,
+                                           device=dev))[0]
+
+    sv = torch.logspace(3, 1.7, RSVD_K, device=dev)
+    a = (orth(m) * sv) @ orth(n).T + 0.01 * torch.randn(
+        (m, n), generator=g, device=dev)
+    (_, s, _), rsvd_s = timed(lambda: linalg.rsvd(a, RSVD_K, seed=seed))
+    ref, svdvals_s = timed(lambda: torch.linalg.svdvals(
+        a, driver="gesvd")[:RSVD_K])
+    rsvd_err = float(((s - ref).abs() / ref).max())
+    del a
+    b = torch.randn((DENSE_N, DENSE_N), generator=g, device=dev)
+    sym = (b + b.T) / 2
+    (w, v), eig_s = timed(lambda: linalg.eig_dc(sym))
+    eig_res = float(torch.linalg.norm(sym @ v - v * w)
+                    / torch.linalg.norm(sym))
+    (u, sig, vv), svd_s = timed(lambda: linalg.svd_qr(b))
+    svd_res = float(torch.linalg.norm(linalg.svd_reconstruction(u, sig, vv)
+                                      - b) / torch.linalg.norm(b))
+    del b, sym, w, v, u, sig, vv
+    lm, ln = LSTSQ_SHAPE
+    la = torch.randn((lm, ln), generator=g, device=dev)
+    lb = la @ torch.randn(ln, generator=g, device=dev) + 0.1 * torch.randn(
+        lm, generator=g, device=dev)
+    sol, lstsq_s = timed(lambda: linalg.lstsq_qr(la, lb))
+    lstsq_res = float(torch.linalg.norm(la.T @ (la @ sol - lb))
+                      / torch.linalg.norm(la.T @ lb))
+    del la, lb
+    c, cov_s = timed(lambda: stats.cov(x))
+    (mu, var), mv_s = timed(lambda: stats.meanvar(x))
+    xd = x.double()
+    c64 = torch.cov(xd.T)
+    cov_err = float((c.double() - c64).abs().max() / c64.abs().max())
+    mv_err = max(float((mu.double() - xd.mean(0)).abs().max()),
+                 float(((var.double() - xd.var(0)) / xd.var(0)).abs().max()))
+    del xd
+    phase("primitives", part="dense", rsvd_shape=[m, n, RSVD_K],
+          rsvd_max_rel_err=rsvd_err, eig_dc_residual=eig_res,
+          svd_qr_residual=svd_res, lstsq_qr_shape=list(LSTSQ_SHAPE),
+          lstsq_normal_residual=lstsq_res, cov_rel_err=cov_err,
+          meanvar_err=mv_err, seconds={
+              "rsvd": rsvd_s, "svdvals": svdvals_s, "eig_dc": eig_s,
+              "svd_qr": svd_s, "lstsq_qr": lstsq_s, "cov": cov_s,
+              "meanvar": mv_s})
+    if not (rsvd_err <= RSVD_TOL and max(eig_res, svd_res, lstsq_res,
+                                         cov_err, mv_err) <= RESID_TOL):
+        fail(f"dense: rsvd {rsvd_err}, eig {eig_res}, svd {svd_res}, "
+             f"lstsq {lstsq_res}, cov {cov_err}, meanvar {mv_err}")
+
+
+def run_assignment(seed: int, dev):
+    """Phase 10c: the auction at LAP_N on integer costs, a permutation,
+    its objective beside scipy's optimum (not gated: six ε-phases stop
+    short of ε·n < 0.5 at this n) and the rounds of each phase."""
+    from scipy.optimize import linear_sum_assignment
+    from raft_tpu_torch.solver import LinearAssignmentProblem
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cost = torch.randint(0, 1000, (LAP_N, LAP_N), generator=g,
+                         device=dev).float()
+    lap = LinearAssignmentProblem(LAP_N)
+    obj, secs = timed(lambda: lap.solve(cost))
+    rows = lap.get_row_assignment_vector()
+    perm = bool(torch.equal(torch.sort(rows.long()).values,
+                            torch.arange(LAP_N, device=dev)))
+    c = cost.cpu().numpy()
+    t0 = time.perf_counter()
+    ri, ci = linear_sum_assignment(c)
+    scipy_s = time.perf_counter() - t0
+    phase("primitives", part="linear_assignment", n=LAP_N,
+          objective=float(obj), scipy_objective=float(c[ri, ci].sum()),
+          rounds_per_phase=lap.rounds_per_phase, permutation=perm,
+          seconds=secs, scipy_seconds=scipy_s)
+    if not perm:
+        fail("linear_assignment: the row assignment is not a permutation")
+
+
+def run_generators(seed: int, dev):
+    """Phase 10d: R-MAT at Graph500's scale 20, edge factor 16 (top-level
+    quadrant shares against theta), make_regression's noise-free targets
+    against x @ coef + bias."""
+    from raft_tpu_torch.random import (RngState, make_regression,
+                                       rmat_rectangular_gen)
+    n_edges = RMAT_EDGE_FACTOR << RMAT_SCALE
+    (src, dst), rmat_s = timed(lambda: rmat_rectangular_gen(
+        RngState(seed, device=dev), list(RMAT_THETA), RMAT_SCALE, RMAT_SCALE,
+        n_edges))
+    top = RMAT_SCALE - 1
+    quad = ((src >> top) * 2 + (dst >> top)).long()
+    shares = (torch.bincount(quad, minlength=4).double() / n_edges).tolist()
+    in_range = int(src.min()) >= 0 and int(max(src.max(), dst.max())) < \
+        (1 << RMAT_SCALE) and int(dst.min()) >= 0
+    del src, dst, quad
+    rows, cols = REG_SHAPE
+    (x, y, w), reg_s = timed(lambda: make_regression(
+        rows, cols, bias=2.5, coef=True, seed=RngState(seed, device=dev)))
+    ref = (x @ w)[:, 0] + 2.5
+    reg_err = float((y - ref).abs().max() / ref.abs().max())
+    phase("primitives", part="generators", rmat_scale=RMAT_SCALE,
+          rmat_edges=n_edges, rmat_top_shares=shares, rmat_in_range=in_range,
+          regression_shape=list(REG_SHAPE), regression_rel_err=reg_err,
+          seconds={"rmat": rmat_s, "make_regression": reg_s})
+    off = max(abs(a - b) for a, b in zip(shares, RMAT_THETA))
+    if off > RMAT_TOL or not in_range or not reg_err <= REG_TOL:
+        fail(f"generators: rmat shares {shares} (theta {RMAT_THETA}), in "
+             f"range {in_range}; make_regression rel err {reg_err}")
+
+
+def run_primitives(seed: int, dev):
+    """Phase 10: the dense primitives and spectral partitioning."""
+    from raft_tpu_torch.random import make_blobs
+    t0 = time.perf_counter()
+    (x, truth), blobs_s = timed(lambda: make_blobs(
+        SPEC_N, SPEC_D, centers=SPEC_CLUSTERS, cluster_std=1.0, seed=seed,
+        device=dev))
+    row = run_spectral(x, truth, blobs_s)
+    run_dense(x, seed, dev)
+    del x, truth
+    run_assignment(seed, dev)
+    run_generators(seed, dev)
+    phase("primitives", seconds=time.perf_counter() - t0)
+    return [row]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=10_000_000,
@@ -2233,6 +2500,8 @@ def main() -> None:
                                dev), None))
     # 9. the host-side users of the distances
     paths.append((run_cluster(x, args.seed, dev), None))
+    # 10. the dense primitives and spectral partitioning
+    paths.append((run_primitives(args.seed, dev), None))
 
     kernels = [r for rows, _ in paths for r in rows]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,8 +13,10 @@ kernel, a CUDA tensor launches the kernel (built from ``csrc/`` with
 ``nvcc`` at first use) or raises. There is no silent fallback.
 
 Layout mirrors ``raft_tpu``: ``core/``, ``distance/``, ``cluster/``,
-``neighbors/``, ``ops/`` (kernel wrappers), ``serve/``, ``obs/``
-(counters and gauges), ``util/`` and ``csrc/`` (CUDA sources).
+``neighbors/``, ``spatial/``, ``sparse/``, ``stats/``, ``linalg/``,
+``matrix/``, ``random/``, ``label/``, ``solver/``, ``spectral/``,
+``ops/`` (kernel wrappers), ``serve/``, ``obs/`` (counters and
+gauges), ``util/`` and ``csrc/`` (CUDA sources).
 """
 
 __version__ = "0.1.0"

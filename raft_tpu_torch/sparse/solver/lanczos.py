@@ -72,13 +72,17 @@ def _eig_from_lanczos(V, alphas, betas, k: int, largest: bool):
     return evals[sel], (evecs[:, sel].T @ V).T
 
 
-def _solve(a, k, max_iter, seed, matvec, n, largest: bool):
+def _solve(a, k, max_iter, seed, matvec, n, largest: bool, device=None):
     if matvec is None:
         expects(a is not None, "lanczos: need a CSR matrix or a matvec")
         n = a.shape[0]
         matvec = lambda v: spmv(a, v)  # noqa: E731
-    # an implicit operator without a matrix runs on the default device
-    device = a.device if a is not None else default_resources().device
+    # an implicit operator without a matrix runs on ``device``, else on
+    # the default one
+    if a is not None:
+        device = a.device
+    elif device is None:
+        device = default_resources().device
     expects(k >= 1 and k < n, "lanczos: need 1 <= k < n")
     m = min(n - 1 if n > 1 else 1, max_iter or max(4 * k + 16, 32))
     m = max(m, k + 1)
@@ -93,19 +97,19 @@ def lanczos_smallest(a: CSR, k: int, max_iter: Optional[int] = None,
                      seed: int = 0,
                      matvec: Optional[Callable[[torch.Tensor],
                                                torch.Tensor]] = None,
-                     n: Optional[int] = None
+                     n: Optional[int] = None, device=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k smallest eigenpairs of symmetric ``a`` → (evals (k,),
-    evecs (n, k)); ``matvec`` and ``n`` may stand for ``a`` (on the
-    default device, ``cuda``, when ``a`` is None)."""
-    return _solve(a, k, max_iter, seed, matvec, n, largest=False)
+    evecs (n, k)); ``matvec`` and ``n`` may stand for ``a`` (then on
+    ``device``, default ``cuda``)."""
+    return _solve(a, k, max_iter, seed, matvec, n, False, device)
 
 
 def lanczos_largest(a: CSR, k: int, max_iter: Optional[int] = None,
                     seed: int = 0,
                     matvec: Optional[Callable[[torch.Tensor],
                                               torch.Tensor]] = None,
-                    n: Optional[int] = None
+                    n: Optional[int] = None, device=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k largest eigenpairs of symmetric ``a``, largest first."""
-    return _solve(a, k, max_iter, seed, matvec, n, largest=True)
+    return _solve(a, k, max_iter, seed, matvec, n, True, device)

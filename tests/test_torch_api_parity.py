@@ -57,7 +57,30 @@ ALLOWED_EXTRA = {
     ("neighbors.serialize", "load_ivf_pq", "device"): _DEVICE,
     ("spatial.knn", "approx_knn_build_index", "device"): _DEVICE,
     ("util.host_sample", "sample_rows", "device"): _DEVICE,
+    ("core.mdarray", "as_array", "device"):
+        "the device a host value is put on (a tensor stays where it is)",
+    ("sparse.solver.lanczos", "lanczos_largest", "device"):
+        "the device of an implicit operator (matvec and n, no matrix)",
+    ("sparse.solver.lanczos", "lanczos_smallest", "device"):
+        "the device of an implicit operator (matvec and n, no matrix)",
 }
+# the generators draw on the device of their generator; an int seed
+# makes one on ``device`` (default cuda)
+_DRAW = "the device of the generator an int seed makes"
+ALLOWED_EXTRA.update({
+    ("random.rng", name, "device"): _DRAW for name in (
+        "uniform", "uniformInt", "normal", "normalInt", "normalTable",
+        "fill", "bernoulli", "scaled_bernoulli", "gumbel", "lognormal",
+        "logistic", "exponential", "rayleigh", "laplace", "discrete",
+        "sample_without_replacement", "permute")})
+ALLOWED_EXTRA.update({
+    ("random.make_blobs", "make_blobs", "device"): _DRAW,
+    ("random.make_regression", "make_regression", "device"): _DRAW,
+    ("random.multi_variable_gaussian", "multi_variable_gaussian",
+     "device"): _DRAW,
+    ("random.rmat", "rmat_rectangular_gen", "device"): _DRAW,
+    ("random.rmat", "rmat", "device"): _DRAW,
+})
 
 
 def _shared_modules():
@@ -96,7 +119,9 @@ def _cases():
 
 def _norm(v):
     """A default in a form both packages share: dtypes by name, enums by
-    class and member name, dataclass instances field by field."""
+    class and member name, dataclass instances field by field, other
+    callables (``lambda x: x``, ``jnp.add`` against ``torch.add``) by
+    ``__name__``."""
     if isinstance(v, torch.dtype):
         return ("dtype", str(v).replace("torch.", ""))
     if isinstance(v, type) and (issubclass(v, np.generic)
@@ -111,6 +136,8 @@ def _norm(v):
                       if not f.name.startswith("_")))
     if v is inspect.Parameter.empty or v is dataclasses.MISSING:
         return ("required",)
+    if callable(v) and not isinstance(v, type) and hasattr(v, "__name__"):
+        return ("callable", v.__name__)
     return v
 
 

@@ -1274,3 +1274,53 @@ def test_select_k_approx_launches_kernel_2(dev):
     assert sel_op.launches > before
     de, ie = select_k(v, 128)
     assert torch.equal(ia, ie) and torch.equal(da, de)
+
+
+@pytest.mark.parametrize("tier", ["bf16x3", "highest"])
+@pytest.mark.parametrize("n", [2, 16, 64])
+@pytest.mark.parametrize("d", [2, 3, 16])
+def test_fused_l2_nn_at_spectral_shapes(dev, tier, n, d):
+    # the spectral partition's k-means shape: many rows, few centres of
+    # few features (d 3: the unvectorised row loads); at 100k rows a
+    # near-tie may fall either way, so ids agree on >= 99.9% of rows and
+    # every distance is within rtol 1e-5 of the expanded-L2 scale
+    m = 100_003
+    g = torch.Generator(device=dev).manual_seed(n * 10 + d)
+    x = torch.randn((m, d), generator=g, device=dev)
+    y = torch.randn((n, d), generator=g, device=dev)
+    precision, counter = NN_TIERS[tier]
+    before = getattr(nn_op, counter)
+    ik, dk = nn_op.fused_l2_nn(x, y, False, tier)
+    assert getattr(nn_op, counter) == before + 1
+    ip, dp = nn_op.fused_l2_nn_plain(x, y, False, precision)
+    scale = (x * x).sum(1) + (y * y).sum(1)[ip.long()]
+    assert float((ik == ip).double().mean()) >= 0.999
+    assert bool(((dk - dp).abs() <= 1e-5 * scale).all())
+
+
+def test_spectral_partition_on_card_launches_kernel_1(dev):
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.random import make_blobs
+    from raft_tpu_torch.sparse import COO, coo_to_csr, knn_graph
+    from raft_tpu_torch.spectral import (analyze_modularity,
+                                         analyze_partition,
+                                         modularity_maximization, partition)
+    x, _ = make_blobs(4000, 8, centers=4, seed=3, device=dev)
+    coo = knn_graph(x, 10)
+    graph = coo_to_csr(COO(coo.rows, coo.cols, torch.ones_like(coo.vals),
+                           coo.shape))
+    ops.reset_launch_counts()
+    labels, evals, evecs = partition(graph, 4)
+    assert ops.launch_counts()["fused_l2_nn"] > 0
+    assert labels.device.type == "cuda" and evecs.shape == (4000, 4)
+    assert int(labels.min()) >= 0 and int(labels.max()) < 4
+    assert bool(torch.isfinite(evecs).all())
+    assert bool((evals[1:] >= evals[:-1]).all())
+    assert -1e-3 <= float(evals[0]) and float(evals[-1]) <= 2 + 1e-3
+    cut, cost = analyze_partition(graph, labels, 4)
+    assert bool(torch.isfinite(cut)) and bool(torch.isfinite(cost))
+    ops.reset_launch_counts()
+    labels, evals, _ = modularity_maximization(graph, 4)
+    assert ops.launch_counts()["fused_l2_nn"] > 0
+    assert evals.device.type == "cuda"
+    assert -0.5 <= float(analyze_modularity(graph, labels, 4)) <= 1.0
