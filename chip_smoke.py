@@ -58,6 +58,17 @@ Phases, one line each:
               candidate merge), its recall of the top 32 and its launch
               counts; then the index is dropped (``free``: device memory
               after the ``del`` and after a collection pass).
+              ``serve_faults`` (after the main burst, on the same index):
+              a server with the dispatch watchdog (2000 ms, 2 retries,
+              1 ms backoff) serves the burst (the same checks, its
+              QPS and p50/p99 beside the main burst's); 4 x 25 serial
+              128-query requests through its ladder with and without
+              the watchdog, and 4 x 100 through a plan that replays one
+              result (the helper thread's cost per dispatch); one
+              128-query request under an injected 4 s stall, retried
+              once to ids equal to a direct ``plan.search``; three
+              injected ``ShardFailedError`` that exhaust the retries,
+              and the next request served.
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -261,6 +272,9 @@ KM_ROWS = 1 << 18             # the k-means trainer's subsample
 TWO_LEVEL_LISTS = 32768
 BATCH_SIZES = (1, 8, 32, 128)
 N_QUERIES, N_REQUESTS, N_THREADS = 256, 512, 128
+SERIAL_REQUESTS = 25          # a round of serve_faults' serial requests
+FAULTS_GUARD = dict(dispatch_timeout_ms=2000.0, max_retries=2,
+                    retry_backoff_ms=1.0)
 # brute force: the reference's cpp/bench/neighbors/knn.cuh:380-389 cases
 # (10M x 128 and 10k x 8192, 1000 queries, k=32); the JAX package's
 # recall gate for the fused kernel (BASELINE.md:43)
@@ -1171,9 +1185,17 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def serve_phase(srv, q_np, truth, n_rows: int, profile: str = ""):
+def counter_deltas(before: dict, after: dict, prefix: str) -> dict:
+    """How far each counter series under ``prefix`` moved."""
+    return {k_: after["counters"][k_] - before["counters"].get(k_, 0)
+            for k_ in after["counters"] if k_.startswith(prefix)}
+
+
+def serve_phase(srv, q_np, truth, n_rows: int, profile: str = "",
+                close: bool = True):
     """The burst through a started server: checked results, recall@K,
-    QPS and latency; the server is closed afterwards."""
+    QPS and latency; the server is closed afterwards unless ``close`` is
+    false."""
     from raft_tpu_torch import obs
     before = obs.snapshot()
     try:
@@ -1182,9 +1204,9 @@ def serve_phase(srv, q_np, truth, n_rows: int, profile: str = ""):
         if profile:
             profile_burst(srv, q_np, profile)
     finally:
-        srv.close()
-    batches = {k_: after["counters"].get(k_, 0) - before["counters"].get(k_, 0)
-               for k_ in after["counters"] if k_.startswith("raft.serve.batch")}
+        if close:
+            srv.close()
+    batches = counter_deltas(before, after, "raft.serve.batch")
     if served.shape != (N_REQUESTS, K):
         fail(f"served ids have shape {served.shape}")
     if (served < 0).any() or (served >= n_rows).any():
@@ -1227,6 +1249,130 @@ def serve_flat(index, q_np, truth, n_rows: int, profile: str):
     return ladder_s, served, {k_: after[k_] - pre_burst[k_] for k_ in after}
 
 
+class Replay(NamedTuple):
+    """A plan that returns one result it was given: a dispatch without
+    its work, so a server over it times only its own path."""
+
+    nq: int
+    n_probes: int
+    device: torch.device
+    out: tuple
+
+    def search(self, queries, block: bool = False):
+        return self.out
+
+
+def serial_ms(ladder, q_np, requests: int, rounds: int = 4) -> dict:
+    """Median latency (ms) of ``requests`` 128-query requests sent one
+    after another to a server over ``ladder`` with the serve_faults
+    watchdog and to one without it (no batching window), the two taking
+    turns in alternating order for ``rounds`` rounds."""
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    servers = {tag: SearchServer(ladder, ServeConfig(
+        batch_sizes=ladder.shapes, max_wait_ms=0.0, **kw))
+        for tag, kw in (("watchdog", FAULTS_GUARD), ("inline", {}))}
+    lat = {tag: [] for tag in servers}
+    try:
+        for rnd in range(rounds):
+            for tag in list(servers)[::1 if rnd % 2 == 0 else -1]:
+                for r in range(requests):
+                    t0 = time.perf_counter()
+                    servers[tag].search(np.roll(q_np, r, axis=0)[:128],
+                                        timeout=600)
+                    lat[tag].append(time.perf_counter() - t0)
+    finally:
+        for srv in servers.values():
+            srv.close()
+    return {tag: float(np.median(v)) * 1e3 for tag, v in lat.items()}
+
+
+def run_serve_faults(index, q_np, truth, n_rows: int, main: dict) -> None:
+    """Phase 3 ``serve_faults``: the served burst through the dispatch
+    watchdog (each dispatch on its helper thread), the helper's cost per
+    dispatch, an injected 4 s stall retried to a direct
+    ``plan.search``'s ids, and injected shard failures that exhaust the
+    retries, with the request after them served."""
+    from raft_tpu_torch import obs, ops
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import (PlanLadder, SearchServer, ServeConfig,
+                                      ShardFailedError)
+    from raft_tpu_torch.testing import faults
+    ops.reset_launch_counts()
+    srv = SearchServer.from_index(
+        index, q_np[:128], K, params=ivf_flat.SearchParams(n_probes=N_PROBES),
+        config=ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                           max_wait_ms=2.0, **FAULTS_GUARD))
+    try:
+        served = serve_phase(srv, q_np, truth, n_rows, close=False)
+        burst = ops.launch_counts()
+        check_launched("watchdog burst", burst, ("select_k", "ivf_scan"))
+        # the helper's cost per dispatch: the 128-row plan with and
+        # without the watchdog, and a replay of its result (the
+        # dispatch path alone)
+        q128 = q_np[:128]
+        plan = srv.ladder.plan_for(128, 0)[1]
+        serial = serial_ms(srv.ladder, q_np, SERIAL_REQUESTS)
+        replay = serial_ms(PlanLadder((128,), (N_PROBES,), {(128, 0): Replay(
+            128, N_PROBES, plan.device, plan.search(q128, block=True))},
+            plan.dim, plan.k), q_np, 4 * SERIAL_REQUESTS)
+        before = obs.snapshot()
+        t0 = time.perf_counter()
+        with faults.delay_execute(4000.0, max_hits=1) as rule:
+            _, i_served = srv.search(q128, timeout=600)
+        retried_s = time.perf_counter() - t0
+        stall = counter_deltas(before, obs.snapshot(), "raft.serve.")
+        want = {"raft.serve.dispatch.timeouts.total": 1,
+                "raft.serve.retry.total": 1,
+                "raft.serve.retry.success.total": 1}
+        if rule.hits != 1 or any(stall.get(k_, 0) != v
+                                 for k_, v in want.items()):
+            fail(f"serve_faults: the stalled request moved {stall}, "
+                 f"{rule.hits} stall(s), not one timeout and one retry")
+        i_direct = plan.search(q128, block=True)[1].cpu().numpy()
+        if not np.array_equal(i_served, i_direct):
+            fail(f"serve_faults: the retried request's ids differ from a "
+                 f"direct plan.search in {(i_served != i_direct).sum()} "
+                 f"places")
+
+        before = obs.snapshot()
+        with faults.inject_fault(
+                "serve.execute", error=lambda: ShardFailedError("chaos"),
+                max_hits=3) as rule:
+            try:
+                srv.search(q_np[:1], timeout=600)
+                fail("serve_faults: three shard failures were served")
+            except ShardFailedError:
+                pass
+        d_after, i_after = srv.search(q_np[1:2], timeout=600)
+        chaos = counter_deltas(before, obs.snapshot(), "raft.serve.")
+        if rule.hits != 3 or \
+                chaos.get("raft.serve.retry.exhausted.total", 0) != 1:
+            fail(f"serve_faults: {rule.hits} injected failures moved "
+                 f"{chaos}, not one exhausted retry budget")
+        if i_after.shape != (1, K) or (i_after < 0).any() or \
+                (i_after >= n_rows).any() or not np.isfinite(d_after).all():
+            fail("serve_faults: the request after the failures was not "
+                 "served")
+    finally:
+        srv.close()
+        # the abandoned helper ends once its stalled call returns
+        for th in threading.enumerate():
+            if th.name == "raft-serve-watchdog":
+                th.join(timeout=60)
+                if th.is_alive():
+                    fail("serve_faults: a dispatch helper still runs 60 s "
+                         "after the server closed")
+    phase("serve_faults", **FAULTS_GUARD, **served,
+          main_burst={k_: main[k_] for k_ in ("qps", "p50_ms", "p99_ms")},
+          serial_requests=4 * SERIAL_REQUESTS, serial_median_ms=serial,
+          replay_requests=16 * SERIAL_REQUESTS, replay_median_ms=replay,
+          helper_ms_per_dispatch=replay["watchdog"] - replay["inline"],
+          helper_ms_per_plan_dispatch=serial["watchdog"] - serial["inline"],
+          burst_launches=burst, stalled_request_s=retried_s,
+          stalled_ids_equal_direct=True, stall_counters=stall,
+          chaos_counters=chaos)
+
+
 def run_flat(x, q, q_np, truth, args):
     """Phase 3: IVF-Flat build + serving; the fused scan checked against
     its plain version on the served index afterwards."""
@@ -1253,6 +1399,7 @@ def run_flat(x, q, q_np, truth, args):
           launches=launches,
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    run_serve_faults(index, q_np, truth, x.shape[0], served)
     wide_launches = run_wide_flat(index, q, truth)
     row, wide_row, rows = check_flat_scans(index, q)
     pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,

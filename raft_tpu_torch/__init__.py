@@ -16,7 +16,8 @@ Layout mirrors ``raft_tpu``: ``core/``, ``distance/``, ``cluster/``,
 ``neighbors/``, ``spatial/``, ``sparse/``, ``stats/``, ``linalg/``,
 ``matrix/``, ``random/``, ``label/``, ``solver/``, ``spectral/``,
 ``ops/`` (kernel wrappers), ``serve/``, ``obs/`` (counters and
-gauges), ``util/`` and ``csrc/`` (CUDA sources).
+gauges), ``testing/`` (fault injection), ``util/`` and ``csrc/`` (CUDA
+sources).
 """
 
 __version__ = "0.1.0"

@@ -123,11 +123,18 @@ def normalize_rows(data, res=None) -> torch.Tensor:
 
 
 def _sum_by_key(rows: torch.Tensor, keys: torch.Tensor, n_keys: int):
+    """Sums of the rows by key; a row whose key is outside
+    ``[0, n_keys)`` is dropped, as the JAX package's ``segment_sum``
+    drops it."""
+    keys = keys.reshape(-1).long()
+    ok = (keys >= 0) & (keys < n_keys)
+    if not bool(ok.all()):
+        rows, keys = rows[ok], keys[ok]
     if rows.is_floating_point():
         return segment_sum(rows, keys, n_keys)[0]
     out = torch.zeros((n_keys,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                       device=rows.device)
-    return out.index_add_(0, keys.long(), rows)
+    return out.index_add_(0, keys, rows)
 
 
 def _n_keys(keys: torch.Tensor, n_keys: Optional[int]) -> int:
@@ -137,7 +144,7 @@ def _n_keys(keys: torch.Tensor, n_keys: Optional[int]) -> int:
 def reduce_rows_by_key(data, keys, n_keys: Optional[int] = None,
                        weights=None, res=None) -> torch.Tensor:
     """Sum of the rows sharing a key → (n_keys, n_cols), optionally
-    weighted per row; keys in [0, n_keys)."""
+    weighted per row; a row keyed outside [0, n_keys) is dropped."""
     dev = input_device(res, data, keys)
     data = as_array(data, dev)
     keys = as_array(keys, dev)

@@ -208,13 +208,17 @@ def laplace(rng: KeyLike, shape, mu=0.0, scale=1.0, dtype=torch.float32,
 
 def discrete(rng: KeyLike, shape, weights, device=None):
     """Sample indices with probability proportional to ``weights``
-    (rng.cuh discrete) → int32 of ``shape``."""
+    (rng.cuh discrete) → int32 of ``shape``. Weights are clamped to
+    1e-37, as the JAX package does, so all-zero weights draw uniformly;
+    the draw is by inverse CDF (a float64 cumulative sum searched with
+    uniforms), which takes any number of categories."""
     g = _key(rng, device)
-    w = as_array(weights, g.device).float()
-    n = math.prod(_shape(shape))
-    idx = torch.multinomial(torch.clamp(w, min=0.0), n, replacement=True,
-                            generator=g)
-    return idx.to(torch.int32).reshape(_shape(shape))
+    w = torch.clamp(as_array(weights, g.device).float(), min=1e-37)
+    cdf = torch.cumsum(w.reshape(-1).double(), dim=0)
+    u = _rand(g, shape, torch.float64) * cdf[-1]
+    idx = torch.searchsorted(cdf, u.reshape(-1), right=True)
+    return idx.clamp_(max=cdf.numel() - 1).to(torch.int32).reshape(
+        _shape(shape))
 
 
 def sample_without_replacement(rng: KeyLike, n: int, n_samples: int,

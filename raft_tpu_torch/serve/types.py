@@ -1,12 +1,10 @@
-"""Serving-runtime types: config, request record, typed errors
-(counterpart of ``raft_tpu.serve.types``; stdlib only).
+"""Serving-runtime types: config, request record, typed errors and the
+result tuple (counterpart of ``raft_tpu.serve.types``; stdlib only).
 
-Not ported yet: the dispatch watchdog and retries
-(``dispatch_timeout_ms``, ``max_retries``, ``ShardFailedError``), the
-distributed failover (``failover``) and quality sampling
-(``quality_sample_rate``). ``ServeConfig`` takes their fields with the
-JAX package's defaults and raises ``NotImplementedError`` on any other
-value.
+Not ported yet: the distributed failover (``failover``, ROADMAP.md
+queue 1 item 6) and quality sampling (``quality_sample_rate``, item
+4b). ``ServeConfig`` takes their fields with the JAX package's defaults
+and raises ``NotImplementedError`` on any other value.
 """
 
 from __future__ import annotations
@@ -16,7 +14,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 __all__ = ["DeadlineExceeded", "DispatchError", "RejectedError",
-           "ServeConfig"]
+           "SearchResult", "ServeConfig", "ShardFailedError"]
 
 
 class RejectedError(RuntimeError):
@@ -25,13 +23,50 @@ class RejectedError(RuntimeError):
 
 
 class DeadlineExceeded(TimeoutError):
-    """The request's deadline expired while it waited in the queue; it
-    was dropped without occupying a batch slot."""
+    """The request's deadline expired: while it waited in the queue (it
+    was dropped without occupying a batch slot), or while a failed
+    dispatch backed off before its retry (a retry never runs past the
+    deadline)."""
 
 
 class DispatchError(RuntimeError):
     """A batch could not be completed; every request in it resolves
     with this error and the dispatcher keeps serving."""
+
+
+class ShardFailedError(DispatchError):
+    """A dispatch failed in a way that implicates a participant: the
+    watchdog timed it out (``dispatch_timeout_ms``), or the plan
+    reported a comms status (``ABORT``/``ERROR``) instead of results.
+    Retryable, within ``max_retries`` and the request's deadline.
+    ``ranks`` names the suspect participants when known (else ``()``).
+    """
+
+    def __init__(self, message: str, ranks=()):
+        super().__init__(message)
+        self.ranks = tuple(ranks)
+
+
+class SearchResult(tuple):
+    """``(dists, ids)`` with failure-handling metadata: a 2-tuple, so
+    ``d, i = result`` keeps working; a degraded partial-mesh answer
+    carries ``partial=True`` and ``coverage``, the share of the corpus
+    (by rows) its healthy shards searched."""
+
+    def __new__(cls, dists, ids, partial: bool = False,
+                coverage: float = 1.0):
+        self = super().__new__(cls, (dists, ids))
+        self.partial = bool(partial)
+        self.coverage = float(coverage)
+        return self
+
+    @property
+    def dists(self):
+        return self[0]
+
+    @property
+    def ids(self):
+        return self[1]
 
 
 @dataclass(frozen=True)
@@ -55,10 +90,17 @@ class ServeConfig:
       watermark, at most once per cooldown.
     * ``prewarm`` — prepare and run every (shape x rung) plan at
       construction.
-    * ``dispatch_timeout_ms``, ``max_retries``, ``retry_backoff_ms``,
-      ``retry_backoff_mult``, ``failover``, ``failover_probe_ms``,
-      ``quality_sample_rate`` — the JAX package's failure handling and
-      quality sampling: only their defaults (all off) are ported.
+    * ``dispatch_timeout_ms`` — the dispatch watchdog: a dispatch that
+      runs longer is abandoned and fails with :class:`ShardFailedError`;
+      0 runs the dispatch inline on the dispatcher thread.
+    * ``max_retries`` / ``retry_backoff_ms`` / ``retry_backoff_mult`` —
+      the retry budget of a batch that failed with
+      :class:`ShardFailedError`, with exponential backoff; a request
+      whose deadline falls inside the backoff fails at once with
+      :class:`DeadlineExceeded`.
+    * ``failover``, ``failover_probe_ms``, ``quality_sample_rate`` —
+      the JAX package's partial-mesh failover and quality sampling:
+      only their defaults (off) are ported.
     """
 
     batch_sizes: Tuple[int, ...] = (1, 8, 32, 128)
@@ -104,12 +146,14 @@ class ServeConfig:
         if not 0.0 <= self.quality_sample_rate <= 1.0:
             raise ValueError("ServeConfig: quality_sample_rate must be "
                              "in [0, 1]")
-        if (self.dispatch_timeout_ms, self.max_retries, self.failover,
-                self.quality_sample_rate) != (0.0, 0, False, 0.0):
+        if self.failover:
             raise NotImplementedError(
-                "ServeConfig: the dispatch watchdog, retries, failover and "
-                "quality sampling are not ported yet (ROADMAP.md queue 1 "
-                "item 4)")
+                "ServeConfig: the partial-mesh failover is not ported yet "
+                "(ROADMAP.md queue 1 item 6)")
+        if self.quality_sample_rate > 0:
+            raise NotImplementedError(
+                "ServeConfig: quality sampling is not ported yet "
+                "(ROADMAP.md queue 1 item 4b)")
 
 
 @dataclass

@@ -4,11 +4,12 @@ min/max, weighted means, the per-column histogram and the dispersion of
 centroids, in float32 on the device of the input (or ``res``'s).
 
 ``histogram`` bins as the JAX package does, so values on a bin edge
-land in the same bin: ``int((x - lower) / width)`` truncated toward 0
-and clipped to [0, n_bins), ``width = (upper - lower) / n_bins`` in
-float32; without ``upper``, the maximum nudged up by 1e-6 * max(|max|,
-1) so that it falls in the last bin; constant data (width 0) all in
-bin 0. Counts are exact (a ``bincount``)."""
+land in the same bin: ``(x - lower) / width`` clipped to [0, n_bins - 1]
+in float, then truncated toward 0, ``width = (upper - lower) / n_bins``
+in float32, so a value far out of range saturates into the first or
+last bin and NaN lands in bin 0; without ``upper``, the maximum nudged
+up by 1e-6 * max(|max|, 1) so that it falls in the last bin; constant
+data (width 0) all in bin 0. Counts are exact (a ``bincount``)."""
 
 from __future__ import annotations
 
@@ -128,7 +129,9 @@ def histogram(data, n_bins: int, lower: Optional[float] = None,
     safe = torch.where(width > 0, width, torch.ones_like(width))
     diff = data - (lo if isinstance(lo, torch.Tensor) else _bound(
         lo, data.device))
-    bins = torch.clamp((diff / safe).to(torch.int32), 0, n_bins - 1).long()
+    # clip before the int conversion: a float beyond the int range
+    # converts to an arbitrary int
+    bins = torch.nan_to_num(diff / safe, nan=0.0).clamp(0, n_bins - 1).long()
     n_cols = data.shape[1]
     flat = (torch.arange(n_cols, device=data.device)[None, :] * n_bins
             + bins).reshape(-1)

@@ -6,7 +6,8 @@ defined in both must take every parameter (or field) of the JAX one,
 with the same default, kind and relative order, so a caller written for
 ``raft_tpu`` never gets a ``TypeError``. A parameter the port adds must
 be on :data:`ALLOWED_EXTRA`. Values the port does not implement raise
-``NotImplementedError`` (the second half of this file).
+``NotImplementedError`` naming their ROADMAP.md item; values it
+implements are honoured (the second half of this file).
 """
 
 import dataclasses
@@ -14,6 +15,7 @@ import enum
 import importlib
 import inspect
 import pathlib
+import time
 
 import numpy as np
 import pytest
@@ -206,25 +208,103 @@ def _x(n=256, d=8):
 
 
 def _unimplemented():
+    """case -> (call, the ROADMAP.md item its message names)."""
     from raft_tpu_torch.serve.types import ServeConfig
     return {
-        "ServeConfig.dispatch_timeout_ms": lambda: ServeConfig(
-            dispatch_timeout_ms=50.0),
-        "ServeConfig.max_retries": lambda: ServeConfig(max_retries=2),
-        "ServeConfig.failover": lambda: ServeConfig(failover=True),
-        "ServeConfig.quality_sample_rate": lambda: ServeConfig(
-            quality_sample_rate=0.5),
+        "ServeConfig.failover": (lambda: ServeConfig(failover=True),
+                                 "item 6"),
+        "ServeConfig.quality_sample_rate": (lambda: ServeConfig(
+            quality_sample_rate=0.5), "item 4b"),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_unimplemented()))
 def test_unimplemented_value_raises_not_implemented(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _unimplemented()[case]()
+    call, item = _unimplemented()[case]
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP\.md queue 1 {item}\b"):
+        call()
 
 
 # ---------------------------------------------------------------------
 # Values the port implements: honoured as the JAX package does.
+
+class _SlowOrFlakyPlan:
+    """A fake plan: sleeps ``delay`` s, or fails its first ``fail_n``
+    calls with ``ShardFailedError``."""
+
+    def __init__(self, nq, delay=0.0, fail_n=0):
+        self.nq, self.n_probes, self.delay, self.fail_n = nq, 4, delay, fail_n
+        self.calls = 0
+
+    def search(self, q, block=True):
+        from raft_tpu_torch.serve import ShardFailedError
+        self.calls += 1
+        time.sleep(self.delay)
+        if self.calls <= self.fail_n:
+            raise ShardFailedError("injected")
+        return np.zeros((self.nq, 2), np.float32), np.zeros((self.nq, 2),
+                                                            np.int64)
+
+
+def _serve_once(**cfg):
+    """One request through a server on one fake plan → (outcome, the
+    plan's calls)."""
+    from raft_tpu_torch.serve import (PlanLadder, SearchServer, ServeConfig,
+                                      ShardFailedError)
+    kw = {k: cfg.pop(k) for k in ("delay", "fail_n") if k in cfg}
+    plan = _SlowOrFlakyPlan(1, **kw)
+    srv = SearchServer(PlanLadder((1,), (4,), {(1, 0): plan}, dim=3, k=2),
+                       ServeConfig(batch_sizes=(1,), max_wait_ms=0.0, **cfg))
+    try:
+        srv.search(np.zeros((1, 3), np.float32), timeout=30)
+        return "ok", plan.calls
+    except ShardFailedError:
+        return "ShardFailedError", plan.calls
+    finally:
+        srv.close()
+
+
+def test_dispatch_timeout_ms_is_honoured():
+    """A dispatch slower than ``dispatch_timeout_ms`` fails typed; the
+    same dispatch without the watchdog completes."""
+    assert _serve_once(delay=0.5, dispatch_timeout_ms=50.0)[0] == \
+        "ShardFailedError"
+    assert _serve_once(delay=0.05)[0] == "ok"
+
+
+def test_max_retries_is_honoured():
+    """Two failed dispatches: ``max_retries=2`` retries to success,
+    ``max_retries=1`` gives up after two calls."""
+    assert _serve_once(fail_n=2, max_retries=2, retry_backoff_ms=1.0) == \
+        ("ok", 3)
+    assert _serve_once(fail_n=2, max_retries=1, retry_backoff_ms=1.0) == \
+        ("ShardFailedError", 2)
+
+
+def test_walk_covers_the_failure_handling_modules():
+    """The signature walk holds the fault harness, the logger and the
+    serve types against their JAX namesakes; the serve types export the
+    same names and error hierarchy."""
+    from raft_tpu import serve as jserve
+    from raft_tpu_torch import serve as tserve
+    cases = set(_cases())
+    for mod, name in (("testing.faults", "inject_fault"),
+                      ("testing.faults", "delay_execute"),
+                      ("testing.faults", "stall_shard"),
+                      ("core.logger", "get_logger"),
+                      ("core.logger", "set_callback"),
+                      ("serve.types", "ServeConfig")):
+        assert (mod, name) in cases
+    tt = importlib.import_module("raft_tpu_torch.serve.types")
+    jt = importlib.import_module("raft_tpu.serve.types")
+    assert sorted(tt.__all__) == sorted(jt.__all__)
+    for ns in (jserve, tserve):
+        assert issubclass(ns.ShardFailedError, ns.DispatchError)
+        assert ns.ShardFailedError("x", ranks=[3]).ranks == (3,)
+        r = ns.SearchResult(1, 2, partial=True, coverage=0.25)
+        assert tuple(r) == (1, 2) and (r.dists, r.ids) == (1, 2)
+        assert (r.partial, r.coverage) == (True, 0.25)
 
 def test_f32_kernel_precision_is_honoured():
     from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn

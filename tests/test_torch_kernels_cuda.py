@@ -1324,3 +1324,61 @@ def test_spectral_partition_on_card_launches_kernel_1(dev):
     assert ops.launch_counts()["fused_l2_nn"] > 0
     assert evals.device.type == "cuda"
     assert -0.5 <= float(analyze_modularity(graph, labels, 4)) <= 1.0
+
+
+# ---------------------------------------------------------------------
+# The repaired primitives on the card: gather's out-of-range rows (no
+# device-side assert), the by-key sums' dropped keys, discrete's draw.
+
+def test_gather_out_of_range_on_card_raises_no_assert(dev):
+    from raft_tpu_torch import matrix
+    data = _t(np.arange(8, dtype=np.float32).reshape(4, 2), dev)
+    idx = _t(np.array([0, 4, -1, -5, 1 << 30], np.int32), dev)
+    got = matrix.gather(data, idx)
+    torch.cuda.synchronize()
+    want = torch.tensor([[0.0, 1.0], [np.nan, np.nan], [6.0, 7.0],
+                         [np.nan, np.nan], [np.nan, np.nan]])
+    torch.testing.assert_close(got.cpu(), want, equal_nan=True,
+                               rtol=0, atol=0)
+    got_i = matrix.gather(data.to(torch.int32), idx).cpu()
+    assert (got_i[[1, 3, 4]] == torch.iinfo(torch.int32).min).all()
+    kept = matrix.gather_if(data, idx[:3], _t(np.array([1, 0, 0], np.int32),
+                                              dev), lambda s: s > 0)
+    assert torch.equal(kept.cpu(), torch.tensor([[0.0, 1.0], [0.0, 0.0],
+                                                 [0.0, 0.0]]))
+    # the context survives: a kernel launches and agrees afterwards
+    v = _t(np.random.default_rng(3).normal(size=(64, 512)).astype(
+        np.float32), dev)
+    before = sel_op.launches
+    dk, ik = sel_op.select_k(v, 16)
+    torch.cuda.synchronize()
+    assert sel_op.launches == before + 1
+    assert torch.equal(ik.cpu(), sel_op.select_k_plain(v.cpu(), 16)[1])
+
+
+@pytest.mark.parametrize("keys", [[0, 1, 5, 1], [0, -1, 2, 1]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_by_key_sums_drop_out_of_range_keys_on_card(dev, keys, dtype):
+    from raft_tpu_torch import linalg
+    data = torch.arange(12, dtype=dtype).reshape(4, 3)
+    k = torch.tensor(keys, dtype=torch.int32)
+    for fn, d in ((linalg.reduce_rows_by_key, data),
+                  (linalg.reduce_cols_by_key, data.T.contiguous())):
+        got = fn(d.to(dev), k.to(dev), 3).cpu()
+        assert torch.equal(got, fn(d, k, 3))
+
+
+def test_discrete_on_card_matches_cpu_in_distribution(dev):
+    from raft_tpu_torch import random as rnd
+    for w in (np.zeros(8, np.float32),
+              np.array([0.1, 0.0, 0.6, 0.3], np.float32)):
+        counts = [np.bincount(rnd.discrete(rnd.RngState(7, device=d_),
+                                           (40000,), w).cpu().numpy(),
+                              minlength=len(w)) / 40000
+                  for d_ in (dev, "cpu")]
+        np.testing.assert_allclose(counts[0], counts[1], atol=0.02)
+    n = 2 ** 24 + 3
+    w = np.zeros(n, np.float32)
+    w[[5, n - 1]] = 1.0
+    d = rnd.discrete(rnd.RngState(8, device=dev), (4000,), w).cpu().numpy()
+    assert set(np.unique(d)) == {5, n - 1}

@@ -60,7 +60,11 @@ def _data(seed=0):
                 keys_r=rng.integers(0, 3, 24).astype(np.int32),
                 keys_c=rng.integers(0, 5, 16).astype(np.int32),
                 w=f(24) + 1.0, ints=rng.integers(-50, 50, (24, 16)).astype(
-                    np.int32), v=f(100))
+                    np.int32), v=f(100),
+                ar=np.arange(12, dtype=np.float32).reshape(4, 3),
+                ar_i=np.arange(12, dtype=np.int32).reshape(4, 3),
+                keys_big=np.array([0, 1, 5, 1], np.int32),
+                keys_neg=np.array([0, -1, 2, 1], np.int32))
 
 
 # name -> f(ns, d): the call on one package (ns) with inputs d
@@ -122,6 +126,20 @@ CASES = {
         d["a"], d["keys_c"], 5),
     "cols_by_key_int": lambda ns, d: ns.L.reduce_cols_by_key(
         d["ints"], d["keys_c"]),
+    # keys outside [0, n_keys): the JAX package's segment_sum drops the
+    # row (float route: segment_sum, int route: index_add_)
+    "rows_by_key_out_of_range": lambda ns, d: ns.L.reduce_rows_by_key(
+        d["ar"], d["keys_big"], 3),
+    "rows_by_key_negative": lambda ns, d: ns.L.reduce_rows_by_key(
+        d["ar"], d["keys_neg"], 3),
+    "rows_by_key_out_of_range_int": lambda ns, d: ns.L.reduce_rows_by_key(
+        d["ar_i"], d["keys_big"], 3),
+    "rows_by_key_negative_int": lambda ns, d: ns.L.reduce_rows_by_key(
+        d["ar_i"], d["keys_neg"], 3),
+    "cols_by_key_out_of_range": lambda ns, d: ns.L.reduce_cols_by_key(
+        d["ar"].T, d["keys_big"], 3),
+    "cols_by_key_negative_int": lambda ns, d: ns.L.reduce_cols_by_key(
+        d["ar_i"].T, d["keys_neg"], 3),
 }
 
 

@@ -49,7 +49,11 @@ def _data(seed=0):
                 ties=rng.integers(0, 3, (12, 5)).astype(np.float32),
                 big=f(200, 6), vec=f(4) + 0.5,
                 yc=rng.integers(0, 3, 100).astype(np.int32),
-                yr=f(100), yp=f(100), odd=f(51))
+                yr=f(100), yp=f(100), odd=f(51),
+                d42=np.arange(8, dtype=np.float32).reshape(4, 2),
+                d42i=np.arange(8, dtype=np.int32).reshape(4, 2),
+                oob=np.array([0, 4, -1, -5], np.int32),
+                st3=np.array([1, 0, 0], np.int32))
 
 
 # name -> (f(ns, d), exact)
@@ -59,6 +63,14 @@ CASES = {
         d["x"], d["idx"], lambda i: 9 - i), True),
     "gather_if": (lambda ns, d: ns.M.gather_if(
         d["x"], d["idx"], d["st"], lambda s: s > 0.5), True),
+    # out-of-range and negative maps: jnp.take wraps [-n, 0) and fills
+    # the rest (NaN, INT_MIN); gather_if zeroes the unselected rows
+    "gather_out_of_range": (lambda ns, d: ns.M.gather(
+        d["d42"], d["oob"]), True),
+    "gather_out_of_range_int": (lambda ns, d: ns.M.gather(
+        d["d42i"], d["oob"]), True),
+    "gather_if_out_of_range": (lambda ns, d: ns.M.gather_if(
+        d["d42"], d["oob"][:3], d["st3"], lambda s: s > 0), True),
     "col_wise_sort": (lambda ns, d: ns.M.col_wise_sort(d["ties"]), True),
     "col_wise_sort_values": (lambda ns, d: ns.M.col_wise_sort(
         d["ties"], return_index=False)[0], True),
@@ -129,6 +141,10 @@ CASES = {
         8), True),
     "histogram_constant": (lambda ns, d: ns.S.histogram(
         ns.arr(np.full((9, 2), 3.0, np.float32)), 4), True),
+    # far out of range saturates into the end bins, NaN into bin 0
+    "histogram_saturates": (lambda ns, d: ns.S.histogram(
+        ns.arr(np.array([0.1, 0.5, 0.95, 5e9, -3e9, np.nan], np.float32)),
+        10, 0.0, 1.0), True),
     "accuracy": (lambda ns, d: ns.S.accuracy(d["yc"], d["yc"] * (
         d["yr"] > 0.1)), False),
     "r2_score": (lambda ns, d: ns.S.r2_score(d["yr"], d["yr"] + 0.1 * d[

@@ -112,6 +112,38 @@ def test_normal_table_discrete_fill():
                                                      3.5)))
 
 
+# chi-squared at p = 0.001 with 7 degrees of freedom
+CHI2_7_P001 = 24.32
+
+
+def _discrete_zero(pkg):
+    if pkg == "jax":
+        return np.asarray(jr.discrete(jr.RngState(13), (N,),
+                                      np.zeros(8, np.float32)))
+    return tr.discrete(_st(13), (N,), np.zeros(8, np.float32)).numpy()
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_discrete_all_zero_weights_draw_uniformly(pkg):
+    """Weights clamped to 1e-37: all-zero weights draw each of the 8
+    categories alike (chi-squared below its p = 0.001 bound), in both
+    packages."""
+    d = _discrete_zero(pkg)
+    assert d.shape == (N,) and d.min() >= 0 and d.max() < 8
+    counts = np.bincount(d, minlength=8)
+    chi2 = ((counts - N / 8) ** 2 / (N / 8)).sum()
+    assert chi2 < CHI2_7_P001, (counts, chi2)
+
+
+def test_discrete_takes_more_than_2_24_categories():
+    n = 2 ** 24 + 3
+    w = np.zeros(n, np.float32)
+    w[[5, n - 1]] = [1.0, 3.0]
+    d = tr.discrete(_st(14), (4000,), w).numpy()
+    assert d.dtype == np.int32 and set(np.unique(d)) == {5, n - 1}
+    assert abs((d == n - 1).mean() - 0.75) < 0.03
+
+
 def test_state_reproducible_streams_and_types():
     a = tr.normal(_st(42), (100,))
     assert torch.equal(a, tr.normal(_st(42), (100,)))
