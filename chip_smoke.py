@@ -69,6 +69,23 @@ Phases, one line each:
               once to ids equal to a direct ``plan.search``; three
               injected ``ShardFailedError`` that exhaust the retries,
               and the next request served.
+              ``serve_quality`` (after ``serve_faults``, on the same
+              index): the index's rows back from its lists
+              (``corpus_from_index``); a rate-0 server attaches no
+              monitor; a server at ``quality_sample_rate=1.0`` with an
+              exact scorer over all n rows (153 chunks of 65536, kernel 2
+              once a chunk and 32-query batch, on the monitor's own
+              stream) serves the burst and is drained: 512 samples, no
+              shadow error, no kernel library loaded while sampling, the
+              monitor's recall within 0.002 of the burst's own recall@32,
+              the scorer's ids on >= 99.9% of the exact truth's; QPS,
+              p50/p99 beside the main burst's, the scorer's construction
+              seconds, seconds and kernel 2 launches per 32-query shadow
+              batch, kernel 2's launches during the drain; kernel 2 at the
+              scorer's tile (32, 65536) k=32 against its plain version
+              and ``torch.topk`` (row ``select_k@quality``); then 3 rounds
+              of the burst with sampling off, on the shadow stream and on
+              the default stream, in turn (their median QPS and p99).
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -273,6 +290,9 @@ TWO_LEVEL_LISTS = 32768
 BATCH_SIZES = (1, 8, 32, 128)
 N_QUERIES, N_REQUESTS, N_THREADS = 256, 512, 128
 SERIAL_REQUESTS = 25          # a round of serve_faults' serial requests
+# serve_quality: rounds of (sampling off, shadow on its own stream, shadow
+# on the default stream) bursts, in turn
+QUALITY_ROUNDS = 3
 FAULTS_GUARD = dict(dispatch_timeout_ms=2000.0, max_retries=2,
                     retry_backoff_ms=1.0)
 # brute force: the reference's cpp/bench/neighbors/knn.cuh:380-389 cases
@@ -1373,6 +1393,173 @@ def run_serve_faults(index, q_np, truth, n_rows: int, main: dict) -> None:
           chaos_counters=chaos)
 
 
+def check_select_k_tile(scorer, q_np, name):
+    """Kernel 2 at the quality scorer's tile: the scores of its first 32
+    queries against its first chunk (``(batch, chunk)`` at k = the
+    scorer's tile k), against its plain version (exact) and
+    ``torch.topk``."""
+    from raft_tpu_torch.core.precision import full_fp32_matmul
+    from raft_tpu_torch.ops import select_k as op
+    qb = torch.from_numpy(q_np[:scorer.batch]).to(scorer.device)
+    full_fp32_matmul()
+    v = (scorer._norms[0][None, :]
+         - 2.0 * (qb @ scorer._chunks[0].T)).contiguous()
+    m, n = v.shape
+    k = scorer._k_tile
+    saved = op.launches
+    d_k, i_k = op.select_k_cuda(v, k)
+    d_p, i_p = op.select_k_plain(v, k)
+    torch.cuda.synchronize()
+    max_abs, agree = compare(name, d_k, i_k, d_p, i_p, True)
+    kernel = lambda: op.select_k_cuda(v, k)  # noqa: E731
+    lib = lambda: torch.topk(v, k, dim=1, largest=False)  # noqa: E731
+    ms, lib_ms = graph_ms(kernel), graph_ms(lib)
+    plain_ms = cuda_ms(lambda: op.select_k_plain(v, k), 5, warmup=1)
+    op.launches = saved
+    bnd = bound(4 * m * n + 8 * m * k, (m * n, FP32_FLOPS))
+    phase("kernels", kernel=name, shape=[m, n, k], id_agreement=agree,
+          max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+          bound_ms=bnd[0], bound_by=bnd[1])
+    return kernel_row(name, "raft_tpu_torch/csrc/select_k.cu",
+                      "raft_tpu/ops/pallas_select_k.py:47", max_abs, ms,
+                      plain_ms, bnd, lib_ms)
+
+
+def quality_burst(srv, q_np):
+    """One burst through ``srv``, then the monitor drained: (QPS, p50 ms,
+    p99 ms, drain seconds)."""
+    _, _, lat, wall = serve_burst(srv, q_np)
+    t0 = time.perf_counter()
+    if srv.quality is not None and not srv.quality.drain(600.0):
+        fail("serve_quality: the shadow thread did not drain in 600 s")
+    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
+    return N_REQUESTS / wall, p50, p99, time.perf_counter() - t0
+
+
+def run_serve_quality(index, q_np, truth, n_rows: int, main: dict):
+    """Phase 3 ``serve_quality``: the served burst with every query
+    sampled into a ``QualityMonitor`` whose exact scorer covers all
+    ``n_rows`` rows of the index (kernel 2 once a 65536-row chunk and
+    32-query batch, on the monitor's own stream), drained; the monitor's
+    recall against the burst's own; the scorer against the exact truth;
+    kernel 2 at the scorer's tile. Then rounds of the same burst with
+    sampling off, on the shadow stream and on the default stream, for
+    their QPS and p99. Returns the ``select_k@quality`` row."""
+    from raft_tpu_torch import obs, ops
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs.quality import QualityConfig, corpus_from_index
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    params = ivf_flat.SearchParams(n_probes=N_PROBES)
+    cfg = dict(batch_sizes=BATCH_SIZES, max_queue=512, max_wait_ms=2.0)
+    t0 = time.perf_counter()
+    corpus, ids = corpus_from_index(index)
+    corpus_s = time.perf_counter() - t0
+    if corpus.shape != (n_rows, D) or ids.shape != (n_rows,):
+        fail(f"serve_quality: corpus_from_index gave {corpus.shape}")
+    off = SearchServer.from_index(index, q_np[:128], K, params=params,
+                                  config=ServeConfig(**cfg))
+    try:
+        if off.enable_quality(corpus, ids) is not None or \
+                off.quality is not None:
+            fail("serve_quality: a rate-0 server attached a monitor")
+    finally:
+        off.close()
+    del off
+    ops.reset_launch_counts()
+    srv = SearchServer.from_index(
+        index, q_np[:128], K, params=params,
+        config=ServeConfig(quality_sample_rate=1.0, **cfg))
+    try:
+        t0 = time.perf_counter()
+        mon = srv.enable_quality(corpus, ids, qconfig=QualityConfig(
+            max_rows=n_rows, window=1024, max_pending=1024))
+        scorer_s = time.perf_counter() - t0
+        del corpus, ids
+        scorer = mon.scorer
+        if scorer.sampled or scorer.rows != n_rows:
+            fail(f"serve_quality: the scorer holds {scorer.rows} rows")
+        loaded = _build.loaded()
+        before = obs.snapshot()
+        served_d, served, lat, wall = serve_burst(srv, q_np)
+        burst = ops.launch_counts()
+        t0 = time.perf_counter()
+        if not mon.drain(600.0):
+            fail("serve_quality: the shadow thread did not drain in 600 s")
+        drain_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        after = obs.snapshot()
+        deltas = counter_deltas(before, after, "raft.obs.quality.")
+        check_launched("serve_quality", launches, ("select_k", "ivf_scan"))
+        stats = mon.stats()
+        hits = [len(set(served[r]) & set(truth[r % N_QUERIES]))
+                for r in range(N_REQUESTS)]
+        burst_recall = float(np.mean(hits)) / K
+        if _build.loaded() != loaded:
+            fail(f"serve_quality: kernel libraries loaded while sampling: "
+                 f"{sorted(set(_build.loaded()) - set(loaded))}")
+        moved = {n: obs.counter_sum(after, f"raft.obs.quality.{n}.total")
+                 - obs.counter_sum(before, f"raft.obs.quality.{n}.total")
+                 for n in ("samples", "errors")}
+        if moved != {"samples": N_REQUESTS, "errors": 0}:
+            fail(f"serve_quality: the counters moved {deltas}, not "
+                 f"{N_REQUESTS} samples and no error")
+        if stats["recall"] is None or \
+                abs(stats["recall"] - burst_recall) > 0.002:
+            fail(f"serve_quality: monitor recall {stats['recall']} against "
+                 f"the burst's {burst_recall}")
+        # the scorer against the exact truth, timed a 32-query batch
+        sel0 = ops.launch_counts()["select_k"]
+        t0 = time.perf_counter()
+        exact = scorer.topk(q_np[:N_QUERIES], K)
+        batches = -(-N_QUERIES // scorer.batch)
+        batch_s = (time.perf_counter() - t0) / batches
+        per_batch = (ops.launch_counts()["select_k"] - sel0) / batches
+        agree = float((exact == truth[:N_QUERIES]).mean())
+        if agree < MIN_ID_AGREEMENT:
+            fail(f"serve_quality: scorer ids agree with the truth on "
+                 f"{agree:.5f} < {MIN_ID_AGREEMENT}")
+        row = check_select_k_tile(scorer, q_np, "select_k@quality")
+        row["launches"] = launches["select_k"]
+        # sampling off (the one flag cleared), the shadow on its stream,
+        # the shadow on the default stream: rounds in turn
+        side = mon._stream
+        modes = {"off": None, "shadow_stream": side,
+                 "default_stream": torch.cuda.default_stream(
+                     scorer.device)}
+        ab = {m: [] for m in modes}
+        for rnd in range(QUALITY_ROUNDS):
+            order = list(modes)[rnd % len(modes):] + \
+                list(modes)[:rnd % len(modes)]
+            for mode in order:
+                if mode == "off":
+                    srv._quality = None
+                else:
+                    mon._stream = modes[mode]
+                ab[mode].append(quality_burst(srv, q_np))
+                srv._quality = mon
+        mon._stream = side
+    finally:
+        srv.close()
+    ab_med = {m: dict(zip(("qps", "p50_ms", "p99_ms", "drain_s"),
+                          np.median(np.asarray(v), axis=0).tolist()))
+              for m, v in ab.items()}
+    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
+    phase("serve_quality", rate=1.0, rows=n_rows,
+          chunks=len(scorer._chunks), corpus_s=corpus_s,
+          scorer_construct_s=scorer_s, qps=N_REQUESTS / wall, p50_ms=p50,
+          p99_ms=p99, burst_recall=burst_recall, monitor=stats,
+          main_burst={k_: main[k_] for k_ in ("qps", "p50_ms", "p99_ms")},
+          drain_s=drain_s, burst_launches=burst, launches=launches,
+          select_k_during_drain=launches["select_k"] - burst["select_k"],
+          select_k_per_shadow_batch=per_batch, shadow_batch_s=batch_s,
+          scorer_id_agreement=agree, quality_counters=deltas,
+          rounds=QUALITY_ROUNDS, ab_median=ab_med, ab=ab)
+    del mon, scorer, srv
+    free_phase("serve_quality")
+    return row
+
+
 def run_flat(x, q, q_np, truth, args):
     """Phase 3: IVF-Flat build + serving; the fused scan checked against
     its plain version on the served index afterwards."""
@@ -1400,6 +1587,7 @@ def run_flat(x, q, q_np, truth, args):
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     run_serve_faults(index, q_np, truth, x.shape[0], served)
+    quality_row = run_serve_quality(index, q_np, truth, x.shape[0], served)
     wide_launches = run_wide_flat(index, q, truth)
     row, wide_row, rows = check_flat_scans(index, q)
     pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,
@@ -1407,7 +1595,7 @@ def run_flat(x, q, q_np, truth, args):
                           "raft_tpu/ops/pallas_ivf_scan.py:241")
     del index, rows
     free_phase("flat")
-    return [row, pass_b], launches, [wide_row], wide_launches
+    return [row, pass_b, quality_row], launches, [wide_row], wide_launches
 
 
 def run_flat_narrow(x, q, q_np, truth, args, storage: str):

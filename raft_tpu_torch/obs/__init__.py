@@ -1,5 +1,8 @@
-"""Observability: counters and gauges (``obs.registry``)."""
+"""Observability: counters and gauges (``obs.registry``) and the
+shadow-exact quality monitor (``obs.quality``, imported on use)."""
 
-from raft_tpu_torch.obs.registry import counter, counter_sum, gauge, snapshot
+from raft_tpu_torch.obs.registry import (CardinalityError, counter,
+                                         counter_sum, gauge, snapshot)
 
-__all__ = ["counter", "counter_sum", "gauge", "snapshot"]
+__all__ = ["CardinalityError", "counter", "counter_sum", "gauge",
+           "snapshot"]

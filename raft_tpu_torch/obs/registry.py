@@ -5,16 +5,36 @@ snapshot shape, so the serving tests and dashboards read both alike:
 ``snapshot() -> {"counters": {series: value}, "gauges": {...}}`` with a
 series named ``name{label="value",...}`` when labelled. Histograms,
 spans and the exporters are not ported yet.
+
+Bounded cardinality, as in the JAX package: a family (one metric name)
+refuses to make more than :data:`max_series` series and raises
+:class:`CardinalityError`, so an unbounded label value fails loudly
+instead of leaking memory. The cap is read from
+``RAFT_TPU_METRICS_MAX_SERIES`` (default 512) when the module is
+imported.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, Tuple
+
+
+class CardinalityError(RuntimeError):
+    """A labelled family exceeded its configured series cap."""
+
+
+def _env_max_series() -> int:
+    return int(os.environ.get("RAFT_TPU_METRICS_MAX_SERIES", "512"))
+
+
+max_series = _env_max_series()
 
 _lock = threading.RLock()
 _counters: Dict[str, "Counter"] = {}
 _gauges: Dict[str, "Gauge"] = {}
+_family_sizes: Dict[str, int] = {}
 
 
 def _series(name: str, labels: dict) -> str:
@@ -59,7 +79,14 @@ def _get(table: dict, other: dict, cls, name: str, help: str,
             if any(k == name or k.startswith(name + "{") for k in other):
                 raise ValueError(f"metric {name!r} already registered "
                                  "as another kind")
+            size = _family_sizes.get(name, 0)
+            if size >= max_series:
+                raise CardinalityError(
+                    f"metric family {name!r} exceeded max_series="
+                    f"{max_series}: an unbounded label value (id, "
+                    f"pointer, timestamp) is leaking series")
             inst = table[key] = cls(help)
+            _family_sizes[name] = size + 1
         return inst
 
 
@@ -83,5 +110,5 @@ def counter_sum(snap: dict, name: str) -> float:
                if k == name or k.startswith(name + "{"))
 
 
-__all__: Tuple[str, ...] = ("Counter", "Gauge", "counter", "counter_sum",
-                            "gauge", "snapshot")
+__all__: Tuple[str, ...] = ("CardinalityError", "Counter", "Gauge",
+                            "counter", "counter_sum", "gauge", "snapshot")

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds, not minutes. Libraries land
-in ``raft_tpu_torch/_build/`` (git-ignored) under a name carrying a
+in ``raft_tpu_torch/_build/`` (git-ignored; ``core.compile_cache.enable``
+moves it before the first load) under a name carrying a
 hash of the source and its headers, so an edited source rebuilds and a
 stale library is never loaded. Nothing is built at import time: the
 first launch of a kernel builds it, or :func:`build_all` builds every
@@ -124,6 +125,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
     return lib
+
+
+def loaded() -> Tuple[str, ...]:
+    """The names of the kernel libraries loaded so far, sorted."""
+    with _lock:
+        return tuple(sorted(_libs))
 
 
 class Entry:

@@ -28,9 +28,17 @@ failure path:
 * the ``serve.execute`` fault-injection site
   (:mod:`raft_tpu_torch.testing.faults`), inside the watchdog's scope.
 
-Not ported yet: mutable and tiered indexes, quality sampling (ROADMAP.md
-queue 1 item 4b), the profiler tag (4c), the latency histograms and the
-spans (4d).
+* **quality sampling**: with ``ServeConfig.quality_sample_rate`` > 0,
+  :meth:`SearchServer.enable_quality` attaches a
+  :class:`~raft_tpu_torch.obs.quality.QualityMonitor`, and each served
+  request is offered to it after its future is set (a Bernoulli draw
+  and a bounded copy on the dispatcher thread; the exact replay runs on
+  the monitor's own thread). At rate 0 nothing is attached and the
+  result loop reads one flag.
+
+Not ported yet: mutable and tiered indexes, the profiler tag
+(ROADMAP.md queue 1 item 4c), the latency histograms and the spans
+(4d).
 
 Threading model: the dispatcher thread owns the batching; caller
 threads only touch numpy and futures. With the watchdog on, each
@@ -139,6 +147,14 @@ class SearchServer:
         self._thread: Optional[threading.Thread] = None
         # the watchdog's helper: dispatcher-thread state only, no lock
         self._worker: Optional[_DispatchWorker] = None
+        # quality sampling: None until enable_quality attaches a monitor,
+        # so with sampling off the result loop reads this one flag;
+        # _quality_meta carries the metric, family and device from_index
+        # learned (_quality_src, the mutable index whose epoch tags the
+        # samples, stays None: mutable indexes are not ported)
+        self._quality = None
+        self._quality_src = None
+        self._quality_meta: dict = {}
         obs.gauge("raft.serve.queue.max").set(self._cfg.max_queue)
         obs.gauge("raft.serve.queue.depth").set(0)
         if start:
@@ -153,12 +169,19 @@ class SearchServer:
         defaults to the family's ``SearchParams``. ``rep_queries`` is the
         representative cap-measurement sample (as for
         ``plan.build_plan``)."""
+        from raft_tpu_torch.neighbors import plan as plan_mod
         config = config if config is not None else ServeConfig()
+        # the same resolver PlanLadder.build uses: an unsupported index
+        # fails alike either way
+        family, _ = plan_mod._resolve_builder(index)
         ladder = PlanLadder.build(index, rep_queries, k, params,
                                   shapes=config.batch_sizes,
                                   probes_ladder=config.probes_ladder,
                                   prewarm=config.prewarm)
-        return cls(ladder, config, start=start)
+        srv = cls(ladder, config, start=start)
+        srv._quality_meta = {"metric": getattr(index, "metric", None),
+                             "family": family, "device": index.device}
+        return srv
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "SearchServer":
@@ -182,11 +205,67 @@ class SearchServer:
         if self._worker is not None:
             self._worker.stop()
             self._worker = None
+        if self._quality is not None:
+            self._quality.close()
         self._drain_closed()
 
     @property
     def ladder(self) -> PlanLadder:
         return self._ladder
+
+    # -- quality sampling --------------------------------------------------
+    @property
+    def quality(self):
+        """The attached :class:`~raft_tpu_torch.obs.quality.QualityMonitor`
+        (None while sampling is off)."""
+        return self._quality
+
+    def enable_quality(self, corpus, ids=None, metric=None,
+                       estimator=None, qconfig=None, family=None):
+        """Attach shadow-exact recall estimation: served queries are
+        reservoir-sampled at ``ServeConfig.quality_sample_rate`` and
+        replayed off the serving path through an exact scorer over
+        ``corpus`` (the index's rows, or a bounded sample of them; see
+        :mod:`raft_tpu_torch.obs.quality`), built on the index's device
+        and warmed here. Returns the monitor, or None when the rate is 0
+        (nothing is built and the hot path stays at one flag read)."""
+        rate = self._cfg.quality_sample_rate
+        if rate <= 0:
+            get_logger("serve").info(
+                "enable_quality: quality_sample_rate=0 — no monitor "
+                "attached (set it on ServeConfig to sample)")
+            return None
+        from raft_tpu_torch.obs import quality as _quality
+        metric = metric if metric is not None \
+            else self._quality_meta.get("metric")
+        kwargs = {} if metric is None else {"metric": metric}
+        qcfg = qconfig if qconfig is not None \
+            else _quality.QualityConfig()
+        scorer = _quality.ExactScorer(
+            corpus, ids=ids, kmax=self._ladder.k,
+            max_rows=qcfg.max_rows, chunk=qcfg.chunk,
+            batch=qcfg.shadow_batch, seed=qcfg.seed,
+            device=self._quality_meta.get("device", "cuda"), **kwargs)
+        monitor = _quality.QualityMonitor(
+            scorer, sample_rate=rate, config=qcfg,
+            family=(family if family is not None
+                    else self._quality_meta.get("family", "index")),
+            estimator=estimator)
+        return self.attach_quality(monitor)
+
+    def attach_quality(self, monitor):
+        """Attach an already-built monitor (tests inject fakes)."""
+        self._quality = monitor
+        return monitor
+
+    def _quality_epoch(self) -> int:
+        src = self._quality_src
+        return int(src.epoch) if src is not None else 0
+
+    def _quality_detail(self) -> str:
+        """Shard attribution of coverage-flagged samples (a distributed
+        tier names its excluded shards here)."""
+        return ""
 
     # -- admission ---------------------------------------------------------
     def submit(self, queries, k: Optional[int] = None,
@@ -437,6 +516,12 @@ class SearchServer:
         obs.counter("raft.serve.batch.slots").inc(shape)
         partial = bool(getattr(plan, "partial", False))
         coverage = float(getattr(plan, "coverage", 1.0))
+        # quality sampling: one flag read a batch; None means sampling is
+        # off and nothing below allocates or runs
+        qm = self._quality
+        if qm is not None and err is None:
+            q_epoch = self._quality_epoch()
+            q_excl = self._quality_detail() if partial else ""
         off = 0
         for r in batch:
             if id(r) in dead:   # already failed with DeadlineExceeded
@@ -455,6 +540,11 @@ class SearchServer:
             r.future.set_result(
                 SearchResult(d_r, i_r, partial=True, coverage=coverage)
                 if partial else (d_r, i_r))
+            if qm is not None:
+                # a Bernoulli draw and a bounded copy on this thread; the
+                # exact replay runs on the monitor's thread
+                qm.offer(r.queries, i_r, r.k, epoch=q_epoch,
+                         coverage=coverage, excluded=q_excl)
 
 
 def _to_numpy(t) -> np.ndarray:

@@ -2,9 +2,9 @@
 result tuple (counterpart of ``raft_tpu.serve.types``; stdlib only).
 
 Not ported yet: the distributed failover (``failover``, ROADMAP.md
-queue 1 item 6) and quality sampling (``quality_sample_rate``, item
-4b). ``ServeConfig`` takes their fields with the JAX package's defaults
-and raises ``NotImplementedError`` on any other value.
+queue 1 item 6). ``ServeConfig`` takes its fields with the JAX
+package's defaults and raises ``NotImplementedError`` on
+``failover=True``.
 """
 
 from __future__ import annotations
@@ -98,9 +98,13 @@ class ServeConfig:
       :class:`ShardFailedError`, with exponential backoff; a request
       whose deadline falls inside the backoff fails at once with
       :class:`DeadlineExceeded`.
-    * ``failover``, ``failover_probe_ms``, ``quality_sample_rate`` —
-      the JAX package's partial-mesh failover and quality sampling:
-      only their defaults (off) are ported.
+    * ``quality_sample_rate`` — the probability that a served query is
+      reservoir-sampled for shadow-exact recall estimation
+      (``SearchServer.enable_quality``, ``raft_tpu_torch.obs.quality``);
+      0, the default, attaches nothing and keeps the hot path at one
+      flag read.
+    * ``failover``, ``failover_probe_ms`` — the JAX package's
+      partial-mesh failover: only its default (off) is ported.
     """
 
     batch_sizes: Tuple[int, ...] = (1, 8, 32, 128)
@@ -150,10 +154,6 @@ class ServeConfig:
             raise NotImplementedError(
                 "ServeConfig: the partial-mesh failover is not ported yet "
                 "(ROADMAP.md queue 1 item 6)")
-        if self.quality_sample_rate > 0:
-            raise NotImplementedError(
-                "ServeConfig: quality sampling is not ported yet "
-                "(ROADMAP.md queue 1 item 4b)")
 
 
 @dataclass

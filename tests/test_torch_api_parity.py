@@ -1,8 +1,10 @@
 """The port's public signatures against the JAX package's.
 
 For every module of ``raft_tpu_torch`` whose path also exists in
-``raft_tpu`` (private modules aside), each public function and dataclass
-defined in both must take every parameter (or field) of the JAX one,
+``raft_tpu`` (private modules aside), each public function, dataclass
+and class constructor defined in both (exceptions, enums and
+:data:`CTOR_EXEMPT` aside) must take every parameter (or field) of the
+JAX one,
 with the same default, kind and relative order, so a caller written for
 ``raft_tpu`` never gets a ``TypeError``. A parameter the port adds must
 be on :data:`ALLOWED_EXTRA`. Values the port does not implement raise
@@ -65,6 +67,8 @@ ALLOWED_EXTRA = {
         "the device of an implicit operator (matvec and n, no matrix)",
     ("sparse.solver.lanczos", "lanczos_smallest", "device"):
         "the device of an implicit operator (matvec and n, no matrix)",
+    ("obs.quality", "ExactScorer", "device"):
+        "the device the scorer's corpus chunks live and are scored on",
 }
 # the generators draw on the device of their generator; an int seed
 # makes one on ``device`` (default cuda)
@@ -76,6 +80,7 @@ ALLOWED_EXTRA.update({
         "logistic", "exponential", "rayleigh", "laplace", "discrete",
         "sample_without_replacement", "permute")})
 ALLOWED_EXTRA.update({
+    ("random.rng", "RngState", "device"): _DRAW,
     ("random.make_blobs", "make_blobs", "device"): _DRAW,
     ("random.make_regression", "make_regression", "device"): _DRAW,
     ("random.multi_variable_gaussian", "multi_variable_gaussian",
@@ -99,9 +104,28 @@ def _shared_modules():
     return out
 
 
+# classes whose constructors differ by design, and why
+CTOR_EXEMPT = {
+    ("core.logger", "Logger"): "the default logger name is its package's",
+    ("core.resources", "Resources"):
+        "a torch device, not a JAX mesh and key (ensure_resources maps "
+        "a caller's device)",
+    ("obs.registry", "Counter"): "made by the registry, never by a caller",
+    ("obs.registry", "Gauge"): "made by the registry, never by a caller",
+}
+
+
+def _walked(mod, name, obj) -> bool:
+    """A function, a dataclass, or a class a caller constructs."""
+    if inspect.isfunction(obj) or dataclasses.is_dataclass(obj):
+        return True
+    return (inspect.isclass(obj) and not issubclass(
+        obj, (enum.Enum, BaseException)) and (mod, name) not in CTOR_EXEMPT)
+
+
 def _cases():
-    """(module, name) of every public function and dataclass defined in
-    both packages' module."""
+    """(module, name) of every public function, dataclass and class
+    constructor defined in both packages' module."""
     cases = []
     for mod in _shared_modules():
         ref = importlib.import_module(f"raft_tpu.{mod}")
@@ -110,7 +134,7 @@ def _cases():
             if name.startswith("_") or getattr(obj, "__module__", None) \
                     != ref.__name__:
                 continue
-            if not (inspect.isfunction(obj) or dataclasses.is_dataclass(obj)):
+            if not _walked(mod, name, obj):
                 continue
             mine = getattr(port, name, None)
             if mine is not None and getattr(mine, "__module__", None) \
@@ -213,8 +237,6 @@ def _unimplemented():
     return {
         "ServeConfig.failover": (lambda: ServeConfig(failover=True),
                                  "item 6"),
-        "ServeConfig.quality_sample_rate": (lambda: ServeConfig(
-            quality_sample_rate=0.5), "item 4b"),
     }
 
 
@@ -280,6 +302,75 @@ def test_max_retries_is_honoured():
         ("ok", 3)
     assert _serve_once(fail_n=2, max_retries=1, retry_backoff_ms=1.0) == \
         ("ShardFailedError", 2)
+
+
+def test_quality_sample_rate_is_honoured():
+    """Rate 1.0 samples every served query into the attached monitor;
+    rate 0 attaches nothing."""
+    from raft_tpu_torch.obs.quality import QualityConfig, QualityMonitor
+    from raft_tpu_torch.serve import PlanLadder, SearchServer, ServeConfig
+
+    class Exact:
+        def topk(self, q, k):
+            return np.tile(np.arange(k), (len(q), 1))
+
+    def server(rate):
+        return SearchServer(
+            PlanLadder((1,), (4,), {(1, 0): _SlowOrFlakyPlan(1)}, dim=3,
+                       k=2),
+            ServeConfig(batch_sizes=(1,), max_wait_ms=0.0,
+                        quality_sample_rate=rate))
+
+    srv = server(1.0)
+    try:
+        mon = srv.attach_quality(QualityMonitor(
+            Exact(), 1.0, QualityConfig(poll_ms=5.0)))
+        for _ in range(3):
+            srv.search(np.zeros((1, 3), np.float32), timeout=30)
+        assert mon.drain(30.0)
+        assert mon.stats()["samples"] == 3
+        # the fake plan serves ids (0, 0): one of the exact (0, 1)
+        assert mon.stats()["recall"] == 0.5
+    finally:
+        srv.close()
+    srv = server(0.0)
+    try:
+        assert srv.enable_quality(np.zeros((4, 3), np.float32)) is None
+        assert srv.quality is None
+    finally:
+        srv.close()
+
+
+def test_walk_covers_quality_and_the_long_tail():
+    """The signature walk holds the quality module, the series cap's
+    registry and each long-tail util and core module against their JAX
+    namesakes, the constructors among them."""
+    cases = set(_cases())
+    for mod, name in (("obs.quality", "ExactScorer"),
+                      ("obs.quality", "QualityConfig"),
+                      ("obs.quality", "QualityMonitor"),
+                      ("obs.quality", "corpus_from_index"),
+                      ("obs.registry", "counter"),
+                      ("util.pow2_utils", "Pow2"),
+                      ("util.pow2_utils", "round_up_pow2"),
+                      ("util.seive", "Seive"),
+                      ("util.scatter", "scatter"),
+                      ("util.scatter", "scatter_if"),
+                      ("util.cache", "VecCache"),
+                      ("core.trace", "enable_tracing"),
+                      ("core.trace", "push_range"),
+                      ("core.memory", "memory_stats"),
+                      ("core.memory", "hbm_stats"),
+                      ("core.memory", "donate"),
+                      ("core.interruptible", "synchronize"),
+                      ("core.interruptible", "cancel"),
+                      ("core.compile_cache", "enable"),
+                      ("serve.batcher", "SearchServer")):
+        assert (mod, name) in cases, (mod, name)
+    for mod, name in CTOR_EXEMPT:
+        assert (mod, name) not in cases
+        assert inspect.isclass(getattr(importlib.import_module(
+            f"raft_tpu_torch.{mod}"), name))
 
 
 def test_walk_covers_the_failure_handling_modules():

@@ -1382,3 +1382,30 @@ def test_discrete_on_card_matches_cpu_in_distribution(dev):
     w[[5, n - 1]] = 1.0
     d = rnd.discrete(rnd.RngState(8, device=dev), (4000,), w).cpu().numpy()
     assert set(np.unique(d)) == {5, n - 1}
+
+
+@pytest.mark.parametrize("metric", ["L2Expanded", "InnerProduct"])
+def test_exact_scorer_on_card_runs_kernel_2(dev, metric):
+    # kernel 2 at the shadow scorer's tile, (32, 65536) at k=32, exactly
+    # its plain version; the scorer on the card (full-fp32 products,
+    # kernel 2 once a chunk and query batch) against the CPU scorer's ids
+    # (cuBLAS and the CPU sum in another order: a near-tie may swap)
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.obs.quality import ExactScorer
+    rng = np.random.default_rng(23)
+    v = _t(rng.normal(size=(32, 65536)).astype(np.float32), dev)
+    dk, ik = sel_op.select_k_cuda(v, 32)
+    dp, ip = sel_op.select_k_plain(v, 32)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    x = rng.normal(size=(150_000, 32)).astype(np.float32)
+    q = rng.normal(size=(70, 32)).astype(np.float32)
+    kw = dict(metric=DistanceType[metric], kmax=32)
+    card = ExactScorer(x, device=dev, **kw)
+    cpu = ExactScorer(x, device="cpu", **kw)
+    assert card.device.type == "cuda" and len(card._chunks) == 3
+    before = sel_op.launches
+    got = card.topk(q, 32)
+    assert sel_op.launches - before == 3 * 3    # 3 chunks x 3 query tiles
+    want = cpu.topk(q, 32)
+    assert got.shape == (70, 32) and (got >= 0).all()
+    assert (got == want).mean() >= 0.999
