@@ -11,7 +11,8 @@
 # its profile files beside it as ab_<n>_<tree>_profile_*.txt; the card's
 # name and power limit and each run's phase lines for the IVF paths, the
 # brute-force batches and their kernels (pass B alone as select_k_payload,
-# the IVF-PQ f32 body as ivf_pq_scan...@f32), and the pairwise phase (each
+# the IVF-PQ f32 body as ivf_pq_scan...@f32), the serving phases
+# (serve_faults, serve_quality, serve_obs) and the pairwise phase (each
 # name through kernel 7, the exact L1 scan) are printed.
 set -u
 parent=$(cd "$1" && pwd)
@@ -31,7 +32,7 @@ for tree in parent change change parent; do
   for f in "$dir"/chiprun_out/profile_*.txt; do
     [ -e "$f" ] && mv "$f" "$out/ab_${n}_${tree}_$(basename "$f")"
   done
-  grep -E '"phase": "(build|kmeans_tiers|main|wide_flat|main_flat_bf16|main_flat_int8|main_pq|pq_f32|main_bq|main_pq_pc|pq_scan_modes|main_bq_extend|kmeans_two_level|main_bf|wide_bf|pairwise|profile)"|"kernel": "(fused_l2_nn|ivf_flat_scan|ivf_list_scan|ivf_pq_scan|ivf_bq_scan|select_k|fused_knn)' \
+  grep -E '"phase": "(build|kmeans_tiers|main|serve_faults|serve_quality|serve_obs|wide_flat|main_flat_bf16|main_flat_int8|main_pq|pq_f32|main_bq|main_pq_pc|pq_scan_modes|main_bq_extend|kmeans_two_level|main_bf|wide_bf|pairwise|profile)"|"kernel": "(fused_l2_nn|ivf_flat_scan|ivf_list_scan|ivf_pq_scan|ivf_bq_scan|select_k|fused_knn)' \
     "$log" | cut -c1-700
   tail -n 2 "$log" | cut -c1-300
 done

@@ -86,6 +86,25 @@ Phases, one line each:
               and ``torch.topk`` (row ``select_k@quality``); then 3 rounds
               of the burst with sampling off, on the shadow stream and on
               the default stream, in turn (their median QPS and p99).
+              ``serve_obs`` (after ``serve_quality``, on the same index
+              and server settings): the burst with tracing off and the
+              resource profiler at rate 0 (no profiler state, no sampler
+              thread, an empty flight recorder); the burst with tracing
+              and the profiler at 1.0 (the request and queue-delay
+              histograms count 512 each, ``raft.serve.batch.size``
+              counts the batches and sums their rows, one profiler
+              sample per blocking ``plan.search``, the recorder's ring
+              full of traces with the batch tree ``raft.serve.execute``
+              -> ``raft.plan.search`` -> ``raft.obs.profile.sync``, one
+              Chrome trace valid JSON with each child inside its
+              parent, the duty cycle in [0, 1.05], a forced memory
+              sample equal to the allocator's bytes and the card's
+              size, kernels 2 and 3 launched); then 3 rounds of the
+              burst with everything off, tracing on and the profiler at
+              0.01, and both at 1.0, in turn (median QPS and p99), the
+              profiler's host and device ms a dispatch, and under
+              ``--profile`` the duty cycle beside the ``torch.profiler``
+              busy share of one more burst.
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -1170,14 +1189,16 @@ def profile_burst(srv, q_np, tag: str) -> None:
                 f"profile_burst_{tag}")
 
 
-def profile_run(run, tag: str, out_name: str) -> None:
+def profile_run(run, tag: str, out_name: str) -> float:
     """Trace ``run()`` (which returns its wall seconds) with
     ``torch.profiler``: device time by kernel into
     ``chiprun_out/<out_name>.txt``, and the device's busy share of the
-    wall time (kernels on one stream do not overlap, so their summed self
-    time is the busy time). Only the device's own records (kernels,
+    wall time, returned (kernels on one stream do not overlap, so their
+    summed self time is the busy time). Only the device's own records (kernels,
     copies, fills) count: an operator's row repeats its kernels' time,
-    as the table's "Self CUDA time total" leaves it out."""
+    as the table's "Self CUDA time total" leaves it out, and the port's
+    own ``raft.*`` ranges (its spans and ``obs.timed`` scopes), which the
+    trace also lists as device rows, cover its kernels' time again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1186,14 +1207,17 @@ def profile_run(run, tag: str, out_name: str) -> None:
     ka = prof.key_averages()
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in ka
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("raft.")), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     with open(os.path.join(OUT_DIR, f"{out_name}.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    share = busy_us / 1e3 / (wall * 1e3)
     phase("profile", path=tag, wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
-          busy_share=busy_us / 1e3 / (wall * 1e3),
+          busy_share=share,
           top=[{"name": n[:60], "device_ms": t / 1e3, "calls": c}
                for n, t, c in rows[:8]])
+    return share
 
 
 def gpu_line() -> str:
@@ -1444,9 +1468,11 @@ def run_serve_quality(index, q_np, truth, n_rows: int, main: dict):
     recall against the burst's own; the scorer against the exact truth;
     kernel 2 at the scorer's tile. Then rounds of the same burst with
     sampling off, on the shadow stream and on the default stream, for
-    their QPS and p99. Returns the ``select_k@quality`` row."""
+    their QPS and p99, with tracing off. Returns the ``select_k@quality``
+    row."""
     from raft_tpu_torch import obs, ops
     from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import spans
     from raft_tpu_torch.obs.quality import QualityConfig, corpus_from_index
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.serve import SearchServer, ServeConfig
@@ -1528,6 +1554,9 @@ def run_serve_quality(index, q_np, truth, n_rows: int, main: dict):
                  "default_stream": torch.cuda.default_stream(
                      scorer.device)}
         ab = {m: [] for m in modes}
+        # tracing off in the rounds, so that they compare with a tree
+        # that has none
+        spans.set_trace_enabled(False)
         for rnd in range(QUALITY_ROUNDS):
             order = list(modes)[rnd % len(modes):] + \
                 list(modes)[:rnd % len(modes)]
@@ -1540,6 +1569,7 @@ def run_serve_quality(index, q_np, truth, n_rows: int, main: dict):
                 srv._quality = mon
         mon._stream = side
     finally:
+        spans.set_trace_enabled(True)
         srv.close()
     ab_med = {m: dict(zip(("qps", "p50_ms", "p99_ms", "drain_s"),
                           np.median(np.asarray(v), axis=0).tolist()))
@@ -1558,6 +1588,242 @@ def run_serve_quality(index, q_np, truth, n_rows: int, main: dict):
     del mon, scorer, srv
     free_phase("serve_quality")
     return row
+
+
+OBS_ROUNDS = 9
+# chrome-trace nesting slack (us): span times are rounded to 1 us
+NEST_SLACK_US = 2.0
+# a dispatch's device half (two events around its work) against the
+# wall of its plan.search span, which holds both events (ms; both are
+# rounded to 1 us)
+DEVICE_SLACK_MS = 0.01
+# the profiler's device share of a traced burst against the trace's busy
+# share: every kernel of a dispatch runs between its events, so the
+# device share lies at or above the busy share (the burst's few copies
+# outside the plan aside)
+BUSY_SHARE_FLOOR = 0.9
+
+
+def obs_burst(srv, q_np):
+    """One burst: (QPS, p50 ms, p99 ms)."""
+    _, _, lat, wall = serve_burst(srv, q_np)
+    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
+    return N_REQUESTS / wall, p50, p99
+
+
+def check_nesting(trace: dict) -> int:
+    """``to_chrome_trace`` of ``trace`` through JSON and back; every
+    span opened inside another lies within it (a batch's queue waits
+    aside: they are recorded after the fact from admission, before the
+    batch span opened). Returns the events checked."""
+    from raft_tpu_torch import obs
+    chrome = json.loads(json.dumps(obs.to_chrome_trace(trace)))
+    ev = {e["args"]["span_id"]: e for e in chrome["traceEvents"]
+          if e.get("ph") == "X"}
+    n = 0
+    for e in ev.values():
+        parent = ev.get(e["args"].get("parent_id"))
+        if parent is None or (e["name"] == "raft.serve.queue_wait"
+                              and parent["name"] == "raft.serve.batch"):
+            continue
+        n += 1
+        if e["ts"] < parent["ts"] - NEST_SLACK_US or \
+                e["ts"] + e["dur"] > parent["ts"] + parent["dur"] + \
+                NEST_SLACK_US:
+            fail(f"serve_obs: span {e['name']} lies outside its parent "
+                 f"{parent['name']} in the Chrome trace")
+    return n
+
+
+def check_batch_tree(trace: dict) -> None:
+    """The reference batcher's tree: raft.serve.execute ->
+    raft.plan.search -> raft.obs.profile.sync, the sync's device half
+    (between two events) inside the plan.search span's wall."""
+    from raft_tpu_torch.obs import profiler
+    by_id = {s["span_id"]: s for s in trace["spans"]}
+    sync = [s for s in trace["spans"] if s["name"] == profiler.SYNC_SPAN]
+    if len(sync) != 1:
+        fail(f"serve_obs: a batch trace holds {len(sync)} sync spans")
+    chain = [by_id.get(sync[0]["parent_id"])]
+    chain.append(by_id.get(chain[0]["parent_id"]) if chain[0] else None)
+    if [c and c["name"] for c in chain] != ["raft.plan.search",
+                                           "raft.serve.execute"]:
+        fail(f"serve_obs: the sync span hangs under "
+             f"{[c and c['name'] for c in chain]}")
+    device_ms = sync[0]["attrs"]["device_ms"]
+    if not 0.0 < device_ms <= chain[0]["duration_ms"] + DEVICE_SLACK_MS:
+        fail(f"serve_obs: a dispatch's device half {device_ms} ms against "
+             f"its plan.search wall {chain[0]['duration_ms']} ms")
+
+
+def run_serve_obs(index, q_np, truth, main: dict) -> None:
+    """Phase 3 ``serve_obs``: the burst with the observability core off,
+    then on at full rate (gated), then rounds of off / tracing / tracing
+    and the profiler sampled / both full in turn (recorded, not gated),
+    then one burst at full rate traced by ``torch.profiler``, where the
+    profiler's device share must lie between the trace's busy share and
+    1."""
+    from raft_tpu_torch import obs, ops
+    from raft_tpu_torch.core import memory
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import profiler, spans
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    cfg = ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                      max_wait_ms=2.0)
+    srv = SearchServer.from_index(
+        index, q_np[:128], K, params=ivf_flat.SearchParams(n_probes=N_PROBES),
+        config=cfg)
+    rec = obs.RECORDER
+
+    def modes(trace: bool, rate: float):
+        spans.set_trace_enabled(trace)
+        spans.set_trace_sample_rate(1.0)
+        if rate > 0:
+            profiler.enable_profiling(rate, seed=0)
+        else:
+            profiler.disable_profiling()
+
+    try:
+        # 1. everything off
+        modes(False, 0.0)
+        rec.clear()
+        off = obs_burst(srv, q_np)
+        threads = [t.name for t in threading.enumerate()
+                   if t.name == "raft-obs-profiler"]
+        if profiler.state() is not None or threads or len(rec):
+            fail(f"serve_obs: off, yet profiler {profiler.state()}, "
+                 f"threads {threads}, {len(rec)} traces recorded")
+        # 2. tracing and the profiler at 1.0
+        modes(True, 1.0)
+        ops.reset_launch_counts()
+        before = obs.snapshot()
+        t0 = time.perf_counter()
+        served_d, served, lat, wall = serve_burst(srv, q_np)
+        after = obs.snapshot()
+        launches = ops.launch_counts()
+        diff = obs.snapshot_diff(before, after)
+        hist = diff["histograms"]
+        ctr = diff["counters"]
+        counts = {n: hist.get(f"raft.serve.{n}", {}).get("count", 0)
+                  for n in ("request.seconds", "queue.delay.seconds")}
+        if counts != {n: N_REQUESTS for n in counts}:
+            fail(f"serve_obs: histogram counts {counts}")
+        size = hist.get("raft.serve.batch.size", {"count": 0, "sum": 0})
+        batches = obs.counter_sum(diff, "raft.serve.batch.total")
+        if size["count"] != batches or \
+                size["sum"] != ctr.get("raft.serve.batch.rows", -1):
+            fail(f"serve_obs: batch.size {size} against {batches} batches "
+                 f"of {ctr.get('raft.serve.batch.rows')} rows")
+        samples = obs.counter_sum(diff, "raft.obs.profile.samples.total")
+        searches = ctr.get("raft.plan.search.total", 0)
+        if samples != searches or samples <= 0:
+            fail(f"serve_obs: {samples} profiler samples for {searches} "
+                 f"blocking plan.search calls")
+        traces = rec.requests()
+        batch_traces = [t for t in traces if t["name"] == "raft.serve.batch"]
+        if len(traces) != rec.capacity or not batch_traces:
+            fail(f"serve_obs: the ring holds {len(traces)} traces "
+                 f"({len(batch_traces)} batches), capacity {rec.capacity}")
+        for t in batch_traces:
+            check_batch_tree(t)
+        nested = check_nesting(batch_traces[0])
+        req_traces = [t for t in traces if t["name"] == "raft.serve.request"]
+        if not req_traces:
+            fail("serve_obs: the ring holds no request trace")
+        nested += check_nesting(req_traces[0])
+        report = profiler.report()
+        # the gauge clamps at 1: the report's device seconds, rate and
+        # window give the value before the clamp
+        duty = report["device_s"] / report["rate"] / report["window_s"]
+        if not 0.0 < duty <= 1.05:
+            fail(f"serve_obs: duty cycle {duty} before the clamp")
+        st = profiler.state()
+        st._sample_hbm(memory)
+        gauges = obs.snapshot()["gauges"]
+        label = f"cuda:{torch.cuda.current_device()}"
+        hbm = {n: gauges.get(f"raft.obs.profile.hbm.{n}{{device={label}}}")
+               for n in ("bytes_in_use", "limit_bytes", "headroom_frac")}
+        allocated = torch.cuda.memory_allocated()
+        if hbm["bytes_in_use"] != allocated or \
+                hbm["limit_bytes"] != torch.cuda.mem_get_info()[1] or \
+                gauges.get("raft.obs.profile.hbm.low_headroom") != 0:
+            fail(f"serve_obs: memory gauges {hbm}, allocated {allocated}")
+        check_launched("serve_obs", launches, ("select_k", "ivf_scan"))
+        hits = [len(set(served[r]) & set(truth[r % N_QUERIES]))
+                for r in range(N_REQUESTS)]
+        recall = float(np.mean(hits)) / K
+        if recall < RECALL_FLOOR:
+            fail(f"serve_obs: recall@{K} = {recall}")
+        p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
+        full = (N_REQUESTS / wall, p50, p99)
+        prog = report["programs"][0] if report["programs"] else {}
+        split = {"samples": report["samples"],
+                 "host_ms_per_dispatch": report["host_s"] * 1e3
+                 / max(report["samples"], 1),
+                 "device_ms_per_dispatch": report["device_s"] * 1e3
+                 / max(report["samples"], 1),
+                 "top_program": prog}
+        # 3. rounds in turn, recorded
+        mode_set = {"off": (False, 0.0), "trace": (True, 0.0),
+                    "sampled": (True, 0.01), "full": (True, 1.0)}
+        ab = {m: [] for m in mode_set}
+        for rnd in range(OBS_ROUNDS):
+            r = rnd % len(mode_set)
+            for m in list(mode_set)[r:] + list(mode_set)[:r]:
+                modes(*mode_set[m])
+                ab[m].append(obs_burst(srv, q_np))
+        # 4. the profiler's device share against torch.profiler's busy
+        # share of the same burst
+        modes(True, 1.0)
+        walls, reps = [], []
+
+        def traced():
+            walls.append(serve_burst(srv, q_np)[-1])
+            # the report at once: the trace's own processing follows
+            reps.append(profiler.report())
+            return walls[-1]
+
+        busy_share = profile_run(traced, "serve_obs",
+                                 "profile_burst_serve_obs")
+        rep = reps[0]
+        device_share = rep["device_s"] / walls[0]
+        if not BUSY_SHARE_FLOOR * busy_share <= device_share <= 1.05:
+            fail(f"serve_obs: the profiler's device share {device_share} "
+                 f"against the trace's busy share {busy_share}")
+        busy = {"busy_share": busy_share, "device_share": device_share,
+                "duty_cycle": rep["device_s"] / rep["rate"]
+                / rep["window_s"], "samples": rep["samples"],
+                "host_ms_per_dispatch": rep["host_s"] * 1e3
+                / max(rep["samples"], 1),
+                "device_ms_per_dispatch": rep["device_s"] * 1e3
+                / max(rep["samples"], 1)}
+    finally:
+        srv.close()
+        profiler.disable_profiling()
+        spans.set_trace_enabled(True)
+    ab_med = {m: dict(zip(("qps", "p50_ms", "p99_ms"),
+                          np.median(np.asarray(v), axis=0).tolist()))
+              for m, v in ab.items()}
+    # the QPS each mode loses against everything off, round by round
+    # (the modes take turns) and the median of it
+    qps_loss = {m: float(np.median([1.0 - v[0] / o[0] for v, o in
+                                    zip(ab[m], ab["off"])]))
+                for m in ab if m != "off"}
+    phase("serve_obs", off=dict(zip(("qps", "p50_ms", "p99_ms"), off)),
+          full=dict(zip(("qps", "p50_ms", "p99_ms"), full)),
+          main_burst={k_: main[k_] for k_ in ("qps", "p50_ms", "p99_ms")},
+          recall=recall, histograms={k_: {"count": v["count"],
+                                         "sum": v["sum"]}
+                                     for k_, v in hist.items()
+                                     if k_.startswith("raft.serve.")},
+          batches=batches, profile_samples=samples, ring=len(traces),
+          batch_traces_checked=len(batch_traces), nested_spans=nested,
+          duty_cycle=duty, split=split, hbm=hbm,
+          launches={k_: v for k_, v in launches.items() if v},
+          burst_s=time.perf_counter() - t0, rounds=OBS_ROUNDS,
+          ab_median=ab_med, qps_loss=qps_loss, ab=ab, profile=busy)
+    del srv
+    free_phase("serve_obs")
 
 
 def run_flat(x, q, q_np, truth, args):
@@ -1588,6 +1854,7 @@ def run_flat(x, q, q_np, truth, args):
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     run_serve_faults(index, q_np, truth, x.shape[0], served)
     quality_row = run_serve_quality(index, q_np, truth, x.shape[0], served)
+    run_serve_obs(index, q_np, truth, served)
     wide_launches = run_wide_flat(index, q, truth)
     row, wide_row, rows = check_flat_scans(index, q)
     pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,

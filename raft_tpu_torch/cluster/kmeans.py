@@ -32,6 +32,7 @@ from raft_tpu_torch.cluster.kmeans_balanced import _nn as _assign
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import resources_for
 from raft_tpu_torch.distance.pairwise import as_device_tensor
+from raft_tpu_torch.obs import spans
 from raft_tpu_torch.ops._util import stable_topk_min
 from raft_tpu_torch.util.host_sample import sample_rows, take_rows
 from raft_tpu_torch.util.segment import segment_sum
@@ -118,6 +119,8 @@ def sample_centroids(x, n_clusters: int, seed: int = 0,
     return take_rows(x, sample_rows(x.shape[0], n_clusters, seed, x.device))
 
 
+@spans.spanned("raft.kmeans.fit")
+@obs.timed("raft.kmeans.fit")
 def fit(x, params: KMeansParams = KMeansParams(), sample_weight=None,
         init_centroids=None, res=None
         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -150,8 +153,12 @@ def fit(x, params: KMeansParams = KMeansParams(), sample_weight=None,
     centroids, _, inertia, n_iter = best
     obs.counter("raft.kmeans.fit.total").inc()
     obs.counter("raft.kmeans.fit.rows").inc(n)
+    spans.current_span().set_attrs(rows=n, n_clusters=k,
+                                   n_iter=int(n_iter),
+                                   inertia=float(inertia))
+    obs.histogram("raft.kmeans.fit.iterations",
+                  buckets=obs.SIZE_BUCKETS).observe(int(n_iter))
     obs.gauge("raft.kmeans.fit.inertia").set(float(inertia))
-    obs.gauge("raft.kmeans.fit.iterations").set(n_iter)
     if len(inertias) > 1:
         # how much the n_init restarts bought over the first trial
         obs.gauge("raft.kmeans.fit.inertia_delta").set(

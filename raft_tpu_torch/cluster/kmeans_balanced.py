@@ -101,8 +101,9 @@ def _train_from(x: torch.Tensor, n_clusters: int, n_iters: int = 20,
     if init_idx is None:
         init_idx = sample_rows(x.shape[0], n_clusters, seed, x.device)
     centers0 = take_rows(x, torch.as_tensor(init_idx, device=x.device))
-    return _em(x, centers0, n_clusters, n_iters, balance_threshold,
-               kernel_precision)
+    with obs.timed("raft.kmeans_balanced.train"):
+        return _em(x, centers0, n_clusters, n_iters, balance_threshold,
+                   kernel_precision)
 
 
 def build_hierarchical(x: torch.Tensor, n_clusters: int, n_iters: int = 20,

@@ -13,6 +13,14 @@ is given. Once a kernel library has been loaded the directory can no
 longer change (the loaded code came from the old one): that warns and
 returns True, like a second path. Each call counts
 ``raft.compile_cache.enable{result=...}``.
+
+The JAX package mirrors jax's compilation-cache events into the
+registry; here the events are the kernel libraries':
+``raft.compile_cache.event{event=cache_hits|cache_misses}`` counts a
+library found built or built now, and the histogram
+``raft.compile_cache.duration_seconds{event=...}`` takes the seconds of
+loading a built one (``cache_retrieval_time_sec``) or of building one
+with ``nvcc`` (``compile_time_sec``).
 """
 
 from __future__ import annotations
@@ -25,6 +33,16 @@ from raft_tpu_torch import obs
 
 _enabled = False
 _active_path = None
+
+
+def _note_event(hit: bool, seconds: float) -> None:
+    """Count one kernel library found built (``hit``: ``seconds`` to load
+    it) or built now (``seconds`` of its ``nvcc`` run)."""
+    obs.counter("raft.compile_cache.event",
+                event="cache_hits" if hit else "cache_misses").inc()
+    obs.histogram("raft.compile_cache.duration_seconds",
+                  event=("cache_retrieval_time_sec" if hit
+                         else "compile_time_sec")).observe(seconds)
 
 
 def enable(path: str | None = None) -> bool:

@@ -80,15 +80,32 @@ def _tensors(x):
             yield from _tensors(v)
 
 
+def _ready_events(x) -> list:
+    """One event recorded on the current stream of each CUDA device that
+    holds a tensor of ``x``."""
+    events = []
+    for dev in {t.device for t in _tensors(x) if t.is_cuda}:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        events.append(ev)
+    return events
+
+
+def wait_ready(x) -> None:
+    """Block until the work queued so far on the current stream of each
+    CUDA tensor's device in ``x`` (nested lists, tuples and dicts
+    searched) has finished: the stream that produced the tensors, never
+    the whole device, so work on other streams (a shadow scorer's) is not
+    waited for. CPU tensors are ready at once."""
+    for ev in _ready_events(x):
+        ev.synchronize()
+
+
 def synchronize(*arrays, poll_interval: float = 0.001) -> None:
     """Interruptible blocking wait until the work that produces each CUDA
     tensor in ``arrays`` (nested lists, tuples and dicts searched) has
     finished on its device's current stream."""
-    events = []
-    for dev in {t.device for t in _tensors(arrays) if t.is_cuda}:
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(dev))
-        events.append(ev)
+    events = _ready_events(arrays)
     while True:
         if all(ev.query() for ev in events):
             return

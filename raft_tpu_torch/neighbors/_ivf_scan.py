@@ -22,6 +22,7 @@ import torch
 
 from raft_tpu_torch import obs
 from raft_tpu_torch.core.precision import full_fp32_matmul
+from raft_tpu_torch.obs import spans
 from raft_tpu_torch.ops import ivf_scan as _scan_op
 from raft_tpu_torch.ops import select_k as _select_op
 from raft_tpu_torch.ops._util import stable_topk_min
@@ -132,14 +133,22 @@ def resolve_cap(cache: Optional[dict], queries, centers, params,
     cached or pinned cap drops its highest-rank probes."""
     pc = getattr(params, "probe_cap", 0)
     if pc > 0:
-        return _round_cap(pc, queries.shape[0])
+        cap = _round_cap(pc, queries.shape[0])
+        spans.current_span().set_attrs(cap=cap, cap_mode="pinned")
+        return cap
     key = (queries.shape[0], n_probes)
     if pc == 0 and cache is not None and key in cache:
         obs.counter("raft.ivf_scan.resolve_cap.cache_hits").inc()
+        spans.current_span().set_attrs(cap=cache[key],
+                                       cap_mode="cache_hit")
         return cache[key]
     obs.counter("raft.ivf_scan.resolve_cap.syncs").inc()
-    probes = coarse_probes(queries, centers, n_probes, kind=kind)
-    cap = probe_cap(probes, n_lists)
+    # the measurement is the request's one host round trip: a child span
+    # shows it in the trace (and its absence on a warm path)
+    with spans.span("raft.ivf_scan.resolve_cap",
+                    nq=int(queries.shape[0]), n_probes=n_probes):
+        probes = coarse_probes(queries, centers, n_probes, kind=kind)
+        cap = probe_cap(probes, n_lists)
     if pc == 0:
         cap_max = int(os.environ.get("RAFT_TPU_AUTO_CAP_MAX", "256"))
         if cap_max > 0:
@@ -149,6 +158,7 @@ def resolve_cap(cache: Optional[dict], queries, centers, params,
             cap = min(cap, floor)
         if cache is not None:
             cache[key] = cap
+    spans.current_span().set_attrs(cap=cap, cap_mode="measured")
     return cap
 
 

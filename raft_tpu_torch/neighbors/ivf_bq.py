@@ -51,6 +51,7 @@ from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.neighbors import _ivf_scan, ivf_flat
 from raft_tpu_torch.neighbors.ann_types import (MAX_QUERY_BATCH,
                                                 batched_search)
+from raft_tpu_torch.obs import spans
 from raft_tpu_torch.ops import ivf_bq_scan as bq_op
 from raft_tpu_torch.ops._util import stable_topk_min
 from raft_tpu_torch.util.host_sample import sample_rows, take_rows
@@ -173,6 +174,8 @@ def _split_payload(bucketed: torch.Tensor, w: int):
             bucketed[:, :, w + 1].contiguous().view(torch.float32))
 
 
+@spans.spanned("raft.ivf_bq.build")
+@obs.timed("raft.ivf_bq.build")
 def build(dataset, params: IndexParams = IndexParams(), res=None,
           device=None) -> Index:
     """Train + encode on ``device`` (default ``cuda``; ``"cpu"`` only
@@ -191,6 +194,7 @@ def build(dataset, params: IndexParams = IndexParams(), res=None,
         x = ivf_flat._normalize_rows(x)
     obs.counter("raft.ivf_bq.build.total").inc()
     obs.counter("raft.ivf_bq.build.rows").inc(n)
+    spans.current_span().set_attrs(rows=n, n_lists=params.n_lists)
     n_train = max(params.n_lists, int(n * params.kmeans_trainset_fraction))
     trainset = (take_rows(x, sample_rows(n, n_train, 0, x.device))
                 if n_train < n else x)
@@ -463,6 +467,7 @@ class _Route:
                              rescore=self.rescoring, raw_dev=raw_dev)
 
 
+@spans.spanned("raft.ivf_bq.search")
 def search(index: Index, queries, k: int,
            params: SearchParams = SearchParams(), res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -471,26 +476,36 @@ def search(index: Index, queries, k: int,
     distances are exact; in the IVF-Flat output conventions either way
     (squared L2 ascending, euclidean for L2Sqrt, IP similarities
     descending, 1 - cos for cosine)."""
+    sp = spans.current_span()
+    sp.set_attr("k", k)
     ensure_resources(res, index.device)
     full_fp32_matmul()
     q = torch.as_tensor(queries, dtype=torch.float32).to(
         index.device).contiguous()
+    sp.set_attr("nq", int(q.shape[0]))
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "ivf_bq.search: dim mismatch")
     route = _Route(index, k, params)
     if q.shape[0] > MAX_QUERY_BATCH:
         return batched_search(lambda qb: search(index, qb, k, params), q,
                               max_batch=MAX_QUERY_BATCH)
+    sp.set_attr("n_probes", route.n_probes)
+    # per-batch telemetry (a batched search comes here per sub-batch)
     obs.counter("raft.ivf_bq.search.queries").inc(q.shape[0])
+    obs.histogram("raft.ivf_bq.search.batch_size",
+                  buckets=obs.SIZE_BUCKETS).observe(q.shape[0])
+    obs.histogram("raft.ivf_bq.search.n_probes",
+                  buckets=obs.SIZE_BUCKETS).observe(route.n_probes)
     if route.cosine:
         q = ivf_flat._normalize_rows(q)
-    cap = _ivf_scan.resolve_cap(index.cap_cache, q, index.centers, params,
-                                route.n_probes, index.n_lists,
-                                kind=route.kind)
-    if route.fused:
-        obs.counter("raft.ivf_scan.fused.total", family="ivf_bq").inc()
-        obs.counter("raft.ivf_scan.fused.queries").inc(q.shape[0])
-    d, i = route.device_phase(q, cap)
+    with obs.timed("raft.ivf_bq.search"):
+        cap = _ivf_scan.resolve_cap(index.cap_cache, q, index.centers,
+                                    params, route.n_probes, index.n_lists,
+                                    kind=route.kind)
+        if route.fused:
+            obs.counter("raft.ivf_scan.fused.total", family="ivf_bq").inc()
+            obs.counter("raft.ivf_scan.fused.queries").inc(q.shape[0])
+        d, i = route.device_phase(q, cap)
     raw_dev = (resolve_raw_device(index, params.rescore_on_device)
                if route.rescoring else None)
     return route.epilogue(d, i, q, raw_dev)

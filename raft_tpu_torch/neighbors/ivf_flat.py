@@ -44,6 +44,7 @@ from raft_tpu_torch.neighbors.ann_types import (MAX_QUERY_BATCH,
                                                 batched_search,
                                                 list_order_auto,
                                                 pin_scan_order)
+from raft_tpu_torch.obs import spans
 from raft_tpu_torch.ops.ivf_scan import MAX_K as _FUSED_MAX_K
 from raft_tpu_torch.util.host_sample import sample_rows, take_rows
 
@@ -187,6 +188,8 @@ def _bucketize(x: torch.Tensor, labels: torch.Tensor, n_lists: int,
             norms.reshape(n_lists, max_list), counts.to(torch.int32))
 
 
+@spans.spanned("raft.ivf_flat.build")
+@obs.timed("raft.ivf_flat.build")
 def build(dataset, params: IndexParams = IndexParams(), res=None,
           device=None) -> Index:
     """Train + populate on ``device`` (default ``cuda``; ``"cpu"`` only
@@ -203,6 +206,7 @@ def build(dataset, params: IndexParams = IndexParams(), res=None,
             "ivf_flat: storage_dtype must be float32|bfloat16|int8")
     obs.counter("raft.ivf_flat.build.total").inc()
     obs.counter("raft.ivf_flat.build.rows").inc(n)
+    spans.current_span().set_attrs(rows=n, n_lists=params.n_lists)
     if params.metric == DistanceType.CosineExpanded:
         x = _normalize_rows(x)
     n_train = max(params.n_lists, int(n * params.kmeans_trainset_fraction))
@@ -415,14 +419,18 @@ def use_list_order(params: SearchParams, nq: int, n_probes: int,
             and list_order_auto(nq, n_probes, n_lists))
 
 
+@spans.spanned("raft.ivf_flat.search")
 def search(index: Index, queries, k: int,
            params: SearchParams = SearchParams(), res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search → (dists (nq, k) f32, neighbour ids (nq, k) int32) on the
     index's device (``res``, if given, must name it)."""
+    sp = spans.current_span()
+    sp.set_attr("k", k)
     ensure_resources(res, index.device)
     full_fp32_matmul()
     q = _as_queries(index, queries)
+    sp.set_attr("nq", int(q.shape[0]))
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "ivf_flat.search: dim mismatch")
     _check_params(params)
@@ -431,28 +439,39 @@ def search(index: Index, queries, k: int,
         return batched_search(lambda qb: search(index, qb, k, pinned), q,
                               max_batch=MAX_QUERY_BATCH)
     n_probes = min(params.n_probes, index.n_lists)
+    sp.set_attr("n_probes", n_probes)
     nq = q.shape[0]
+    # per-batch telemetry (a batched search comes here per sub-batch)
     obs.counter("raft.ivf_flat.search.queries").inc(nq)
+    obs.histogram("raft.ivf_flat.search.batch_size",
+                  buckets=obs.SIZE_BUCKETS).observe(nq)
+    obs.histogram("raft.ivf_flat.search.n_probes",
+                  buckets=obs.SIZE_BUCKETS).observe(n_probes)
     sqrt = index.metric in _SQRT_METRICS
     kind = _metric_kind(index.metric)
     if index.metric == DistanceType.CosineExpanded:
         q = _normalize_rows(q)
-    if use_list_order(params, nq, n_probes, index.n_lists):
-        cap = _ivf_scan.resolve_cap(index.cap_cache, q, index.centers,
-                                    params, n_probes, index.n_lists,
-                                    kind=kind)
-        if k <= _FUSED_MAX_K:
-            obs.counter("raft.ivf_scan.fused.total",
-                        family="ivf_flat").inc()
-            obs.counter("raft.ivf_scan.fused.queries").inc(nq)
-        d, i = _ivf_scan.fused_list_search(
-            q, index.centers, index.lists_data, index.lists_norms,
-            index.lists_indices, k=k, n_probes=n_probes, cap=cap,
-            bins=params.scan_bins, sqrt=sqrt, kind=kind,
-            internal_dtype=params.internal_distance_dtype,
-            scale=index.scale)
-    else:
-        d, i = _search_impl(q, index.centers, index.lists_data,
-                            index.lists_indices, index.lists_norms, k,
-                            n_probes, sqrt, kind=kind, scale=index.scale)
+    use_list = use_list_order(params, nq, n_probes, index.n_lists)
+    order = "list" if use_list else "probe"
+    sp.set_attr("order", order)
+    with obs.timed("raft.ivf_flat.search", order=order):
+        if use_list:
+            cap = _ivf_scan.resolve_cap(index.cap_cache, q, index.centers,
+                                        params, n_probes, index.n_lists,
+                                        kind=kind)
+            if k <= _FUSED_MAX_K:
+                obs.counter("raft.ivf_scan.fused.total",
+                            family="ivf_flat").inc()
+                obs.counter("raft.ivf_scan.fused.queries").inc(nq)
+            d, i = _ivf_scan.fused_list_search(
+                q, index.centers, index.lists_data, index.lists_norms,
+                index.lists_indices, k=k, n_probes=n_probes, cap=cap,
+                bins=params.scan_bins, sqrt=sqrt, kind=kind,
+                internal_dtype=params.internal_distance_dtype,
+                scale=index.scale)
+        else:
+            d, i = _search_impl(q, index.centers, index.lists_data,
+                                index.lists_indices, index.lists_norms, k,
+                                n_probes, sqrt, kind=kind,
+                                scale=index.scale)
     return _postprocess(d, index.metric), i

@@ -54,6 +54,7 @@ from raft_tpu_torch.neighbors.ann_types import (MAX_QUERY_BATCH,
                                                 list_order_auto,
                                                 pin_scan_order)
 from raft_tpu_torch.neighbors.ivf_bq import finish_search, resolve_raw_device
+from raft_tpu_torch.obs import spans
 from raft_tpu_torch.ops import ivf_pq_scan as pq_op
 from raft_tpu_torch.ops._util import stable_topk_min
 from raft_tpu_torch.ops.ivf_scan import resolve_bins
@@ -486,6 +487,8 @@ def _bucketize_codes(codes, labels, pq_centers, n_lists: int):
     return codes_b, idx, counts, _code_norms(codes_b, pq_centers, idx)
 
 
+@spans.spanned("raft.ivf_pq.build")
+@obs.timed("raft.ivf_pq.build")
 def build(dataset, params: IndexParams = IndexParams(), seed: int = 0,
           res=None, device=None) -> Index:
     """Train + encode on ``device`` (default ``cuda``; ``"cpu"`` only
@@ -509,6 +512,8 @@ def build(dataset, params: IndexParams = IndexParams(), seed: int = 0,
             n_codes)
     obs.counter("raft.ivf_pq.build.total").inc()
     obs.counter("raft.ivf_pq.build.rows").inc(n)
+    spans.current_span().set_attrs(rows=n, n_lists=params.n_lists,
+                                   pq_bits=params.pq_bits)
 
     n_train = max(params.n_lists, int(n * params.kmeans_trainset_fraction))
     trainset = (take_rows(x, sample_rows(n, n_train, seed, x.device))
@@ -944,16 +949,20 @@ class _Route:
                              raw_dev=raw_dev)
 
 
+@spans.spanned("raft.ivf_pq.search")
 def search(index: Index, queries, k: int,
            params: SearchParams = SearchParams(), res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search → (dists (nq, k) f32, ids (nq, k) int32) on the index's
     device: exact distances when rescoring, PQ estimates otherwise, in
     the IVF-Flat output conventions."""
+    sp = spans.current_span()
+    sp.set_attr("k", k)
     ensure_resources(res, index.device)
     full_fp32_matmul()
     q = torch.as_tensor(queries, dtype=torch.float32).to(
         index.device).contiguous()
+    sp.set_attr("nq", int(q.shape[0]))
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "ivf_pq.search: dim mismatch")
     route = _Route(index, k, params)
@@ -961,20 +970,27 @@ def search(index: Index, queries, k: int,
         pinned = pin_scan_order(params, q.shape[0], index.n_lists)
         return batched_search(lambda qb: search(index, qb, k, pinned), q,
                               max_batch=MAX_QUERY_BATCH)
+    sp.set_attr("n_probes", route.n_probes)
+    # per-batch telemetry (a batched search comes here per sub-batch)
     obs.counter("raft.ivf_pq.search.queries").inc(q.shape[0])
-    cap = (_ivf_scan.resolve_cap(index.cap_cache, q, index.centers, params,
-                                 route.n_probes, index.n_lists,
-                                 kind=route.kind)
-           if route.list_major(q.shape[0]) else 0)
-    books, round_q, norms = None, False, None
-    if route.scan_mode == "codes":
-        norms = _ensure_code_norms(index, params, route.per_cluster,
-                                   route.kind)
-        books, round_q = _lut_books(index, params.lut_dtype)
-    if route.fused:
-        obs.counter("raft.ivf_scan.fused.total", family="ivf_pq").inc()
-        obs.counter("raft.ivf_scan.fused.queries").inc(q.shape[0])
-    d, i = route.device_phase(q, cap, books, round_q, norms)
+    obs.histogram("raft.ivf_pq.search.batch_size",
+                  buckets=obs.SIZE_BUCKETS).observe(q.shape[0])
+    obs.histogram("raft.ivf_pq.search.n_probes",
+                  buckets=obs.SIZE_BUCKETS).observe(route.n_probes)
+    with obs.timed("raft.ivf_pq.search", mode=route.scan_mode):
+        cap = (_ivf_scan.resolve_cap(index.cap_cache, q, index.centers,
+                                     params, route.n_probes, index.n_lists,
+                                     kind=route.kind)
+               if route.list_major(q.shape[0]) else 0)
+        books, round_q, norms = None, False, None
+        if route.scan_mode == "codes":
+            norms = _ensure_code_norms(index, params, route.per_cluster,
+                                       route.kind)
+            books, round_q = _lut_books(index, params.lut_dtype)
+        if route.fused:
+            obs.counter("raft.ivf_scan.fused.total", family="ivf_pq").inc()
+            obs.counter("raft.ivf_scan.fused.queries").inc(q.shape[0])
+        d, i = route.device_phase(q, cap, books, round_q, norms)
     raw_dev = (resolve_raw_device(index, params.rescore_on_device)
                if route.rescoring else None)
     return route.epilogue(d, i, q, raw_dev)

@@ -1,8 +1,96 @@
-"""Observability: counters and gauges (``obs.registry``) and the
-shadow-exact quality monitor (``obs.quality``, imported on use)."""
+"""Observability (counterpart of ``raft_tpu.obs``): metrics, request
+tracing and runtime telemetry under one ``raft.<module>.<op>`` naming
+taxonomy.
 
-from raft_tpu_torch.obs.registry import (CardinalityError, counter,
-                                         counter_sum, gauge, snapshot)
+* **metrics** (:mod:`raft_tpu_torch.obs.registry`): thread-safe
+  counters, gauges and fixed-boundary histograms, with the JAX
+  package's series names and Prometheus text; ``RAFT_TPU_METRICS=0``
+  no-ops them. :func:`timed` puts a scope's wall seconds into
+  ``<name>.seconds`` and a profiler range of ``name``.
+* **spans** (:mod:`raft_tpu_torch.obs.spans`): per-request traces
+  through the serving path, landing in the always-on flight recorder
+  (:mod:`raft_tpu_torch.obs.recorder`): the last N request stories, a
+  slow-query log, Chrome-trace export. ``RAFT_TPU_TRACE=0`` no-ops
+  them.
 
-__all__ = ["CardinalityError", "counter", "counter_sum", "gauge",
-           "snapshot"]
+Two planes load on use: :mod:`raft_tpu_torch.obs.quality` (shadow-exact
+recall) and :mod:`raft_tpu_torch.obs.profiler` (sampled device-time
+attribution, duty cycle, device memory; ``RAFT_TPU_PROFILE_SAMPLE``).
+The JAX package's debug endpoint (``obs.serve``) and its fleet planes
+are not ported yet.
+"""
+
+from raft_tpu_torch.obs.registry import (
+    REGISTRY,
+    DEFAULT_BUCKETS,
+    SIZE_BUCKETS,
+    NAME_RE,
+    CardinalityError,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    counter,
+    counter_sum,
+    gauge,
+    histogram,
+    snapshot,
+    snapshot_diff,
+    to_prometheus_text,
+    reset,
+    set_enabled,
+    enabled,
+)
+from raft_tpu_torch.obs.timing import timed
+from raft_tpu_torch.obs.spans import (
+    Span,
+    span,
+    current_span,
+    current_trace_id,
+    current_traceparent,
+    parse_traceparent,
+    add_stage_spans,
+    set_trace_enabled,
+    trace_enabled,
+    set_trace_sample_rate,
+    trace_sample_rate,
+)
+from raft_tpu_torch.obs.recorder import (FlightRecorder, RECORDER,
+                                         to_chrome_trace)
+
+__all__ = [
+    "REGISTRY",
+    "DEFAULT_BUCKETS",
+    "SIZE_BUCKETS",
+    "NAME_RE",
+    "CardinalityError",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "counter",
+    "counter_sum",
+    "gauge",
+    "histogram",
+    "snapshot",
+    "snapshot_diff",
+    "to_prometheus_text",
+    "reset",
+    "set_enabled",
+    "enabled",
+    "timed",
+    "Span",
+    "span",
+    "current_span",
+    "current_trace_id",
+    "current_traceparent",
+    "parse_traceparent",
+    "add_stage_spans",
+    "set_trace_enabled",
+    "trace_enabled",
+    "set_trace_sample_rate",
+    "trace_sample_rate",
+    "FlightRecorder",
+    "RECORDER",
+    "to_chrome_trace",
+]

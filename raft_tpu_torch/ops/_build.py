@@ -97,6 +97,7 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES,
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
+    from raft_tpu_torch.core.compile_cache import _note_event
     reports, errors = {}, []
     for name, (p, tmp, out) in procs.items():
         text, _ = p.communicate()
@@ -106,6 +107,9 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES,
                           f"(rc={p.returncode}):\n{text}")
             continue
         os.replace(tmp, out)
+        # the builds run together: each one's seconds end where its
+        # output is collected
+        _note_event(False, time.perf_counter() - t0)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0, reports
@@ -120,10 +124,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             path = _lib_path(name)
-            if not path.exists():
+            built = path.exists()
+            if not built:
                 build_all((name,))
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
+            if built:
+                from raft_tpu_torch.core.compile_cache import _note_event
+                _note_event(True, time.perf_counter() - t0)
     return lib
 
 

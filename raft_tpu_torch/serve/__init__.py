@@ -19,7 +19,9 @@ bounds a hung dispatch and retries a failed one (``ShardFailedError``);
 ``serve.execute`` site to exercise it.
 """
 
-from raft_tpu_torch.serve.batcher import SearchServer
+from raft_tpu_torch.serve.batcher import (OCCUPANCY_BUCKETS,
+                                          SERVE_LATENCY_BUCKETS,
+                                          SearchServer)
 from raft_tpu_torch.serve.controller import LoadController
 from raft_tpu_torch.serve.ladder import PlanLadder
 from raft_tpu_torch.serve.types import (DeadlineExceeded, DispatchError,
@@ -27,5 +29,6 @@ from raft_tpu_torch.serve.types import (DeadlineExceeded, DispatchError,
                                         ServeConfig, ShardFailedError)
 
 __all__ = ["DeadlineExceeded", "DispatchError", "LoadController",
-           "PlanLadder", "RejectedError", "SearchResult", "SearchServer",
+           "OCCUPANCY_BUCKETS", "PlanLadder", "RejectedError",
+           "SERVE_LATENCY_BUCKETS", "SearchResult", "SearchServer",
            "ServeConfig", "ShardFailedError"]

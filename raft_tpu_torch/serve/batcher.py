@@ -35,10 +35,21 @@ failure path:
   and a bounded copy on the dispatcher thread; the exact replay runs on
   the monitor's own thread). At rate 0 nothing is attached and the
   result loop reads one flag.
+* **observability**: the histograms ``raft.serve.request.seconds`` and
+  ``raft.serve.queue.delay.seconds`` (:data:`SERVE_LATENCY_BUCKETS`),
+  ``raft.serve.batch.size`` and ``raft.serve.batch.occupancy``
+  (:data:`OCCUPANCY_BUCKETS`), the ``raft.serve.shed.rate`` gauge; a
+  ``raft.serve.batch`` trace per batch (``raft.serve.queue_wait``,
+  ``raft.serve.execute`` and ``raft.serve.retry`` children; the plan's
+  ``raft.plan.search`` inside the execute span) and a
+  ``raft.serve.request`` trace per request over its life (submit to
+  results), parented by the caller's ``traceparent``
+  (``submit(trace_context=...)``, default the caller thread's open
+  span), a batch's built in one pass after its futures are set and
+  recorded under one lock; the resource profiler's dispatch tag
+  (``"server"``) on the thread that runs the plan.
 
-Not ported yet: mutable and tiered indexes, the profiler tag
-(ROADMAP.md queue 1 item 4c), the latency histograms and the spans
-(4d).
+Not ported yet: mutable and tiered indexes.
 
 Threading model: the dispatcher thread owns the batching; caller
 threads only touch numpy and futures. With the watchdog on, each
@@ -68,6 +79,7 @@ import numpy as np
 from raft_tpu_torch import obs
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.logger import get_logger
+from raft_tpu_torch.obs import profiler, recorder, spans
 from raft_tpu_torch.serve.controller import LoadController
 from raft_tpu_torch.serve.ladder import PlanLadder
 from raft_tpu_torch.serve.types import (DeadlineExceeded, DispatchError,
@@ -76,7 +88,20 @@ from raft_tpu_torch.serve.types import (DeadlineExceeded, DispatchError,
                                         _Request)
 from raft_tpu_torch.testing import faults
 
-__all__ = ["SearchServer"]
+__all__ = ["SearchServer", "SERVE_LATENCY_BUCKETS", "OCCUPANCY_BUCKETS"]
+
+# serving latency needs finer edges than the registry's default around
+# the tens-of-ms watermark region
+SERVE_LATENCY_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.15, 0.2,
+    0.25, 0.3, 0.5, 1.0, 2.5, 5.0, 10.0)
+OCCUPANCY_BUCKETS = (0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75,
+                     0.875, 1.0)
+
+_SHED_RATE_WINDOW_S = 10.0
+# the resource profiler's tag of a server's sampled dispatches (the JAX
+# package's fleet names its replicas here; the fleet is not ported)
+_PROFILE_TAG = "server"
 
 
 class _DispatchWorker:
@@ -131,9 +156,9 @@ class SearchServer:
     blocking ``search()``. Construct with :meth:`from_index`, or from a
     :class:`PlanLadder` directly (tests inject fakes)."""
 
-    # _q, _rows_queued and _closed are shared by caller threads and the
-    # dispatcher: touched only under ``self._cond`` or in a
-    # ``_locked``-suffix method
+    # _q, _rows_queued, _closed and _shed_times are shared by caller
+    # threads and the dispatcher: touched only under ``self._cond`` or in
+    # a ``_locked``-suffix method
 
     def __init__(self, ladder: PlanLadder,
                  config: Optional[ServeConfig] = None, start: bool = True):
@@ -145,6 +170,7 @@ class SearchServer:
         self._cond = threading.Condition()
         self._closed = False
         self._thread: Optional[threading.Thread] = None
+        self._shed_times: deque = deque()
         # the watchdog's helper: dispatcher-thread state only, no lock
         self._worker: Optional[_DispatchWorker] = None
         # quality sampling: None until enable_quality attaches a monitor,
@@ -157,6 +183,7 @@ class SearchServer:
         self._quality_meta: dict = {}
         obs.gauge("raft.serve.queue.max").set(self._cfg.max_queue)
         obs.gauge("raft.serve.queue.depth").set(0)
+        obs.gauge("raft.serve.shed.rate").set(0.0)
         if start:
             self.start()
 
@@ -269,10 +296,15 @@ class SearchServer:
 
     # -- admission ---------------------------------------------------------
     def submit(self, queries, k: Optional[int] = None,
-               deadline_ms: Optional[float] = None):
+               deadline_ms: Optional[float] = None,
+               trace_context: Optional[str] = None):
         """Enqueue one request → ``Future`` of ``(dists, ids)``, each
         ``(nq, k)`` numpy. A full queue or a closed server fails the
-        future at once with :class:`RejectedError`."""
+        future at once with :class:`RejectedError`.
+
+        ``trace_context`` is a ``traceparent`` value that parents the
+        request's ``raft.serve.request`` root span; by default the
+        caller thread's innermost open span."""
         q = np.asarray(queries, np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -290,10 +322,13 @@ class SearchServer:
         if deadline_ms is None:
             deadline_ms = self._cfg.default_deadline_ms
         now = time.perf_counter()
+        if trace_context is None:
+            trace_context = spans.current_traceparent()
         req = _Request(queries=q, nq=nq, k=k, t_enq=now,
                        deadline=(now + deadline_ms / 1e3
                                  if deadline_ms and deadline_ms > 0
-                                 else None))
+                                 else None),
+                       trace_ctx=trace_context)
         obs.counter("raft.serve.requests.total").inc()
         obs.counter("raft.serve.queries.total").inc(nq)
         with self._cond:
@@ -318,10 +353,27 @@ class SearchServer:
 
     # -- internals ---------------------------------------------------------
     def _shed_locked(self, req: _Request, reason: str) -> None:
+        """Refuse admission (under the queue lock): counted and recorded
+        as a span."""
         obs.counter("raft.serve.shed.total", reason=reason).inc()
+        self._shed_times.append(time.monotonic())
+        self._update_shed_rate_locked()
+        with spans.span("raft.serve.request",
+                        remote_parent=req.trace_ctx,
+                        nq=req.nq, k=req.k,
+                        outcome="shed", reason=reason):
+            pass
         req.future.set_exception(RejectedError(
             f"request rejected ({reason}): queue depth "
             f"{len(self._q)}/{self._cfg.max_queue}"))
+
+    def _update_shed_rate_locked(self) -> None:
+        now = time.monotonic()
+        while self._shed_times and now - self._shed_times[0] > \
+                _SHED_RATE_WINDOW_S:
+            self._shed_times.popleft()
+        obs.gauge("raft.serve.shed.rate").set(
+            len(self._shed_times) / _SHED_RATE_WINDOW_S)
 
     def _drain_closed(self) -> None:
         with self._cond:
@@ -338,6 +390,12 @@ class SearchServer:
     def _fail_deadline(self, req: _Request, now: float) -> None:
         waited_ms = round((now - req.t_enq) * 1e3, 3)
         obs.counter("raft.serve.deadline.total").inc()
+        with spans.span("raft.serve.request",
+                        remote_parent=req.trace_ctx,
+                        nq=req.nq, k=req.k,
+                        outcome="deadline", waited_ms=waited_ms):
+            spans.add_child_span("raft.serve.queue_wait", req.t_enq,
+                                 now - req.t_enq)
         req.future.set_exception(DeadlineExceeded(
             f"deadline expired after {waited_ms} ms in queue"))
 
@@ -373,8 +431,9 @@ class SearchServer:
                 while not self._q and not self._closed:
                     if not self._cond.wait(timeout=idle_s):
                         # idle tick: the ladder steps back toward full
-                        # quality
+                        # quality, the shed-rate window decays
                         self._controller.observe(0.0, 0)
+                        self._update_shed_rate_locked()
                 if self._closed:
                     break
                 # batching window: the head-of-line request waits up to
@@ -442,6 +501,9 @@ class SearchServer:
         watchdog timeout and a comms ``ABORT``/``ERROR`` status both
         become :class:`ShardFailedError`."""
         def call():
+            # the thread that runs the plan (the watchdog's helper when
+            # it is on) carries the profiler tag
+            profiler.tag_dispatch(_PROFILE_TAG)
             faults.inject("serve.execute", shape=plan.nq)
             with _on_device(plan):
                 return plan.search(qb, block=True)
@@ -460,6 +522,9 @@ class SearchServer:
 
     def _execute(self, batch, rows: int, depth: int) -> None:
         cfg = self._cfg
+        # profiler attribution: tag the dispatcher thread (one None read
+        # when profiling is off)
+        profiler.tag_dispatch(_PROFILE_TAG)
         t_start = time.perf_counter()
         head_wait = t_start - min(r.t_enq for r in batch)
         level = self._controller.observe(head_wait, depth)
@@ -473,47 +538,72 @@ class SearchServer:
             obs.counter("raft.serve.batch.padded_rows").inc(pad)
             reps = -(-pad // rows)
             qb = np.concatenate([qb, np.tile(qb, (reps, 1))[:pad]], axis=0)
+        err = None
         dead: set = set()       # ids of requests failed during backoff
         attempt = 0
-        while True:
-            try:
-                d, i = self._dispatch(plan, qb)
-                d, i = _to_numpy(d), _to_numpy(i)
-                err = None
-            except ShardFailedError as e:   # retryable
-                err = e
-            except Exception as e:  # scatter as-is, keep serving
-                err = e
-                break
-            if err is None:
-                if attempt:
-                    obs.counter("raft.serve.retry.success.total").inc()
-                break
-            nxt = self._plan_after_failure(shape, level, err)
-            if nxt is not None:
-                plan = nxt
-            if attempt >= cfg.max_retries:
-                obs.counter("raft.serve.retry.exhausted.total").inc()
-                break
-            attempt += 1
-            backoff = (cfg.retry_backoff_ms / 1e3
-                       * cfg.retry_backoff_mult ** (attempt - 1))
-            # deadline-aware: a request whose deadline falls inside the
-            # backoff fails now, never after its caller stopped waiting
-            now = time.perf_counter()
-            for r in batch:
-                if (id(r) not in dead and r.deadline is not None
-                        and r.deadline <= now + backoff):
-                    dead.add(id(r))
-                    self._fail_deadline(r, now)
-            if len(dead) == len(batch):
-                break           # nobody left waiting for the retry
-            obs.counter("raft.serve.retry.total").inc()
-            if backoff > 0:
-                time.sleep(backoff)
+        with spans.span("raft.serve.batch", shape=shape, rows=rows,
+                        requests=len(batch),
+                        occupancy=round(rows / shape, 4),
+                        n_probes=plan.n_probes, level=level) as bsp:
+            spans._add_child_spans(
+                "raft.serve.queue_wait",
+                ((r.t_enq, t_start - r.t_enq, {"request": idx, "rows": r.nq})
+                 for idx, r in enumerate(batch)))
+            while True:
+                with spans.span("raft.serve.execute", shape=shape,
+                                n_probes=plan.n_probes, attempt=attempt):
+                    try:
+                        d, i = self._dispatch(plan, qb)
+                        d, i = _to_numpy(d), _to_numpy(i)
+                        err = None
+                    except ShardFailedError as e:   # retryable
+                        err = e
+                    except Exception as e:  # scatter as-is, keep serving
+                        err = e
+                        bsp.set_attr("error", type(e).__name__)
+                        break
+                if err is None:
+                    if attempt:
+                        obs.counter("raft.serve.retry.success.total").inc()
+                    break
+                bsp.set_attr("error", type(err).__name__)
+                nxt = self._plan_after_failure(shape, level, err)
+                if nxt is not None:
+                    plan = nxt
+                if attempt >= cfg.max_retries:
+                    obs.counter("raft.serve.retry.exhausted.total").inc()
+                    break
+                attempt += 1
+                backoff = (cfg.retry_backoff_ms / 1e3
+                           * cfg.retry_backoff_mult ** (attempt - 1))
+                # deadline-aware: a request whose deadline falls inside
+                # the backoff fails now, never after its caller stopped
+                # waiting
+                now = time.perf_counter()
+                for r in batch:
+                    if (id(r) not in dead and r.deadline is not None
+                            and r.deadline <= now + backoff):
+                        dead.add(id(r))
+                        self._fail_deadline(r, now)
+                if len(dead) == len(batch):
+                    break       # nobody left waiting for the retry
+                obs.counter("raft.serve.retry.total").inc()
+                with spans.span("raft.serve.retry", attempt=attempt,
+                                backoff_ms=round(backoff * 1e3, 3),
+                                error=type(err).__name__):
+                    if backoff > 0:
+                        time.sleep(backoff)
+            if attempt:
+                bsp.set_attr("retries", attempt)
+        t_done = time.perf_counter()
+        exec_dur = t_done - t_start
         obs.counter("raft.serve.batch.total", level=level).inc()
         obs.counter("raft.serve.batch.rows").inc(rows)
         obs.counter("raft.serve.batch.slots").inc(shape)
+        obs.histogram("raft.serve.batch.size",
+                      buckets=obs.SIZE_BUCKETS).observe(rows)
+        obs.histogram("raft.serve.batch.occupancy",
+                      buckets=OCCUPANCY_BUCKETS).observe(rows / shape)
         partial = bool(getattr(plan, "partial", False))
         coverage = float(getattr(plan, "coverage", 1.0))
         # quality sampling: one flag read a batch; None means sampling is
@@ -523,10 +613,20 @@ class SearchServer:
             q_epoch = self._quality_epoch()
             q_excl = self._quality_detail() if partial else ""
         off = 0
+        served = []
+        # the instruments once a batch, not once a request
+        delay_h = obs.histogram("raft.serve.queue.delay.seconds",
+                                buckets=SERVE_LATENCY_BUCKETS)
+        if err is None:
+            latency_h = obs.histogram("raft.serve.request.seconds",
+                                      buckets=SERVE_LATENCY_BUCKETS)
+            completed = obs.counter("raft.serve.completed.total")
         for r in batch:
             if id(r) in dead:   # already failed with DeadlineExceeded
                 off += r.nq
                 continue
+            wait_s = t_start - r.t_enq
+            delay_h.observe(wait_s)
             if err is not None:
                 obs.counter("raft.serve.errors.total").inc()
                 r.future.set_exception(err)
@@ -534,17 +634,61 @@ class SearchServer:
             d_r = d[off:off + r.nq, :r.k].copy()
             i_r = i[off:off + r.nq, :r.k].copy()
             off += r.nq
-            obs.counter("raft.serve.completed.total").inc()
+            lat = t_done - r.t_enq
+            latency_h.observe(lat)
+            completed.inc()
             if partial:
                 obs.counter("raft.serve.failover.partial.total").inc()
             r.future.set_result(
                 SearchResult(d_r, i_r, partial=True, coverage=coverage)
                 if partial else (d_r, i_r))
+            served.append((r, wait_s, lat))
             if qm is not None:
                 # a Bernoulli draw and a bounded copy on this thread; the
                 # exact replay runs on the monitor's thread
                 qm.offer(r.queries, i_r, r.k, epoch=q_epoch,
                          coverage=coverage, excluded=q_excl)
+        if served and spans.trace_enabled():
+            self._record_request_traces(served, t_start, exec_dur, shape,
+                                        level, partial, len(batch) > 1)
+
+    @staticmethod
+    def _record_request_traces(served, t_start: float, exec_dur: float,
+                               shape: int, level: int, partial: bool,
+                               shared: bool) -> None:
+        """Each served request's root trace: one ``raft.serve.request``
+        span over its life (submit to results), its queue wait and the
+        shared execution as children. Recorded once every future of the
+        batch is set, under one recorder lock a batch, and built only
+        when the recorder is read: the dispatcher pays the admission and
+        one small object a request."""
+        batch = (t_start, exec_dur, shape, level,
+                 "partial" if partial else "ok", shared,
+                 time.time() - time.perf_counter(), threading.get_ident())
+        entries = []
+        for r, wait_s, lat in served:
+            remote = (spans.parse_traceparent(r.trace_ctx)
+                      if r.trace_ctx is not None else None)
+            if remote is None and not spans._admit_root():
+                continue
+            entries.append(recorder._Deferred(
+                _request_trace, (r.nq, r.k, r.t_enq, wait_s, lat, remote,
+                                 batch), round(lat * 1e3, 3)))
+        recorder.RECORDER._record_many(entries)
+
+
+def _request_trace(nq: int, k: int, t_enq: float, wait_s: float,
+                   lat: float, remote, batch) -> dict:
+    """One served request's trace out of what the dispatcher kept."""
+    t_start, exec_dur, shape, level, outcome, shared, wall0, tid = batch
+    return spans._build_root_trace(
+        "raft.serve.request", t_enq, lat,
+        (("raft.serve.queue_wait", t_enq, wait_s, {}),
+         ("raft.serve.execute", t_start, exec_dur,
+          {"shape": shape, "shared": shared})),
+        remote, wall0, tid,
+        {"nq": nq, "k": k, "outcome": outcome, "level": level,
+         "batch_shape": shape, "latency_ms": round(lat * 1e3, 3)})
 
 
 def _to_numpy(t) -> np.ndarray:

@@ -166,3 +166,6 @@ class _Request:
     future: Future = field(default_factory=Future)
     t_enq: float = 0.0                  # perf_counter at admission
     deadline: Optional[float] = None    # absolute perf_counter, or None
+    # traceparent captured at admission: the request's root span on the
+    # dispatcher thread adopts it as its parent
+    trace_ctx: Optional[str] = None

@@ -110,7 +110,7 @@ class TestHarness:
         assert any(fires(7)) and not all(fires(7))
 
     def test_stall_shard_raises_and_clears_suspect_gauge(self):
-        series = 'raft.comms.health.suspect_rank{rank="5",session="chaos"}'
+        series = "raft.comms.health.suspect_rank{rank=5,session=chaos}"
         with faults.stall_shard(5, seconds=0.01, session="chaos"):
             assert _gauge(series) == 0      # raised on the first hit
             faults.inject("serve.dist.dispatch", ranks=(4, 5))

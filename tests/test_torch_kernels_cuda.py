@@ -29,7 +29,14 @@ index extended on the card matches the same extend on the CPU: ids and
 list sizes identical, codes and search ids on >= 99.9% of entries (the
 card's labels take kernel 1 at bf16x3, the CPU's f32, so a near-tie can
 fall either way).
+A blocking plan search, and the resource profiler's wait on a result,
+return while another stream's work still runs (they wait on their own
+stream, not the whole card), the profiler's device half holds a
+dispatch's card work that ends before its launches do, and the
+profiler's memory gauges read the caching allocator.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -1409,3 +1416,130 @@ def test_exact_scorer_on_card_runs_kernel_2(dev, metric):
     want = cpu.topk(q, 32)
     assert got.shape == (70, 32) and (got >= 0).all()
     assert (got == want).mean() >= 0.999
+
+
+# side-stream work long enough to outlast a small search: torch.cuda._sleep
+# spins this many cycles (about 0.25-0.5 s at the H100's 1-2 GHz clocks)
+_SIDE_SLEEP_CYCLES = 500_000_000
+
+
+def _small_flat_plan(dev):
+    from raft_tpu_torch.neighbors import plan as plan_mod
+    rng = np.random.default_rng(31)
+    c = rng.normal(size=(16, 32)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 16, 4000)]
+         + rng.normal(size=(4000, 32))).astype(np.float32)
+    q = _t((c[rng.integers(0, 16, 64)]
+            + rng.normal(size=(64, 32))).astype(np.float32), dev)
+    idx = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=16,
+                                                 kmeans_n_iters=3),
+                         device=dev)
+    plan = plan_mod.warmup(idx, q, 10, ivf_flat.SearchParams(
+        n_probes=8, scan_order="list"))
+    return plan, q
+
+
+def _busy_side_stream(dev):
+    """An event recorded after a long sleep queued on a side stream."""
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(_SIDE_SLEEP_CYCLES)
+        ev = torch.cuda.Event()
+        ev.record(side)
+    return ev
+
+
+def test_blocking_search_waits_for_its_stream_only(dev):
+    # F9: plan.search(block=True) waits for its own results, not for the
+    # whole card: it returns while another stream's work still runs,
+    # with the results of a non-blocking call and a full synchronize
+    plan, q = _small_flat_plan(dev)
+    torch.cuda.synchronize(dev)
+    busy = _busy_side_stream(dev)
+    before = scan_op.launches
+    d, i = plan.search(q, block=True)
+    assert not busy.query(), "the blocking search waited for another stream"
+    assert scan_op.launches > before
+    d2, i2 = plan.search(q)
+    torch.cuda.synchronize(dev)
+    assert busy.query()
+    assert torch.equal(i, i2) and torch.equal(d, d2)
+
+
+def test_profiler_on_card_waits_for_results_and_reads_the_allocator(dev):
+    # record_dispatch and a sampled plan.search wait for their results
+    # on their stream only; the memory sampler reads the caching
+    # allocator and the card's size under the JAX package's gauge names
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.core import memory
+    from raft_tpu_torch.obs import profiler
+    plan, q = _small_flat_plan(dev)
+    st = profiler.enable_profiling(1.0, profiler.ProfilerConfig(
+        hbm_poll_ms=0), seed=0)
+    try:
+        torch.cuda.synchronize(dev)
+        busy = _busy_side_stream(dev)
+        before = obs.snapshot()
+        plan.search(q, block=True)
+        t0 = time.perf_counter()
+        out = torch.ones(1 << 20, device=dev) * 2
+        profiler.record_dispatch(t0, time.perf_counter(), out,
+                                 program="plan", family="ivf_flat", rung=8)
+        assert not busy.query()
+        after = obs.snapshot()
+        key = "raft.obs.profile.samples.total{program=plan}"
+        assert after["counters"][key] - before["counters"].get(key, 0) == 2
+        rep = profiler.report()
+        assert rep["samples"] == 2 and rep["device_s"] > 0
+        st._sample_hbm(memory)
+        label = f"cuda:{dev.index}"
+        g = obs.snapshot()["gauges"]
+        allocated = torch.cuda.memory_allocated(dev)
+        assert g[f"raft.obs.profile.hbm.bytes_in_use{{device={label}}}"] \
+            == allocated
+        assert g[f"raft.obs.profile.hbm.limit_bytes{{device={label}}}"] \
+            == torch.cuda.mem_get_info(dev)[1]
+        assert g["raft.obs.profile.hbm.low_headroom"] == 0
+        torch.cuda.synchronize(dev)
+    finally:
+        profiler.disable_profiling()
+
+
+# about 25-50 ms of card time at the H100's 1-2 GHz clocks
+_DISPATCH_SLEEP_CYCLES = 50_000_000
+
+
+def test_profiler_device_half_holds_the_plans_card_work(dev):
+    # the device half of a sampled plan.search runs between two events
+    # around the plan's work on its stream: card work that ends while
+    # the host is still launching counts whole, where the wait after
+    # the launch alone would miss it
+    import dataclasses
+    from raft_tpu_torch.obs import profiler
+    plan, q = _small_flat_plan(dev)
+    torch.cuda.synchronize(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(_DISPATCH_SLEEP_CYCLES)
+    b.record()
+    b.synchronize()
+    sleep_s = a.elapsed_time(b) / 1e3
+    inner = plan._fn
+
+    def fn(qq):
+        torch.cuda._sleep(_DISPATCH_SLEEP_CYCLES)   # the card busy ...
+        time.sleep(2 * sleep_s)                     # ... and the host
+        return inner(qq)
+
+    slow = dataclasses.replace(plan, _fn=fn)
+    profiler.enable_profiling(1.0, profiler.ProfilerConfig(hbm_poll_ms=0),
+                              seed=0)
+    try:
+        slow.search(q, block=True)
+        rep = profiler.report()
+    finally:
+        profiler.disable_profiling()
+    assert rep["samples"] == 1
+    assert rep["device_s"] >= 0.9 * sleep_s
+    assert rep["host_s"] >= 2 * sleep_s

@@ -100,7 +100,7 @@ def test_two_level_path_counts_and_refusals():
     c = tkm.build_hierarchical(x, 16400, n_iters=1)
     after = obs.snapshot()["counters"]
     assert c.shape == (16400, 2) and bool(torch.isfinite(c).all())
-    key = 'raft.kmeans_balanced.build.total{path="two_level"}'
+    key = "raft.kmeans_balanced.build.total{path=two_level}"
     rounds = "raft.kmeans_balanced.balancing_rounds"
     assert after.get(key, 0) - before.get(key, 0) == 1
     assert after[rounds] - before.get(rounds, 0) == 2

@@ -381,7 +381,7 @@ def test_compile_cache_enable_is_idempotent(fresh_cache, tmp_path):
         assert any("ignoring new path" in str(w.message) for w in caught)
     assert _build.BUILD_DIR == first and not second.exists()
     after = _enables()
-    ok = 'raft.compile_cache.enable{result="ok"}'
+    ok = "raft.compile_cache.enable{result=ok}"
     assert after[ok] - before.get(ok, 0) == 1
     assert tobs.snapshot()["gauges"]["raft.compile_cache.active"] == 1
 
@@ -392,7 +392,7 @@ def test_compile_cache_env(fresh_cache, tmp_path):
     before = _enables()
     assert compile_cache.enable(str(tmp_path / "x")) is False
     assert _build.BUILD_DIR == default
-    off = 'raft.compile_cache.enable{result="disabled"}'
+    off = "raft.compile_cache.enable{result=disabled}"
     assert _enables()[off] - before.get(off, 0) == 1
     fresh_cache.setenv("RAFT_TPU_COMPILE_CACHE", str(tmp_path / "env"))
     assert compile_cache.enable() is True
