@@ -105,6 +105,24 @@ Phases, one line each:
               profiler's host and device ms a dispatch, and under
               ``--profile`` the duty cycle beside the ``torch.profiler``
               busy share of one more burst.
+              ``serve_mutate`` (after ``serve_obs``, on the same index):
+              the index wrapped as a ``MutableIndex`` (the default
+              ``MutateConfig``: delta rungs 1024, 4096, 16384, slack 16,
+              a fold at 8192 used slots) behind ``SearchServer`` and a
+              ``Compactor``; bursts while a writer thread upserts 12,288
+              rows of the dataset's mixture (another seed), deletes 4,096
+              ids and re-upserts 1,024 others, until the writer and the
+              compactor are quiet: no request may fail, every plan-cache
+              miss of the run must be a fold's warm-up of the next epoch,
+              the epoch must roll. Then, serially: no deleted id returned,
+              >= 99% of the upserted rows their own nearest, the server's
+              ids a direct search's, kernels 1 (the fold's predict), 2
+              (column and payload) and 3 launched; the live recall@32
+              against the exact top-32 of the live corpus, QPS and
+              latency beside the main burst's, the fold's host seconds by
+              part and device memory; kernel 2 at the tail's shapes
+              (rows ``select_k@mutate`` at (128, 16384) k=32 and
+              ``select_k_payload@mutate`` at (128, 80) k=32).
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -253,6 +271,7 @@ printed).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -314,6 +333,15 @@ SERIAL_REQUESTS = 25          # a round of serve_faults' serial requests
 QUALITY_ROUNDS = 3
 FAULTS_GUARD = dict(dispatch_timeout_ms=2000.0, max_retries=2,
                     retry_backoff_ms=1.0)
+# serve_mutate: a writer upserts MUTATE_UPSERTS new rows of the dataset's
+# mixture, deletes MUTATE_DELETES ids of the main index and re-upserts
+# MUTATE_REUPSERTS others, in batches of MUTATE_BATCH, MUTATE_PACE_S
+# apart, while bursts run (for at most MUTATE_TIMEOUT_S) until it and
+# the compactor are done; 13,312 delta slots cross every rung of the
+# default MutateConfig (1024, 4096, 16384) and its trigger (8192)
+MUTATE_UPSERTS, MUTATE_DELETES, MUTATE_REUPSERTS = 12_288, 4_096, 1_024
+MUTATE_BATCH, MUTATE_PACE_S, MUTATE_TIMEOUT_S = 512, 0.02, 120.0
+MUTATE_SELF_HIT = 0.99
 # brute force: the reference's cpp/bench/neighbors/knn.cuh:380-389 cases
 # (10M x 128 and 10k x 8192, 1000 queries, k=32); the JAX package's
 # recall gate for the fused kernel (BASELINE.md:43)
@@ -1420,16 +1448,21 @@ def run_serve_faults(index, q_np, truth, n_rows: int, main: dict) -> None:
 def check_select_k_tile(scorer, q_np, name):
     """Kernel 2 at the quality scorer's tile: the scores of its first 32
     queries against its first chunk (``(batch, chunk)`` at k = the
-    scorer's tile k), against its plain version (exact) and
-    ``torch.topk``."""
+    scorer's tile k)."""
     from raft_tpu_torch.core.precision import full_fp32_matmul
-    from raft_tpu_torch.ops import select_k as op
     qb = torch.from_numpy(q_np[:scorer.batch]).to(scorer.device)
     full_fp32_matmul()
     v = (scorer._norms[0][None, :]
          - 2.0 * (qb @ scorer._chunks[0].T)).contiguous()
+    return check_select_k_rows(name, v, scorer._k_tile)
+
+
+def check_select_k_rows(name, v, k: int):
+    """Kernel 2 (column ids) on the rows ``v`` (m, n) at ``k``, against
+    its plain version (exact) and ``torch.topk``, timed by graph
+    replay."""
+    from raft_tpu_torch.ops import select_k as op
     m, n = v.shape
-    k = scorer._k_tile
     saved = op.launches
     d_k, i_k = op.select_k_cuda(v, k)
     d_p, i_p = op.select_k_plain(v, k)
@@ -1826,6 +1859,285 @@ def run_serve_obs(index, q_np, truth, main: dict) -> None:
     free_phase("serve_obs")
 
 
+def mixture_rows(n: int, m: int, seed: int, draw_seed: int, dev):
+    """``m`` more rows of ``ann_dataset(n, D, ..., seed)``'s mixture (its
+    centres, the generator's first draw), drawn from ``draw_seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nc = max(64, min(8192, n // 125))
+    centers = torch.randn((nc, D), generator=g, device=dev)
+    g = torch.Generator(device=dev).manual_seed(draw_seed)
+    lab = torch.randint(0, nc, (m,), generator=g, device=dev)
+    return centers[lab] + torch.randn((m, D), generator=g, device=dev)
+
+
+@contextlib.contextmanager
+def timed_parts(targets):
+    """Wrap each ``(owner, attribute, part)`` callable so that its calls
+    add their host seconds to ``parts[part]`` (and count in
+    ``calls[part]``) inside the scope."""
+    parts = {p: 0.0 for _, _, p in targets}
+    calls = dict.fromkeys(parts, 0)
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+    for (owner, attr, part), (_, _, fn) in zip(targets, saved):
+        def wrapped(*a, _fn=fn, _part=part, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                parts[_part] += time.perf_counter() - t0
+                calls[_part] += 1
+        setattr(owner, attr, wrapped)
+    try:
+        yield parts, calls
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def mutate_writer(m, new_rows, del_ids, re_ids, re_rows, errors):
+    """The writer of ``serve_mutate``: upserts of ``new_rows``, with a
+    delete batch of ``del_ids`` after every third and a re-upsert batch
+    of ``re_ids`` after the middle and the last, ``MUTATE_PACE_S``
+    apart → the ids the upserts got (in order)."""
+    got = []
+    b = MUTATE_BATCH
+    n_up = len(new_rows) // b
+    dels = iter(range(0, len(del_ids), b))
+    res = iter(range(0, len(re_ids), b))
+    try:
+        for j in range(n_up):
+            got.append(m.upsert(new_rows[j * b:(j + 1) * b]))
+            if j % 3 == 2:
+                s = next(dels, None)
+                if s is not None:
+                    m.delete(del_ids[s:s + b])
+            if j in (n_up // 2 - 1, n_up - 1):
+                s = next(res, None)
+                if s is not None:
+                    m.upsert(re_rows[s:s + b], ids=re_ids[s:s + b])
+            time.sleep(MUTATE_PACE_S)
+    except Exception as e:  # reported after the join
+        errors.append(repr(e))
+    return got
+
+
+def search_all(m, queries, batch: int = 128) -> np.ndarray:
+    """Every row of ``queries`` through ``m.search`` in full batches of
+    ``batch`` (the last padded with its own first rows) → ids."""
+    out = []
+    for s in range(0, queries.shape[0], batch):
+        qb = queries[s:s + batch]
+        n = qb.shape[0]
+        if n < batch:
+            qb = torch.cat([qb, qb[:1].expand(batch - n, -1)])
+        out.append(m.search(qb, block=True)[1][:n].cpu().numpy())
+    return np.concatenate(out)
+
+
+def run_serve_mutate(index, x, q, q_np, main: dict, seed: int):
+    """Phase 3 ``serve_mutate``: the index wrapped as a ``MutableIndex``
+    (the default ``MutateConfig``) behind ``SearchServer.from_index`` and
+    a ``Compactor``; bursts run while a writer upserts, deletes and
+    re-upserts, until the writer and the compactor are quiet. Checks: no
+    request fails, every plan-cache miss of the run is a compaction's
+    warm-up of the next epoch (the serving path prepares nothing), the
+    epoch has rolled; then serially: no deleted id comes back, each
+    upserted row finds itself at rank 0, the server's ids equal a direct
+    search, kernels 1 (in the fold), 2 (column and payload) and 3 were
+    launched. Recorded: recall@K of the live view against an exact search
+    of the live corpus, QPS and latency beside the main burst's, the
+    fold's host seconds by part and device memory. Returns the rows
+    ``select_k@mutate`` (the delta top-k at the top rung) and
+    ``select_k_payload@mutate`` (the merge)."""
+    from raft_tpu_torch import mutate, obs, ops
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.mutate import compact as compact_mod
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.neighbors.brute_force import brute_force_knn
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    n, dev = x.shape[0], x.device
+    gen = np.random.default_rng(seed + 101)
+    picked = gen.choice(n, MUTATE_DELETES + MUTATE_REUPSERTS, replace=False)
+    re_ids = picked[:MUTATE_REUPSERTS].astype(np.int32)
+    del_ids = picked[MUTATE_REUPSERTS:].astype(np.int64)
+    new_rows = mixture_rows(n, MUTATE_UPSERTS, seed, seed + 102, dev)
+    re_rows = mixture_rows(n, MUTATE_REUPSERTS, seed, seed + 103, dev)
+    new_np, re_np = new_rows.cpu().numpy(), re_rows.cpu().numpy()
+    params = ivf_flat.SearchParams(n_probes=N_PROBES)
+    m = mutate.MutableIndex(index, k=K, params=params)
+    cfg = m.cfg
+    t0 = time.perf_counter()
+    srv = SearchServer.from_index(m, q_np[:128], K, config=ServeConfig(
+        batch_sizes=BATCH_SIZES, max_queue=512, max_wait_ms=2.0))
+    ladder_s = time.perf_counter() - t0
+    grid = len(BATCH_SIZES) * len(cfg.delta_capacities)
+    comp = mutate.Compactor(m)
+    errors, got = [], []
+    gc.collect()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    before = obs.snapshot()
+    rounds = []
+    try:
+        with timed_parts([(compact_mod, "purge", "purge"),
+                          (ivf_flat, "extend", "extend"),
+                          (mutate.MutableIndex, "_prewarm_epoch", "prewarm"),
+                          (mutate.MutableIndex, "_swap_epoch", "swap")]
+                         ) as (parts, calls):
+            writer = threading.Thread(target=lambda: got.extend(mutate_writer(
+                m, new_np, del_ids, re_ids, re_np, errors)), daemon=True)
+            writer.start()
+            deadline = time.perf_counter() + MUTATE_TIMEOUT_S
+            while True:
+                rounds.append(serve_burst(srv, q_np))
+                quiet = (not writer.is_alive() and m.epoch >= 1
+                         and not m.stats()["compacting"]
+                         and not m.should_compact())
+                if quiet and len(rounds) >= 2:
+                    break
+                if time.perf_counter() > deadline:
+                    fail(f"serve_mutate: not quiet after {len(rounds)} "
+                         f"bursts: {m.stats()}")
+            writer.join(timeout=60)
+        comp.close()
+        after = obs.snapshot()
+        launches = ops.launch_counts()
+        mem_peak = torch.cuda.max_memory_allocated()
+        if writer.is_alive() or errors:
+            fail(f"serve_mutate: the writer failed: {errors[:1]}")
+        deltas = counter_deltas(before, after, "raft.")
+        rows_in = (deltas.get("raft.mutate.upserts.rows", 0),
+                   deltas.get("raft.mutate.deletes.rows", 0))
+        if rows_in != (MUTATE_UPSERTS + MUTATE_REUPSERTS, MUTATE_DELETES):
+            fail(f"serve_mutate: the writer applied {rows_in} rows")
+        folds = int(deltas.get("raft.mutate.compact.total", 0))
+        misses = int(deltas.get("raft.plan.cache.misses", 0))
+        if folds < 1 or m.epoch < 1:
+            fail(f"serve_mutate: no fold ran under traffic (epoch "
+                 f"{m.epoch})")
+        if misses != folds * grid or calls["prewarm"] != folds:
+            fail(f"serve_mutate: {misses} plan-cache misses over {folds} "
+                 f"folds, not the {grid} warm-ups of each next epoch: the "
+                 f"serving path prepared a program")
+        next_id = m.stats()["next_id"]
+        for served_d, served, _, _ in rounds:
+            if served.shape != (N_REQUESTS, K) or (served < 0).any() or                     (served >= next_id).any():
+                fail("serve_mutate: served ids out of range")
+            if not np.isfinite(served_d).all() or                     (np.diff(served_d, axis=1) < 0).any():
+                fail("serve_mutate: served distances are not finite and "
+                     "ascending")
+        check_launched("serve_mutate", launches,
+                       ("fused_l2_nn", "select_k", "select_k_payload",
+                        "ivf_scan"))
+        # serial checks on the quiet index
+        t0 = time.perf_counter()
+        up_ids = np.concatenate(got)
+        if up_ids.shape[0] != MUTATE_UPSERTS:
+            fail(f"serve_mutate: {up_ids.shape[0]} upserts acknowledged")
+        self_new = search_all(m, new_rows)[:, 0] == up_ids
+        self_re = search_all(m, re_rows)[:, 0] == re_ids
+        self_hit = float(np.concatenate([self_new, self_re]).mean())
+        if self_hit < MUTATE_SELF_HIT:
+            fail(f"serve_mutate: upserted rows find themselves at rank 0 "
+                 f"on {self_hit:.5f} < {MUTATE_SELF_HIT}")
+        dead = search_all(m, x[torch.from_numpy(del_ids).to(dev)])
+        if np.isin(dead, del_ids).any():
+            fail(f"serve_mutate: {int(np.isin(dead, del_ids).sum())} "
+                 f"deleted ids returned")
+        srv_d, srv_i = srv.search(q_np[:128], timeout=600)
+        dir_d, dir_i = m.search(q[:128], block=True)
+        if not np.array_equal(srv_i, dir_i.cpu().numpy()):
+            fail("serve_mutate: the server's ids differ from a direct "
+                 "search of the same batch")
+        serial_s = time.perf_counter() - t0
+        # recall@K of the live view against the live corpus's exact top-K
+        keep = torch.ones(n, dtype=torch.bool, device=dev)
+        keep[torch.from_numpy(picked).to(dev)] = False
+        live = torch.cat([x[keep], re_rows, new_rows])
+        live_ids = np.concatenate([np.flatnonzero(keep.cpu().numpy()),
+                                   re_ids, up_ids])
+        truth_live = live_ids[brute_force_knn(
+            live, q, K, DistanceType.L2Expanded, mode="exact",
+            device=dev)[1].cpu()
+            .numpy()]
+        del live, keep
+        got_live = m.search(q, block=True)[1].cpu().numpy()
+        recall = float(np.mean([len(set(got_live[r]) & set(truth_live[r]))
+                                for r in range(N_QUERIES)])) / K
+        if recall < RECALL_FLOOR:
+            fail(f"serve_mutate: live recall@{K} = {recall}")
+        rows = mutate_tail_rows(m, q[:128].contiguous(),
+                                torch.cat([new_rows, re_rows]),
+                                np.concatenate([up_ids, re_ids]), params,
+                                launches)
+        st = m.stats()
+    finally:
+        comp.close()
+        srv.close()
+    lat = np.concatenate([r[2] for r in rounds])
+    wall = sum(r[3] for r in rounds)
+    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
+    phase("serve_mutate", n=n, upserts=MUTATE_UPSERTS,
+          deletes=MUTATE_DELETES, reupserts=MUTATE_REUPSERTS,
+          batch=MUTATE_BATCH, delta_capacities=list(cfg.delta_capacities),
+          ladder_s=ladder_s, bursts=len(rounds), requests=len(lat),
+          qps=len(lat) / wall, p50_ms=p50, p99_ms=p99,
+          burst_qps=[N_REQUESTS / r[3] for r in rounds],
+          main_burst={k_: main[k_] for k_ in ("qps", "p50_ms", "p99_ms")},
+          folds=folds, plan_cache_misses=misses, warmups_per_fold=grid,
+          fold_s=parts, fold_calls=calls, epoch=st["epoch"], stats=st,
+          **{f"live_recall_at_{K}": recall}, self_hit_rank0=self_hit,
+          deleted_returned=0, serial_s=serial_s,
+          mem_before_gb=mem_before / 1e9, mem_peak_gb=mem_peak / 1e9,
+          mem_after_gb=torch.cuda.memory_allocated() / 1e9,
+          mutate_counters={k_: v for k_, v in deltas.items()
+                           if k_.startswith("raft.mutate.")},
+          launches=launches)
+    del m, srv, comp
+    free_phase("serve_mutate")
+    return rows
+
+
+def mutate_tail_rows(m, qb, rows, ids, params, launches: dict):
+    """Kernel 2 at the mutable tail's shapes on ``m``'s current epoch:
+    the column select on the scores of ``qb`` against a delta segment at
+    the top rung holding ``rows`` (their ``ids``; the rest of the rung
+    empty), and the payload select on the merge's candidates (the main
+    phase's k + slack after the tombstone filter, then the delta's k) →
+    rows ``select_k@mutate`` and ``select_k_payload@mutate``."""
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.mutate import program
+    from raft_tpu_torch.neighbors import plan as plan_mod
+    dev, cfg = qb.device, m.cfg
+    cap = cfg.delta_capacities[-1]
+    dd = torch.zeros((cap, D), device=dev)
+    di = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    dd[:rows.shape[0]] = rows
+    di[:rows.shape[0]] = torch.from_numpy(ids).to(dev)
+    ds = program.delta_scores(qb, dd, (dd * dd).sum(1), di,
+                              DistanceType.L2Expanded).contiguous()
+    col_row = check_select_k_rows("select_k@mutate", ds, K)
+    col_row["launches"] = launches["select_k"]
+    index = m.index
+    make = plan_mod._flat_builder(index, K + cfg.tombstone_slack, params)[0]
+    d_main, i_main = make(qb.shape[0],
+                          index.cap_cache[(qb.shape[0], N_PROBES)])[0](qb)
+    with m._cond:
+        tomb = m._dev.tomb
+    dead = program._tombstone_dead(i_main, tomb)
+    vd, sel = program._select_min(ds, K)
+    id_d = torch.where(torch.isfinite(vd), di[sel.clamp(min=0).long()], -1)
+    cand_d = torch.cat([torch.where(dead, float("inf"), d_main), vd],
+                       1).contiguous()
+    cand_i = torch.cat([torch.where(dead, -1, i_main), id_d],
+                       1).to(torch.int32).contiguous()
+    pay_row = check_pass_b("select_k_payload@mutate", cand_d, cand_i, K,
+                           launches["select_k_payload"],
+                           "raft_tpu/ops/pallas_select_k.py:47")
+    return [col_row, pay_row]
+
+
 def run_flat(x, q, q_np, truth, args):
     """Phase 3: IVF-Flat build + serving; the fused scan checked against
     its plain version on the served index afterwards."""
@@ -1855,6 +2167,7 @@ def run_flat(x, q, q_np, truth, args):
     run_serve_faults(index, q_np, truth, x.shape[0], served)
     quality_row = run_serve_quality(index, q_np, truth, x.shape[0], served)
     run_serve_obs(index, q_np, truth, served)
+    mutate_rows = run_serve_mutate(index, x, q, q_np, served, args.seed)
     wide_launches = run_wide_flat(index, q, truth)
     row, wide_row, rows = check_flat_scans(index, q)
     pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,
@@ -1862,7 +2175,8 @@ def run_flat(x, q, q_np, truth, args):
                           "raft_tpu/ops/pallas_ivf_scan.py:241")
     del index, rows
     free_phase("flat")
-    return [row, pass_b, quality_row], launches, [wide_row], wide_launches
+    return ([row, pass_b, quality_row] + mutate_rows, launches, [wide_row],
+            wide_launches)
 
 
 def run_flat_narrow(x, q, q_np, truth, args, storage: str):

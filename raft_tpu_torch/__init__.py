@@ -15,9 +15,9 @@ kernel, a CUDA tensor launches the kernel (built from ``csrc/`` with
 Layout mirrors ``raft_tpu``: ``core/``, ``distance/``, ``cluster/``,
 ``neighbors/``, ``spatial/``, ``sparse/``, ``stats/``, ``linalg/``,
 ``matrix/``, ``random/``, ``label/``, ``solver/``, ``spectral/``,
-``ops/`` (kernel wrappers), ``serve/``, ``obs/`` (counters and
-gauges), ``testing/`` (fault injection), ``util/`` and ``csrc/`` (CUDA
-sources).
+``ops/`` (kernel wrappers), ``serve/``, ``mutate/`` (mutable
+indexes), ``obs/`` (counters and gauges), ``testing/`` (fault
+injection), ``util/`` and ``csrc/`` (CUDA sources).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""IVF-Flat, IVF-PQ, IVF-BQ and ball-cover save/load, and the
-type-dispatching ``save``/``load`` (counterpart of
+"""IVF-Flat, IVF-PQ, IVF-BQ, ball-cover and mutable-index save/load, and
+the type-dispatching ``save``/``load`` (counterpart of
 ``raft_tpu.neighbors.serialize``).
 
 Same file format as the JAX package, so an index moves between the two
@@ -12,15 +12,20 @@ uint32, as the JAX package holds them. numpy has no bfloat16, so a
 bfloat16 field (IVF-Flat's bf16 list rows) is stored as its uint16 bit
 patterns and named in ``bf16_fields``, as the JAX package stores it, and
 loaded as a ``torch.bfloat16`` tensor; int8 rows are stored as int8, their
-``scale`` in the meta. The JAX package's host-memory IVF-Flat and
-mutable-index formats are not ported: ``load`` raises
-``NotImplementedError`` on them.
+``scale`` in the meta. A mutable index (format ``mutable``: meta ``k,
+epoch, id_base, next_id``) embeds its inner index's file as bytes
+(``inner``) beside its pending delta rows (``delta_data``, ``delta_ids``)
+and tombstone ids (``tomb_ids``): the ids, not the bitmap. The JAX
+package's host-memory IVF-Flat format is not ported: ``load`` raises
+``NotImplementedError`` on it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import tempfile
 
 import numpy as np
 import torch
@@ -164,14 +169,66 @@ def load_ball_cover(path: str, device="cuda"):
                             device=device)
 
 
+@contextlib.contextmanager
+def _scratch_npz(path: str):
+    """A temporary ``.npz`` path beside ``path``, removed afterwards."""
+    fd, tmp = tempfile.mkstemp(
+        suffix=".npz", dir=os.path.dirname(os.path.abspath(path)) or ".")
+    os.close(fd)
+    try:
+        yield tmp
+    finally:
+        os.remove(tmp)
+
+
+def save_mutable(mindex, path: str) -> None:
+    """Write a :class:`raft_tpu_torch.mutate.MutableIndex`: the inner
+    index (through its family's writer, embedded as bytes) PLUS the
+    mutable state (pending delta rows, tombstone ids, the epoch and
+    id-space counters), so a mutated index reloads without losing a
+    pending mutation. The snapshot is taken under the index's lock."""
+    st = mindex.export_state()
+    with _scratch_npz(path) as tmp:
+        save(st["index"], tmp)
+        inner = np.fromfile(tmp, dtype=np.uint8)
+    _pack(path, "mutable",
+          {"k": int(st["k"]), "epoch": int(st["epoch"]),
+           "id_base": int(st["id_base"]), "next_id": int(st["next_id"])},
+          {"inner": inner, "delta_data": st["delta_data"],
+           "delta_ids": st["delta_ids"], "tomb_ids": st["tomb_ids"]})
+
+
+def load_mutable(path: str, params=None, config=None, device="cuda"):
+    """Read a mutable index written by either package →
+    :class:`raft_tpu_torch.mutate.MutableIndex` on ``device`` (default
+    ``cuda``) with its delta segment, tombstones and epoch counters
+    restored (its programs are prepared by ``warmup()`` or the serving
+    ladder, as for a fresh wrap)."""
+    from raft_tpu_torch.mutate import MutableIndex
+    meta, a = _unpack(path, "mutable",
+                      ("inner", "delta_data", "delta_ids", "tomb_ids"))
+    with _scratch_npz(path) as tmp:
+        a["inner"].tofile(tmp)
+        inner = load(tmp, device=device)
+    state = {"k": meta["k"], "epoch": meta["epoch"],
+             "id_base": meta["id_base"], "next_id": meta["next_id"],
+             "delta_data": a["delta_data"], "delta_ids": a["delta_ids"],
+             "tomb_ids": a["tomb_ids"]}
+    return MutableIndex.restore(inner, state, params=params,
+                                config=config)
+
+
 # formats of the JAX package the port does not hold yet, by ROADMAP.md item
-_NOT_PORTED = {"host_ivf_flat": "queue 1 item 7", "mutable": "queue 1 item 4"}
+_NOT_PORTED = {"host_ivf_flat": "queue 1 item 7"}
 
 
 def save(index, path: str) -> None:
     """Type-dispatching save for the port's index types."""
+    from raft_tpu_torch.mutate import MutableIndex
     from raft_tpu_torch.neighbors import ball_cover, ivf_bq, ivf_flat, ivf_pq
-    if isinstance(index, ivf_flat.Index):
+    if isinstance(index, MutableIndex):
+        save_mutable(index, path)
+    elif isinstance(index, ivf_flat.Index):
         save_ivf_flat(index, path)
     elif isinstance(index, ivf_pq.Index):
         save_ivf_pq(index, path)
@@ -190,7 +247,8 @@ def load(path: str, device="cuda"):
         meta = json.loads(bytes(z["__meta__"]).decode())
     fmt = meta.get("format")
     readers = {"ivf_flat": load_ivf_flat, "ivf_pq": load_ivf_pq,
-               "ivf_bq": load_ivf_bq, "ball_cover": load_ball_cover}
+               "ivf_bq": load_ivf_bq, "ball_cover": load_ball_cover,
+               "mutable": load_mutable}
     if fmt in readers:
         return readers[fmt](path, device=device)
     if fmt in _NOT_PORTED:

@@ -45,10 +45,11 @@ device is per thread) on a stream of its own, so its tiles do not queue
 behind the served batches on the default stream; each tile's results
 reach the host through a blocking copy on that stream.
 
-Left out: the JAX package's ``raft.obs.quality.shadow`` span around
-each shadow batch (spans are ROADMAP.md queue 1 item 4d). Mutable
-indexes are not ported, so nothing calls :meth:`note_epoch` on its own
-yet.
+Each shadow batch is a ``raft.obs.quality.shadow`` span (``family``,
+``queries``, ``kmax``) on the shadow thread. A server over a
+:class:`~raft_tpu_torch.mutate.MutableIndex` subscribes
+:meth:`QualityMonitor.note_epoch` to its compactions' epoch swaps
+(``SearchServer.attach_quality``), so each fold rolls the epoch.
 
 Caveats, as in the JAX package: past ``max_rows`` the "exact" ids are
 exact over the sample, so the recall gauge is an estimator; the
@@ -77,6 +78,7 @@ from raft_tpu_torch.core.precision import full_fp32_matmul
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.neighbors import selection
+from raft_tpu_torch.obs import spans
 from raft_tpu_torch.obs.registry import CardinalityError
 from raft_tpu_torch.ops._util import stable_topk_min
 
@@ -494,7 +496,9 @@ class QualityMonitor:
     def _process(self, batch: List[tuple]) -> None:
         rows = np.stack([s[0] for s in batch])
         kmax = max(s[2] for s in batch)
-        with self._on_scorer_device():
+        with self._on_scorer_device(), \
+                spans.span("raft.obs.quality.shadow", family=self.family,
+                           queries=len(batch), kmax=kmax):
             exact = np.asarray(self.scorer.topk(rows, kmax))
             est = (np.asarray(self._estimator(rows, kmax))
                    if self._estimator is not None else None)

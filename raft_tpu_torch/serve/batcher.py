@@ -49,7 +49,10 @@ failure path:
   recorded under one lock; the resource profiler's dispatch tag
   (``"server"``) on the thread that runs the plan.
 
-Not ported yet: mutable and tiered indexes.
+A :class:`~raft_tpu_torch.mutate.MutableIndex` is served through
+stable ladder handles that resolve its live epoch per call; with quality
+sampling on, its compactions roll the monitor's epoch. Not ported yet:
+tiered indexes.
 
 Threading model: the dispatcher thread owns the batching; caller
 threads only touch numpy and futures. With the watchdog on, each
@@ -176,8 +179,8 @@ class SearchServer:
         # quality sampling: None until enable_quality attaches a monitor,
         # so with sampling off the result loop reads this one flag;
         # _quality_meta carries the metric, family and device from_index
-        # learned (_quality_src, the mutable index whose epoch tags the
-        # samples, stays None: mutable indexes are not ported)
+        # learned; _quality_src is the mutable index whose epoch tags the
+        # samples (None for an immutable one)
         self._quality = None
         self._quality_src = None
         self._quality_meta: dict = {}
@@ -192,22 +195,42 @@ class SearchServer:
                    config: Optional[ServeConfig] = None,
                    start: bool = True) -> "SearchServer":
         """Prepare and warm the (shape x rung) plan ladder for an
-        IVF-Flat or IVF-PQ ``index`` and start serving; ``params``
-        defaults to the family's ``SearchParams``. ``rep_queries`` is the
-        representative cap-measurement sample (as for
-        ``plan.build_plan``)."""
+        IVF-Flat, IVF-PQ or IVF-BQ ``index`` and start serving;
+        ``params`` defaults to the family's ``SearchParams``.
+        ``rep_queries`` is the representative cap-measurement sample (as
+        for ``plan.build_plan``). A
+        :class:`raft_tpu_torch.mutate.MutableIndex` is accepted too: its
+        (shape x rung x delta-rung) grid is warmed instead, and the
+        server keeps serving through every background compaction (the
+        ladder's handles resolve the live epoch per call)."""
+        from raft_tpu_torch.mutate import MutableIndex, build_serve_ladder
         from raft_tpu_torch.neighbors import plan as plan_mod
         config = config if config is not None else ServeConfig()
-        # the same resolver PlanLadder.build uses: an unsupported index
-        # fails alike either way
-        family, _ = plan_mod._resolve_builder(index)
-        ladder = PlanLadder.build(index, rep_queries, k, params,
-                                  shapes=config.batch_sizes,
-                                  probes_ladder=config.probes_ladder,
-                                  prewarm=config.prewarm)
+        if isinstance(index, MutableIndex):
+            family = index.family
+            expects(k == index.k,
+                    "serve.from_index: k=%d != MutableIndex k=%d "
+                    "(fixed at its construction)", k, index.k)
+            expects(params is None,
+                    "serve.from_index: a MutableIndex carries its own "
+                    "search params (set them at its construction)")
+            ladder = build_serve_ladder(
+                index, rep_queries, shapes=config.batch_sizes,
+                probes_ladder=config.probes_ladder,
+                prewarm=config.prewarm)
+        else:
+            # the same resolver PlanLadder.build uses: an unsupported
+            # index fails alike either way
+            family, _ = plan_mod._resolve_builder(index)
+            ladder = PlanLadder.build(index, rep_queries, k, params,
+                                      shapes=config.batch_sizes,
+                                      probes_ladder=config.probes_ladder,
+                                      prewarm=config.prewarm)
         srv = cls(ladder, config, start=start)
         srv._quality_meta = {"metric": getattr(index, "metric", None),
                              "family": family, "device": index.device}
+        if isinstance(index, MutableIndex):
+            srv._quality_src = index
         return srv
 
     # -- lifecycle ---------------------------------------------------------
@@ -281,7 +304,13 @@ class SearchServer:
         return self.attach_quality(monitor)
 
     def attach_quality(self, monitor):
-        """Attach an already-built monitor (tests inject fakes)."""
+        """Attach an already-built monitor (tests inject fakes). Wires
+        the compaction epoch listener when the server fronts a
+        :class:`~raft_tpu_torch.mutate.MutableIndex`, so recall is
+        tracked per epoch."""
+        src = self._quality_src
+        if src is not None:
+            src.add_epoch_listener(monitor.note_epoch)
         self._quality = monitor
         return monitor
 

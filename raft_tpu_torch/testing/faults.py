@@ -26,10 +26,12 @@ Injection sites (labels in parentheses):
 ``serve.dist.dispatch``    one mesh-wide dispatch (``ranks``, ``family``):
                            comes with the distributed tier (ROADMAP.md
                            queue 1 item 6)
-``mutate.compact``         ``MutableIndex.compact`` entry (``epoch``): comes
-                           with the mutable indexes (after item 4)
+``mutate.compact``         ``MutableIndex.compact`` entry, before any state
+                           is frozen (no labels); wired in
+                           ``mutate/mutable.py``
 ``mutate.transfer``        the delta/tombstone host-to-device refresh
-                           (``epoch``): comes with the mutable indexes
+                           (``epoch``), ``MutableIndex._push_dev_locked``;
+                           wired in ``mutate/mutable.py``
 ``fed.scrape``             one federator scrape (``instance``): comes with
                            the fleet tier (item 7)
 ``obs.blackbox.append``    a black-box record's write (``kind``, ``box``):
@@ -231,7 +233,7 @@ def stall_shard(rank: int, seconds: float = 30.0,
 def kill_compactor(times: int = 0):
     """Every ``MutableIndex.compact`` attempt raises (``times`` > 0
     bounds how many; 0 = for the whole scope) — the crash-looping
-    compactor a compactor's guard must survive (no port site yet)."""
+    compactor a compactor's guard must survive."""
     with inject_fault("mutate.compact", action="error",
                       max_hits=times) as rule:
         yield rule

@@ -59,6 +59,7 @@ ALLOWED_EXTRA = {
     ("neighbors.serialize", "load_ivf_bq", "device"): _DEVICE,
     ("neighbors.serialize", "load_ivf_flat", "device"): _DEVICE,
     ("neighbors.serialize", "load_ivf_pq", "device"): _DEVICE,
+    ("neighbors.serialize", "load_mutable", "device"): _DEVICE,
     ("spatial.knn", "approx_knn_build_index", "device"): _DEVICE,
     ("util.host_sample", "sample_rows", "device"): _DEVICE,
     ("core.mdarray", "as_array", "device"):
@@ -231,12 +232,43 @@ def _x(n=256, d=8):
         np.random.default_rng(0).normal(size=(n, d)).astype(np.float32))
 
 
+def _mutable():
+    """A small CPU IVF-Flat index wrapped as a MutableIndex."""
+    from raft_tpu_torch import mutate
+    from raft_tpu_torch.neighbors import ivf_flat
+    index = ivf_flat.build(_x(256, 8), ivf_flat.IndexParams(
+        n_lists=4, kmeans_n_iters=2), device="cpu")
+    return mutate.MutableIndex(index, k=3, config=mutate.MutateConfig(
+        delta_capacities=(8,)))
+
+
+def _fold(**kw):
+    from raft_tpu_torch.mutate import compact
+    m = _mutable()
+    return lambda: compact.fold(m.index, _x(2, 8), [300, 301], [1], **kw)
+
+
 def _unimplemented():
     """case -> (call, the ROADMAP.md item its message names)."""
+    from raft_tpu_torch import mutate
     from raft_tpu_torch.serve.types import ServeConfig
     return {
         "ServeConfig.failover": (lambda: ServeConfig(failover=True),
                                  "item 6"),
+        "MutableIndex.attach_wal": (
+            lambda: _mutable().attach_wal(object(), "ckpt.npz"), "item 7"),
+        "MutableIndex.recover": (
+            lambda: mutate.MutableIndex.recover("wal.log", k=3), "item 7"),
+        "MutableIndex.register_dist": (
+            lambda: _mutable().register_dist(object(), "data", _x(4, 8),
+                                             shapes=(1,)), "item 6"),
+        "build_dist_serve_ladder": (
+            lambda: mutate.build_dist_serve_ladder(_mutable(), _x(4, 8),
+                                                   mesh=object()),
+            "item 6"),
+        "fold(mesh=...)": (_fold(mesh=object()), "item 6"),
+        "fold(stream_chunk>0)": (_fold(mode="rebuild", stream_chunk=64),
+                                 "item 7"),
     }
 
 
@@ -366,6 +398,15 @@ def test_walk_covers_quality_and_the_long_tail():
                       ("core.interruptible", "cancel"),
                       ("core.compile_cache", "enable"),
                       ("serve.batcher", "SearchServer")):
+        assert (mod, name) in cases, (mod, name)
+    for mod, name in (("mutate.types", "MutateConfig"),
+                      ("mutate.program", "compile_mutate_program"),
+                      ("mutate.program", "mutate_tail"),
+                      ("mutate.compact", "fold"),
+                      ("mutate.compactor", "Compactor"),
+                      ("mutate.mutable", "MutableIndex"),
+                      ("mutate.mutable", "build_serve_ladder"),
+                      ("neighbors.serialize", "load_mutable")):
         assert (mod, name) in cases, (mod, name)
     for mod, name in CTOR_EXEMPT:
         assert (mod, name) not in cases

@@ -403,13 +403,28 @@ def test_dispatch_save_load_both_ways(ball_data, tmp_path, family):
 
 
 @pytest.mark.parametrize("fmt,item", [("host_ivf_flat", "item 7"),
-                                      ("mutable", "item 4")])
+                                      ("mutable", None)])
 def test_load_of_unported_format_names_its_item(tmp_path, fmt, item):
     # a file of a format the port does not hold yet: NotImplementedError
-    # naming the ROADMAP.md item that ports it
+    # naming the ROADMAP.md item that ports it; the mutable format is
+    # ported: load returns a MutableIndex
     import json
+    from raft_tpu_torch import mutate
+    from raft_tpu_torch.neighbors import ivf_flat
     from raft_tpu_torch.neighbors import serialize as tser
     path = str(tmp_path / "f.npz")
+    if item is None:
+        x = _normal((64, 4), 5)
+        m = mutate.MutableIndex(ivf_flat.build(
+            x, ivf_flat.IndexParams(n_lists=2, kmeans_n_iters=2),
+            device="cpu"), k=2)
+        m.upsert(x[:2] + 1.0)
+        m.delete([3])
+        tser.save(m, path)
+        back = tser.load(path, device="cpu")
+        assert isinstance(back, mutate.MutableIndex)
+        assert back.stats() == m.stats()
+        return
     np.savez(path, __meta__=np.frombuffer(json.dumps(
         {"format": fmt, "version": 1}).encode(), dtype=np.uint8))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):

@@ -1543,3 +1543,143 @@ def test_profiler_device_half_holds_the_plans_card_work(dev):
     assert rep["samples"] == 1
     assert rep["device_s"] >= 0.9 * sleep_s
     assert rep["host_s"] >= 2 * sleep_s
+
+
+# ---------------------------------------------------------------------------
+# mutable indexes: the tail on kernel 2, a purged list's holes in kernel 3,
+# and the device snapshot under a racing writer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("metric", ["L2Expanded", "InnerProduct",
+                                    "CosineExpanded"])
+@pytest.mark.parametrize("cap", [8, 1024, 16384])
+def test_mutable_tail_on_card_matches_plain(dev, metric, cap):
+    # the tombstone filter and the delta merge with many equal delta
+    # scores (8 distinct rows repeated over the rung) and tied main
+    # results: kernel 2's column and payload selects against the plain
+    # versions on the same (card-computed) scores, ids and distances
+    # exactly (selection does no arithmetic)
+    from raft_tpu_torch.distance.distance_types import DistanceType
+    from raft_tpu_torch.mutate import program
+    rng = np.random.default_rng(cap + len(metric))
+    mt = DistanceType[metric]
+    nq, d, k, k_main, n_main = 64, 16, 32, 48, 4096
+    dd = rng.normal(size=(8, d)).astype(np.float32)[rng.integers(0, 8, cap)]
+    if mt == DistanceType.CosineExpanded:
+        dd /= np.linalg.norm(dd, axis=1, keepdims=True)
+    di = (n_main + np.arange(cap)).astype(np.int32)
+    di[rng.random(cap) < 0.25] = -1
+    dn = (dd * dd).sum(axis=1)
+    d_main = np.sort(rng.integers(0, 6, (nq, k_main)).astype(np.float32), 1)
+    if mt == DistanceType.InnerProduct:
+        d_main = -d_main
+    i_main = rng.integers(0, n_main, (nq, k_main)).astype(np.int32)
+    i_main[:, -4:] = -1
+    d_main[:, -4:] = -np.inf if mt == DistanceType.InnerProduct else np.inf
+    words = rng.integers(0, 2 ** 32, n_main // 32, dtype=np.uint64)
+    words = (words | (1 << 31)).astype(np.uint32)       # bit 31 everywhere
+    q = _t(rng.normal(size=(nq, d)).astype(np.float32), dev)
+    ops = [_t(a, dev) for a in (d_main, i_main, dd, dn, di,
+                                words.view(np.int32))]
+    dm, im, ddt, dnt, dit, tw = ops
+    ds = program.delta_scores(q, ddt, dnt, dit, mt)
+    before = (sel_op.launches, sel_op.launches_payload)
+    gd, gi = program.mutate_tail(dm, im, ds, dit, tw, k, mt)
+    torch.cuda.synchronize()
+    assert (sel_op.launches, sel_op.launches_payload) == (before[0] + 1,
+                                                          before[1] + 1)
+    wd, wi = program.mutate_tail(dm.cpu(), im.cpu(), ds.cpu(), dit.cpu(),
+                                 tw.cpu(), k, mt)
+    assert torch.equal(gi.cpu(), wi)
+    assert torch.equal(gd.cpu(), wd)
+    dead = np.isin(wi.numpy(), np.flatnonzero(
+        np.unpackbits(words.view(np.uint8), bitorder="little")))
+    assert not dead.any()
+
+
+@pytest.mark.parametrize("bins", [0, -1, 16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_fused_scan_over_purged_holes_matches_plain(dev, bins, metric):
+    # a purged index: -1 ids in the middle and at the head of lists, the
+    # rows behind them live; kernel 3 against its plain version, and no
+    # purged row ever returned
+    from raft_tpu_torch.mutate import compact
+    rng = np.random.default_rng(7 + bins + len(metric))
+    q, data, norms, ids, probes, qmap, inv_pos = _scan_case(
+        rng, 64, 32, metric, dev)
+    live = ids[ids >= 0]
+    gone = live[torch.from_numpy(rng.random(live.numel()) < 0.3).to(dev)]
+    index = ivf_flat.Index(centers=torch.zeros((16, 64), device=dev),
+                           lists_data=data, lists_indices=ids,
+                           lists_norms=norms,
+                           list_sizes=(ids >= 0).sum(1).to(torch.int32),
+                           metric=ivf_flat.DistanceType.L2Expanded,
+                           size=int(live.numel()))
+    purged, n = compact.purge(index, gone.cpu().numpy())
+    assert n == gone.numel()
+    holes = purged.lists_indices
+    assert bool(((holes[:, :-1] < 0) & (holes[:, 1:] >= 0)).any())
+    k, sqrt = 10, metric == "l2"
+    dk, ik = scan_op.fused_list_scan(q, data, norms, holes, probes, inv_pos,
+                                     qmap, 32, k, bins, sqrt, metric)
+    dp, ip = scan_op.fused_list_scan_plain(q, data, norms, holes, probes,
+                                           inv_pos, qmap, 32, k, bins,
+                                           sqrt, metric, "bf16x3")
+    scale = float((q * q).sum(1).max() + norms.max())
+    _near_tie_equal(dk, ik, dp, ip, 1e-5 * scale)
+    assert not bool(torch.isin(ik, gone).any())
+
+
+def test_mutable_search_racing_upserts_never_reads_half_a_snapshot(dev):
+    # one writer thread upserts rows near the queries while searches are
+    # launched without waiting: every returned delta id's distance must be
+    # the distance to that id's own row (a search that read a snapshot's
+    # memory after it was freed and reused would pair ids with other rows)
+    import threading
+    from raft_tpu_torch import mutate
+    rng = np.random.default_rng(11)
+    n, d, k, batch, rounds = 4096, 32, 8, 32, 24
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(16, d)).astype(np.float32)
+    rows = (q[rng.integers(0, 16, batch * rounds)]
+            + 0.05 * rng.normal(size=(batch * rounds, d))).astype(np.float32)
+    index = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=16,
+                                                   kmeans_n_iters=4),
+                           device=dev)
+    m = mutate.MutableIndex(index, k=k, params=ivf_flat.SearchParams(
+        n_probes=16), config=mutate.MutateConfig(
+            delta_capacities=(64, 256, 1024)))
+    m.warmup(q, shapes=(16,))
+    errors = []
+
+    def writer():
+        try:
+            for r in range(rounds):
+                m.upsert(rows[r * batch:(r + 1) * batch])
+        except Exception as e:  # reported after the join
+            errors.append(repr(e))
+
+    th = threading.Thread(target=writer)
+    results = []
+    th.start()
+    while th.is_alive() or not results:
+        results += [m.search(q) for _ in range(8)]
+    th.join(timeout=60)
+    assert not th.is_alive() and not errors
+    results.append(m.search(q))
+    torch.cuda.synchronize()
+    qt = torch.from_numpy(q).double()
+    all_rows = torch.from_numpy(np.concatenate([x, rows])).double()
+    seen_delta = 0
+    for dist, ids in results:
+        dist, ids = dist.cpu().double(), ids.cpu().long()
+        assert bool((ids >= 0).all()) and bool(torch.isfinite(dist).all())
+        assert bool((torch.diff(dist, dim=1) >= 0).all())
+        want = ((qt[:, None, :] - all_rows[ids]) ** 2).sum(-1)
+        scale = (qt * qt).sum(1, keepdim=True) + (all_rows[ids] ** 2).sum(-1)
+        assert bool(((dist - want).abs() <= 1e-5 * scale).all())
+        seen_delta += int((ids >= n).sum())
+    assert seen_delta > 0
+    final = results[-1][1].cpu().numpy()
+    assert (final >= n).mean() > 0.5
