@@ -123,6 +123,43 @@ Phases, one line each:
               part and device memory; kernel 2 at the tail's shapes
               (rows ``select_k@mutate`` at (128, 16384) k=32 and
               ``select_k_payload@mutate`` at (128, 80) k=32).
+              ``serve_tiered`` (after ``serve_mutate``, on the same
+              index): the lists to host memory (``to_host``: seconds,
+              host bytes), a ``TieredIndex`` at ``hot_frac=0.3`` with
+              staging chunks of at most 256 lists (fails unless it takes
+              the 256-list hot rung; the rung, hot lists and budget
+              printed); the 256 queries at 128 a batch through a tiered
+              plan and ``host_memory.search``, each failing unless it
+              gives the resident probe-order search's ids (the tiered
+              distances within rtol 1e-5); a ``SearchServer`` burst (QPS,
+              p50/p99, recall@32, the ``raft.tiered.*`` deltas: hit rate,
+              fetch bytes and seconds, overlap fraction; the served ids a
+              direct plan's), ``refresh()`` and a second burst; a
+              refresh at half the budget (fails unless it demotes and
+              the ids stay); then ``host_memory.build_streaming`` of all
+              n rows in 1M-row host chunks (seconds; fails unless the
+              peak device bytes above the pre-build baseline stay under
+              half the corpus; recall@32 of its host search, floor 0.5).
+              Rows ``select_k@tiered`` ((128, 1024) k=96, the coarse
+              select), ``select_k_payload@tiered`` ((128, 64) k=32, the
+              tier merge) and ``fused_l2_nn@stream`` ((1M, 128) x 1024, a
+              chunk's labels); kernels 1 and 2 must have launched.
+              ``mutate_durable`` (after ``serve_tiered``): the index as a
+              ``MutableIndex`` with a WAL (fsync) and no checkpoint takes
+              12,288 upserts, 4,096 deletes and 1,024 re-upserts in
+              batches of 256 (the fsync's and each call's ms, p50/p99);
+              the object is dropped and ``MutableIndex.recover`` replays
+              the log onto the base index (seconds, records): fails
+              unless the ids on the 256 queries are the live ones, every
+              upserted row is its own rank-0 hit and no deleted id
+              comes back. Then the checkpoint mode on a 1M-row cut
+              (printed as a cut: a checkpoint writes the whole folded
+              index, ~1.3 GB at 1M rows and ~13 GB at 10M): one fold
+              (checkpoint seconds and bytes), fails unless the log was
+              rewritten (a meta record first, sequence numbers still
+              rising) and ``recover`` from the checkpoint and the log
+              gives the live ids. The log and checkpoint live under
+              ``chiprun_out/durable`` and are removed after the phase.
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -342,6 +379,17 @@ FAULTS_GUARD = dict(dispatch_timeout_ms=2000.0, max_retries=2,
 MUTATE_UPSERTS, MUTATE_DELETES, MUTATE_REUPSERTS = 12_288, 4_096, 1_024
 MUTATE_BATCH, MUTATE_PACE_S, MUTATE_TIMEOUT_S = 512, 0.02, 120.0
 MUTATE_SELF_HIT = 0.99
+# serve_tiered: the tier's budget (a fraction of the list payload: the
+# 256-list rung of 1024) and staging ceiling; the streaming build's host
+# chunks; the recall floor of its host-memory search
+TIER_HOT_FRAC, TIER_STAGE_LISTS, TIER_HOT_RUNG = 0.3, 256, 256
+STREAM_CHUNK = 1_000_000
+# mutate_durable: the writer of serve_mutate's sizes in batches of
+# DURABLE_BATCH through a WAL with fsync; the checkpoint mode on the first
+# DURABLE_CKPT_ROWS rows (a checkpoint writes the whole folded index:
+# ~1.3 GB at 1M rows, ~13 GB at 10M) with DURABLE_CKPT_UPSERTS upserts
+DURABLE_BATCH = 256
+DURABLE_CKPT_ROWS, DURABLE_CKPT_UPSERTS = 1_000_000, 2_048
 # brute force: the reference's cpp/bench/neighbors/knn.cuh:380-389 cases
 # (10M x 128 and 10k x 8192, 1000 queries, k=32); the JAX package's
 # recall gate for the fused kernel (BASELINE.md:43)
@@ -2099,6 +2147,401 @@ def run_serve_mutate(index, x, q, q_np, main: dict, seed: int):
     return rows
 
 
+def batched(fn, q, batch: int = 128):
+    """``fn(q_slice) -> (dists, ids)`` over ``q`` in slices of ``batch``
+    rows → (dists, ids) as numpy."""
+    outs = [fn(q[s:s + batch]) for s in range(0, q.shape[0], batch)]
+    return (np.concatenate([o[0].cpu().numpy() for o in outs]),
+            np.concatenate([o[1].cpu().numpy() for o in outs]))
+
+
+def tier_burst(srv, q_np, truth, n_rows: int):
+    """One burst through a tiered server: serve_phase's fields plus the
+    burst's hit rate (hot probes over all probes) and the
+    ``raft.tiered.*`` counter deltas."""
+    from raft_tpu_torch import obs
+    before = obs.snapshot()
+    served = serve_phase(srv, q_np, truth, n_rows, close=False)
+    after = obs.snapshot()
+    tier = counter_deltas(before, after, "raft.tiered.")
+    probes = tier.get("raft.tiered.probes.hot", 0) + \
+        tier.get("raft.tiered.probes.cold", 0)
+    served["hit_rate"] = (tier.get("raft.tiered.probes.hot", 0) / probes
+                          if probes else 0.0)
+    fetch_s = tier.get("raft.tiered.fetch.seconds", 0)
+    served["overlap_frac"] = (tier.get("raft.tiered.overlap.seconds", 0)
+                              / fetch_s if fetch_s else 0.0)
+    served["tiered"] = tier
+    return served
+
+
+def run_serve_tiered(index, x, q, q_np, truth, main: dict):
+    """Phase 3 ``serve_tiered`` on the main IVF-Flat index: its lists to
+    host memory (``to_host``), a ``TieredIndex`` (hot_frac 0.3: the
+    256-list rung; staging chunks of at most 256 lists), the 256 queries
+    at 128 a batch through a tiered plan and ``host_memory.search``
+    against the resident probe-order search (ids equal, distances within
+    rtol 1e-5); a ``SearchServer`` burst (QPS, latency, recall@K, the
+    ``raft.tiered.*`` deltas; the served ids a direct plan's), a
+    ``refresh()`` and a second burst, a refresh at half the budget
+    (demotions, ids unchanged); then ``host_memory.build_streaming`` of
+    every row in 1M-row host chunks (seconds, peak device bytes above the
+    baseline under half the corpus, recall@K of its host search). Rows
+    ``select_k@tiered`` (the coarse select at (128, 1024) k=96),
+    ``select_k_payload@tiered`` (the tier merge's (128, 64) candidates at
+    k=32) and ``fused_l2_nn@stream`` (kernel 1 at a chunk's shape)."""
+    from raft_tpu_torch import obs, ops
+    from raft_tpu_torch.neighbors import host_memory, ivf_flat, tiered
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    n, dev = x.shape[0], x.device
+    sp = ivf_flat.SearchParams(n_probes=N_PROBES, scan_order="probe")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    d_res, i_res = batched(lambda qb: ivf_flat.search(index, qb, K, sp), q)
+    resident_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = host_memory.to_host(index)
+    to_host_s = time.perf_counter() - t0
+    host_bytes = (host.lists_data.nbytes + host.lists_norms.nbytes
+                  + host.lists_indices.nbytes)
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ti = tiered.from_host(host, tiered.TieredConfig(
+        hot_frac=TIER_HOT_FRAC, max_stage_lists=TIER_STAGE_LISTS))
+    tier_s = time.perf_counter() - t0
+    placed = {"hot_cap": ti._hot_cap, "hot_lists": ti.hot_lists,
+              "budget_bytes": ti.budget_bytes,
+              "bytes_per_list": ti.bytes_per_list,
+              "hot_table_gb": ti.table_bytes(ti._hot_cap) / 1e9,
+              "stage_capacities": list(ti.stage_capacities),
+              "hot_mem_gb": (torch.cuda.memory_allocated() - mem_before)
+              / 1e9}
+    if ti._hot_cap != TIER_HOT_RUNG:
+        fail(f"serve_tiered: hot rung {ti._hot_cap}, not {TIER_HOT_RUNG}")
+    plan = tiered.build_plan(ti, q_np[:128], K, sp)
+    merges = []
+    real_merge = tiered._merge_topk
+
+    def keep_merge(*a):
+        merges.append(a)
+        return real_merge(*a)
+
+    tiered._merge_topk = keep_merge
+    try:
+        t0 = time.perf_counter()
+        d_t, i_t = batched(lambda qb: plan.search(qb, block=True), q)
+        plan_s = time.perf_counter() - t0
+    finally:
+        tiered._merge_topk = real_merge
+    if not np.array_equal(i_t, i_res):
+        fail(f"serve_tiered: tiered ids differ from the resident "
+             f"probe-order search on {int((i_t != i_res).sum())} entries")
+    if not np.allclose(d_t, d_res, rtol=RTOL, atol=RTOL):
+        fail("serve_tiered: tiered distances differ from the resident "
+             "search's")
+    t0 = time.perf_counter()
+    i_h = batched(lambda qb: host_memory.search(host, qb, K, sp), q)[1]
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(i_h, i_res):
+        fail("serve_tiered: host_memory ids differ from the resident "
+             "search's")
+    # the tier merge's candidates of the last 128-query batch, for the
+    # payload select's row
+    d_a, i_a, d_b, i_b, _ = merges[-1]
+    merge_d = torch.cat([d_a, d_b], 1).contiguous()
+    merge_i = torch.cat([i_a, i_b], 1).to(torch.int32).contiguous()
+    del merges
+
+    srv = SearchServer.from_index(ti, q_np[:128], K, params=sp,
+                                  config=ServeConfig(
+                                      batch_sizes=BATCH_SIZES,
+                                      max_queue=512, max_wait_ms=2.0))
+    try:
+        first = tier_burst(srv, q_np, truth, n)
+        srv_i = srv.search(q_np[:128], timeout=600)[1]
+        if not np.array_equal(srv_i, plan.search(q[:128], block=True)[1]
+                              .cpu().numpy()):
+            fail("serve_tiered: the server's ids differ from a direct "
+                 "plan's")
+        t0 = time.perf_counter()
+        refreshed = ti.refresh()
+        refresh_s = time.perf_counter() - t0
+        second = tier_burst(srv, q_np, truth, n)
+    finally:
+        srv.close()
+    half = ti.refresh(budget_bytes=ti.budget_bytes // 2)
+    if half["demoted"] <= 0:
+        fail(f"serve_tiered: a refresh at half the budget demoted "
+             f"nothing: {half}")
+    i_half = batched(lambda qb: plan.search(qb, block=True), q)[1]
+    if not np.array_equal(i_half, i_res):
+        fail("serve_tiered: ids changed after the demotion")
+    gauges = {k_: v for k_, v in obs.snapshot()["gauges"].items()
+              if k_.startswith("raft.tiered.")}
+    launches_serve = ops.launch_counts()
+    del plan, srv, ti, host, d_t, i_t
+    gc.collect()
+
+    # the streaming build of every row from host chunks
+    x_np = x.cpu().numpy()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    nn_before = dict(l2nn_shapes())
+    t0 = time.perf_counter()
+    hs = host_memory.build_streaming(
+        (x_np[s:s + STREAM_CHUNK] for s in range(0, n, STREAM_CHUNK)),
+        ivf_flat.IndexParams(n_lists=N_LISTS, kmeans_n_iters=KMEANS_ITERS),
+        device=dev)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stream_peak = torch.cuda.max_memory_allocated() - base
+    stream_shapes = {k_: v - nn_before.get(k_, 0)
+                     for k_, v in l2nn_shapes().items()
+                     if v != nn_before.get(k_, 0)}
+    if stream_peak >= 0.5 * x.numel() * 4:
+        fail(f"serve_tiered: the streaming build peaked {stream_peak} "
+             f"bytes above its baseline, not under half the corpus")
+    if hs.size != n or int((hs.lists_indices >= 0).sum()) != n:
+        fail(f"serve_tiered: the streaming build holds "
+             f"{int((hs.lists_indices >= 0).sum())} of {n} rows")
+    t0 = time.perf_counter()
+    i_s = batched(lambda qb: host_memory.search(hs, qb, K, sp), q)[1]
+    stream_search_s = time.perf_counter() - t0
+    stream_recall = float(np.mean([len(set(i_s[r]) & set(truth[r]))
+                                   for r in range(N_QUERIES)])) / K
+    if stream_recall < RECALL_FLOOR:
+        fail(f"serve_tiered: streaming build recall@{K} = {stream_recall}")
+    launches = ops.launch_counts()
+    check_launched("serve_tiered", launches,
+                   ("fused_l2_nn", "select_k", "select_k_payload"))
+    chunk_key = f"{min(n, STREAM_CHUNK)}x{N_LISTS}"
+    phase("serve_tiered", n=n, n_lists=N_LISTS, n_probes=N_PROBES, k=K,
+          to_host_s=to_host_s, host_gb=host_bytes / 1e9, tier_s=tier_s,
+          **placed, resident_probe_s=resident_s, tiered_plan_s=plan_s,
+          host_memory_s=host_s, ids_equal_resident=True,
+          burst=first, refresh=refreshed, refresh_s=refresh_s,
+          burst_after_refresh=second,
+          hit_rates=[first["hit_rate"], second["hit_rate"]],
+          half_budget=half, ids_equal_after_demotion=True, gauges=gauges,
+          main_burst={k_: main[k_] for k_ in ("qps", "p50_ms", "p99_ms")},
+          launches_serving=launches_serve, stream_chunk=STREAM_CHUNK,
+          stream_s=stream_s, stream_peak_gb=stream_peak / 1e9,
+          corpus_gb=x.numel() * 4 / 1e9,
+          stream_fused_l2_nn_shapes=stream_shapes,
+          stream_search_s=stream_search_s,
+          **{f"stream_recall_at_{K}": stream_recall}, launches=launches)
+    nn_row = check_fused_l2_nn(x[:STREAM_CHUNK].contiguous(),
+                               hs.centers.contiguous(),
+                               "fused_l2_nn@stream")
+    nn_row["launches"] = stream_shapes.get(chunk_key, 0)
+    del hs, x_np
+    sel_row = check_select_k(q, index.centers, N_PROBES, "select_k@tiered")
+    sel_row["launches"] = launches["select_k"]
+    pay_row = check_pass_b("select_k_payload@tiered", merge_d, merge_i, K,
+                           launches["select_k_payload"],
+                           "raft_tpu/ops/pallas_select_k.py:47")
+    free_phase("serve_tiered")
+    return [sel_row, pay_row, nn_row]
+
+
+def durable_writes(m, new_rows, del_ids, re_ids, re_rows):
+    """``mutate_durable``'s writer, serially: upserts of ``new_rows``,
+    deletes of ``del_ids`` and re-upserts of ``re_ids`` in batches of
+    DURABLE_BATCH (a delete batch after every third upsert batch, the
+    re-upserts last) → (the upserts' ids in order, each call's wall
+    seconds)."""
+    b = DURABLE_BATCH
+    got, walls = [], []
+    dels = iter(range(0, len(del_ids), b))
+    for j in range(0, len(new_rows), b):
+        t0 = time.perf_counter()
+        got.append(m.upsert(new_rows[j:j + b]))
+        walls.append(time.perf_counter() - t0)
+        if (j // b) % 3 == 2:
+            s = next(dels, None)
+            if s is not None:
+                t0 = time.perf_counter()
+                m.delete(del_ids[s:s + b])
+                walls.append(time.perf_counter() - t0)
+    for s in dels:
+        t0 = time.perf_counter()
+        m.delete(del_ids[s:s + b])
+        walls.append(time.perf_counter() - t0)
+    for s in range(0, len(re_ids), b):
+        t0 = time.perf_counter()
+        m.upsert(re_rows[s:s + b], ids=re_ids[s:s + b])
+        walls.append(time.perf_counter() - t0)
+    return np.concatenate(got), walls
+
+
+@contextlib.contextmanager
+def timed_fsyncs(wal):
+    """Time each ``flush`` + ``fsync`` of ``wal`` (one a mutation batch)
+    into the yielded list."""
+    walls = []
+    real = wal._flush
+
+    def flush():
+        t0 = time.perf_counter()
+        real()
+        walls.append(time.perf_counter() - t0)
+
+    wal._flush = flush
+    try:
+        yield walls
+    finally:
+        wal._flush = real
+
+
+def run_mutate_durable(index, x, q, seed: int):
+    """Phase 3 ``mutate_durable`` on the main IVF-Flat index: a
+    ``MutableIndex`` with a WAL (fsync, no checkpoint) takes serve_mutate's
+    writes in batches of DURABLE_BATCH (the fsync's and each call's wall
+    seconds, p50/p99); the object is dropped, ``MutableIndex.recover``
+    replays the log onto the base index (seconds, records); fails unless
+    the recovered ids on the 256 queries are the live ones, every upserted
+    row is its own rank-0 hit and no deleted id comes back. Then the
+    checkpoint mode on a 1M-row cut: one fold promotes the checkpoint and
+    rewrites the log (a meta record first, sequence numbers still rising),
+    and ``recover`` from the checkpoint and the log gives the live ids
+    (checkpoint seconds and bytes)."""
+    import shutil
+    from raft_tpu_torch import mutate, obs, ops
+    from raft_tpu_torch.mutate import wal as wal_mod
+    from raft_tpu_torch.neighbors import ivf_flat
+    n, dev = x.shape[0], x.device
+    params = ivf_flat.SearchParams(n_probes=N_PROBES)
+    gen = np.random.default_rng(seed + 201)
+    picked = gen.choice(n, MUTATE_DELETES + MUTATE_REUPSERTS, replace=False)
+    re_ids = picked[:MUTATE_REUPSERTS].astype(np.int32)
+    del_ids = picked[MUTATE_REUPSERTS:].astype(np.int64)
+    new_rows = mixture_rows(n, MUTATE_UPSERTS, seed, seed + 202, dev)
+    re_rows = mixture_rows(n, MUTATE_REUPSERTS, seed, seed + 203, dev)
+    new_np, re_np = new_rows.cpu().numpy(), re_rows.cpu().numpy()
+    out = os.path.join(OUT_DIR, "durable")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    wal_p = os.path.join(out, "m.wal")
+    ops.reset_launch_counts()
+    try:
+        m = mutate.MutableIndex(index, k=K, params=params)
+        wal = wal_mod.MutationWAL(wal_p, sync=True)
+        m.attach_wal(wal)
+        t0 = time.perf_counter()
+        with timed_fsyncs(wal) as fsyncs:
+            up_ids, walls = durable_writes(m, new_np, del_ids, re_ids, re_np)
+        write_s = time.perf_counter() - t0
+        live = search_all(m, q)
+        stats = m.stats()
+        wal_bytes = os.path.getsize(wal_p)
+        del m, wal          # the process "dies": nothing is closed
+        gc.collect()
+        before = obs.snapshot()
+        t0 = time.perf_counter()
+        m2 = mutate.MutableIndex.recover(wal_p, k=K, base_index=index,
+                                         params=params)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        records = counter_deltas(before, obs.snapshot(), "raft.mutate.wal.")
+        if m2.stats() != stats:
+            fail(f"mutate_durable: recovered {m2.stats()}, live {stats}")
+        back = search_all(m2, q)
+        if not np.array_equal(back, live):
+            fail(f"mutate_durable: recovered ids differ from the live ones "
+                 f"on {int((back != live).sum())} entries")
+        self_new = search_all(m2, new_rows)[:, 0] == up_ids
+        self_re = search_all(m2, re_rows)[:, 0] == re_ids
+        self_hit = float(np.concatenate([self_new, self_re]).mean())
+        if self_hit < 1.0:
+            fail(f"mutate_durable: upserted rows find themselves at rank 0 "
+                 f"on {self_hit:.6f} after recovery")
+        dead = search_all(m2, x[torch.from_numpy(del_ids).to(dev)])
+        if np.isin(dead, del_ids).any():
+            fail("mutate_durable: a deleted id came back after recovery")
+        del m2
+        launches_log = ops.launch_counts()
+
+        # the checkpoint mode on the 1M-row cut
+        rows = min(n, DURABLE_CKPT_ROWS)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        small = ivf_flat.build(x[:rows], ivf_flat.IndexParams(
+            n_lists=N_LISTS, kmeans_n_iters=KMEANS_ITERS))
+        torch.cuda.synchronize()
+        small_build_s = time.perf_counter() - t0
+        ckpt_p, wal2_p = os.path.join(out, "m.ckpt"), os.path.join(out,
+                                                                   "c.wal")
+        m3 = mutate.MutableIndex(small, k=K, params=params)
+        m3.attach_wal(wal_mod.MutationWAL(wal2_p, sync=True),
+                      checkpoint_path=ckpt_p)
+        m3.upsert(new_np[:DURABLE_CKPT_UPSERTS])
+        m3.delete(np.arange(0, rows, rows // 512)[:512])
+        last_seq = wal_mod.MutationWAL(wal2_p, sync=False).replay()[-1].seq
+        with timed_parts([(mutate.MutableIndex, "_checkpoint_epoch",
+                           "checkpoint"),
+                          (mutate.MutableIndex, "_swap_epoch", "swap")]
+                         ) as (parts, _):
+            t0 = time.perf_counter()
+            if not m3.compact():
+                fail("mutate_durable: the fold did not run")
+            fold_s = time.perf_counter() - t0
+        recs = wal_mod.MutationWAL(wal2_p, sync=False).replay()
+        if not recs or recs[0].op != wal_mod.OP_META or \
+                recs[0].seq <= last_seq or \
+                any(b.seq != a.seq + 1 for a, b in zip(recs, recs[1:])):
+            fail(f"mutate_durable: the log was not rewritten to a meta "
+                 f"record at a rising sequence number: "
+                 f"{[(r.op, r.seq) for r in recs][:4]} after {last_seq}")
+        ckpt_bytes = os.path.getsize(ckpt_p)
+        m3.upsert(re_np[:DURABLE_BATCH])
+        m3.delete([1, 2, 3])
+        live3 = search_all(m3, q)
+        stats3 = m3.stats()
+        del m3
+        gc.collect()
+        t0 = time.perf_counter()
+        m4 = mutate.MutableIndex.recover(wal2_p, k=K,
+                                         checkpoint_path=ckpt_p,
+                                         params=params)
+        torch.cuda.synchronize()
+        ckpt_replay_s = time.perf_counter() - t0
+        if m4.index.device != dev or m4.stats() != stats3:
+            fail(f"mutate_durable: checkpoint recovery gave {m4.stats()} "
+                 f"on {m4.index.device}, live {stats3}")
+        if not np.array_equal(search_all(m4, q), live3):
+            fail("mutate_durable: ids after checkpoint recovery differ "
+                 "from the live ones")
+        del m4, small
+        launches_ckpt = ops.launch_counts()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    check_launched("mutate_durable", launches_log, ("select_k",
+                                                    "ivf_scan"))
+    check_launched("mutate_durable (checkpoint)", launches_ckpt,
+                   ("fused_l2_nn", "select_k", "ivf_scan"))
+    pct = lambda a: [float(v) * 1e3 for v in  # noqa: E731
+                     np.percentile(a, [50, 99])]
+    phase("mutate_durable", n=n, upserts=MUTATE_UPSERTS,
+          deletes=MUTATE_DELETES, reupserts=MUTATE_REUPSERTS,
+          batch=DURABLE_BATCH, batches=len(walls), write_s=write_s,
+          fsync_ms_p50_p99=pct(fsyncs), fsyncs=len(fsyncs),
+          call_ms_p50_p99=pct(walls), wal_mb=wal_bytes / 1e6,
+          replay_s=replay_s, wal_counters=records,
+          records_replayed=records.get("raft.mutate.wal.replayed.total", 0),
+          stats=stats, ids_equal_live=True, self_hit_rank0=self_hit,
+          deleted_returned=0, launches=launches_log,
+          ckpt_cut={"rows": rows, "note": "the checkpoint mode runs on the "
+                    "first rows: a checkpoint writes the whole folded "
+                    "index to local disk"},
+          ckpt_build_s=small_build_s, fold_s=fold_s,
+          checkpoint_s=parts["checkpoint"], swap_s=parts["swap"],
+          checkpoint_gb=ckpt_bytes / 1e9, ckpt_log_records=len(recs),
+          ckpt_recover_s=ckpt_replay_s, ckpt_ids_equal_live=True,
+          ckpt_launches=launches_ckpt)
+    free_phase("mutate_durable")
+
+
 def mutate_tail_rows(m, qb, rows, ids, params, launches: dict):
     """Kernel 2 at the mutable tail's shapes on ``m``'s current epoch:
     the column select on the scores of ``qb`` against a delta segment at
@@ -2168,6 +2611,8 @@ def run_flat(x, q, q_np, truth, args):
     quality_row = run_serve_quality(index, q_np, truth, x.shape[0], served)
     run_serve_obs(index, q_np, truth, served)
     mutate_rows = run_serve_mutate(index, x, q, q_np, served, args.seed)
+    tiered_rows = run_serve_tiered(index, x, q, q_np, truth, served)
+    run_mutate_durable(index, x, q, args.seed)
     wide_launches = run_wide_flat(index, q, truth)
     row, wide_row, rows = check_flat_scans(index, q)
     pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,
@@ -2175,8 +2620,8 @@ def run_flat(x, q, q_np, truth, args):
                           "raft_tpu/ops/pallas_ivf_scan.py:241")
     del index, rows
     free_phase("flat")
-    return ([row, pass_b, quality_row] + mutate_rows, launches, [wide_row],
-            wide_launches)
+    return ([row, pass_b, quality_row] + mutate_rows + tiered_rows, launches,
+            [wide_row], wide_launches)
 
 
 def run_flat_narrow(x, q, q_np, truth, args, storage: str):

@@ -26,11 +26,15 @@ Quick use::
     dists, ids = srv.search(queries)     # live view, through the batcher
     comp.close(); srv.close()
 
-Observability: the ``raft.mutate.*`` counters and gauges and the
-``raft.mutate.compact`` span, as in the JAX package. The mutation WAL
-(``MutationWAL``, ``attach_wal``, ``recover``) is ROADMAP.md queue 1 item
-7, with the fleet that reads its byte format; the mesh-wide half
-(``register_dist``, ``build_dist_serve_ladder``) is item 6.
+Durability: ``m.attach_wal(MutationWAL(path), checkpoint_path=...)``
+logs every mutation (fsync'd before it is applied) and
+``MutableIndex.recover(path, k, base_index=...)`` replays them after a
+crash; the log's byte format is the JAX package's.
+
+Observability: the ``raft.mutate.*`` counters and gauges (the WAL's under
+``raft.mutate.wal.*``) and the ``raft.mutate.compact`` span, as in the JAX
+package. The mesh-wide half (``register_dist``,
+``build_dist_serve_ladder``) is ROADMAP.md queue 1 item 6.
 """
 
 from raft_tpu_torch.mutate.compactor import Compactor
@@ -38,12 +42,14 @@ from raft_tpu_torch.mutate.mutable import (MutableIndex,
                                            build_dist_serve_ladder,
                                            build_serve_ladder)
 from raft_tpu_torch.mutate.types import DeltaFullError, MutateConfig
+from raft_tpu_torch.mutate.wal import MutationWAL
 
 __all__ = [
     "Compactor",
     "DeltaFullError",
     "MutableIndex",
     "MutateConfig",
+    "MutationWAL",
     "build_dist_serve_ladder",
     "build_serve_ladder",
 ]

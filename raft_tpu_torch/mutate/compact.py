@@ -11,12 +11,15 @@ Two modes (``MutateConfig.compact_mode``):
   set). No re-training: the steady-state mode.
 * **rebuild** — re-train from scratch on the live corpus (IVF-Flat only:
   flat lists dequantize back to the rows) through ``ivf_flat.build``: the
-  periodic centre refresh that bounds drift after many folds.
+  periodic centre refresh that bounds drift after many folds. With a
+  host-streaming chunk budget (``stream_chunk > 0``,
+  ``MutateConfig.rebuild_stream_chunk``) the rows go back to the host and
+  the rebuild runs ``host_memory.build_streaming`` over chunks of that
+  many rows (device memory O(chunk + 4 * chunk training rows)), and the
+  host lists come back to the device as an ``ivf_flat.Index``.
 
-The JAX package's other rebuild routes wait for their modules: a mesh
-(its sharded build, ROADMAP.md queue 1 item 6) and a host-streaming chunk
-budget (``host_memory.build_streaming``, item 7) raise
-``NotImplementedError``.
+The JAX package's mesh rebuild (its sharded build, ROADMAP.md queue 1
+item 6) raises ``NotImplementedError``.
 
 Everything here runs on the compactor thread against a frozen snapshot;
 tensors stay on the wrapped index's device. A purged index gets a fresh
@@ -103,7 +106,7 @@ def fold(index, delta_rows, delta_ids, tombstoned_ids,
     """Produce the next epoch's index from the frozen snapshot: purge the
     tombstones, then absorb the live delta rows (numpy or tensors, moved
     to the index's device). See the module note for the two modes;
-    ``mesh`` and ``stream_chunk > 0`` raise ``NotImplementedError``."""
+    ``mesh`` raises ``NotImplementedError``."""
     from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
     _mesh_not_ported(mesh)
     fam = _family(index)
@@ -132,11 +135,6 @@ def _rebuild(purged, delta_rows, delta_ids, mesh=None,
     periodic centre refresh, on the purged index's device."""
     from raft_tpu_torch.neighbors import ivf_flat
     _mesh_not_ported(mesh)
-    if stream_chunk > 0:
-        raise NotImplementedError(
-            "mutate: a host-streaming rebuild (rebuild_stream_chunk > 0, "
-            "host_memory.build_streaming) is not ported yet (ROADMAP.md "
-            "queue 1 item 7)")
     old_rows, old_ids = reconstruct_rows(purged)
     rows = torch.cat([old_rows, delta_rows])
     ids = torch.cat([old_ids, delta_ids])
@@ -145,8 +143,42 @@ def _rebuild(purged, delta_rows, delta_ids, mesh=None,
         params = ivf_flat.IndexParams(
             n_lists=purged.n_lists, metric=purged.metric,
             kmeans_n_iters=10)
+    if stream_chunk > 0:
+        from raft_tpu_torch.neighbors.host_memory import build_streaming
+        host_rows = rows.cpu().numpy()
+        del rows
+
+        def chunks():
+            for s in range(0, host_rows.shape[0], stream_chunk):
+                yield host_rows[s:s + stream_chunk]
+
+        built = build_streaming(chunks(), params=params,
+                                train_rows=min(host_rows.shape[0],
+                                               4 * stream_chunk),
+                                device=purged.device)
+        built = _as_device_flat(built, purged.metric)
+        return _renumber(built, ids)
     return _renumber(ivf_flat.build(rows, params, device=purged.device),
                      ids)
+
+
+def _as_device_flat(host_index, metric):
+    """A host-resident streaming build as an ``ivf_flat.Index`` on its
+    centres' device (the rebuild path serves device-resident)."""
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.neighbors.host_memory import _fetch
+    if isinstance(host_index, ivf_flat.Index):
+        return host_index
+    dev = host_index.device
+    ids = _fetch(host_index.lists_indices, dev)
+    return ivf_flat.Index(
+        centers=host_index.centers,
+        lists_data=_fetch(host_index.lists_data, dev),
+        lists_indices=ids,
+        lists_norms=_fetch(host_index.lists_norms, dev),
+        list_sizes=(ids >= 0).sum(dim=1).to(torch.int32),
+        metric=metric, size=int(host_index.size),
+        scale=float(host_index.scale))
 
 
 def _renumber(index, row_ids):

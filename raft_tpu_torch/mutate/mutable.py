@@ -34,16 +34,25 @@ mutate, the serving dispatcher searches, the compactor folds; all state
 hand-off happens under ``self._cond``, and device work and program
 preparation run outside the lock against immutable snapshots.
 
-Not ported yet: the mutation WAL (``attach_wal``, ``recover``; ROADMAP.md
-queue 1 item 7, with the fleet that reads its byte format) and the
-mesh-wide serving half (``register_dist``, ``build_dist_serve_ladder``;
-item 6). Both raise ``NotImplementedError``.
+Durability: with a :class:`~raft_tpu_torch.mutate.wal.MutationWAL`
+attached (:meth:`MutableIndex.attach_wal`), every upsert and delete
+appends and fsyncs its record under the index lock BEFORE the in-memory
+change, so :meth:`MutableIndex.recover` replays every acknowledged
+mutation after process death. With a checkpoint path, each compaction
+saves the folded inner index (``serialize.save``) and, at the epoch swap,
+promotes it (``os.replace``) and rewrites the log to the still-pending
+tail.
+
+Not ported yet: the mesh-wide serving half (``register_dist``,
+``build_dist_serve_ladder``; ROADMAP.md queue 1 item 6), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -60,13 +69,14 @@ from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.mutate import compact as compact_mod
 from raft_tpu_torch.mutate import program as program_mod
 from raft_tpu_torch.mutate.types import DeltaFullError, MutateConfig
+from raft_tpu_torch.mutate.wal import (OP_DELETE, OP_META, OP_UPSERT,
+                                       MutationWAL)
 from raft_tpu_torch.obs import profiler, spans
 from raft_tpu_torch.testing import faults
 
 __all__ = ["MutableIndex", "build_serve_ladder",
            "build_dist_serve_ladder"]
 
-_WAL_ITEM = "ROADMAP.md queue 1 item 7"
 _MESH_ITEM = "ROADMAP.md queue 1 item 6"
 
 
@@ -132,7 +142,8 @@ class MutableIndex:
                   "_delta_ids", "_delta_used", "_delta_live",
                   "_delta_map", "_tomb", "_tomb_ids", "_next_id",
                   "_compacting", "_frozen_id_base", "_pending_tombs",
-                  "_rep", "_rungs", "_grid", "_epoch_listeners")
+                  "_rep", "_rungs", "_grid", "_wal", "_wal_ckpt",
+                  "_epoch_listeners")
 
     def __init__(self, index, k: int, params=None,
                  config: Optional[MutateConfig] = None):
@@ -176,6 +187,8 @@ class MutableIndex:
             self._rungs: Tuple[int, ...] = (
                 min(self.params.n_probes, index.n_lists),)
             self._grid: set = set()
+            self._wal: Optional[MutationWAL] = None
+            self._wal_ckpt: Optional[str] = None
             self._epoch_listeners: Tuple = ()
             self._dev: Optional[_DeviceState] = None
             self._push_dev_locked()
@@ -278,6 +291,18 @@ class MutableIndex:
                 raise DeltaFullError(
                     f"delta segment full ({self._delta_used}+{n} > "
                     f"top rung {top}): waiting on compaction")
+            if self._wal is not None:
+                # write-ahead: the record is durable (fsync'd) BEFORE
+                # the in-memory apply, so an ack implies recoverability;
+                # an append that made it to disk without the apply
+                # (crash in between) replays harmlessly — the caller
+                # was never acked, and at-least-once replay of explicit
+                # ids reproduces the same logical state.  The fsync
+                # MUST happen under the mutation lock (GL008): the log
+                # must preserve the total mutation order the lock
+                # defines, and durable-before-apply is only atomic
+                # while the lock pins the apply.
+                self._wal.append_upsert(ids_arr, x)  # graftlint: disable=GL008
             slots = np.arange(self._delta_used, self._delta_used + n)
             self._delta_data[slots] = x
             self._delta_norms[slots] = (x * x).sum(axis=1)
@@ -306,6 +331,11 @@ class MutableIndex:
         ids_arr = np.asarray(ids, np.int64).reshape(-1)
         hit = 0
         with self._cond:
+            if self._wal is not None:
+                # same justified hold as upsert's append (GL008): the
+                # WAL's total-order + durable-before-apply contract is
+                # defined BY this lock
+                self._wal.append_delete(ids_arr)  # graftlint: disable=GL008
             for id_ in ids_arr:
                 id_ = int(id_)
                 dead = False
@@ -643,9 +673,19 @@ class MutableIndex:
             raise
 
     def _checkpoint_epoch(self, new_index) -> Optional[str]:
-        """The WAL checkpoint of a folded index: None, since no WAL can
-        be attached yet (``attach_wal``, ROADMAP.md queue 1 item 7)."""
-        return None
+        """Save the folded inner index beside the WAL checkpoint path (a
+        tmp file; the swap promotes it atomically) through
+        ``serialize.save`` → the tmp path. None when no WAL or no
+        checkpoint is configured: then the log is never truncated and
+        recovery replays it in full onto the original base index."""
+        with self._cond:
+            wal, ckpt = self._wal, self._wal_ckpt
+        if wal is None or not ckpt:
+            return None
+        from raft_tpu_torch.neighbors import serialize
+        tmp = ckpt + ".tmp"
+        serialize.save(new_index, tmp)
+        return tmp
 
     def _swap_epoch(self, new_epoch: _Epoch, freeze_used: int,
                     new_id_base: int,
@@ -676,14 +716,38 @@ class MutableIndex:
                 _set_tomb_bit(self._tomb, id_)
             self._epoch = new_epoch
             self._compacting = False
+            if self._wal is not None and ckpt_tmp is not None:
+                # promote the checkpoint, then truncate the log to the
+                # still-pending tail: deletes first, then live tail
+                # upserts, so a replayed tail upsert re-shadows its
+                # tombstoned main row (both steps atomic; a crash
+                # between them replays the old full log onto the new
+                # checkpoint — at-least-once, same logical state)
+                os.replace(ckpt_tmp, self._wal_ckpt)
+                live = self._delta_ids[:self._delta_used] >= 0
+                # justified hold (GL008): the checkpoint promotion and
+                # the log truncation to the still-pending tail must be
+                # atomic with the epoch swap itself — a mutation landing
+                # between swap and rewrite would be lost from the log;
+                # this runs once per compaction, on the compactor thread
+                self._wal.rewrite(  # graftlint: disable=GL008
+                    meta={"epoch": new_epoch.number,
+                          "id_base": new_epoch.id_base,
+                          "next_id": self._next_id},
+                    tomb_ids=np.asarray(sorted(self._tomb_ids),
+                                        np.int64),
+                    upsert_ids=self._delta_ids[:self._delta_used][live],
+                    upsert_rows=self._delta_data[:self._delta_used][live])
             self._push_dev_locked()
             self._cond.notify_all()
 
     def apply_meta(self, meta: dict) -> "MutableIndex":
         """Restore the epoch and id-space counters a checkpointed inner
-        index was folded under, before any mutation is applied (the WAL's
-        meta record, when the WAL comes). ``id_base`` may exceed the
-        inner index's row count: ids are a space, rows a count."""
+        index was folded under, before any mutation is applied: the WAL
+        meta record at the head of a post-compaction log, applied by
+        :meth:`recover` before it replays the tail. ``id_base`` may
+        exceed the inner index's row count: ids are a space, rows a
+        count."""
         with self._cond:
             expects(self._delta_used == 0 and not self._tomb_ids,
                     "mutate.apply_meta: only valid before any mutation "
@@ -699,24 +763,76 @@ class MutableIndex:
             self._push_dev_locked()
         return self
 
-    # -- durability: not ported --------------------------------------------
-    def attach_wal(self, wal, checkpoint_path: Optional[str] = None
+    # -- durability: the mutation WAL --------------------------------------
+    def attach_wal(self, wal: MutationWAL,
+                   checkpoint_path: Optional[str] = None
                    ) -> "MutableIndex":
-        """Write-ahead logging of every mutation: not ported yet."""
-        raise NotImplementedError(
-            "mutate.attach_wal: the mutation WAL is not ported yet "
-            f"({_WAL_ITEM})")
+        """Make every acknowledged mutation durable: subsequent
+        ``upsert`` / ``delete`` calls append + fsync their WAL record
+        BEFORE the in-memory apply, so :meth:`recover` replays 100% of
+        them after process death. ``checkpoint_path`` also lets
+        compactions truncate the log: the folded inner index is saved
+        there (tmp + atomic replace at the epoch swap) and the WAL is
+        rewritten to the still-pending tail; without it the log grows and
+        recovery replays it in full onto the original base index."""
+        with self._cond:
+            self._wal = wal
+            self._wal_ckpt = checkpoint_path
+        return self
 
     @classmethod
     def recover(cls, wal_path: str, k: int, base_index=None,
                 checkpoint_path: Optional[str] = None, params=None,
                 config: Optional[MutateConfig] = None,
-                sync: bool = True) -> "MutableIndex":
-        """Replay of the mutation WAL after process death: not ported
-        yet."""
-        raise NotImplementedError(
-            "mutate.recover: the mutation WAL is not ported yet "
-            f"({_WAL_ITEM})")
+                sync: bool = True, device=None) -> "MutableIndex":
+        """Rebuild the live mutable state after process death: load the
+        latest durable inner index (the compaction checkpoint when one
+        exists, through ``serialize.load`` onto ``device``: by default
+        ``base_index``'s device, else ``cuda``; else ``base_index``, the
+        index the WAL was started against), replay every acknowledged
+        mutation from the log in order, and re-attach the log for new
+        writes. Replay is at-least-once over explicit ids, so a record
+        that was fsync'd but never acknowledged reproduces the same
+        logical state; a replay that overflows the delta segment
+        compacts inline and continues — recovery never fails on
+        volume."""
+        from raft_tpu_torch.neighbors import serialize
+        if device is None:
+            device = (base_index.device if base_index is not None
+                      else "cuda")
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            inner = serialize.load(checkpoint_path, device=device)
+        else:
+            inner = base_index
+        expects(inner is not None,
+                "mutate.recover: no checkpoint at %r and no base_index "
+                "— recovery needs the index the WAL was started "
+                "against", checkpoint_path)
+        wal = MutationWAL(wal_path, sync=sync)
+        records = wal.replay()
+        m = cls(inner, k=int(k), params=params, config=config)
+        if records and records[0].op == OP_META:
+            m.apply_meta(records[0].meta)
+            records = records[1:]
+        top = m.cfg.delta_capacities[-1]
+        for rec in records:
+            if rec.op == OP_DELETE:
+                m.delete(rec.ids)
+            elif rec.op == OP_UPSERT:
+                ids32 = np.asarray(rec.ids, np.int32)
+                # chunk to the top rung: the log may have been written
+                # under a LARGER delta budget than the recovering
+                # process configures
+                for s in range(0, ids32.shape[0], top):
+                    try:
+                        m.upsert(rec.rows[s:s + top],
+                                 ids=ids32[s:s + top])
+                    except DeltaFullError:
+                        m.compact()
+                        m.upsert(rec.rows[s:s + top],
+                                 ids=ids32[s:s + top])
+        m.attach_wal(wal, checkpoint_path=checkpoint_path)
+        return m
 
     # -- persistence (neighbors/serialize.py) ------------------------------
     def export_state(self) -> dict:

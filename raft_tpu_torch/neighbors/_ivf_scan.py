@@ -16,8 +16,10 @@ exact per-(list, query) candidates, then :func:`merge_candidates`.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from raft_tpu_torch import obs
@@ -98,16 +100,24 @@ def coarse_probes(queries: torch.Tensor, centers: torch.Tensor,
 def probe_major_search(queries, centers, n_probes: int, k: int, sqrt: bool,
                        kind: str, score_probe):
     """The probe-major route (the JAX package's XLA scans): coarse scores
-    + the top ``n_probes`` by a stable sort, then per probe rank
-    ``score_probe(list_ids (nq,)) -> (scores (nq, max_list), ids)``
-    merged into the running top-k (stable: the state wins ties, as
-    ``lax.top_k`` breaks them) → (dists, ids), best first."""
+    + the top ``n_probes`` by a stable sort, then :func:`probe_scan` →
+    (dists, ids), best first."""
     coarse = coarse_scores(queries, centers, kind)
     probes = stable_topk_min(coarse, n_probes)[1]
-    nq = queries.shape[0]
-    best_d = torch.full((nq, k), float("inf"), device=queries.device)
+    return probe_scan(probes, k, sqrt, score_probe)
+
+
+def probe_scan(probes: torch.Tensor, k: int, sqrt: bool, score_probe):
+    """The probe-major merge step: per probe rank ``p``,
+    ``score_probe(probes[:, p]) -> (scores (nq, max_list), ids)`` merged
+    into the running top-k (stable: the state wins ties, as
+    ``lax.top_k`` breaks them) → (dists, ids), best first. ``probes``
+    (nq, n_probes) holds whatever the scorer indexes: list ids of the
+    resident lists, or positions in a fetched or tiered sub-table."""
+    nq, n_probes = probes.shape
+    best_d = torch.full((nq, k), float("inf"), device=probes.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int32,
-                        device=queries.device)
+                        device=probes.device)
     for p in range(n_probes):
         d, ids = score_probe(probes[:, p])
         best_d, sel = stable_topk_min(torch.cat([best_d, d], dim=1), k)
@@ -115,6 +125,78 @@ def probe_major_search(queries, centers, n_probes: int, k: int, sqrt: bool,
     if sqrt:
         best_d = torch.sqrt(torch.clamp(best_d, min=0.0))
     return best_d, best_i
+
+
+class ProbeStats:
+    """Bounded host-side per-list probe-mass accumulator: the hotness
+    signal the tiered placement policy reads. One ``np.bincount`` per
+    batch over the coarse output already on the host. Memory is bounded:
+    when more than ``2 * bound`` lists are tracked, the tail below the
+    top ``bound`` by mass is dropped (probe mass is heavy-headed; that
+    tail is the cold set)."""
+
+    GUARDED_BY = ("_mass", "_batches", "_total")
+
+    def __init__(self, bound: int = 4096):
+        self._lock = threading.Lock()
+        self._bound = max(1, int(bound))
+        self._mass: dict = {}
+        self._batches = 0
+        self._total = 0
+
+    def note(self, probes_np) -> None:
+        """Fold one coarse output (any int array of list ids) in."""
+        flat = np.asarray(probes_np).reshape(-1)
+        if flat.size == 0:
+            return
+        counts = np.bincount(flat)
+        nz = np.nonzero(counts)[0]
+        with self._lock:
+            self._batches += 1
+            self._total += int(flat.size)
+            for lid in nz:
+                li = int(lid)
+                self._mass[li] = self._mass.get(li, 0) + int(counts[li])
+            if len(self._mass) > 2 * self._bound:
+                keep = sorted(self._mass.items(),
+                              key=lambda kv: (-kv[1], kv[0]))
+                self._mass = dict(keep[:self._bound])
+
+    def histogram(self, n: int = 16):
+        """Top-``n`` ``(list_id, probe_mass)`` pairs, mass-descending
+        (ties by list id)."""
+        with self._lock:
+            items = sorted(self._mass.items(),
+                           key=lambda kv: (-kv[1], kv[0]))
+        return items[:max(0, int(n))]
+
+    def reset(self) -> None:
+        with self._lock:
+            self._mass = {}
+            self._batches = 0
+            self._total = 0
+
+
+_GLOBAL_PROBE_STATS = ProbeStats()
+
+
+def note_probes(probes_np, stats: Optional[ProbeStats] = None) -> None:
+    """Export per-list probe mass from one coarse output on the host:
+    the ``raft.ivf_scan.probes.{batches,mass}`` counters plus the bounded
+    top-N tracker behind :func:`probe_histogram` (and ``stats``, when
+    given)."""
+    flat = np.asarray(probes_np)
+    obs.counter("raft.ivf_scan.probes.batches").inc()
+    obs.counter("raft.ivf_scan.probes.mass").inc(int(flat.size))
+    _GLOBAL_PROBE_STATS.note(flat)
+    if stats is not None:
+        stats.note(flat)
+
+
+def probe_histogram(n: int = 16):
+    """Top-``n`` hottest lists by cumulative probe mass, process-wide
+    (the ``raft.ivf_scan.probes.*`` tracker)."""
+    return _GLOBAL_PROBE_STATS.histogram(n)
 
 
 def gather_query_rows(queries: torch.Tensor, qmap: torch.Tensor):

@@ -15,9 +15,11 @@ loaded as a ``torch.bfloat16`` tensor; int8 rows are stored as int8, their
 ``scale`` in the meta. A mutable index (format ``mutable``: meta ``k,
 epoch, id_base, next_id``) embeds its inner index's file as bytes
 (``inner``) beside its pending delta rows (``delta_data``, ``delta_ids``)
-and tombstone ids (``tomb_ids``): the ids, not the bitmap. The JAX
-package's host-memory IVF-Flat format is not ported: ``load`` raises
-``NotImplementedError`` on it.
+and tombstone ids (``tomb_ids``): the ids, not the bitmap. A host-memory
+IVF-Flat index (format ``host_ivf_flat``: meta ``metric, size, scale``)
+stores its centres and its host lists (``lists_data``, ``lists_indices``,
+``lists_norms``); loading keeps the lists in host numpy and puts only the
+centres on the device.
 """
 
 from __future__ import annotations
@@ -218,14 +220,56 @@ def load_mutable(path: str, params=None, config=None, device="cuda"):
                                 config=config)
 
 
-# formats of the JAX package the port does not hold yet, by ROADMAP.md item
-_NOT_PORTED = {"host_ivf_flat": "queue 1 item 7"}
+_HOST_FIELDS = ("centers", "lists_data", "lists_indices", "lists_norms")
+
+
+def save_host_ivf_flat(index, path: str) -> None:
+    """Write a host-resident
+    :class:`~raft_tpu_torch.neighbors.host_memory.HostIvfFlat`; the list
+    arrays stream from host numpy (bfloat16 rows, held as uint16 bit
+    patterns, are written as the JAX package writes bfloat16)."""
+    from raft_tpu_torch.neighbors.host_memory import _host_tensor
+    data = index.lists_data
+    _pack(path, "host_ivf_flat",
+          {"metric": int(index.metric), "size": int(index.size),
+           "scale": float(index.scale)},
+          {"centers": index.centers,
+           "lists_data": (_host_tensor(data) if data.dtype == np.uint16
+                          else data),
+           "lists_indices": index.lists_indices,
+           "lists_norms": index.lists_norms})
+
+
+def load_host_ivf_flat(path: str, device="cuda"):
+    """Read a host-resident index written by either package: the lists
+    stay in host numpy; only the coarse centres go to ``device``
+    (default ``cuda``)."""
+    from raft_tpu_torch.distance.distance_types import DistanceType
+    from raft_tpu_torch.neighbors.host_memory import (HostIvfFlat,
+                                                      _host_array)
+    from raft_tpu_torch.neighbors.ivf_flat import _host_array as _writable
+    meta, a = _unpack(path, "host_ivf_flat", _HOST_FIELDS)
+    dev = torch.device(device)
+
+    def host(name, dtype=None):
+        v = a[name]
+        return (_host_array(v) if isinstance(v, torch.Tensor)
+                else _writable(v, dtype))
+
+    return HostIvfFlat(
+        centers=torch.from_numpy(_writable(a["centers"], np.float32)).to(dev),
+        lists_data=host("lists_data"),
+        lists_norms=host("lists_norms", np.float32),
+        lists_indices=host("lists_indices", np.int32),
+        metric=DistanceType(int(meta["metric"])), size=int(meta["size"]),
+        scale=float(meta.get("scale", 1.0)))
 
 
 def save(index, path: str) -> None:
     """Type-dispatching save for the port's index types."""
     from raft_tpu_torch.mutate import MutableIndex
     from raft_tpu_torch.neighbors import ball_cover, ivf_bq, ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors.host_memory import HostIvfFlat
     if isinstance(index, MutableIndex):
         save_mutable(index, path)
     elif isinstance(index, ivf_flat.Index):
@@ -234,6 +278,8 @@ def save(index, path: str) -> None:
         save_ivf_pq(index, path)
     elif isinstance(index, ivf_bq.Index):
         save_ivf_bq(index, path)
+    elif isinstance(index, HostIvfFlat):
+        save_host_ivf_flat(index, path)
     elif isinstance(index, ball_cover.BallCoverIndex):
         save_ball_cover(index, path)
     else:
@@ -247,12 +293,8 @@ def load(path: str, device="cuda"):
         meta = json.loads(bytes(z["__meta__"]).decode())
     fmt = meta.get("format")
     readers = {"ivf_flat": load_ivf_flat, "ivf_pq": load_ivf_pq,
-               "ivf_bq": load_ivf_bq, "ball_cover": load_ball_cover,
-               "mutable": load_mutable}
+               "ivf_bq": load_ivf_bq, "host_ivf_flat": load_host_ivf_flat,
+               "ball_cover": load_ball_cover, "mutable": load_mutable}
     if fmt in readers:
         return readers[fmt](path, device=device)
-    if fmt in _NOT_PORTED:
-        raise NotImplementedError(
-            f"serialize.load: the {fmt!r} format is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED[fmt]})")
     raise ValueError(f"serialize.load: unknown format {fmt!r} in {path}")

@@ -51,8 +51,9 @@ failure path:
 
 A :class:`~raft_tpu_torch.mutate.MutableIndex` is served through
 stable ladder handles that resolve its live epoch per call; with quality
-sampling on, its compactions roll the monitor's epoch. Not ported yet:
-tiered indexes.
+sampling on, its compactions roll the monitor's epoch. A
+:class:`~raft_tpu_torch.neighbors.tiered.TieredIndex` is served through
+its own plan grid (``tiered.build_ladder``), family ``tiered_ivf_flat``.
 
 Threading model: the dispatcher thread owns the batching; caller
 threads only touch numpy and futures. With the watchdog on, each
@@ -198,13 +199,15 @@ class SearchServer:
         IVF-Flat, IVF-PQ or IVF-BQ ``index`` and start serving;
         ``params`` defaults to the family's ``SearchParams``.
         ``rep_queries`` is the representative cap-measurement sample (as
-        for ``plan.build_plan``). A
+        for ``plan.build_plan``). A tiered index (``neighbors.tiered``)
+        serves through its own plans. A
         :class:`raft_tpu_torch.mutate.MutableIndex` is accepted too: its
         (shape x rung x delta-rung) grid is warmed instead, and the
         server keeps serving through every background compaction (the
         ladder's handles resolve the live epoch per call)."""
         from raft_tpu_torch.mutate import MutableIndex, build_serve_ladder
         from raft_tpu_torch.neighbors import plan as plan_mod
+        from raft_tpu_torch.neighbors.tiered import TieredIndex
         config = config if config is not None else ServeConfig()
         if isinstance(index, MutableIndex):
             family = index.family
@@ -221,7 +224,10 @@ class SearchServer:
         else:
             # the same resolver PlanLadder.build uses: an unsupported
             # index fails alike either way
-            family, _ = plan_mod._resolve_builder(index)
+            if isinstance(index, TieredIndex):
+                family = "tiered_ivf_flat"
+            else:
+                family, _ = plan_mod._resolve_builder(index)
             ladder = PlanLadder.build(index, rep_queries, k, params,
                                       shapes=config.batch_sizes,
                                       probes_ladder=config.probes_ladder,

@@ -66,8 +66,15 @@ class PlanLadder:
               prewarm: bool = True) -> "PlanLadder":
         """Prepare the full (shape x rung) grid from one representative
         query batch (tiled to each shape: the cap-measurement sample).
-        ``params`` defaults to the index family's ``SearchParams``."""
+        ``params`` defaults to the index family's ``SearchParams``. A
+        :class:`~raft_tpu_torch.neighbors.tiered.TieredIndex` builds its
+        own grid of tiered plans (``tiered.build_ladder``)."""
         from raft_tpu_torch.neighbors import plan as plan_mod
+        from raft_tpu_torch.neighbors import tiered as tiered_mod
+        if isinstance(index, tiered_mod.TieredIndex):
+            return tiered_mod.build_ladder(
+                index, rep_queries, k, params, shapes=shapes,
+                probes_ladder=probes_ladder, prewarm=prewarm)
         if params is None:
             params = plan_mod._default_params(
                 plan_mod._resolve_builder(index)[0])

@@ -47,6 +47,8 @@ ALLOWED_EXTRA = {
     ("neighbors.brute_force", "knn_merge_parts", "device"): _DEVICE,
     ("neighbors.epsilon_neighborhood", "eps_neighbors_l2sq", "device"):
         _DEVICE,
+    ("neighbors.host_memory", "build", "device"): _DEVICE,
+    ("neighbors.host_memory", "build_streaming", "device"): _DEVICE,
     ("neighbors.ivf_bq", "build", "device"): _DEVICE,
     ("neighbors.ivf_flat", "build", "device"): _DEVICE,
     ("neighbors.ivf_pq", "build", "device"): _DEVICE,
@@ -56,6 +58,7 @@ ALLOWED_EXTRA = {
     ("neighbors.refine", "refine", "device"): _DEVICE,
     ("neighbors.serialize", "load", "device"): _DEVICE,
     ("neighbors.serialize", "load_ball_cover", "device"): _DEVICE,
+    ("neighbors.serialize", "load_host_ivf_flat", "device"): _DEVICE,
     ("neighbors.serialize", "load_ivf_bq", "device"): _DEVICE,
     ("neighbors.serialize", "load_ivf_flat", "device"): _DEVICE,
     ("neighbors.serialize", "load_ivf_pq", "device"): _DEVICE,
@@ -255,10 +258,6 @@ def _unimplemented():
     return {
         "ServeConfig.failover": (lambda: ServeConfig(failover=True),
                                  "item 6"),
-        "MutableIndex.attach_wal": (
-            lambda: _mutable().attach_wal(object(), "ckpt.npz"), "item 7"),
-        "MutableIndex.recover": (
-            lambda: mutate.MutableIndex.recover("wal.log", k=3), "item 7"),
         "MutableIndex.register_dist": (
             lambda: _mutable().register_dist(object(), "data", _x(4, 8),
                                              shapes=(1,)), "item 6"),
@@ -267,8 +266,6 @@ def _unimplemented():
                                                    mesh=object()),
             "item 6"),
         "fold(mesh=...)": (_fold(mesh=object()), "item 6"),
-        "fold(stream_chunk>0)": (_fold(mode="rebuild", stream_chunk=64),
-                                 "item 7"),
     }
 
 
@@ -437,6 +434,83 @@ def test_walk_covers_the_failure_handling_modules():
         r = ns.SearchResult(1, 2, partial=True, coverage=0.25)
         assert tuple(r) == (1, 2) and (r.dists, r.ids) == (1, 2)
         assert (r.partial, r.coverage) == (True, 0.25)
+
+def _mutations(m):
+    """The same acknowledged mutations into ``m``: upserts, a delete of a
+    main row and of a delta row, a re-upsert → the upserted ids."""
+    ids = m.upsert(_x(6, 8) + 3.0)
+    m.delete([int(ids[0]), 5])
+    m.upsert(_x(2, 8) - 3.0, ids=[int(ids[1]), 7])
+    return ids
+
+
+def test_attach_wal_is_honoured(tmp_path):
+    """Mutations after ``attach_wal`` are in the log, fsync'd before they
+    are applied: one record a mutation call, in call order."""
+    from raft_tpu_torch.mutate.wal import MutationWAL
+    m = _mutable()
+    wal = MutationWAL(str(tmp_path / "m.wal"))
+    assert m.attach_wal(wal, str(tmp_path / "ckpt.npz")) is m
+    _mutations(m)
+    recs = MutationWAL(str(tmp_path / "m.wal"), sync=False).replay()
+    assert [r.op for r in recs] == [1, 2, 1]
+    assert [r.seq for r in recs] == [1, 2, 3]
+    np.testing.assert_array_equal(recs[1].ids, [m.index.size, 5])
+
+
+def test_recover_is_honoured(tmp_path):
+    """``recover`` replays the log onto the base index: the recovered
+    index answers as the live one did."""
+    from raft_tpu_torch import mutate
+    from raft_tpu_torch.mutate.wal import MutationWAL
+    m = _mutable()
+    m.attach_wal(MutationWAL(str(tmp_path / "m.wal"), sync=False))
+    _mutations(m)
+    back = mutate.MutableIndex.recover(str(tmp_path / "m.wal"), k=3,
+                                       base_index=m.index, config=m.cfg,
+                                       sync=False)
+    assert back.stats() == m.stats()
+    q = _x(12, 8)
+    assert torch.equal(back.search(q, block=True)[1],
+                       m.search(q, block=True)[1])
+
+
+def test_fold_stream_chunk_is_honoured():
+    """A rebuild fold with ``stream_chunk > 0`` runs the host-streaming
+    build: every live row lands in the lists once, the tombstoned row is
+    gone and the delta rows carry their ids."""
+    idx = _fold(mode="rebuild", stream_chunk=64)()
+    ids = idx.lists_indices[idx.lists_indices >= 0].numpy()
+    assert sorted(ids.tolist()) == [i for i in range(256) if i != 1] + \
+        [300, 301]
+    assert idx.size == 257 and idx.device.type == "cpu"
+
+
+def test_walk_covers_durability_and_tiering():
+    """The signature walk holds the WAL, the host-memory and the tiered
+    modules against their JAX namesakes."""
+    cases = set(_cases())
+    for mod, name in (("mutate.wal", "MutationWAL"),
+                      ("mutate.wal", "WalReader"),
+                      ("mutate.wal", "WalRecord"),
+                      ("mutate.wal", "read_raw"),
+                      ("mutate.wal", "decode_stream"),
+                      ("neighbors.host_memory", "HostIvfFlat"),
+                      ("neighbors.host_memory", "to_host"),
+                      ("neighbors.host_memory", "build"),
+                      ("neighbors.host_memory", "build_streaming"),
+                      ("neighbors.host_memory", "search"),
+                      ("neighbors.tiered", "TieredConfig"),
+                      ("neighbors.tiered", "TieredIndex"),
+                      ("neighbors.tiered", "TieredPlan"),
+                      ("neighbors.tiered", "build_plan"),
+                      ("neighbors.tiered", "build_ladder"),
+                      ("neighbors.tiered", "from_host"),
+                      ("neighbors.tiered", "from_index"),
+                      ("neighbors.serialize", "save_host_ivf_flat"),
+                      ("neighbors.serialize", "load_host_ivf_flat")):
+        assert (mod, name) in cases, (mod, name)
+
 
 def test_f32_kernel_precision_is_honoured():
     from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn

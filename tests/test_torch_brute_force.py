@@ -405,14 +405,26 @@ def test_dispatch_save_load_both_ways(ball_data, tmp_path, family):
 @pytest.mark.parametrize("fmt,item", [("host_ivf_flat", "item 7"),
                                       ("mutable", None)])
 def test_load_of_unported_format_names_its_item(tmp_path, fmt, item):
-    # a file of a format the port does not hold yet: NotImplementedError
-    # naming the ROADMAP.md item that ports it; the mutable format is
-    # ported: load returns a MutableIndex
-    import json
+    # formats the port once lacked (``item``: the ROADMAP.md queue 1 item
+    # that ported the host-memory format) load through the dispatching
+    # ``load`` now: the mutable format returns a MutableIndex, the
+    # host-memory one a HostIvfFlat whose lists stay in host numpy
     from raft_tpu_torch import mutate
-    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.neighbors import host_memory, ivf_flat
     from raft_tpu_torch.neighbors import serialize as tser
     path = str(tmp_path / "f.npz")
+    if item is not None:
+        h = host_memory.to_host(ivf_flat.build(
+            _normal((64, 4), 5), ivf_flat.IndexParams(
+                n_lists=2, kmeans_n_iters=2), device="cpu"))
+        tser.save(h, path)
+        back = tser.load(path, device="cpu")
+        assert isinstance(back, host_memory.HostIvfFlat)
+        assert isinstance(back.lists_data, np.ndarray)
+        for f in ("lists_data", "lists_norms", "lists_indices"):
+            np.testing.assert_array_equal(getattr(back, f), getattr(h, f))
+        assert torch.equal(back.centers, h.centers)
+        return
     if item is None:
         x = _normal((64, 4), 5)
         m = mutate.MutableIndex(ivf_flat.build(
@@ -424,11 +436,6 @@ def test_load_of_unported_format_names_its_item(tmp_path, fmt, item):
         back = tser.load(path, device="cpu")
         assert isinstance(back, mutate.MutableIndex)
         assert back.stats() == m.stats()
-        return
-    np.savez(path, __meta__=np.frombuffer(json.dumps(
-        {"format": fmt, "version": 1}).encode(), dtype=np.uint8))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        tser.load(path, device="cpu")
 
 
 def test_cpu_tensor_takes_plain_version_without_launch():

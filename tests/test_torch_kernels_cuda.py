@@ -34,6 +34,12 @@ return while another stream's work still runs (they wait on their own
 stream, not the whole card), the profiler's device half holds a
 dispatch's card work that ends before its launches do, and the
 profiler's memory gauges read the caching allocator.
+The tiered coarse select and tier merge (kernel 2's column and payload
+selects) and kernel 1 at a streaming chunk's shape are held to their plain
+versions; tiered and host-memory searches on the card give the resident
+probe-order search's ids (the same card arithmetic on the same rows), also
+while a thread swaps the hot table; a mutable index recovers from its WAL
+and from a checkpoint onto the card.
 """
 
 import time
@@ -1683,3 +1689,199 @@ def test_mutable_search_racing_upserts_never_reads_half_a_snapshot(dev):
     assert seen_delta > 0
     final = results[-1][1].cpu().numpy()
     assert (final >= n).mean() > 0.5
+
+
+# -- tiered and host-memory serving, durable mutable indexes ---------------
+
+
+def test_tiered_coarse_select_matches_plain(dev):
+    # kernel 2 at the tiered coarse shape (nq, 1024) k=96, on scores with
+    # repeated values: exactly its plain version (ties to the lower column)
+    rng = np.random.default_rng(20)
+    v = _t(rng.integers(0, 300, (128, 1024)).astype(np.float32), dev)
+    before = sel_op.launches
+    dk, ik = sel_op.select_k(v, 96)
+    torch.cuda.synchronize()
+    assert sel_op.launches == before + 1
+    dp, ip = sel_op.select_k_plain(v.cpu(), 96)
+    assert torch.equal(dk.cpu(), dp) and torch.equal(ik.cpu(), ip)
+
+
+def test_tier_merge_matches_plain_with_ties_and_pads(dev):
+    # the tier merge on kernel 2's payload select: two (nq, k) tier
+    # results with values tied across the tiers and (+inf, -1) pads; the
+    # card's merge equals the CPU's (the plain version), ties to the hot
+    # (first) tier
+    from raft_tpu_torch.neighbors import tiered
+    rng = np.random.default_rng(21)
+    nq, k = 128, 32
+    a = np.sort(rng.integers(0, 40, (nq, k)).astype(np.float32), 1)
+    b = np.sort(rng.integers(0, 40, (nq, k)).astype(np.float32), 1)
+    ia = rng.integers(0, 10 ** 6, (nq, k)).astype(np.int32)
+    ib = rng.integers(0, 10 ** 6, (nq, k)).astype(np.int32)
+    a[:, -5:], ia[:, -5:] = np.inf, -1
+    b[:8] = np.inf
+    ib[:8] = -1
+    before = sel_op.launches_payload
+    gd, gi = tiered._merge_topk(_t(a, dev), _t(ia, dev), _t(b, dev),
+                                _t(ib, dev), k)
+    torch.cuda.synchronize()
+    assert sel_op.launches_payload == before + 1
+    wd, wi = tiered._merge_topk(*(torch.from_numpy(v) for v in (a, ia, b,
+                                                                 ib)), k)
+    assert torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi)
+
+
+def test_stream_chunk_labels_match_plain(dev):
+    # kernel 1 at the streaming build's chunk shape (a 65536-row chunk
+    # against 1024 centres, d=128): labels of the card's bf16x3 kernel
+    # against its plain version, near-ties aside; the norms those of the
+    # rows
+    from raft_tpu_torch.neighbors import host_memory
+    rng = np.random.default_rng(22)
+    c = _t(rng.normal(size=(1024, 128)).astype(np.float32), dev)
+    x = _t(rng.normal(size=(65536, 128)).astype(np.float32), dev)
+    before = nn_op.launches
+    lab, nrm = host_memory._label_norm(x, c)
+    torch.cuda.synchronize()
+    assert nn_op.launches == before + 1
+    ip, dp = nn_op.fused_l2_nn_plain(x, c, False, "bf16x3")
+    assert float((lab == ip).double().mean()) >= 0.999
+    dk = ((x - c[lab.long()]) ** 2).sum(1)
+    scale = (x * x).sum(1) + (c * c).sum(1)[ip.long()]
+    assert bool(((dk - dp).abs() <= 1e-5 * scale).all())
+    torch.testing.assert_close(nrm, (x * x).sum(1))
+
+
+def _tier_case(dev, n=20000, d=32, n_lists=64):
+    rng = np.random.default_rng(23)
+    cen = rng.normal(size=(40, d)).astype(np.float32) * 3.0
+    x = (cen[rng.integers(0, 40, n)] + rng.normal(size=(n, d))).astype(
+        np.float32)
+    q = (cen[rng.integers(0, 40, 128)] + rng.normal(size=(128, d))).astype(
+        np.float32)
+    index = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=n_lists,
+                                                   kmeans_n_iters=4),
+                           device=dev)
+    return index, q
+
+
+@pytest.mark.parametrize("hot_frac", [1.0, 0.25, 0.0])
+def test_tiered_search_on_card_matches_resident(dev, hot_frac):
+    # the tiered search on the card (hot tier, cold lists staged through
+    # pinned buffers in chunks of 8 lists, copied on the side stream) and
+    # the host-memory search: the resident probe-order search's ids, and
+    # its distances (the same card arithmetic on the same rows)
+    from raft_tpu_torch.neighbors import host_memory, tiered
+    index, q = _tier_case(dev)
+    sp = ivf_flat.SearchParams(n_probes=12, scan_order="probe")
+    d0, i0 = ivf_flat.search(index, q, 16, sp)
+    ti = tiered.from_index(index, tiered.TieredConfig(hot_frac=hot_frac,
+                                                      max_stage_lists=8))
+    assert ti.device == index.device
+    plan = tiered.build_plan(ti, q, 16, sp)
+    before = (sel_op.launches, sel_op.launches_payload)
+    for _ in range(2):      # the second search refills pooled buffers
+        d1, i1 = plan.search(q, block=True)
+        assert torch.equal(i1, i0)
+        torch.testing.assert_close(d1, d0, rtol=1e-6, atol=1e-5)
+    assert sel_op.launches >= before[0] + 2
+    if 0.0 < hot_frac < 1.0:
+        assert sel_op.launches_payload > before[1]
+    d2, i2 = host_memory.search(host_memory.to_host(index), q, 16, sp)
+    assert torch.equal(i2, i0)
+
+
+def test_tiered_refresh_racing_searches(dev):
+    # a thread swaps the hot table (refresh at alternating budgets) while
+    # searches are launched without waiting: every result is the resident
+    # search's (a search that read a replaced table's memory after reuse
+    # would not be)
+    import threading
+    from raft_tpu_torch.neighbors import tiered
+    index, q = _tier_case(dev)
+    sp = ivf_flat.SearchParams(n_probes=12, scan_order="probe")
+    _, i0 = ivf_flat.search(index, q, 16, sp)
+    ti = tiered.from_index(index, tiered.TieredConfig(hot_frac=0.5,
+                                                      max_stage_lists=16))
+    plan = tiered.build_plan(ti, q, 16, sp)
+    stop, errors = threading.Event(), []
+
+    def refresher():
+        try:
+            j = 0
+            while not stop.is_set():
+                ti.refresh(budget_bytes=(8 + 24 * (j % 2))
+                           * ti.bytes_per_list)
+                j += 1
+        except Exception as e:  # reported after the join
+            errors.append(repr(e))
+
+    th = threading.Thread(target=refresher)
+    th.start()
+    try:
+        results = [plan.search(q) for _ in range(30)]
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    torch.cuda.synchronize()
+    assert not errors
+    for _, ids in results:
+        assert torch.equal(ids, i0)
+
+
+def test_mutable_recover_on_card(dev, tmp_path):
+    # the WAL under a card index: recovery from the log alone and from a
+    # checkpoint (loaded onto the card) gives the live ids
+    from raft_tpu_torch import mutate
+    from raft_tpu_torch.mutate.wal import MutationWAL
+    index, q = _tier_case(dev, n=8000)
+    rng = np.random.default_rng(24)
+    cfg = mutate.MutateConfig(delta_capacities=(64, 256))
+    wal_p, ckpt_p = str(tmp_path / "m.wal"), str(tmp_path / "m.ckpt")
+    m = mutate.MutableIndex(index, k=8, config=cfg)
+    m.attach_wal(MutationWAL(wal_p, sync=True))
+    ids = m.upsert(rng.normal(size=(100, 32)).astype(np.float32))
+    m.delete(list(ids[:10]) + [3, 4])
+    _, live = m.search(q, block=True)
+    back = mutate.MutableIndex.recover(wal_p, k=8, base_index=index,
+                                       config=cfg)
+    assert back.device == index.device
+    assert torch.equal(back.search(q, block=True)[1], live)
+    m2 = mutate.MutableIndex(index, k=8, config=cfg)
+    m2.attach_wal(MutationWAL(str(tmp_path / "c.wal")),
+                  checkpoint_path=ckpt_p)
+    m2.upsert(rng.normal(size=(50, 32)).astype(np.float32))
+    m2.compact()
+    m2.delete([5])
+    back2 = mutate.MutableIndex.recover(str(tmp_path / "c.wal"), k=8,
+                                        checkpoint_path=ckpt_p, config=cfg)
+    assert back2.index.device.type == "cuda"
+    assert back2.stats() == m2.stats()
+    assert torch.equal(back2.search(q, block=True)[1],
+                       m2.search(q, block=True)[1])
+
+
+def test_host_streaming_build_on_card_matches_cpu(dev):
+    # build_streaming with its chunks labelled by kernel 1 on the card
+    # against the same build on the CPU: list membership on >= 99.9% of
+    # the rows (bf16x3 against f32 labels may split a near-tie)
+    from raft_tpu_torch.neighbors import host_memory
+    index, q = _tier_case(dev)
+    x = np.random.default_rng(25).normal(size=(30000, 32)).astype(np.float32)
+    params = ivf_flat.IndexParams(n_lists=32, kmeans_n_iters=3)
+    chunks = [x[s:s + 7000] for s in range(0, len(x), 7000)]
+    before = nn_op.launches
+    hc = host_memory.build_streaming(chunks, params, device=dev)
+    assert nn_op.launches > before
+    assert hc.device.type == "cuda" and isinstance(hc.lists_data,
+                                                   np.ndarray)
+    hh = host_memory.build_streaming(chunks, params, device="cpu")
+    lab = []
+    for h in (hc, hh):
+        ids = h.lists_indices
+        lst = np.broadcast_to(np.arange(32)[:, None], ids.shape)
+        out = np.empty(len(x), np.int64)
+        out[ids[ids >= 0]] = lst[ids >= 0]
+        lab.append(out)
+    assert np.mean(lab[0] == lab[1]) >= 0.999
