@@ -58,7 +58,31 @@ Phases, one line each:
               candidate merge), its recall of the top 32 and its launch
               counts; then the index is dropped (``free``: device memory
               after the ``del`` and after a collection pass).
-              ``serve_faults`` (after the main burst, on the same index):
+              ``serve_endpoint`` (after the main burst, on the same
+              index): the debug endpoint (``obs.serve``, loopback) over a
+              ``SearchServer`` of the main burst's settings. Fails
+              unless ``/healthz`` answers 200 on the quiet server; the
+              256 queries POSTed to ``/search`` as two 128-query JSON
+              bodies give a direct ``srv.search``'s ids and float32
+              distances; the first response's ``trace_id`` fetched from
+              ``/debug/requests`` (``format=chrome``, and its fragments
+              with ``all=1``, stitched) shows ``raft.serve.http``
+              parenting the served request; a closed-loop burst of 512
+              one-query POSTs from 8 threads (the endpoint's default
+              bound) has no failed or dropped request, and the metrics
+              history sampled through it (``enable_history(interval_s=
+              0.25)``) gives ``raft.serve.requests``' rate within 25% of
+              its QPS; an ``SLOTracker`` ticked around that burst with a
+              latency objective that cannot hold (a 1 ms bucket edge at
+              0.999) is named in ``/debug/slo`` and in ``/healthz``'s
+              503; ``/metrics`` parses as Prometheus text with the
+              registry's request total; ``/debug/profile`` answers 200;
+              kernels 2 and 3 launched. Prints the burst's QPS and
+              p50/p99 beside an 8-thread loop of direct searches and the
+              main burst's, the median ms of a 128-query POST against a
+              direct search of the same batch (ten of each, in turns),
+              and the phase's seconds.
+              ``serve_faults`` (after ``serve_endpoint``, on the same index):
               a server with the dispatch watchdog (2000 ms, 2 retries,
               1 ms backoff) serves the burst (the same checks, its
               QPS and p50/p99 beside the main burst's); 4 x 25 serial
@@ -390,6 +414,14 @@ STREAM_CHUNK = 1_000_000
 # ~1.3 GB at 1M rows, ~13 GB at 10M) with DURABLE_CKPT_UPSERTS upserts
 DURABLE_BATCH = 256
 DURABLE_CKPT_ROWS, DURABLE_CKPT_UPSERTS = 1_000_000, 2_048
+# serve_endpoint: the closed-loop HTTP burst's client threads (the
+# endpoint's default bound), the 128-query POSTs timed against direct
+# searches of the same batch (in turns), the history's sampling interval
+# and the tolerance of its rate against the burst's QPS, and the latency
+# objective that cannot hold (a 1 ms bucket edge at 0.999)
+HTTP_THREADS, HTTP_BATCH_ROUNDS = 8, 10
+HISTORY_INTERVAL_S, HISTORY_RATE_TOL = 0.25, 0.25
+SLO_THRESHOLD_MS, SLO_TARGET = 1.0, 0.999
 # brute force: the reference's cpp/bench/neighbors/knn.cuh:380-389 cases
 # (10M x 128 and 10k x 8192, 1000 queries, k=32); the JAX package's
 # recall gate for the fused kernel (BASELINE.md:43)
@@ -1223,40 +1255,50 @@ def run_pq_f32(mod, index, q, params):
     return launches
 
 
+def closed_loop(call, threads: int):
+    """N_REQUESTS calls ``call(r)`` from ``threads`` threads, each sending
+    its share one after another → (latencies, wall seconds, errors)."""
+    lat = [0.0] * N_REQUESTS
+    errors = []
+    barrier = threading.Barrier(threads + 1)
+
+    def worker(t):
+        barrier.wait()
+        for r in range(t, N_REQUESTS, threads):
+            t0 = time.perf_counter()
+            try:
+                call(r)
+            except Exception as e:  # reported after the join
+                errors.append(repr(e))
+                return
+            lat[r] = time.perf_counter() - t0
+
+    pool = [threading.Thread(target=worker, args=(t,), daemon=True)
+            for t in range(threads)]
+    for th in pool:
+        th.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for th in pool:
+        th.join()
+    return np.asarray(lat), time.perf_counter() - t0, errors
+
+
 def serve_burst(srv, q_np):
     """512 single-query requests from 128 threads, each thread sending
     its share one after another; returns per-request (dists, ids),
     latencies and the burst's wall time."""
     dists = [None] * N_REQUESTS
     ids = [None] * N_REQUESTS
-    lat = [0.0] * N_REQUESTS
-    errors = []
-    barrier = threading.Barrier(N_THREADS + 1)
 
-    def worker(t):
-        barrier.wait()
-        for r in range(t, N_REQUESTS, N_THREADS):
-            t0 = time.perf_counter()
-            try:
-                d, i = srv.search(q_np[r % len(q_np)], timeout=600)
-            except Exception as e:  # reported after the join
-                errors.append(repr(e))
-                return
-            lat[r] = time.perf_counter() - t0
-            dists[r], ids[r] = d[0], i[0]
+    def call(r):
+        d, i = srv.search(q_np[r % len(q_np)], timeout=600)
+        dists[r], ids[r] = d[0], i[0]
 
-    threads = [threading.Thread(target=worker, args=(t,), daemon=True)
-               for t in range(N_THREADS)]
-    for th in threads:
-        th.start()
-    barrier.wait()
-    t0 = time.perf_counter()
-    for th in threads:
-        th.join()
-    wall = time.perf_counter() - t0
+    lat, wall, errors = closed_loop(call, N_THREADS)
     if errors:
         fail(f"serve: {len(errors)} requests failed, first {errors[0]}")
-    return np.stack(dists), np.stack(ids), np.asarray(lat), wall
+    return np.stack(dists), np.stack(ids), lat, wall
 
 
 def profile_burst(srv, q_np, tag: str) -> None:
@@ -1311,6 +1353,13 @@ def counter_deltas(before: dict, after: dict, prefix: str) -> dict:
             for k_ in after["counters"] if k_.startswith(prefix)}
 
 
+def latency_row(lat, wall) -> dict:
+    """A burst of N_REQUESTS: its wall seconds, QPS, p50 and p99 (ms)."""
+    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
+    return dict(burst_s=wall, qps=N_REQUESTS / wall, p50_ms=p50,
+                p99_ms=p99)
+
+
 def serve_phase(srv, q_np, truth, n_rows: int, profile: str = "",
                 close: bool = True):
     """The burst through a started server: checked results, recall@K,
@@ -1338,10 +1387,9 @@ def serve_phase(srv, q_np, truth, n_rows: int, profile: str = "",
     recall = float(np.mean(hits)) / K
     if recall < RECALL_FLOOR:
         fail(f"recall@{K} = {recall} < {RECALL_FLOOR}")
-    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
-    return dict(requests=N_REQUESTS, threads=N_THREADS, burst_s=wall,
-                qps=N_REQUESTS / wall, p50_ms=p50, p99_ms=p99,
-                **{f"recall_at_{K}": recall}, batches=batches)
+    return dict(requests=N_REQUESTS, threads=N_THREADS,
+                **latency_row(lat, wall), **{f"recall_at_{K}": recall},
+                batches=batches)
 
 
 def check_launched(path: str, launches: dict, names) -> None:
@@ -2581,6 +2629,239 @@ def mutate_tail_rows(m, qb, rows, ids, params, launches: dict):
     return [col_row, pay_row]
 
 
+def http_call(port: int, method: str, path: str, body=None,
+              headers=None):
+    """One request to the endpoint on its own connection → (status,
+    body: parsed JSON, or text for ``/metrics``)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        hdrs = dict(headers or {})
+        if data is not None:
+            hdrs["Content-Type"] = "application/json"
+        conn.request(method, path, body=data, headers=hdrs)
+        r = conn.getresponse()
+        raw = r.read().decode("utf-8")
+        ctype = r.getheader("Content-Type", "")
+        return r.status, (json.loads(raw) if ctype == "application/json"
+                          else raw)
+    finally:
+        conn.close()
+
+
+def parse_prometheus(text: str) -> dict:
+    """``{family: summed samples}`` of the Prometheus text; fails on a line
+    that does not parse."""
+    import re
+    sample = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^{}]*\})? (\S+)$")
+    kinds, sums = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            kinds[name] = kind
+            continue
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line)
+        if m is None:
+            fail(f"serve_endpoint: /metrics line does not parse: {line!r}")
+        name = m.group(1)
+        sums[name] = sums.get(name, 0.0) + float(m.group(3))
+    if not kinds:
+        fail("serve_endpoint: /metrics has no TYPE line")
+    return sums
+
+
+def run_serve_endpoint(index, q_np, truth, main: dict) -> None:
+    """Phase 3 ``serve_endpoint``: the debug endpoint (``obs.serve``) over
+    a ``SearchServer`` of the main burst's settings. ``POST /search`` of
+    the 256 queries (two 128-query bodies) must give a direct search's
+    ids and float32 distances; its trace must be parented by
+    ``raft.serve.http``; a closed-loop burst of 512 one-query POSTs from
+    8 threads must lose no request, and the metrics history sampled
+    through it must give its rate within 25% of its QPS; ``/healthz``
+    must answer 200, then 503 naming the breach of a latency objective
+    that cannot hold; ``/metrics`` must parse with the registry's request
+    total, ``/debug/profile`` answer 200; kernels 2 and 3 must launch."""
+    from raft_tpu_torch import obs, ops
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import history, profiler, recorder, slo, spans
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    t_phase = time.perf_counter()
+    was_tracing = (spans.trace_enabled(), spans.trace_sample_rate())
+    spans.set_trace_enabled(True)
+    spans.set_trace_sample_rate(1.0)
+    profiler.disable_profiling()
+    srv = SearchServer.from_index(
+        index, q_np[:128], K, params=ivf_flat.SearchParams(n_probes=N_PROBES),
+        config=ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                           max_wait_ms=2.0))
+    ep = obs.serve(port=0, searcher=srv)
+    tracker = None
+    ops.reset_launch_counts()
+    try:
+        code, health = http_call(ep.port, "GET", "/healthz")
+        if code != 200 or health.get("status") != "ok":
+            fail(f"serve_endpoint: /healthz on the quiet server: {code} "
+                 f"{health}")
+        # ids over HTTP, against direct searches of the same batches
+        http_d, http_i, trace_ids = [], [], []
+        for s in range(0, N_QUERIES, 128):
+            code, body = http_call(ep.port, "POST", "/search",
+                                   {"queries": q_np[s:s + 128].tolist()})
+            if code != 200:
+                fail(f"serve_endpoint: POST /search answered {code}: {body}")
+            http_d.append(np.asarray(body["distances"], np.float32))
+            http_i.append(np.asarray(body["ids"], np.int64))
+            trace_ids.append(body["trace_id"])
+        direct = [srv.search(q_np[s:s + 128], timeout=600)
+                  for s in range(0, N_QUERIES, 128)]
+        for (d, i), hd, hi in zip(direct, http_d, http_i):
+            if not np.array_equal(hi, np.asarray(i)) or \
+                    not np.array_equal(hd, np.asarray(d, np.float32)):
+                fail("serve_endpoint: POST /search ids or distances differ "
+                     "from a direct search of the same queries")
+        ids_http = np.concatenate(http_i)
+        recall = float(np.mean([len(set(ids_http[r]) & set(truth[r]))
+                                for r in range(N_QUERIES)])) / K
+        # the trace: the handler's fragment, and the request's under it
+        tid = trace_ids[0]
+        code, chrome = http_call(
+            ep.port, "GET", f"/debug/requests?trace={tid}&format=chrome")
+        http_spans = [e for e in chrome.get("traceEvents", ())
+                      if e.get("name") == "raft.serve.http"] \
+            if code == 200 else []
+        # the dispatcher records a request's trace just after it sets the
+        # result, so the fragment may land a moment after the response
+        for _ in range(100):
+            code_f, frag = http_call(ep.port, "GET",
+                                     f"/debug/requests?trace={tid}&all=1")
+            if any(f.get("name") == "raft.serve.request"
+                   for f in frag.get("fragments", ())):
+                break
+            time.sleep(0.01)
+        stitched = recorder.stitch_chrome_trace(frag.get("fragments", ()))
+        evs = {e["args"]["span_id"]: e for e in stitched["traceEvents"]
+               if e.get("ph") == "X"}
+        served = [e for e in evs.values()
+                  if e["name"] == "raft.serve.request"]
+        if len(http_spans) != 1 or code_f != 200 or not served or any(
+                evs.get(e["args"].get("parent_id"), {}).get("name")
+                != "raft.serve.http"
+                or e["args"]["parent_id"] != http_spans[0]["args"]["span_id"]
+                for e in served):
+            fail(f"serve_endpoint: trace {tid}: {code} with "
+                 f"{len(http_spans)} raft.serve.http spans, fragments "
+                 f"{[f.get('name') for f in frag.get('fragments', ())]}")
+        # the cost of HTTP and JSON on a 128-query batch, in turns
+        post_ms, direct_ms = [], []
+        batch = q_np[:128]
+        for _ in range(HTTP_BATCH_ROUNDS):
+            t0 = time.perf_counter()
+            code, body = http_call(ep.port, "POST", "/search",
+                                   {"queries": batch.tolist()})
+            np.asarray(body["distances"], np.float32)
+            post_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            srv.search(batch, timeout=600)
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+        # in process at the HTTP burst's concurrency
+        before = obs.snapshot()
+        lat8, wall8, errors = closed_loop(
+            lambda r: srv.search(q_np[r % N_QUERIES], timeout=600),
+            HTTP_THREADS)
+        if errors:
+            fail(f"serve_endpoint: in-process burst: {errors[0]}")
+        inproc_row = dict(latency_row(lat8, wall8), batches=counter_deltas(
+            before, obs.snapshot(), "raft.serve.batch"))
+        # the HTTP burst, sampled by the history and the SLO tracker
+        hist = history.enable_history(interval_s=HISTORY_INTERVAL_S)
+        clock = {"t": 0.0}
+        tracker = slo.SLOTracker(
+            [slo.Objective("endpoint_p999_1ms", "latency",
+                           target=SLO_TARGET, threshold_ms=SLO_THRESHOLD_MS,
+                           windows=(10.0,))],
+            clock=lambda: clock["t"], start=False)
+        tracker.tick()
+        seq0 = hist.tick()
+
+        def post_one(r):
+            code, body = http_call(
+                ep.port, "POST", "/search",
+                {"queries": [q_np[r % N_QUERIES].tolist()]})
+            if code != 200:
+                raise RuntimeError(f"{code}: {body}")
+
+        before = obs.snapshot()
+        lat_h, wall_h, errors = closed_loop(post_one, HTTP_THREADS)
+        seq1 = hist.tick()
+        http_batches = counter_deltas(before, obs.snapshot(),
+                                      "raft.serve.batch")
+        clock["t"] = 10.0
+        tracker.tick()
+        if errors:
+            fail(f"serve_endpoint: {len(errors)} of {N_REQUESTS} POSTs "
+                 f"failed or were dropped, first {errors[0]}")
+        frames = {f["seq"]: f for f in hist.frames_since(seq0 - 1)}
+        window = frames[seq1]["t_mono"] - frames[seq0]["t_mono"] + 1e-6
+        code, hbody = http_call(
+            ep.port, "GET",
+            f"/debug/history?name=raft.serve.requests&window={window:.6f}")
+        rate = (hbody.get("series", {}).get("raft.serve.requests.total", {})
+                .get("rate_per_s") if code == 200 else None)
+        http_row = dict(latency_row(lat_h, wall_h), batches=http_batches)
+        if rate is None or abs(rate - http_row["qps"]) > \
+                HISTORY_RATE_TOL * http_row["qps"]:
+            fail(f"serve_endpoint: /debug/history rate {rate} against the "
+                 f"burst's {http_row['qps']} QPS ({code} {hbody})")
+        history.disable_history()
+        # the objective that cannot hold
+        code_s, slo_body = http_call(ep.port, "GET", "/debug/slo")
+        rep = slo_body.get("objectives", {}).get("endpoint_p999_1ms", {})
+        code_h, health = http_call(ep.port, "GET", "/healthz")
+        breach = "raft.slo.breach{objective=endpoint_p999_1ms}"
+        if code_s != 200 or not rep.get("breach") or code_h != 503 or \
+                breach not in health.get("slo", {}).get("breaches", ()):
+            fail(f"serve_endpoint: SLO breach not served: /debug/slo "
+                 f"{code_s} {slo_body}, /healthz {code_h} {health}")
+        tracker.close()
+        tracker = None
+        # metrics and the profile
+        code, text = http_call(ep.port, "GET", "/metrics")
+        total = obs.counter_sum(obs.snapshot(), "raft.serve.requests.total")
+        sums = parse_prometheus(text) if code == 200 else {}
+        if sums.get("raft_serve_requests_total_total") != total:
+            fail(f"serve_endpoint: /metrics {code}: request total "
+                 f"{sums.get('raft_serve_requests_total_total')} against "
+                 f"the registry's {total}")
+        code_p, _ = http_call(ep.port, "GET", "/debug/profile")
+        if code_p != 200:
+            fail(f"serve_endpoint: /debug/profile answered {code_p}")
+    finally:
+        if tracker is not None:
+            tracker.close()
+        history.disable_history()
+        ep.close()
+        srv.close()
+        spans.set_trace_enabled(was_tracing[0])
+        spans.set_trace_sample_rate(was_tracing[1])
+    launches = ops.launch_counts()
+    check_launched("serve_endpoint", launches, ("select_k", "ivf_scan"))
+    phase("serve_endpoint", url_bound="127.0.0.1",
+          threads=HTTP_THREADS, requests=N_REQUESTS,
+          http=http_row, inproc_8=inproc_row,
+          main={k_: main[k_] for k_ in ("qps", "p50_ms", "p99_ms")},
+          post_128_ms=float(np.median(post_ms)),
+          direct_128_ms=float(np.median(direct_ms)),
+          http_json_128_ms=float(np.median(post_ms) - np.median(direct_ms)),
+          **{f"http_recall_at_{K}": recall},
+          history_rate_per_s=rate, history_window_s=window,
+          slo=rep, metrics_families=len(sums),
+          launches={k_: v for k_, v in launches.items() if v},
+          seconds=time.perf_counter() - t_phase)
+
+
 def run_flat(x, q, q_np, truth, args):
     """Phase 3: IVF-Flat build + serving; the fused scan checked against
     its plain version on the served index afterwards."""
@@ -2607,6 +2888,7 @@ def run_flat(x, q, q_np, truth, args):
           launches=launches,
           mem_allocated_gb=torch.cuda.memory_allocated() / 1e9,
           mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    run_serve_endpoint(index, q_np, truth, served)
     run_serve_faults(index, q_np, truth, x.shape[0], served)
     quality_row = run_serve_quality(index, q_np, truth, x.shape[0], served)
     run_serve_obs(index, q_np, truth, served)

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import threading
 import time
@@ -73,6 +74,7 @@ from raft_tpu_torch.mutate.wal import (OP_DELETE, OP_META, OP_UPSERT,
                                        MutationWAL)
 from raft_tpu_torch.obs import profiler, spans
 from raft_tpu_torch.testing import faults
+from raft_tpu_torch.util.host import host_array
 
 __all__ = ["MutableIndex", "build_serve_ladder",
            "build_dist_serve_ladder"]
@@ -94,6 +96,42 @@ def _on_device(device) -> contextlib.AbstractContextManager:
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def _checkpoint_identity(path: str) -> list:
+    st = os.stat(path)
+    return [int(st.st_size), int(st.st_mtime_ns)]
+
+
+def _write_checkpoint_meta(ckpt_tmp: str, ckpt: str, meta: dict) -> None:
+    """Promote the counters a checkpoint was folded under (``epoch``,
+    ``id_base``, ``next_id``, ``folded_upto_seq``: the last log record
+    the fold holds) to the sidecar beside ``ckpt``, BEFORE ``ckpt_tmp``
+    itself is promoted. The sidecar names the file it belongs to by its
+    size and modification time, which the rename keeps: a crash between
+    the two promotions leaves a sidecar that matches no checkpoint, and
+    :func:`_read_checkpoint_meta` ignores it."""
+    side = ckpt + ".meta"
+    body = dict(meta, checkpoint=_checkpoint_identity(ckpt_tmp))
+    with open(side + ".tmp", "w") as f:
+        json.dump(body, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(side + ".tmp", side)
+
+
+def _read_checkpoint_meta(ckpt: str) -> Optional[dict]:
+    """The sidecar's counters when they belong to ``ckpt`` as it is on
+    disk, else None (no sidecar: a checkpoint written by the JAX
+    package, or before the sidecar existed)."""
+    try:
+        with open(ckpt + ".meta") as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        return None
+    if meta.get("checkpoint") != _checkpoint_identity(ckpt):
+        return None
+    return meta
 
 
 @dataclass
@@ -283,7 +321,7 @@ class MutableIndex:
                 ids_arr = np.arange(self._next_id, self._next_id + n,
                                     dtype=np.int32)
             else:
-                ids_arr = np.asarray(ids, np.int32).reshape(-1)
+                ids_arr = host_array(ids, np.int32).reshape(-1)
                 expects(ids_arr.shape[0] == n and (ids_arr >= 0).all(),
                         "mutate.upsert: need %d non-negative ids", n)
             if self._delta_used + n > top:
@@ -328,7 +366,7 @@ class MutableIndex:
         """Tombstone rows by id → number of ids newly marked dead.
         Main-index rows are filtered after the main top-k until the next
         compaction purges them; delta rows die in place."""
-        ids_arr = np.asarray(ids, np.int64).reshape(-1)
+        ids_arr = host_array(ids, np.int64).reshape(-1)
         hit = 0
         with self._cond:
             if self._wal is not None:
@@ -633,6 +671,10 @@ class MutableIndex:
             snap_ids = self._delta_ids[:used][live].copy()
             snap_tombs = frozenset(self._tomb_ids)
             freeze_used = used
+            # the last logged mutation the fold holds: a checkpoint
+            # promoted without its log rewrite skips up to here
+            folded_seq = (self._wal.next_seq - 1
+                          if self._wal is not None else 0)
             old_epoch = self._epoch
             new_id_base = self._frozen_id_base
             self._set_gauges_locked(
@@ -661,7 +703,7 @@ class MutableIndex:
                 sp.set_attr("new_size", int(new_index.size))
                 ckpt_tmp = self._checkpoint_epoch(new_index)
             self._swap_epoch(new_epoch, freeze_used, new_id_base,
-                             ckpt_tmp=ckpt_tmp)
+                             ckpt_tmp=ckpt_tmp, folded_seq=folded_seq)
             obs.counter("raft.mutate.compact.total").inc()
             self._notify_epoch_listeners(new_epoch.number)
             return True
@@ -688,8 +730,8 @@ class MutableIndex:
         return tmp
 
     def _swap_epoch(self, new_epoch: _Epoch, freeze_used: int,
-                    new_id_base: int,
-                    ckpt_tmp: Optional[str] = None) -> None:
+                    new_id_base: int, ckpt_tmp: Optional[str] = None,
+                    folded_seq: int = 0) -> None:
         with self._cond:
             # rebase the delta: rows appended after the freeze slide to
             # the front; everything folded leaves the segment
@@ -717,12 +759,19 @@ class MutableIndex:
             self._epoch = new_epoch
             self._compacting = False
             if self._wal is not None and ckpt_tmp is not None:
-                # promote the checkpoint, then truncate the log to the
-                # still-pending tail: deletes first, then live tail
-                # upserts, so a replayed tail upsert re-shadows its
-                # tombstoned main row (both steps atomic; a crash
-                # between them replays the old full log onto the new
-                # checkpoint — at-least-once, same logical state)
+                # promote the checkpoint's counters, then the checkpoint,
+                # then truncate the log to the still-pending tail:
+                # deletes first, then live tail upserts, so a replayed
+                # tail upsert re-shadows its tombstoned main row (each
+                # step atomic; a crash after the checkpoint's promotion
+                # leaves the old full log, and recover() takes the
+                # counters from the sidecar and skips the folded records)
+                meta = {"epoch": new_epoch.number,
+                        "id_base": new_epoch.id_base,
+                        "next_id": self._next_id}
+                _write_checkpoint_meta(
+                    ckpt_tmp, self._wal_ckpt,
+                    dict(meta, folded_upto_seq=int(folded_seq)))
                 os.replace(ckpt_tmp, self._wal_ckpt)
                 live = self._delta_ids[:self._delta_used] >= 0
                 # justified hold (GL008): the checkpoint promotion and
@@ -731,9 +780,7 @@ class MutableIndex:
                 # between swap and rewrite would be lost from the log;
                 # this runs once per compaction, on the compactor thread
                 self._wal.rewrite(  # graftlint: disable=GL008
-                    meta={"epoch": new_epoch.number,
-                          "id_base": new_epoch.id_base,
-                          "next_id": self._next_id},
+                    meta=meta,
                     tomb_ids=np.asarray(sorted(self._tomb_ids),
                                         np.int64),
                     upsert_ids=self._delta_ids[:self._delta_used][live],
@@ -800,7 +847,9 @@ class MutableIndex:
         if device is None:
             device = (base_index.device if base_index is not None
                       else "cuda")
+        ckpt_meta = None
         if checkpoint_path and os.path.exists(checkpoint_path):
+            ckpt_meta = _read_checkpoint_meta(checkpoint_path)
             inner = serialize.load(checkpoint_path, device=device)
         else:
             inner = base_index
@@ -811,8 +860,17 @@ class MutableIndex:
         wal = MutationWAL(wal_path, sync=sync)
         records = wal.replay()
         m = cls(inner, k=int(k), params=params, config=config)
-        if records and records[0].op == OP_META:
-            m.apply_meta(records[0].meta)
+        head = (records[0].meta if records and records[0].op == OP_META
+                else None)
+        if ckpt_meta is not None and (
+                head is None or int(head["epoch"]) < ckpt_meta["epoch"]):
+            # the checkpoint was promoted but the log not rewritten: the
+            # log still holds the records the checkpoint folded
+            m.apply_meta(ckpt_meta)
+            upto = ckpt_meta["folded_upto_seq"]
+            records = [r for r in records if r.seq > upto]
+        elif head is not None:
+            m.apply_meta(head)
             records = records[1:]
         top = m.cfg.delta_capacities[-1]
         for rec in records:

@@ -47,6 +47,7 @@ from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.obs import profiler
 from raft_tpu_torch.ops import select_k as _select_op
 from raft_tpu_torch.ops._util import stable_topk_min
+from raft_tpu_torch.util.host import host_array
 
 __all__ = ["compile_mutate_program", "compile_tail_program",
            "delta_scores", "mutate_tail"]
@@ -170,9 +171,7 @@ class MutateExecutable:
 
 def _host_rows(x) -> np.ndarray:
     """Rows as a float32 numpy array (a tensor is copied to the host)."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float32).numpy()
-    return np.asarray(x, np.float32)
+    return host_array(x, np.float32)
 
 
 def compile_mutate_program(index, rep_queries, nq: int, k: int, params,

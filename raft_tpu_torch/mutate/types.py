@@ -46,7 +46,8 @@ class MutateConfig:
       absorbs up to this many a query until compaction purges them
       (``raft.mutate.tombstone.frac`` is the gauge to watch).
     * ``rebuild_stream_chunk`` — host-streaming chunk rows of a rebuild
-      (0 = plain build; > 0 waits on ROADMAP.md queue 1 item 7).
+      (0 = plain build; > 0 streams the rows back through
+      ``host_memory.build_streaming`` in chunks of this many rows).
     * ``prewarm_rungs`` — warm only this many delta rungs from the
       bottom (0 = all).
     """

@@ -75,10 +75,10 @@ import zlib
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from raft_tpu_torch import obs
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.util.host import host_array
 
 __all__ = ["MutationWAL", "WalReader", "WalRecord", "WalGapError",
            "read_raw", "decode_stream"]
@@ -129,9 +129,8 @@ class WalRecord:
 def _host(a, dtype) -> np.ndarray:
     """``a`` (numpy, a sequence or a tensor on any device) as a
     contiguous little-endian numpy array of ``dtype``."""
-    if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
-    return np.ascontiguousarray(a, np.dtype(dtype).newbyteorder("<"))
+    return np.ascontiguousarray(host_array(a, dtype),
+                                np.dtype(dtype).newbyteorder("<"))
 
 
 def _encode_upsert(ids: np.ndarray, rows: np.ndarray) -> bytes:

@@ -51,6 +51,7 @@ from raft_tpu_torch.neighbors.ivf_flat import (
     _score_probe,
 )
 from raft_tpu_torch.obs import spans
+from raft_tpu_torch.util.host import host_array
 
 
 def _host_tensor(a: np.ndarray) -> torch.Tensor:
@@ -82,9 +83,7 @@ def _fetch(a: np.ndarray, device) -> torch.Tensor:
 def _host_rows(dataset) -> np.ndarray:
     """A dataset (numpy, a sequence or a tensor on any device) as a
     contiguous float32 host array."""
-    if isinstance(dataset, torch.Tensor):
-        dataset = dataset.detach().cpu().numpy()
-    return np.ascontiguousarray(np.asarray(dataset, dtype=np.float32))
+    return np.ascontiguousarray(host_array(dataset, np.float32))
 
 
 def _place_chunk(n_lists: int, cursor, chunk, labels, id_base: int,

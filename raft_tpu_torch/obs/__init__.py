@@ -13,11 +13,26 @@ taxonomy.
   slow-query log, Chrome-trace export. ``RAFT_TPU_TRACE=0`` no-ops
   them.
 
-Two planes load on use: :mod:`raft_tpu_torch.obs.quality` (shadow-exact
-recall) and :mod:`raft_tpu_torch.obs.profiler` (sampled device-time
-attribution, duty cycle, device memory; ``RAFT_TPU_PROFILE_SAMPLE``).
-The JAX package's debug endpoint (``obs.serve``) and its fleet planes
-are not ported yet.
+* **endpoint** (:mod:`raft_tpu_torch.obs.endpoint`): ``obs.serve()``, a
+  stdlib HTTP server with ``/metrics`` (Prometheus text), ``/healthz``
+  (one verdict folded from every plane's gauges), ``/debug/requests``
+  (the recorder), ``/debug/slo``, ``/debug/profile``,
+  ``/debug/history``, ``/debug/fleet`` and ``POST /search`` over an
+  attached ``SearchServer``.
+
+Four planes load on use: :mod:`raft_tpu_torch.obs.quality`
+(shadow-exact recall), :mod:`raft_tpu_torch.obs.profiler` (sampled
+device-time attribution, duty cycle, device memory;
+``RAFT_TPU_PROFILE_SAMPLE``), :mod:`raft_tpu_torch.obs.slo` (declared
+objectives as multi-window burn rates) and
+:mod:`raft_tpu_torch.obs.history` (the registry sampled over time, with
+mean-shift anomaly detection).
+
+Still to port (ROADMAP.md queue 1): the replica fleet that serves on
+this endpoint (item 7b), and the metrics federator behind the
+endpoint's ``/fleet/*`` routes, the black box and the
+``RAFT_TPU_BLACKBOX`` knob that attaches it and the history at import
+(item 7d).
 """
 
 from raft_tpu_torch.obs.registry import (
@@ -57,6 +72,7 @@ from raft_tpu_torch.obs.spans import (
 )
 from raft_tpu_torch.obs.recorder import (FlightRecorder, RECORDER,
                                          to_chrome_trace)
+from raft_tpu_torch.obs.endpoint import DebugServer, serve
 
 __all__ = [
     "REGISTRY",
@@ -93,4 +109,6 @@ __all__ = [
     "FlightRecorder",
     "RECORDER",
     "to_chrome_trace",
+    "DebugServer",
+    "serve",
 ]

@@ -81,6 +81,7 @@ from raft_tpu_torch.neighbors import selection
 from raft_tpu_torch.obs import spans
 from raft_tpu_torch.obs.registry import CardinalityError
 from raft_tpu_torch.ops._util import stable_topk_min
+from raft_tpu_torch.util.host import host_array
 
 __all__ = ["ExactScorer", "QualityConfig", "QualityMonitor",
            "corpus_from_index"]
@@ -128,13 +129,13 @@ class ExactScorer:
                  kmax: int = 64, max_rows: int = 1 << 18,
                  chunk: int = 1 << 16, batch: int = 32, seed: int = 0,
                  warm: bool = True, device="cuda"):
-        x = np.ascontiguousarray(np.asarray(corpus, np.float32))
+        x = np.ascontiguousarray(host_array(corpus, np.float32))
         expects(x.ndim == 2 and x.shape[0] > 0,
                 "ExactScorer: corpus must be a non-empty (n, dim) "
                 "array, got %s", x.shape)
         n, dim = x.shape
         row_ids = (np.arange(n, dtype=np.int64) if ids is None
-                   else np.asarray(ids, np.int64))
+                   else host_array(ids, np.int64))
         expects(row_ids.shape == (n,),
                 "ExactScorer: ids must be (n=%d,), got %s", n,
                 row_ids.shape)
@@ -197,7 +198,7 @@ class ExactScorer:
         """Exact top-``k`` global ids for ``queries`` → ``(nq, k)`` int64.
         Tiles queries to the fixed ``batch`` shape and the corpus to
         fixed chunks; merges the chunk winners on the host."""
-        q = np.asarray(queries, np.float32)
+        q = host_array(queries, np.float32)
         if q.ndim == 1:
             q = q[None, :]
         expects(q.shape[1] == self.dim,

@@ -91,6 +91,7 @@ from raft_tpu_torch.serve.types import (DeadlineExceeded, DispatchError,
                                         ServeConfig, ShardFailedError,
                                         _Request)
 from raft_tpu_torch.testing import faults
+from raft_tpu_torch.util.host import host_array
 
 __all__ = ["SearchServer", "SERVE_LATENCY_BUCKETS", "OCCUPANCY_BUCKETS"]
 
@@ -340,7 +341,7 @@ class SearchServer:
         ``trace_context`` is a ``traceparent`` value that parents the
         request's ``raft.serve.request`` root span; by default the
         caller thread's innermost open span."""
-        q = np.asarray(queries, np.float32)
+        q = host_array(queries, np.float32)
         if q.ndim == 1:
             q = q[None, :]
         expects(q.ndim == 2 and q.shape[1] == self._ladder.dim,

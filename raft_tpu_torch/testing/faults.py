@@ -33,9 +33,9 @@ Injection sites (labels in parentheses):
                            (``epoch``), ``MutableIndex._push_dev_locked``;
                            wired in ``mutate/mutable.py``
 ``fed.scrape``             one federator scrape (``instance``): comes with
-                           the fleet tier (item 7)
+                           the metrics federator (item 7d)
 ``obs.blackbox.append``    a black-box record's write (``kind``, ``box``):
-                           comes with the rest of ``obs`` (item 4d)
+                           comes with the black box (item 7d)
 =========================  ==================================================
 
 Convenience scopes: :func:`stall_shard`, :func:`kill_compactor`,

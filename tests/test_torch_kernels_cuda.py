@@ -39,7 +39,9 @@ selects) and kernel 1 at a streaming chunk's shape are held to their plain
 versions; tiered and host-memory searches on the card give the resident
 probe-order search's ids (the same card arithmetic on the same rows), also
 while a thread swaps the hot table; a mutable index recovers from its WAL
-and from a checkpoint onto the card.
+and from a checkpoint onto the card. The host-side entry points take
+tensors that live on the card (ids a search returned there, queries, a
+scorer's corpus) and give what the same calls on host arrays give.
 """
 
 import time
@@ -1885,3 +1887,64 @@ def test_host_streaming_build_on_card_matches_cpu(dev):
         out[ids[ids >= 0]] = lst[ids >= 0]
         lab.append(out)
     assert np.mean(lab[0] == lab[1]) >= 0.999
+
+
+def test_mutable_ids_on_card(dev, tmp_path):
+    # F12 on the card: delete and upsert by ids that live on the card,
+    # among them the ids MutableIndex.search returned there, through the
+    # WAL: the same state, log and search as the same calls on host ids
+    from raft_tpu_torch import mutate
+    from raft_tpu_torch.mutate.wal import MutationWAL
+    index, q = _tier_case(dev, n=8000)
+    rows = np.random.default_rng(26).normal(size=(40, 32)).astype(
+        np.float32)
+    out = {}
+    for where in ("host", "card"):
+        m = mutate.MutableIndex(index, k=8, config=mutate.MutateConfig(
+            delta_capacities=(64, 256)))
+        wal_p = str(tmp_path / f"{where}.wal")
+        m.attach_wal(MutationWAL(wal_p, sync=False))
+        _, found = m.search(q[:4], block=True)
+        assert found.device.type == "cuda"
+        dead = found[:, 0] if where == "card" else found[:, 0].cpu().numpy()
+        m.delete(dead)
+        new_ids = torch.arange(9000, 9040, device=dev, dtype=torch.int32)
+        m.upsert(_t(rows, dev), ids=(new_ids if where == "card"
+                                     else new_ids.cpu().numpy()))
+        d, i = m.search(q, block=True)
+        recs = MutationWAL(wal_p, sync=False).replay()
+        out[where] = (d, i, m.stats(),
+                      [(r.op, r.ids.tolist()) for r in recs])
+    assert torch.equal(out["card"][1], out["host"][1])
+    assert torch.equal(out["card"][0], out["host"][0])
+    assert out["card"][2:] == out["host"][2:]
+
+
+def test_server_submit_of_queries_on_card(dev):
+    # F12: SearchServer.submit of queries that live on the card gives the
+    # ids and distances of the same queries from the host
+    from raft_tpu_torch.serve import SearchServer
+    index, q = _tier_case(dev, n=8000)
+    srv = SearchServer.from_index(index, q[:8], 8,
+                                  params=ivf_flat.SearchParams(n_probes=8))
+    try:
+        d, i = srv.submit(_t(q[:8], dev)).result(timeout=60)
+        d0, i0 = srv.search(q[:8])
+    finally:
+        srv.close()
+    np.testing.assert_array_equal(i, i0)
+    np.testing.assert_array_equal(d, d0)
+
+
+def test_exact_scorer_on_a_corpus_on_card(dev):
+    # F12: ExactScorer over a corpus, ids and queries on the card gives the
+    # scorer over the same host arrays (both score on the card)
+    from raft_tpu_torch.obs.quality import ExactScorer
+    rng = np.random.default_rng(27)
+    x = rng.normal(size=(20000, 32)).astype(np.float32)
+    ids = np.arange(20000, dtype=np.int64) * 7
+    q = rng.normal(size=(40, 32)).astype(np.float32)
+    host = ExactScorer(x, ids=ids, kmax=16, device=dev)
+    card = ExactScorer(_t(x, dev), ids=_t(ids, dev), kmax=16, device=dev)
+    np.testing.assert_array_equal(card.topk(_t(q, dev), 16),
+                                  host.topk(q, 16))

@@ -545,6 +545,92 @@ class TestRecover:
                                       _ids(recovered, x[:16])[1])
 
 
+# ---------------------------------------------------------------------------
+# a crash between the checkpoint's promotion and the log's rewrite
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def crash_flat():
+    """3000 x 16 in 16 lists, the port's own CPU build."""
+    rng = np.random.default_rng(11)
+    centers = rng.normal(size=(16, 16)).astype(np.float32) * 4.0
+    x = (centers[rng.integers(0, 16, 3000)]
+         + rng.normal(size=(3000, 16)).astype(np.float32))
+    idx = tflat.build(x, tflat.IndexParams(n_lists=16, kmeans_n_iters=4),
+                      device="cpu")
+    return x, idx
+
+
+_CRASH_CFG = dict(delta_capacities=(256, 1024))
+
+
+def _fold(m, crash, monkeypatch):
+    """``m.compact()``; with ``crash`` the log's rewrite raises, as a
+    process that dies right after the checkpoint's promotion."""
+    if not crash:
+        assert m.compact()
+        return
+    with monkeypatch.context() as mp:
+        def died(*_a, **_k):
+            raise SystemExit("killed after the checkpoint's promotion")
+        mp.setattr(twal.MutationWAL, "rewrite", died)
+        with pytest.raises(SystemExit):
+            m.compact()
+
+
+def _crash_run(idx, x, tmp, folds, crash, monkeypatch):
+    """Delete ids 0-199 and upsert ids 3000-3099, fold; with ``folds`` 2
+    delete 300-349 and upsert 3100-3149, fold again. Only the last fold
+    may crash. Returns the index recovered from the files and the
+    upserted rows."""
+    wal_p, ckpt_p = str(tmp / "m.wal"), str(tmp / "m.ckpt")
+    cfg = tmutate.MutateConfig(**_CRASH_CFG)
+    m = tmutate.MutableIndex(idx, k=8, config=cfg)
+    m.attach_wal(twal.MutationWAL(wal_p, sync=False),
+                 checkpoint_path=ckpt_p)
+    rng = np.random.default_rng(5)
+    rounds = [(np.arange(0, 200), np.arange(3000, 3100)),
+              (np.arange(300, 350), np.arange(3100, 3150))][:folds]
+    rows = []
+    for r, (dead, new_ids) in enumerate(rounds):
+        m.delete(dead)
+        v = (x[rng.integers(0, x.shape[0], new_ids.shape[0])]
+             + rng.normal(size=(new_ids.shape[0], 16)).astype(np.float32))
+        m.upsert(v, ids=new_ids)
+        rows.append(v)
+        _fold(m, crash and r == folds - 1, monkeypatch)
+    del m           # the process dies with the object
+    back = tmutate.MutableIndex.recover(
+        wal_p, k=8, checkpoint_path=ckpt_p, device="cpu", sync=False,
+        config=cfg)
+    return back, np.concatenate(rows)
+
+
+@pytest.mark.parametrize("folds", [1, 2])
+def test_recover_after_a_crash_between_promotion_and_rewrite(
+        crash_flat, tmp_path, monkeypatch, folds):
+    """The crash leaves the new checkpoint beside the old log (whose head
+    meta, after the second fold, is the first fold's): recovery returns
+    every id once, and the ids a crash-free recovery returns."""
+    x, idx = crash_flat
+    got = {}
+    for crash in (False, True):
+        tmp = tmp_path / ("crash" if crash else "clean")
+        tmp.mkdir()
+        m, rows = _crash_run(idx, x, tmp, folds, crash, monkeypatch)
+        q = np.concatenate([rows, x[:64], x[200:264]])
+        d, i = _ids(m, q)
+        for row in i:
+            live = row[row >= 0]
+            assert len(set(live.tolist())) == live.shape[0], row
+        assert m.stats()["epoch"] == folds
+        got[crash] = (d, i, {k: m.stats()[k] for k in _STATS})
+    np.testing.assert_array_equal(got[True][1], got[False][1])
+    np.testing.assert_allclose(got[True][0], got[False][0], rtol=1e-6)
+    assert got[True][2] == got[False][2]
+
+
 def test_concurrent_writers_log_in_apply_order(small_flat, tmp_path):
     """8 threads upsert and delete through one WAL'd index at once (a
     short switch interval): the log holds the mutations in the order the
