@@ -184,6 +184,54 @@ Phases, one line each:
               rising) and ``recover`` from the checkpoint and the log
               gives the live ids. The log and checkpoint live under
               ``chiprun_out/durable`` and are removed after the phase.
+              ``serve_fleet`` (after ``mutate_durable``, in process, on
+              the same index): three ``fleet.Replica``s, each a
+              ``SearchServer`` (the main burst's settings) over its own
+              ``MutableIndex`` on the shared base; the primary logs to a
+              WAL, two followers come up through ``bootstrap_replica``
+              and tail it with a ``Replicator``. The burst through a
+              ``FleetRouter(FleetConfig(max_retries=1))`` while the
+              primary takes serve_mutate's writes (the followers' lag in
+              records sampled through it), then a burst with one
+              follower ``kill()``ed in it (brought back through the
+              restart below), then bursts while ``rolling_restart``
+              drains and restarts every replica (followers bootstrapped
+              again from the whole log: seconds). Fails unless no
+              request fails in any round, each caught-up follower's ids
+              on the 256 queries equal the primary's, the router's
+              ``report()`` and ``/healthz``'s fleet section
+              (``obs.serve(fleet=router)``) count three replicas serving,
+              no request in a round with a kill or the restart in it is
+              slower than ``stall_bound_ms``, and kernels 2 and 3
+              launched on the routed bursts alone (launches read just
+              before and after each burst). QPS, p50 and p99 a round,
+              lag, bootstrap seconds. No fold of the 10M index.
+              ``fleet_procs`` (after ``serve_fleet``): a
+              ``ProcessFleet(n_procs=3, platform="cuda")`` of
+              ``fleetd`` daemons at 2,000,000 x 128 (printed as a cut:
+              three daemon copies share the card beside the 10M index),
+              1024 lists, k=32, 96 probes, every daemon on card 0, the
+              kernels only loaded (built in phase 1). Fails unless each
+              daemon's log names this card, every daemon answers the 256
+              queries with the same ids (one build at one seed, bit for
+              bit), no request fails through a burst with writes to the
+              primary over ``/rpc/upsert`` and ``/rpc/delete``, a burst
+              with a follower SIGKILLed in it (then respawned), and a
+              burst with the primary SIGKILLed and a follower promoted
+              in it; the old primary, respawned as a follower,
+              bootstraps from the new primary's checkpoint over
+              ``/rpc/checkpoint`` (seconds, bytes) and every daemon ends
+              with the new primary's ids; no request in a round with an
+              action in it is slower than ``stall_bound_ms`` (a search
+              RPC times out after ``PROC_RPC_TIMEOUT_S``); kernels 2 and
+              3 launched on the 128-row ``/rpc/search`` requests and
+              kernel 2 on the routed bursts (the daemons' launch counts
+              from ``/rpc/state`` just before and after each; batches of
+              at most ``PROC_POOL`` rows take the probe-major plan, so
+              kernel 3 is not expected there); no daemon compiled a
+              kernel and none is left running. QPS, p50/p99 a round, the
+              card's memory in use with the daemons up, each daemon's
+              kernel launches over its life (its exit log line).
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -414,6 +462,25 @@ STREAM_CHUNK = 1_000_000
 # ~1.3 GB at 1M rows, ~13 GB at 10M) with DURABLE_CKPT_UPSERTS upserts
 DURABLE_BATCH = 256
 DURABLE_CKPT_ROWS, DURABLE_CKPT_UPSERTS = 1_000_000, 2_048
+# serve_fleet: replicas in process (one primary with a WAL, followers
+# tailing it); the router's retries; how long to wait for a follower to
+# catch up
+FLEET_REPLICAS, FLEET_MAX_RETRIES, FLEET_CATCHUP_S = 3, 1, 60.0
+# fleet_procs: daemons on the card at a cut of the 10M dataset (three
+# copies share the card beside the parent's index), their startup limit,
+# the RPC pool a remote replica keeps (the endpoint's thread bound), the
+# writes a burst sends the primary over HTTP
+PROC_N, PROC_REPLICAS, PROC_STARTUP_S = 2_000_000, 3, 300.0
+PROC_POOL, PROC_UPSERT_BATCHES, PROC_BATCH = 8, 8, 256
+# a round with an action in it (a kill, a failover, a rolling restart,
+# writes over HTTP) fails when its slowest request takes longer than
+# FLEET_STALL_X times the larger of its own p99 and the last quiet
+# round's, plus, through daemons, one search RPC's timeout and one load
+# probe's (what a request to a SIGKILLed daemon may wait before its
+# retry: the timeout is above the slowest request a promotion's fold
+# caused, 8.8 s on an NVIDIA H100 80GB HBM3 at 700 W)
+FLEET_STALL_X = 2.0
+PROC_RPC_TIMEOUT_S, PROC_PROBE_S = 12.0, 5.0
 # serve_endpoint: the closed-loop HTTP burst's client threads (the
 # endpoint's default bound), the 128-query POSTs timed against direct
 # searches of the same batch (in turns), the history's sampling interval
@@ -2590,6 +2657,544 @@ def run_mutate_durable(index, x, q, seed: int):
     free_phase("mutate_durable")
 
 
+def router_burst(router, q_np):
+    """The burst's 512 single-query requests from 128 threads through a
+    fleet router → (ids, latencies, wall seconds, errors); nothing fails
+    here, so a thread may run it."""
+    ids = [None] * N_REQUESTS
+
+    def call(r):
+        ids[r] = router.search(q_np[r % len(q_np)], timeout=600)[1][0]
+
+    lat, wall, errors = closed_loop(call, N_THREADS)
+    return ids, lat, wall, errors
+
+
+def rows_per_batch(batch: dict):
+    """Mean rows a batch from ``raft.serve.batch.*`` counter deltas, or
+    None when no batch ran in this process."""
+    n = sum(v for k_, v in batch.items()
+            if k_.startswith("raft.serve.batch.total"))
+    return batch.get("raft.serve.batch.rows", 0) / n if n else None
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """Kernel launches between two reads of ``{source: launch counts}``,
+    summed over the sources in both reads (a daemon killed or respawned
+    in between drops out); kernels that did not launch are left out."""
+    out = {}
+    for src, now in after.items():
+        then = before.get(src)
+        if then is None:
+            continue
+        for k_, v in now.items():
+            out[k_] = out.get(k_, 0) + v - then.get(k_, 0)
+    return {k_: v for k_, v in out.items() if v}
+
+
+def stall_bound_ms(rounds: list, own_p99_ms: float, rpc_s: float) -> float:
+    """The slowest request a round with an action in it may have:
+    FLEET_STALL_X times the larger of its own p99 and the last quiet
+    round's, plus ``rpc_s`` (for remote replicas the RPC timeout and a
+    load probe: what a request to a SIGKILLed daemon waits before it is
+    retried elsewhere)."""
+    quiet = [r["p99_ms"] for r in rounds if not r["action"]]
+    ref = max(own_p99_ms, quiet[-1] if quiet else 0.0)
+    return FLEET_STALL_X * ref + rpc_s * 1e3
+
+
+def fleet_round(router, q_np, name: str, rounds: list, action=None,
+                delay_s: float = 0.1, counts=None, rpc_s: float = 0.0):
+    """One burst through ``router``, with ``action()`` run on a thread
+    ``delay_s`` into it → the action's result. ``counts()`` (``{source:
+    launch counts}``) is read just before and just after the burst: the
+    round's kernel launches. Fails on any failed request, a failed
+    action, or, in a round with an action, a request slower than
+    :func:`stall_bound_ms`; the round's QPS, p50, p99, slowest request
+    and launches go to ``rounds``."""
+    from raft_tpu_torch import obs
+    box = {}
+    th = None
+    before = obs.snapshot()
+    counts_before = counts() if counts is not None else None
+    if action is not None:
+        def run():
+            time.sleep(delay_s)
+            try:
+                box["out"] = action()
+            except Exception as e:  # reported after the join
+                box["err"] = repr(e)
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+    ids, lat, wall, errors = router_burst(router, q_np)
+    counts_after = counts() if counts is not None else None
+    if th is not None:
+        th.join(timeout=600)
+    if errors:
+        fail(f"{name}: {len(errors)} requests failed, first {errors[0]}")
+    if "err" in box or (th is not None and th.is_alive()):
+        fail(f"{name}: the action failed: {box.get('err', 'still running')}")
+    row = dict(round=name, action=action is not None,
+               **latency_row(lat, wall), max_ms=float(lat.max()) * 1e3)
+    if action is not None:
+        row["bound_ms"] = stall_bound_ms(rounds, row["p99_ms"], rpc_s)
+        if row["max_ms"] > row["bound_ms"]:
+            fail(f"{name}: the slowest request took {row['max_ms']:.1f} "
+                 f"ms, over the round's bound of {row['bound_ms']:.1f}")
+    if counts is not None:
+        row["launches"] = launch_delta(counts_before, counts_after)
+    # the batches this process's servers ran (none for remote replicas)
+    per = rows_per_batch(counter_deltas(before, obs.snapshot(),
+                                        "raft.serve.batch."))
+    if per is not None:
+        row["rows_per_batch"] = per
+    rounds.append(row)
+    return box.get("out")
+
+
+def run_serve_fleet(index, q, q_np, main: dict, seed: int):
+    """Phase 3 ``serve_fleet``: three replicas in this process over the
+    main index (module docstring). The primary's ``MutableIndex`` logs to
+    a WAL under ``chiprun_out/fleet`` (removed after the phase)."""
+    import shutil
+    from raft_tpu_torch import fleet, obs, ops
+    from raft_tpu_torch.mutate import MutableIndex
+    from raft_tpu_torch.mutate.wal import MutationWAL
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import SearchServer, ServeConfig
+    t_phase = time.perf_counter()
+    n, dev = index.size, index.device
+    params = ivf_flat.SearchParams(n_probes=N_PROBES)
+    cfg = ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                      max_wait_ms=2.0)
+    gen = np.random.default_rng(seed + 301)
+    picked = gen.choice(n, MUTATE_DELETES + MUTATE_REUPSERTS, replace=False)
+    re_ids = picked[:MUTATE_REUPSERTS].astype(np.int32)
+    del_ids = picked[MUTATE_REUPSERTS:].astype(np.int64)
+    new_np = mixture_rows(n, MUTATE_UPSERTS, seed, seed + 302,
+                          dev).cpu().numpy()
+    re_np = mixture_rows(n, MUTATE_REUPSERTS, seed, seed + 303,
+                         dev).cpu().numpy()
+    out = os.path.join(OUT_DIR, "fleet")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    wal_p = os.path.join(out, "primary.wal")
+    prim = MutableIndex(index, k=K, params=params)
+    wal = MutationWAL(wal_p, sync=True)
+    prim.attach_wal(wal)
+    followers, boot_s, ladder_s = {}, [], []
+
+    def serve(m):
+        t0 = time.perf_counter()
+        srv = SearchServer.from_index(m, q_np[:128], K, config=cfg)
+        ladder_s.append(time.perf_counter() - t0)
+        return srv
+
+    def restart(rep):
+        """A replica's (re)birth: the primary's server anew over its own
+        index; a follower bootstrapped from the whole log."""
+        if rep.name == "r0":
+            rep.set_server(serve(prim))
+            return
+        t0 = time.perf_counter()
+        m, reader, applier = fleet.bootstrap_replica(
+            wal_p, K, base_index=index, params=params, name=rep.name,
+            device=dev)
+        boot_s.append(time.perf_counter() - t0)
+        repl = fleet.Replicator(m, wal_p, name=rep.name, poll_ms=5.0,
+                                reader=reader, applier=applier)
+        followers[rep.name] = (m, repl)
+        rep.set_server(serve(m), replicator=repl)
+
+    def caught_up(what: str) -> None:
+        for name, (_, repl) in followers.items():
+            if not repl.drain(FLEET_CATCHUP_S) or repl.gap:
+                fail(f"serve_fleet: follower {name} did not catch up "
+                     f"{what}")
+
+    def parity(what: str) -> None:
+        caught_up(what)
+        want = search_all(prim, q)
+        for name, (m, _) in followers.items():
+            got = search_all(m, q)
+            if not np.array_equal(got, want):
+                fail(f"serve_fleet: follower {name}'s ids differ from the "
+                     f"primary's on {int((got != want).sum())} entries "
+                     f"{what}")
+
+    reps = [fleet.Replica(f"r{i}") for i in range(FLEET_REPLICAS)]
+    for rep in reps:
+        restart(rep)
+        rep.mark_serving()
+    first_boot = list(boot_s)
+    router = fleet.FleetRouter(reps, fleet.FleetConfig(
+        max_retries=FLEET_MAX_RETRIES, seed=seed))
+    rounds, lag = [], {name: 0 for name in followers}
+    ep = None
+
+    def counts():
+        return {"self": ops.launch_counts()}
+
+    try:
+        ops.reset_launch_counts()
+        before = obs.snapshot()
+        # 1. the burst while the primary takes serve_mutate's writes
+        errors, got = [], []
+        writer = threading.Thread(target=lambda: got.extend(mutate_writer(
+            prim, new_np, del_ids, re_ids, re_np, errors)), daemon=True)
+        stop_lag = threading.Event()
+
+        def sample_lag():
+            while not stop_lag.is_set():
+                tip = wal.next_seq - 1
+                for name, (_, repl) in list(followers.items()):
+                    lag[name] = max(lag[name],
+                                    tip - repl.applier.applied_seq)
+                time.sleep(0.005)
+
+        sampler = threading.Thread(target=sample_lag, daemon=True)
+        writer.start()
+        sampler.start()
+        while True:
+            fleet_round(router, q_np, "writes", rounds, counts=counts)
+            if not writer.is_alive():
+                break
+        writer.join(timeout=60)
+        if errors:
+            fail(f"serve_fleet: the writer failed: {errors[:1]}")
+        caught_up("after the writes")
+        stop_lag.set()
+        sampler.join(timeout=10)
+        lag_s = {k_: v for k_, v in obs.snapshot()["gauges"].items()
+                 if k_.startswith("raft.fleet.replication.lag_seconds")}
+        parity("after the writes")
+        # 2. a follower killed mid-burst, then brought back
+        victim = reps[-1]
+        fleet_round(router, q_np, "kill", rounds, action=victim.kill,
+                    counts=counts)
+        # the routed traffic's own launches (the bursts alone; the parity
+        # searches and the servers' ladder warm-ups launch kernels too)
+        burst_launches = {}
+        for r in rounds:
+            for k_, v in r["launches"].items():
+                burst_launches[k_] = burst_launches.get(k_, 0) + v
+        check_launched("serve_fleet's routed bursts", burst_launches,
+                       ("select_k", "select_k_payload", "ivf_scan"))
+        victim.begin_bootstrap()
+        restart(victim)
+        victim.mark_serving()
+        parity("after the kill")
+        # 3. a rolling restart of every replica under load
+        stop = threading.Event()
+        traffic = []
+
+        def loop():
+            while not stop.is_set():
+                traffic.append(router_burst(router, q_np))
+
+        th = threading.Thread(target=loop, daemon=True)
+        b0 = obs.snapshot()
+        th.start()
+        t0 = time.perf_counter()
+        report = fleet.rolling_restart(router, restart,
+                                       drain_timeout_s=60.0)
+        rolling_s = time.perf_counter() - t0
+        stop.set()
+        th.join(timeout=600)
+        rolling_batches = rows_per_batch(counter_deltas(
+            b0, obs.snapshot(), "raft.serve.batch."))
+        if not report["ok"]:
+            fail(f"serve_fleet: the rolling restart failed: {report}")
+        for i, (_, lat, wall, errs) in enumerate(traffic):
+            if errs:
+                fail(f"serve_fleet: {len(errs)} requests failed during "
+                     f"the rolling restart, first {errs[0]}")
+            row = dict(round=f"rolling{i}", action=True,
+                       **latency_row(lat, wall),
+                       max_ms=float(lat.max()) * 1e3)
+            row["bound_ms"] = stall_bound_ms(rounds, row["p99_ms"], 0.0)
+            if row["max_ms"] > row["bound_ms"]:
+                fail(f"serve_fleet: rolling{i}'s slowest request took "
+                     f"{row['max_ms']:.1f} ms, over the round's bound of "
+                     f"{row['bound_ms']:.1f}")
+            rounds.append(row)
+        parity("after the rolling restart")
+        launches = ops.launch_counts()
+        deltas = counter_deltas(before, obs.snapshot(), "raft.fleet.")
+        # the surfaces: the router's report and /healthz's fleet section
+        time.sleep(fleet.FleetRouter._GAUGE_REFRESH_S + 0.05)
+        router.search(q_np[:1], timeout=600)
+        body = router.report()
+        ep = obs.serve(port=0, fleet=router)
+        _, health = http_call(ep.port, "GET", "/healthz")
+        code, dbg = http_call(ep.port, "GET", "/debug/fleet")
+        hf = health.get("fleet", {})
+        if body["serving"] != FLEET_REPLICAS or \
+                len(body["replicas"]) != FLEET_REPLICAS or code != 200 or \
+                dbg["serving"] != FLEET_REPLICAS or \
+                (hf.get("replicas"), hf.get("serving")) != \
+                (FLEET_REPLICAS, FLEET_REPLICAS):
+            fail(f"serve_fleet: the fleet's surfaces do not count "
+                 f"{FLEET_REPLICAS} replicas serving: report "
+                 f"{body['serving']}, /healthz {hf}")
+    finally:
+        if ep is not None:
+            ep.close()
+        router.close()
+        shutil.rmtree(out, ignore_errors=True)
+    phase("serve_fleet", n=n, replicas=FLEET_REPLICAS,
+          max_retries=FLEET_MAX_RETRIES, upserts=MUTATE_UPSERTS,
+          deletes=MUTATE_DELETES, reupserts=MUTATE_REUPSERTS,
+          rounds=rounds, failed_requests=0,
+          main_burst={k_: main[k_] for k_ in ("qps", "p50_ms", "p99_ms")},
+          main_rows_per_batch=rows_per_batch(main.get("batches", {})),
+          rolling_rows_per_batch=rolling_batches, lag_records_max=lag,
+          lag_seconds_last=lag_s,
+          bootstrap_s_first=first_boot, bootstrap_s_restart=boot_s[
+              len(first_boot):], ladder_s=ladder_s, rolling_s=rolling_s,
+          rolling=report["replicas"], routed={
+              k_: v for k_, v in deltas.items()
+              if k_.startswith("raft.fleet.route.total")},
+          retries=deltas.get("raft.fleet.retry.total", 0),
+          suspects=deltas.get("raft.fleet.suspect.total", 0),
+          healthz_fleet=hf, ids_equal_primary=True,
+          burst_launches=burst_launches,
+          phase_launches={k_: v for k_, v in launches.items() if v},
+          seconds=time.perf_counter() - t_phase)
+    del prim, followers, reps, router
+    free_phase("serve_fleet")
+
+
+def daemon_log(fp) -> str:
+    with open(os.path.join(fp.workdir, "daemon.log")) as f:
+        return f.read()
+
+
+def daemon_counts(pf) -> dict:
+    """``{"name:pid": launch counts}`` of the fleet's daemons that answer
+    ``/rpc/state`` (one SIGKILLed may not, or only after a timeout)."""
+    from raft_tpu_torch.serve import DispatchError
+    out = {}
+    for fp in pf.processes():
+        if not fp.alive():
+            continue
+        try:
+            st = fp.client.state(timeout=PROC_PROBE_S)
+        except DispatchError:
+            continue
+        out[f"{fp.name}:{st['pid']}"] = st["launches"]
+    return out
+
+
+def remote_ids(client, q_np) -> np.ndarray:
+    """The 256 queries through one daemon's ``/rpc/search`` in 128-row
+    requests → ids."""
+    out = []
+    for s in range(0, q_np.shape[0], 128):
+        status, body = client.search_raw(q_np[s:s + 128], k=K,
+                                         deadline_ms=600_000.0)
+        if status != 200:
+            fail(f"fleet_procs: /rpc/search answered {status}: {body}")
+        out.append(np.asarray(body["ids"]))
+    return np.concatenate(out)
+
+
+def compile_events(url: str) -> dict:
+    """A daemon's ``raft.compile_cache.event`` counters from its
+    ``/metrics``: kernel libraries found built (hits) or built (misses)."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    got = {"cache_hits": 0.0, "cache_misses": 0.0}
+    for line in text.splitlines():
+        if line.startswith("raft_compile_cache_event"):
+            for ev in got:
+                if f'event="{ev}"' in line:
+                    got[ev] += float(line.rsplit(" ", 1)[1])
+    return got
+
+
+def run_fleet_procs(q_np, seed: int):
+    """Phase 3 ``fleet_procs``: three ``fleetd`` daemons on this card
+    (module docstring). Their files live under ``chiprun_out/fleet_procs``;
+    the daemons' logs stay, their logs of mutations and checkpoints are
+    removed after the phase."""
+    import re
+    import shutil
+    from raft_tpu_torch import fleet
+    t_phase = time.perf_counter()
+    phase("cut", n=PROC_N, note="fleet_procs: each daemon builds its own "
+          "copy at this cut of the 10,000,000 rows; three share the card "
+          "beside the 10M index")
+    card = torch.cuda.get_device_name(0)
+    out = os.path.join(OUT_DIR, "fleet_procs")
+    shutil.rmtree(out, ignore_errors=True)
+    rng = np.random.default_rng(seed + 401)
+    free0 = torch.cuda.mem_get_info()[0]
+    rounds, parts, pf, router = [], {}, None, None
+
+    def replica(fp):
+        return fleet.RemoteReplica(fp.name, fp.url, pool_workers=PROC_POOL,
+                                   timeout_s=PROC_RPC_TIMEOUT_S)
+
+    def counts():
+        return daemon_counts(pf)
+
+    def burst(name, action=None):
+        return fleet_round(router, q_np, name, rounds, action=action,
+                           counts=counts,
+                           rpc_s=PROC_RPC_TIMEOUT_S + PROC_PROBE_S)
+
+    def swap_in(fp):
+        router.remove_replica(fp.name).kill()
+        router.add_replica(replica(fp))
+
+    def write(client, batches: int) -> int:
+        n_up = 0
+        for j in range(batches):
+            rows = (rng.normal(size=(PROC_BATCH, D)) * 5.0).astype(np.float32)
+            n_up += len(client.upsert(rows, timeout=600))
+            if j % 2:
+                client.delete(rng.choice(PROC_N, PROC_BATCH, replace=False),
+                              timeout=600)
+        return n_up
+
+    def caught_up(primary, names, what):
+        tip = int(primary.client.state()["wal_next_seq"]) - 1
+        deadline = time.monotonic() + FLEET_CATCHUP_S
+        for name in names:
+            while int(pf.process(name).client.state().get(
+                    "applied_seq", -1)) < tip:
+                if time.monotonic() > deadline:
+                    fail(f"fleet_procs: {name} did not catch up {what}")
+                time.sleep(0.05)
+
+    def parity(primary, what):
+        others = [fp.name for fp in pf.processes() if fp.name != primary.name]
+        caught_up(primary, others, what)
+        want = remote_ids(primary.client, q_np)
+        for name in others:
+            got = remote_ids(pf.process(name).client, q_np)
+            if not np.array_equal(got, want):
+                fail(f"fleet_procs: {name}'s ids differ from "
+                     f"{primary.name}'s on {int((got != want).sum())} "
+                     f"entries {what}")
+
+    try:
+        t0 = time.perf_counter()
+        pf = fleet.ProcessFleet(
+            out, n_procs=PROC_REPLICAS, n=PROC_N, dim=D, seed=seed,
+            n_lists=N_LISTS, k=K, n_probes=N_PROBES, deadline_ms=600_000.0,
+            batch_sizes=",".join(str(b) for b in BATCH_SIZES),
+            platform="cuda", startup_timeout_s=PROC_STARTUP_S,
+            extra_args=["--max-queue", "512", "--max-wait-ms", "2.0"])
+        parts["spawn_s"] = time.perf_counter() - t0
+        used_up = (free0 - torch.cuda.mem_get_info()[0]) / 1e9
+        for fp in pf.processes():
+            m = re.search(r"device cuda: (.+)", daemon_log(fp))
+            if m is None or m.group(1).strip() != card:
+                fail(f"fleet_procs: {fp.name} did not run on {card!r}: "
+                     f"{m.group(1) if m else 'no device line'}")
+        c0 = counts()
+        base = {fp.name: remote_ids(fp.client, q_np)
+                for fp in pf.processes()}
+        rpc_128_launches = launch_delta(c0, counts())
+        if any(not np.array_equal(v, base["r0"]) for v in base.values()):
+            fail("fleet_procs: the daemons' builds at one seed differ")
+        check_launched("fleet_procs's 128-row /rpc/search", rpc_128_launches,
+                       ("select_k", "select_k_payload", "ivf_scan"))
+        router = fleet.FleetRouter([replica(fp) for fp in pf.processes()],
+                                   fleet.FleetConfig(
+                                       max_retries=FLEET_MAX_RETRIES,
+                                       seed=seed))
+        burst("steady")
+        # writes to the primary over HTTP while the followers tail it
+        n_up = burst("writes", lambda: write(pf.primary().client,
+                                             PROC_UPSERT_BATCHES))
+        parity(pf.process("r0"), "after the writes")
+        # a follower SIGKILLed mid-burst, then respawned
+        burst("sigkill", lambda: pf.kill("r2"))
+        t0 = time.perf_counter()
+        swap_in(pf.respawn("r2"))
+        parts["respawn_follower_s"] = time.perf_counter() - t0
+        parity(pf.process("r0"), "after the respawn")
+        # the primary SIGKILLed and a follower promoted mid-burst
+
+        def failover():
+            pf.kill("r0")
+            t = time.perf_counter()
+            res = pf.promote("r1")
+            parts["promote_s"] = time.perf_counter() - t
+            return res
+
+        promoted = burst("failover", failover)
+        new = pf.process("r1")
+        n_up += write(new.client, 2)
+        # the old primary back as a follower: the new primary's checkpoint
+        # over /rpc/checkpoint, then its log
+        t0 = time.perf_counter()
+        old = pf.respawn("r0", role="follower")
+        parts["respawn_from_checkpoint_s"] = time.perf_counter() - t0
+        swap_in(old)
+        ckpt = os.path.join(old.workdir, "r0.ckpt.npz")
+        if not os.path.exists(ckpt):
+            fail("fleet_procs: the respawned r0 fetched no checkpoint")
+        parts["checkpoint_gb"] = os.path.getsize(ckpt) / 1e9
+        parity(new, "after the promotion")
+        burst("after")
+        # the routed traffic's own launches, in the rounds whose daemons
+        # built nothing meanwhile (the failover's promotion folds and
+        # warms a new epoch); one RPC worker a request, so a daemon's
+        # batches hold at most PROC_POOL rows and take the probe-major
+        # plan: kernel 2 on each, kernel 3 on none
+        routed_launches = {}
+        for r in rounds:
+            if r["round"] != "failover":
+                for k_, v in r["launches"].items():
+                    routed_launches[k_] = routed_launches.get(k_, 0) + v
+        check_launched("fleet_procs's routed bursts", routed_launches,
+                       ("select_k", "select_k_payload"))
+        events = {fp.name: compile_events(fp.url) for fp in pf.processes()}
+        if any(e["cache_misses"] or not e["cache_hits"]
+               for e in events.values()):
+            fail(f"fleet_procs: a daemon compiled a kernel: {events}")
+        used_peak = (free0 - torch.cuda.mem_get_info()[0]) / 1e9
+        body = router.report()
+    finally:
+        if router is not None:
+            router.close()
+        if pf is not None:
+            pf.close()
+    if any(fp.alive() for fp in pf.processes()):
+        fail("fleet_procs: a daemon outlived the fleet's close")
+    launches = {}
+    for fp in pf.processes():
+        m = re.findall(r"kernel launches: (\{.*\})", daemon_log(fp))
+        if not m:
+            fail(f"fleet_procs: {fp.name} did not exit clean")
+        launches[fp.name] = {k_: v for k_, v in json.loads(m[-1]).items()
+                             if v}
+        if not launches[fp.name].get("select_k") or \
+                not launches[fp.name].get("ivf_scan"):
+            fail(f"fleet_procs: {fp.name} never launched kernels 2 and 3")
+    for root, _, files in os.walk(out):
+        for f_ in files:
+            if not f_.endswith(".log"):
+                os.remove(os.path.join(root, f_))
+    phase("fleet_procs", n=PROC_N, dim=D, n_lists=N_LISTS, k=K,
+          n_probes=N_PROBES, replicas=PROC_REPLICAS, card=card,
+          rounds=rounds, failed_requests=0, upserts=n_up,
+          promoted=promoted.get("primary") if promoted else None,
+          next_seq=promoted.get("next_seq") if promoted else None,
+          **parts, card_used_gb_daemons_up=used_up,
+          card_used_gb_peak=used_peak,
+          card_used_gb_after_close=(free0 - torch.cuda.mem_get_info()[0])
+          / 1e9, compile_events=events, routed_launches=routed_launches,
+          rpc_128_launches=rpc_128_launches, daemon_life_launches=launches,
+          serving=body["serving"], ids_equal=True,
+          seconds=time.perf_counter() - t_phase)
+
+
 def mutate_tail_rows(m, qb, rows, ids, params, launches: dict):
     """Kernel 2 at the mutable tail's shapes on ``m``'s current epoch:
     the column select on the scores of ``qb`` against a delta segment at
@@ -2895,6 +3500,8 @@ def run_flat(x, q, q_np, truth, args):
     mutate_rows = run_serve_mutate(index, x, q, q_np, served, args.seed)
     tiered_rows = run_serve_tiered(index, x, q, q_np, truth, served)
     run_mutate_durable(index, x, q, args.seed)
+    run_serve_fleet(index, q, q_np, served, args.seed)
+    run_fleet_procs(q_np, args.seed)
     wide_launches = run_wide_flat(index, q, truth)
     row, wide_row, rows = check_flat_scans(index, q)
     pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,

@@ -120,18 +120,47 @@ def _write_checkpoint_meta(ckpt_tmp: str, ckpt: str, meta: dict) -> None:
     os.replace(side + ".tmp", side)
 
 
-def _read_checkpoint_meta(ckpt: str) -> Optional[dict]:
-    """The sidecar's counters when they belong to ``ckpt`` as it is on
-    disk, else None (no sidecar: a checkpoint written by the JAX
+def _read_checkpoint_meta(ckpt: str, identity: list) -> Optional[dict]:
+    """The sidecar's counters when they belong to the checkpoint file
+    whose ``[size, mtime_ns]`` is ``identity`` (the file a reader holds
+    open), else None (no sidecar: a checkpoint written by the JAX
     package, or before the sidecar existed)."""
     try:
         with open(ckpt + ".meta") as f:
             meta = json.load(f)
     except FileNotFoundError:
         return None
-    if meta.get("checkpoint") != _checkpoint_identity(ckpt):
+    if meta.get("checkpoint") != list(identity):
         return None
     return meta
+
+
+def _load_checkpoint(ckpt: str, device) -> Tuple[object, Optional[dict]]:
+    """``(index, sidecar counters or None)`` from ONE open of ``ckpt``:
+    the sidecar is matched against the open file and the index read from
+    it, so a fold promoting the next checkpoint meanwhile cannot pair one
+    file's index with the other's counters."""
+    from raft_tpu_torch.neighbors import serialize
+    with open(ckpt, "rb") as f:
+        st = os.fstat(f.fileno())
+        meta = _read_checkpoint_meta(
+            ckpt, [int(st.st_size), int(st.st_mtime_ns)])
+        return serialize.load(f, device=device), meta
+
+
+def _fold_window_skip(ckpt_meta: Optional[dict],
+                      head_meta: Optional[dict]) -> Optional[int]:
+    """The fold window: the last log seq the checkpoint already holds
+    when its sidecar must be applied (the log's head is no meta record of
+    the checkpoint's epoch or later: the checkpoint was promoted but the
+    log not rewritten, so the log still holds the records it folded),
+    else None (no sidecar, or a log rewritten after the fold)."""
+    if ckpt_meta is None:
+        return None
+    if head_meta is not None and \
+            int(head_meta.get("epoch", 0)) >= int(ckpt_meta["epoch"]):
+        return None
+    return int(ckpt_meta["folded_upto_seq"])
 
 
 @dataclass
@@ -843,14 +872,12 @@ class MutableIndex:
         logical state; a replay that overflows the delta segment
         compacts inline and continues — recovery never fails on
         volume."""
-        from raft_tpu_torch.neighbors import serialize
         if device is None:
             device = (base_index.device if base_index is not None
                       else "cuda")
         ckpt_meta = None
         if checkpoint_path and os.path.exists(checkpoint_path):
-            ckpt_meta = _read_checkpoint_meta(checkpoint_path)
-            inner = serialize.load(checkpoint_path, device=device)
+            inner, ckpt_meta = _load_checkpoint(checkpoint_path, device)
         else:
             inner = base_index
         expects(inner is not None,
@@ -862,12 +889,9 @@ class MutableIndex:
         m = cls(inner, k=int(k), params=params, config=config)
         head = (records[0].meta if records and records[0].op == OP_META
                 else None)
-        if ckpt_meta is not None and (
-                head is None or int(head["epoch"]) < ckpt_meta["epoch"]):
-            # the checkpoint was promoted but the log not rewritten: the
-            # log still holds the records the checkpoint folded
+        upto = _fold_window_skip(ckpt_meta, head)
+        if upto is not None:
             m.apply_meta(ckpt_meta)
-            upto = ckpt_meta["folded_upto_seq"]
             records = [r for r in records if r.seq > upto]
         elif head is not None:
             m.apply_meta(head)

@@ -64,8 +64,16 @@ def _pack(path: str, fmt: str, meta: dict, arrays: dict) -> None:
         os.replace(path + ".npz", path)
 
 
-def _unpack(path: str, fmt: str, fields):
-    with np.load(path) as z:
+def _npz(src):
+    """``np.load`` of a path, or of an open binary file from its start
+    (``load`` reads one file twice: its tag, then its arrays)."""
+    if hasattr(src, "seek"):
+        src.seek(0)
+    return np.load(src)
+
+
+def _unpack(path, fmt: str, fields):
+    with _npz(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         expects(meta.get("format") == fmt,
                 "serialize: %s holds %r, expected %r", path,
@@ -174,6 +182,7 @@ def load_ball_cover(path: str, device="cuda"):
 @contextlib.contextmanager
 def _scratch_npz(path: str):
     """A temporary ``.npz`` path beside ``path``, removed afterwards."""
+    path = getattr(path, "name", path)    # an open file: its path
     fd, tmp = tempfile.mkstemp(
         suffix=".npz", dir=os.path.dirname(os.path.abspath(path)) or ".")
     os.close(fd)
@@ -286,10 +295,11 @@ def save(index, path: str) -> None:
         raise TypeError(f"serialize.save: unsupported index {type(index)}")
 
 
-def load(path: str, device="cuda"):
+def load(path, device="cuda"):
     """Type-dispatching load: reads the format tag and returns the
-    matching index type on ``device`` (default ``cuda``)."""
-    with np.load(path) as z:
+    matching index type on ``device`` (default ``cuda``). ``path`` may
+    also be a binary file open for reading."""
+    with _npz(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
     fmt = meta.get("format")
     readers = {"ivf_flat": load_ivf_flat, "ivf_pq": load_ivf_pq,

@@ -28,11 +28,14 @@ objectives as multi-window burn rates) and
 :mod:`raft_tpu_torch.obs.history` (the registry sampled over time, with
 mean-shift anomaly detection).
 
-Still to port (ROADMAP.md queue 1): the replica fleet that serves on
-this endpoint (item 7b), and the metrics federator behind the
-endpoint's ``/fleet/*`` routes, the black box and the
-``RAFT_TPU_BLACKBOX`` knob that attaches it and the history at import
-(item 7d).
+The replica fleet (:mod:`raft_tpu_torch.fleet`) serves on this
+endpoint: ``obs.serve(fleet=router)`` folds the router into
+``/debug/fleet``, and each fleet daemon's transport is a
+:class:`~raft_tpu_torch.obs.endpoint.DebugServer`.
+
+Still to port (ROADMAP.md queue 1 item 7d): the metrics federator behind
+the endpoint's ``/fleet/*`` routes, the black box and the
+``RAFT_TPU_BLACKBOX`` knob that attaches it and the history at import.
 """
 
 from raft_tpu_torch.obs.registry import (

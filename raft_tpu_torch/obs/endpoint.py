@@ -45,8 +45,11 @@ The fleet aggregator's routes (``/fleet/metrics``, ``/fleet/healthz``,
 ``/fleet/trace``, and ``/metrics`` and ``/debug/fleet`` merged across the
 fleet) read a metrics federator: ``obs.serve(federator=fed)`` stores one,
 and with none attached those routes answer 404 as the JAX package's do.
-The federator and the replica fleet are ROADMAP.md queue 1 items 7d and
-7b.
+The federator is ROADMAP.md queue 1 item 7d. A fleet router
+(:class:`raft_tpu_torch.fleet.FleetRouter`) behind ``/debug/fleet`` comes
+through ``obs.serve(fleet=router)``; each fleet daemon's
+:class:`raft_tpu_torch.fleet.ReplicaTransport` is a :class:`DebugServer`
+with the ``/rpc/*`` routes added.
 
 Request handling is thread-per-connection (``ThreadingHTTPServer``)
 under a bound (``RAFT_TPU_ENDPOINT_THREADS``, default 8): while every
@@ -488,7 +491,7 @@ class DebugServer(ThreadingHTTPServer):
         # a SearchServer (or anything with its search(queries, k=,
         # deadline_ms=)) behind POST /search
         self.searcher = searcher
-        # a fleet router behind GET /debug/fleet (queue 1 item 7b)
+        # a fleet router (raft_tpu_torch.fleet) behind GET /debug/fleet
         self.fleet = fleet
         # a metrics federator behind /fleet/* (queue 1 item 7d)
         self.federator = federator

@@ -46,8 +46,14 @@ failure path:
   results), parented by the caller's ``traceparent``
   (``submit(trace_context=...)``, default the caller thread's open
   span), a batch's built in one pass after its futures are set and
-  recorded under one lock; the resource profiler's dispatch tag
-  (``"server"``) on the thread that runs the plan.
+  recorded under one lock; the resource profiler's dispatch tag on the
+  thread that runs the plan (``"server"``, or the name a fleet replica
+  gives it through :meth:`SearchServer.set_profile_tag`).
+* **the fleet's surface**: :meth:`SearchServer.load` (queued and
+  in-flight rows, the shed rate, the admission state: the router's
+  power-of-two-choices input), :meth:`SearchServer.drain` (admission
+  stops, new work sheds with reason ``draining``, the queue flushes) and
+  :meth:`SearchServer.resume`.
 
 A :class:`~raft_tpu_torch.mutate.MutableIndex` is served through
 stable ladder handles that resolve its live epoch per call; with quality
@@ -104,9 +110,6 @@ OCCUPANCY_BUCKETS = (0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75,
                      0.875, 1.0)
 
 _SHED_RATE_WINDOW_S = 10.0
-# the resource profiler's tag of a server's sampled dispatches (the JAX
-# package's fleet names its replicas here; the fleet is not ported)
-_PROFILE_TAG = "server"
 
 
 class _DispatchWorker:
@@ -161,9 +164,11 @@ class SearchServer:
     blocking ``search()``. Construct with :meth:`from_index`, or from a
     :class:`PlanLadder` directly (tests inject fakes)."""
 
-    # _q, _rows_queued, _closed and _shed_times are shared by caller
-    # threads and the dispatcher: touched only under ``self._cond`` or in
-    # a ``_locked``-suffix method
+    # static race contract (tools/graftlint GL003): these fields sit on
+    # the caller-thread/dispatcher-thread boundary and are touched only
+    # under ``self._cond`` or in a ``_locked``-suffix method
+    GUARDED_BY = ("_q", "_rows_queued", "_closed", "_shed_times",
+                  "_draining", "_inflight_rows")
 
     def __init__(self, ladder: PlanLadder,
                  config: Optional[ServeConfig] = None, start: bool = True):
@@ -174,6 +179,8 @@ class SearchServer:
         self._rows_queued = 0
         self._cond = threading.Condition()
         self._closed = False
+        self._draining = False
+        self._inflight_rows = 0
         self._thread: Optional[threading.Thread] = None
         self._shed_times: deque = deque()
         # the watchdog's helper: dispatcher-thread state only, no lock
@@ -186,6 +193,10 @@ class SearchServer:
         self._quality = None
         self._quality_src = None
         self._quality_meta: dict = {}
+        # the resource profiler's tag of this server's sampled dispatches
+        # (a fleet replica sets its name): read on the dispatcher thread,
+        # written once at attach, no lock
+        self._profile_tag = "server"
         obs.gauge("raft.serve.queue.max").set(self._cfg.max_queue)
         obs.gauge("raft.serve.queue.depth").set(0)
         obs.gauge("raft.serve.shed.rate").set(0.0)
@@ -266,9 +277,25 @@ class SearchServer:
             self._quality.close()
         self._drain_closed()
 
+    def __enter__(self) -> "SearchServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    @property
+    def closed(self) -> bool:
+        # benign racy read: a bool snapshot for status endpoints; the
+        # admission decision re-checks under the lock in submit()
+        return self._closed  # graftlint: disable=GL003
+
     @property
     def ladder(self) -> PlanLadder:
         return self._ladder
+
+    @property
+    def config(self) -> ServeConfig:
+        return self._cfg
 
     # -- quality sampling --------------------------------------------------
     @property
@@ -321,6 +348,13 @@ class SearchServer:
         self._quality = monitor
         return monitor
 
+    def set_profile_tag(self, tag: str) -> None:
+        """Name this server's sampled dispatches in the resource
+        profiler's per-tag ledger (:mod:`raft_tpu_torch.obs.profiler`):
+        a :class:`~raft_tpu_torch.fleet.Replica` passes its name, so the
+        fleet's utilization is told apart replica by replica."""
+        self._profile_tag = str(tag)
+
     def _quality_epoch(self) -> int:
         src = self._quality_src
         return int(src.epoch) if src is not None else 0
@@ -371,6 +405,11 @@ class SearchServer:
             if self._closed:
                 self._shed_locked(req, "closed")
                 return req.future
+            if self._draining:
+                # drain() stopped admission (a rolling restart): the queue
+                # flushes, new work goes to another replica
+                self._shed_locked(req, "draining")
+                return req.future
             if len(self._q) >= self._cfg.max_queue:
                 self._shed_locked(req, "queue_full")
                 return req.future
@@ -386,6 +425,50 @@ class SearchServer:
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Blocking convenience: ``submit(...).result(timeout)``."""
         return self.submit(queries, k, deadline_ms).result(timeout)
+
+    # -- load and drain: the fleet's view of one replica --------------------
+    def load(self) -> dict:
+        """A cheap load snapshot for routing (the fleet router's
+        power-of-two-choices input) and status surfaces: queued requests
+        and rows, the rows of the batch executing now, the recent shed
+        rate and the admission state. One lock, no device work."""
+        with self._cond:
+            self._update_shed_rate_locked()
+            return {
+                "queue_depth": len(self._q),
+                "queued_rows": self._rows_queued,
+                "inflight_rows": self._inflight_rows,
+                "shed_rate": (len(self._shed_times)
+                              / _SHED_RATE_WINDOW_S),
+                "draining": self._draining,
+                "closed": self._closed,
+            }
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Stop admission and flush: new submissions fail at once with
+        :class:`RejectedError` (reason ``draining``) while every queued
+        request still runs and every outstanding future resolves. True
+        once the queue is empty and no batch is in flight, False on
+        timeout with work left. The dispatcher stays alive:
+        :meth:`resume` reopens admission, and :meth:`close` afterwards
+        has nothing left to fail."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+            while self._q or self._inflight_rows:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cond.wait(timeout=min(remaining, 0.25))
+            return True
+
+    def resume(self) -> None:
+        """Reopen admission after :meth:`drain` (a rolling restart's
+        rejoin)."""
+        with self._cond:
+            self._draining = False
+            self._cond.notify_all()
 
     # -- internals ---------------------------------------------------------
     def _shed_locked(self, req: _Request, reason: str) -> None:
@@ -485,6 +568,7 @@ class SearchServer:
                     break
                 batch, rows, expired, depth, now = \
                     self._take_batch_locked()
+                self._inflight_rows = rows
             for r in expired:
                 self._fail_deadline(r, now)
             if batch:
@@ -502,6 +586,11 @@ class SearchServer:
                     for r in batch:
                         if not r.future.done():
                             r.future.set_exception(err)
+            with self._cond:
+                # the batch is done (or there was none): a drain() waiter
+                # watches this reach zero with an empty queue
+                self._inflight_rows = 0
+                self._cond.notify_all()
         self._drain_closed()
 
     # -- dispatch hooks (a distributed tier overrides them) ---------------
@@ -536,10 +625,12 @@ class SearchServer:
         """One plan execution with the failure conversions applied: a
         watchdog timeout and a comms ``ABORT``/``ERROR`` status both
         become :class:`ShardFailedError`."""
+        tag = self._profile_tag
+
         def call():
             # the thread that runs the plan (the watchdog's helper when
             # it is on) carries the profiler tag
-            profiler.tag_dispatch(_PROFILE_TAG)
+            profiler.tag_dispatch(tag)
             faults.inject("serve.execute", shape=plan.nq)
             with _on_device(plan):
                 return plan.search(qb, block=True)
@@ -560,7 +651,7 @@ class SearchServer:
         cfg = self._cfg
         # profiler attribution: tag the dispatcher thread (one None read
         # when profiling is off)
-        profiler.tag_dispatch(_PROFILE_TAG)
+        profiler.tag_dispatch(self._profile_tag)
         t_start = time.perf_counter()
         head_wait = t_start - min(r.t_enq for r in batch)
         level = self._controller.observe(head_wait, depth)

@@ -73,6 +73,19 @@ ALLOWED_EXTRA = {
         "the device of an implicit operator (matvec and n, no matrix)",
     ("obs.quality", "ExactScorer", "device"):
         "the device the scorer's corpus chunks live and are scored on",
+    ("fleet.replication", "bootstrap_replica", "device"):
+        "the device a follower loads the primary's checkpoint onto",
+    ("fleet.remote", "bootstrap_from_url", "device"):
+        "the device a follower loads the primary's checkpoint onto",
+}
+# defaults the port sets apart, and why: (JAX default, port default)
+DEFAULT_DIFFERS = {
+    ("fleet.proc", "ProcessFleet", "platform"): (
+        "cpu", "cuda", "daemons run on the card unless the caller asks "
+        "for the CPU"),
+    ("fleet.proc", "device_env", "platform"): (
+        "cpu", "cuda", "the card's variables unless the caller asks for "
+        "the CPU"),
 }
 # the generators draw on the device of their generator; an int seed
 # makes one on ``device`` (default cuda)
@@ -198,6 +211,10 @@ def test_port_accepts_reference_signature(mod, name):
     missing = [p for p in ref if p not in port]
     assert not missing, f"{mod}.{name} lacks {missing}"
     for p, (kind, default) in ref.items():
+        if (mod, name, p) in DEFAULT_DIFFERS:
+            ref_default, port_default, _ = DEFAULT_DIFFERS[(mod, name, p)]
+            assert default == ref_default
+            default = port_default
         assert port[p] == (kind, default), \
             f"{mod}.{name}({p}): port {port[p]}, JAX {(kind, default)}"
     order = [p for p in port if p in ref]
@@ -214,6 +231,44 @@ def test_allow_list_is_used():
         obj = getattr(importlib.import_module(f"raft_tpu_torch.{mod}"), name)
         ref = getattr(importlib.import_module(f"raft_tpu.{mod}"), name)
         assert p in _params(obj) and p not in _params(ref)
+
+
+def test_default_differences_are_used():
+    """Every default the port sets apart names a parameter of both
+    packages whose defaults really are the two listed."""
+    for (mod, name, p), (ref_d, port_d, _) in DEFAULT_DIFFERS.items():
+        assert (mod, name) in _cases()
+        obj = getattr(importlib.import_module(f"raft_tpu_torch.{mod}"), name)
+        ref = getattr(importlib.import_module(f"raft_tpu.{mod}"), name)
+        assert _params(ref)[p][1] == ref_d and _params(obj)[p][1] == port_d
+
+
+def test_walk_covers_the_fleet():
+    """The signature walk holds every module of the fleet against its
+    JAX namesake, and the package exports the JAX package's names."""
+    from raft_tpu import fleet as jfleet
+    from raft_tpu_torch import fleet as tfleet
+    cases = set(_cases())
+    for mod, name in (("fleet.replica", "Replica"),
+                      ("fleet.router", "FleetConfig"),
+                      ("fleet.router", "FleetRouter"),
+                      ("fleet.rolling", "rolling_restart"),
+                      ("fleet.replication", "WalApplier"),
+                      ("fleet.replication", "Replicator"),
+                      ("fleet.replication", "bootstrap_replica"),
+                      ("fleet.transport", "ReplicaTransport"),
+                      ("fleet.transport", "TransportClient"),
+                      ("fleet.transport", "RemoteWalReader"),
+                      ("fleet.transport", "serve_replica"),
+                      ("fleet.transport", "wait_healthy"),
+                      ("fleet.remote", "RemoteSearchClient"),
+                      ("fleet.remote", "RemoteReplica"),
+                      ("fleet.remote", "bootstrap_from_url"),
+                      ("fleet.proc", "ProcessFleet"),
+                      ("fleet.proc", "FleetProcess"),
+                      ("fleet.proc", "device_env")):
+        assert (mod, name) in cases, (mod, name)
+    assert sorted(tfleet.__all__) == sorted(jfleet.__all__)
 
 
 def test_core_helpers_exist():
@@ -253,7 +308,8 @@ def _fold(**kw):
 
 def _unimplemented():
     """case -> (call, the ROADMAP.md item its message names)."""
-    from raft_tpu_torch import mutate
+    from raft_tpu_torch import fleet, mutate
+    from raft_tpu_torch.fleet import fleetd
     from raft_tpu_torch.serve.types import ServeConfig
     return {
         "ServeConfig.failover": (lambda: ServeConfig(failover=True),
@@ -266,6 +322,12 @@ def _unimplemented():
                                                    mesh=object()),
             "item 6"),
         "fold(mesh=...)": (_fold(mesh=object()), "item 6"),
+        "fleetd --blackbox": (lambda: fleetd.main(
+            ["--blackbox", "box", "--device", "cpu"]), "item 7d"),
+        "ProcessFleet(blackbox=True)": (lambda: fleet.ProcessFleet(
+            "unused", blackbox=True, spawn=False), "item 7d"),
+        "Replica.set_blackbox(<directory>)": (
+            lambda: fleet.Replica("r0").set_blackbox("box"), "item 7d"),
     }
 
 
@@ -331,6 +393,50 @@ def test_max_retries_is_honoured():
         ("ok", 3)
     assert _serve_once(fail_n=2, max_retries=1, retry_backoff_ms=1.0) == \
         ("ShardFailedError", 2)
+
+
+def test_set_profile_tag_is_honoured(monkeypatch):
+    """A server's sampled dispatches land in the profiler's ledger under
+    the tag ``set_profile_tag`` gave it (``"server"`` by default); a
+    fleet replica names its server."""
+    from raft_tpu_torch import fleet
+    from raft_tpu_torch.obs import profiler
+    from raft_tpu_torch.serve import PlanLadder, SearchServer, ServeConfig
+    tags = []
+    monkeypatch.setattr(profiler, "tag_dispatch", tags.append)
+    srv = SearchServer(PlanLadder((1,), (4,), {(1, 0): _SlowOrFlakyPlan(1)},
+                                  dim=3, k=2),
+                       ServeConfig(batch_sizes=(1,), max_wait_ms=0.0))
+    try:
+        srv.search(np.zeros((1, 3), np.float32), timeout=30)
+        assert set(tags) == {"server"}
+        fleet.Replica("r7", srv)
+        tags.clear()
+        srv.search(np.zeros((1, 3), np.float32), timeout=30)
+        assert tags and set(tags) == {"r7"}
+    finally:
+        srv.close()
+
+
+def test_duck_typed_blackbox_is_honoured():
+    """A black box object (``flush(reason)`` and a ``dir``) is flushed on
+    a kill and named in ``describe()``."""
+    from raft_tpu_torch import fleet
+
+    class Box:
+        dir = "/boxes/r0"
+
+        def __init__(self):
+            self.reasons = []
+
+        def flush(self, reason):
+            self.reasons.append(reason)
+
+    box = Box()
+    rep = fleet.Replica("r0").set_blackbox(box)
+    assert rep.describe()["blackbox"] == "/boxes/r0"
+    rep.kill()
+    assert box.reasons == ["kill"]
 
 
 def test_quality_sample_rate_is_honoured():

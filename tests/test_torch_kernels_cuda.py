@@ -1948,3 +1948,78 @@ def test_exact_scorer_on_a_corpus_on_card(dev):
     card = ExactScorer(_t(x, dev), ids=_t(ids, dev), kmax=16, device=dev)
     np.testing.assert_array_equal(card.topk(_t(q, dev), 16),
                                   host.topk(q, 16))
+
+
+def test_follower_bootstrapped_onto_card_from_checkpoint(dev, tmp_path):
+    # a card primary folds (checkpoint + rewritten log) and takes more
+    # writes; followers bootstrapped from the files and over HTTP load
+    # the checkpoint onto the card and answer with the primary's ids
+    from raft_tpu_torch import fleet, mutate
+    from raft_tpu_torch.mutate.wal import MutationWAL
+    index, q = _tier_case(dev, n=8000)
+    rng = np.random.default_rng(25)
+    cfg = mutate.MutateConfig(delta_capacities=(64, 256))
+    wal_p, ckpt_p = str(tmp_path / "m.wal"), str(tmp_path / "m.ckpt")
+    prim = mutate.MutableIndex(index, k=8, config=cfg)
+    prim.attach_wal(MutationWAL(wal_p, sync=True), checkpoint_path=ckpt_p)
+    ids = prim.upsert(rng.normal(size=(100, 32)).astype(np.float32))
+    prim.delete(list(ids[:10]) + [3, 4])
+    assert prim.compact()
+    prim.upsert(rng.normal(size=(40, 32)).astype(np.float32))
+    prim.delete([7])
+    live = prim.search(q, block=True)[1]
+    tr = fleet.serve_replica(wal_path=wal_p, checkpoint_path=ckpt_p)
+    try:
+        local = fleet.bootstrap_replica(wal_p, 8, checkpoint_path=ckpt_p,
+                                        config=cfg, name="card_f")[0]
+        remote = fleet.bootstrap_from_url(tr.url, 8, str(tmp_path / "c"),
+                                          config=cfg, name="card_h")[0]
+    finally:
+        tr.close()
+    for m in (local, remote):
+        assert m.index.lists_data.device.type == "cuda"
+        assert m.stats() == prim.stats()
+        assert torch.equal(m.search(q, block=True)[1], live)
+
+
+def test_process_fleet_on_card_matches_in_process_build(dev, tmp_path):
+    # two fleetd daemons on the card (the kernels built here first, so
+    # they only load them): each names the card in its log, compiles
+    # nothing, and answers with the ids of the same build in this process
+    import json
+    import re
+    import urllib.request
+    from raft_tpu_torch import fleet, mutate
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.random import make_blobs
+    _build.build_all()
+    n, d, lists, k, seed = 20000, 32, 64, 8, 3
+    x, _ = make_blobs(n_samples=n, n_features=d, centers=lists,
+                      cluster_std=2.0, seed=seed, device=dev)
+    base = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=lists,
+                                                  kmeans_n_iters=3),
+                          device=dev)
+    m = mutate.MutableIndex(base, k=k, params=ivf_flat.SearchParams(
+        n_probes=lists))
+    q = np.random.default_rng(26).normal(size=(8, d)).astype(np.float32)
+    want = m.search(_t(q, dev), block=True)[1].cpu().numpy().tolist()
+    pf = fleet.ProcessFleet(str(tmp_path), n_procs=2, n=n, dim=d,
+                            seed=seed, n_lists=lists, k=k, n_probes=lists,
+                            deadline_ms=60_000.0, platform="cuda",
+                            startup_timeout_s=300.0)
+    try:
+        for fp in pf.processes():
+            with open(f"{fp.workdir}/daemon.log") as f:
+                named = re.search(r"device cuda: (.+)", f.read())
+            assert named and named.group(1).strip() == \
+                torch.cuda.get_device_name(0)
+            status, body = fp.client.search_raw(q, k=k)
+            assert status == 200 and body["ids"] == want
+            with urllib.request.urlopen(fp.url + "/metrics") as r:
+                text = r.read().decode()
+            assert 'event="cache_misses"' not in text
+            assert 'event="cache_hits"' in text
+        assert json.dumps(pf.describe())
+    finally:
+        pf.close()
+    assert not any(fp.alive() for fp in pf.processes())
