@@ -232,6 +232,47 @@ Phases, one line each:
               kernel and none is left running. QPS, p50/p99 a round, the
               card's memory in use with the daemons up, each daemon's
               kernel launches over its life (its exit log line).
+              ``fleet_postmortem`` (after ``fleet_procs``): the port's
+              load generator (``raft_tpu_torch.tools.loadgen.main``)
+              twice in this process. (a) ``--fleet 3`` at 10,000,000 x
+              128 (its own blobs and build: 1024 lists, k=32, probes
+              96/48/24), 200 requests/s for 15 s, replica r1 killed
+              at 5 s, the resource profiler at 0.5, a black box a
+              replica under ``chiprun_out/fleet_postmortem/inproc``:
+              fails unless the run ends 0 with no failed request, the
+              report reads r1's dump, and the doctor, run on r1's dump
+              after the run, finds r1's DOWN transition, final-window
+              counter deltas, a verdict the JAX package's acceptance
+              allows and the kill flush; kernel 2 launched in the open
+              loop (``ops.launch_counts()`` around it alone: the
+              probe-major plans' coarse select), and held to its plain
+              version at that select's largest shape, (32, 1024) k=96
+              (row ``select_k@probe_major``, its launches the open
+              loop's). (b)
+              ``--fleet-procs 3`` at fleet_procs' 2,000,000-row cut,
+              100 requests/s for 20 s, ``--federate --blackbox``, r1
+              SIGKILLed at 8 s, one rung of 96 probes (the daemons
+              serve at ``--probes-ladder``'s last rung; with 96 a
+              128-row request takes the list-major plan) and the one
+              setting loadgen has no argument for, the daemons' batch
+              shapes up to 128 (fleet_procs'; loadgen's are 1 and 8):
+              fails unless the run ends 0 with no failed
+              request, the federation section lists three instances on
+              their own registries, the killed instance reads stale or
+              unreachable and ``/fleet/healthz`` is 503 naming it while
+              it is down, after the load one ``scrape_once()`` gives a
+              ``raft_serve_completed_total`` rollup on ``/fleet/metrics``
+              equal to the sum of the live daemons' own ``/metrics``,
+              ``/fleet/trace`` of one routed request stitches the
+              router's fragment and a daemon's, the dead daemon's own
+              dump (read before its respawn) has records, a verdict and
+              its newest record within 2 s of the SIGKILL, and the
+              survivors launched kernel 2 in the open loop (``/rpc/state``
+              around it) and kernel 3 on 128-row ``/rpc/search``
+              requests. Offered and achieved QPS, p50/p99 and the
+              slowest request of each run, retries, route shares, the
+              federator's scrape overhead, each box's flushes and bytes,
+              the doctor's verdicts and evidence, the phase's seconds.
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -481,6 +522,21 @@ PROC_POOL, PROC_UPSERT_BATCHES, PROC_BATCH = 8, 8, 256
 # caused, 8.8 s on an NVIDIA H100 80GB HBM3 at 700 W)
 FLEET_STALL_X = 2.0
 PROC_RPC_TIMEOUT_S, PROC_PROBE_S = 12.0, 5.0
+# fleet_postmortem: loadgen's in-process fleet at the full 10M rows and its
+# daemon fleet at fleet_procs' cut, each with one replica killed; the
+# verdicts the JAX package's acceptance allows a killed replica's dump
+# (tests/test_blackbox.py); how far before the SIGKILL the dead daemon's
+# newest record may lie (its boxes flush every 0.5 s)
+PM_COMMON = ["--dim", str(D), "--n-lists", str(N_LISTS), "--k", str(K)]
+PM_INPROC = ["--fleet", "3", "--n", "10000000", "--rate", "200",
+             "--duration", "15", "--chaos", "kill_replica:1@t+5s+30s",
+             "--profile-sample", "0.5", "--probes-ladder", "96,48,24"]
+PM_PROCS = ["--fleet-procs", "3", "--n", str(PROC_N), "--rate", "100",
+            "--duration", "20", "--federate", "--blackbox", "on",
+            "--chaos", "kill_replica:1@t+8s+30s", "--probes-ladder", "96"]
+PM_VERDICTS = ("host-bound", "device-bound", "shed storm", "healthy",
+               "compile storm")
+PM_NEWEST_S = 2.0
 # serve_endpoint: the closed-loop HTTP burst's client threads (the
 # endpoint's default bound), the 128-query POSTs timed against direct
 # searches of the same batch (in turns), the history's sampling interval
@@ -796,8 +852,8 @@ def l2nn_shapes() -> dict:
 
 
 def check_select_k(q, centers, k, name):
-    """select-k of the coarse scores of one 128-query batch against
-    ``centers`` at ``k`` probes, against its plain version."""
+    """select-k of the coarse scores of one batch of at most 128 queries
+    against ``centers`` at ``k`` probes, against its plain version."""
     from raft_tpu_torch.neighbors._ivf_scan import coarse_scores
     from raft_tpu_torch.ops import select_k as op
     v = coarse_scores(q[:128].contiguous(), centers).contiguous()
@@ -2730,12 +2786,20 @@ def fleet_round(router, q_np, name: str, rounds: list, action=None,
     counts_after = counts() if counts is not None else None
     if th is not None:
         th.join(timeout=600)
+    # the router's own account of the round: routes, retries, suspects,
+    # failed load probes, by replica
+    moves = {k_.replace("raft.fleet.", ""): v for k_, v in
+             counter_deltas(before, obs.snapshot(), "raft.fleet.").items()
+             if v and not k_.startswith("raft.fleet.proc.")}
     if errors:
-        fail(f"{name}: {len(errors)} requests failed, first {errors[0]}")
+        fail(f"{name}: {len(errors)} requests failed, first {errors[0]}, "
+             f"distinct {sorted(set(errors))[:4]}; the router's counters "
+             f"over the round: {moves}")
     if "err" in box or (th is not None and th.is_alive()):
         fail(f"{name}: the action failed: {box.get('err', 'still running')}")
     row = dict(round=name, action=action is not None,
-               **latency_row(lat, wall), max_ms=float(lat.max()) * 1e3)
+               **latency_row(lat, wall), max_ms=float(lat.max()) * 1e3,
+               fleet=moves)
     if action is not None:
         row["bound_ms"] = stall_bound_ms(rounds, row["p99_ms"], rpc_s)
         if row["max_ms"] > row["bound_ms"]:
@@ -3195,6 +3259,345 @@ def run_fleet_procs(q_np, seed: int):
           seconds=time.perf_counter() - t_phase)
 
 
+class PostmortemSpy:
+    """What ``fleet_postmortem`` reads inside loadgen's own run: its
+    ``run_open_loop`` wrapped (launch counts just before and after, each
+    request's latency and, in a daemon run, the checks made while the
+    killed daemon is still down: loadgen respawns it once the loop ends)
+    and, in a daemon run, ``ProcessFleet`` subclassed (the instance, each
+    SIGKILL's wall time, and the daemons' batch shapes, which loadgen has
+    no argument for). Checks that fail are collected and failed after
+    loadgen has closed its fleet; ``__exit__`` fails the phase when a
+    hook was never reached."""
+
+    def __init__(self, q_np, procs: bool):
+        self.q_np, self.procs = q_np, procs
+        self.pf = None
+        self.t_kill = {}
+        self.lat = []
+        self.launches = None
+        self.checks = {}
+        self.errors = []
+
+    def counts(self):
+        from raft_tpu_torch import ops
+        if self.pf is None:
+            return {"local": dict(ops.launch_counts())}
+        return daemon_counts(self.pf)
+
+    def __enter__(self):
+        from raft_tpu_torch import fleet
+        from raft_tpu_torch.tools import loadgen
+        spy = self
+        self._saved = (loadgen.run_open_loop, fleet.ProcessFleet)
+        run, pf_cls = self._saved
+
+        class SpyFleet(pf_cls):
+            def __init__(self, *a, **kw):
+                spy.pf = self
+                kw["batch_sizes"] = ",".join(str(b) for b in BATCH_SIZES)
+                super().__init__(*a, **kw)
+
+            def kill(self, name):
+                spy.t_kill[name] = time.time()
+                return super().kill(name)
+
+        def spy_run(server, *a, **kw):
+            before = spy.counts()
+            out = run(_Timed(server, spy.lat), *a, **kw)
+            spy.launches = launch_delta(before, spy.counts())
+            if spy.procs:
+                try:
+                    spy.after_daemon_load(server)
+                except Exception as e:  # failed after the fleet's close
+                    spy.errors.append(f"post-load checks raised {e!r}")
+            return out
+
+        loadgen.run_open_loop = spy_run
+        if self.procs:
+            fleet.ProcessFleet = SpyFleet
+        return self
+
+    def __exit__(self, *exc):
+        from raft_tpu_torch import fleet
+        from raft_tpu_torch.tools import loadgen
+        loadgen.run_open_loop, fleet.ProcessFleet = self._saved
+        if self.pf is not None:
+            self.pf.close()
+        if exc[0] is None and (self.launches is None
+                               or (self.procs and self.pf is None)):
+            fail("fleet_postmortem: loadgen never reached a hook "
+                 f"(open loop {self.launches is not None}, "
+                 f"ProcessFleet {self.pf is not None})")
+
+    def after_daemon_load(self, router):
+        """The daemon run's checks after its open loop, the killed daemon
+        still down. The fleet endpoints are this phase's own aggregator,
+        a second ``MetricsFederator`` over the same daemons (loadgen's
+        keeps running; its report carries the federation section)."""
+        from raft_tpu_torch import obs
+        from raft_tpu_torch.obs import federation
+        from raft_tpu_torch.tools import doctor
+        c = self.checks
+        fed = federation.MetricsFederator(self.pf.urls(), fleet=router)
+        agg = obs.serve(federator=fed, fleet=router)
+        try:
+            fed.scrape_once()
+            self._fleet_checks(router, fed, agg.port)
+        finally:
+            agg.close()
+            fed.close()
+        # the dead daemon's own dump, before its respawn reopens the dir
+        dump = os.path.join(self.pf.process("r1").workdir, "blackbox")
+        diag = doctor.diagnose_dump(dump)
+        newest = max((r.get("t_unix") or 0.0)
+                     for r in doctor.load_dump(dump)) if diag["records"] \
+            else None
+        lag = self.t_kill["r1"] - newest if newest is not None else None
+        c["killed_dump"] = {
+            "records": diag["records"], "verdict": diag["verdict"],
+            "evidence": diag["evidence"],
+            "last_flush_reason": diag.get("last_flush_reason"),
+            "newest_record_before_kill_s": lag,
+            "boxes": box_stats(dump)}
+        if not diag["records"] or lag is None or not -0.5 <= lag <= \
+                PM_NEWEST_S:
+            self.errors.append(f"the SIGKILLed daemon's dump: "
+                               f"{c['killed_dump']}")
+        out = os.path.join(OUT_DIR, "fleet_postmortem")
+        with open(os.path.join(out, "procs_r1_diagnosis.json"), "w") as f:
+            json.dump(diag, f, indent=1, default=str)
+        import shutil
+        shutil.copytree(dump, os.path.join(out, "procs_r1_blackbox"))
+        # the 128-row requests on every survivor: kernel 3
+        c0 = daemon_counts(self.pf)
+        for fp in self.pf.processes():
+            if fp.alive():
+                remote_ids(fp.client, self.q_np)
+        c["rpc_128_launches"] = launch_delta(c0, daemon_counts(self.pf))
+        if not c["rpc_128_launches"].get("ivf_scan"):
+            self.errors.append(f"the 128-row /rpc/search requests launched "
+                               f"no kernel 3: {c['rpc_128_launches']}")
+
+    def _fleet_checks(self, router, fed, port: int):
+        """``/fleet/healthz`` while r1 is down, the completed rollup
+        against the live daemons' own ``/metrics``, and one routed
+        request's ``/fleet/trace``."""
+        from raft_tpu_torch import obs
+        from raft_tpu_torch.obs import spans
+        c = self.checks
+        code, hz = http_call(port, "GET", "/fleet/healthz")
+        c["fleet_healthz_while_down"] = {
+            "code": code, "status": hz["status"], "stale": hz["stale"],
+            "r1": hz["instances"].get("r1")}
+        if code != 503 or not ("r1" in hz["stale"] or hz["instances"].get(
+                "r1", {}).get("status") in ("stale", "unreachable")):
+            self.errors.append(f"/fleet/healthz while r1 is down: {code} "
+                               f"{c['fleet_healthz_while_down']}")
+        name = "raft_serve_completed_total_total"
+        _, text = http_call(port, "GET", "/fleet/metrics")
+        rollup = rollup_value(text, name)
+        own = {}
+        for n in fed.live_instances():
+            p = int(fed.url_instances()[n].rsplit(":", 1)[1])
+            sums = parse_prometheus(http_call(p, "GET", "/metrics")[1])
+            own[n] = sums.get(name, 0.0)
+            c.setdefault("blackbox_counters", {})[n] = {
+                k_: sums.get(f"raft_obs_blackbox_{k_}_total_total")
+                for k_ in ("flushes", "bytes")}
+        c["completed_rollup"] = {"fleet": rollup, "own": own}
+        if rollup is None or rollup != sum(own.values()):
+            self.errors.append(f"the completed rollup {rollup} is not the "
+                               f"live daemons' sum {own}")
+        c["federation_rows"] = {
+            n: {k_: row.get(k_) for k_ in ("state", "scrapes", "errors")}
+            for n, row in fed.report()["instances"].items()}
+        prev = (spans.trace_enabled(), spans.trace_sample_rate())
+        spans.set_trace_enabled(True)
+        spans.set_trace_sample_rate(1.0)
+        try:
+            router.search(self.q_np[:1], timeout=60)
+        finally:
+            spans.set_trace_enabled(prev[0])
+            spans.set_trace_sample_rate(prev[1])
+        # the newest route root: the last attempt's (a retry roots its
+        # own trace)
+        tid = next(t["trace_id"] for t in obs.RECORDER.requests()
+                   if t.get("name") == "raft.fleet.route")
+        code, body = http_call(port, "GET", f"/fleet/trace?trace={tid}")
+        insts = sorted({e["args"].get("instance") for e in
+                        body.get("traceEvents", ()) if e["ph"] == "X"})
+        c["fleet_trace"] = {"code": code, "instances": insts,
+                            "other": body.get("otherData", body)}
+        if "local" not in insts or not any(i != "local" for i in insts):
+            self.errors.append(f"/fleet/trace: {c['fleet_trace']}")
+
+
+class _Timed:
+    """A router proxy whose ``submit`` notes each request's seconds (a
+    failure's too) into ``lat``."""
+
+    def __init__(self, inner, lat: list):
+        self._inner, self._lat = inner, lat
+
+    def submit(self, *a, **kw):
+        t0 = time.perf_counter()
+        fut = self._inner.submit(*a, **kw)
+        fut.add_done_callback(
+            lambda _f: self._lat.append(time.perf_counter() - t0))
+        return fut
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def rollup_value(text: str, name: str):
+    """The unlabelled sample of ``name`` in exposition text (a
+    federator's fleet rollup), or None."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def box_stats(path: str) -> dict:
+    """A black box directory's flushes (its meta records) and bytes on
+    disk."""
+    from raft_tpu_torch.obs import blackbox
+    recs = blackbox.read_dump(path)
+    return {"flushes": sum(1 for r in recs if r["kind"] == "meta"),
+            "bytes": sum(os.path.getsize(f)
+                         for f in blackbox._segment_files(path))}
+
+
+def run_loadgen(argv: list) -> tuple:
+    """``loadgen.main(argv)`` in this process → ``(rc, its last JSON
+    line)``; its other output goes to stderr."""
+    import contextlib
+    import io
+    from raft_tpu_torch.tools import loadgen
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = loadgen.main(argv)
+    lines = buf.getvalue().splitlines()
+    sys.stderr.write("\n".join(lines[:-1]) + "\n")
+    return rc, json.loads(lines[-1]) if lines else {}
+
+
+def run_summary(report: dict, lat: list) -> dict:
+    """One loadgen run's numbers for the phase line."""
+    return dict({k_: report.get(k_) for k_ in (
+        "offered", "offered_qps", "achieved_qps", "completed", "errors",
+        "shed", "deadline_expired", "p50_ms", "p99_ms")},
+        slowest_ms=max(lat) * 1e3 if lat else None,
+        retries=report.get("fleet", {}).get("retries"),
+        route_share=report.get("fleet", {}).get("route_share"))
+
+
+def run_fleet_postmortem(q_np):
+    """Phase 3 ``fleet_postmortem``: loadgen's in-process fleet and its
+    daemon fleet, each with a replica killed, read back by the doctor
+    (module docstring). The in-process run's boxes stay under
+    ``chiprun_out/fleet_postmortem/inproc`` (r1's only), the killed
+    daemon's under ``chiprun_out/fleet_postmortem/procs_r1_blackbox``."""
+    import shutil
+    from raft_tpu_torch.obs import profiler
+    from raft_tpu_torch.tools import doctor
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    out = os.path.join(OUT_DIR, "fleet_postmortem")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    inproc = os.path.join(out, "inproc")
+    # (a) in process, at the full 10M rows
+    t0 = time.perf_counter()
+    with PostmortemSpy(q_np, procs=False) as spy:
+        try:
+            rc, rep = run_loadgen(PM_COMMON + PM_INPROC
+                                  + ["--blackbox", inproc])
+        finally:
+            profiler.disable_profiling()
+    a_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    killed = rep.get("blackbox", {}).get("killed_replica", {})
+    if rc != 0 or rep.get("errors") != 0 or not killed.get("dump_readable"):
+        fail(f"fleet_postmortem (a): rc {rc}, errors {rep.get('errors')}, "
+             f"killed replica {killed}")
+    a_launch = spy.launches
+    if not a_launch.get("select_k"):
+        fail(f"fleet_postmortem (a): kernel 2 not launched in the open "
+             f"loop: {a_launch}")
+    diag = doctor.diagnose_dump(os.path.join(inproc, "r1"))
+    downs = [t_ for t_ in diag["transitions"]
+             if t_["replica"] == "r1" and t_["to"] == "down"]
+    reasons = {r["data"]["reason"] for r in doctor.load_dump(
+        os.path.join(inproc, "r1")) if r["kind"] == "meta"}
+    if not downs or not diag["final_window"]["counter_deltas"] or \
+            diag["verdict"] not in PM_VERDICTS or "kill" not in reasons:
+        fail(f"fleet_postmortem (a): r1's dump: downs {downs}, verdict "
+             f"{diag['verdict']}, reasons {sorted(reasons)}, deltas "
+             f"{len(diag['final_window']['counter_deltas'])}")
+    with open(os.path.join(out, "inproc_r1_diagnosis.json"), "w") as f:
+        json.dump(diag, f, indent=1, default=str)
+    boxes_a = {n: box_stats(os.path.join(inproc, n))
+               for n in sorted(os.listdir(inproc))}
+    for n in boxes_a:
+        if n != "r1":
+            shutil.rmtree(os.path.join(inproc, n))
+    a = dict(run_summary(rep, spy.lat), seconds=a_s,
+             open_loop_launches=a_launch,
+             profile=rep.get("profile"), boxes=boxes_a,
+             doctor={"verdict": diag["verdict"],
+                     "evidence": diag["evidence"],
+                     "down_transitions": len(downs),
+                     "final_window_deltas": len(
+                         diag["final_window"]["counter_deltas"]),
+                     "flush_reasons": sorted(reasons)})
+    phase("fleet_postmortem", run="inproc", card=card, **a)
+    # (b) through three daemons at fleet_procs' cut
+    phase("cut", n=PROC_N, note="fleet_postmortem: loadgen's daemons each "
+          "build their own copy at fleet_procs' cut of the 10,000,000 "
+          "rows, and serve fleet_procs' batch shapes (1, 8, 32, 128) "
+          "where loadgen's are 1 and 8")
+    env_before = os.environ.get("RAFT_TPU_BLACKBOX_INTERVAL")
+    t0 = time.perf_counter()
+    with PostmortemSpy(q_np, procs=True) as spy:
+        try:
+            rc, rep = run_loadgen(PM_COMMON + PM_PROCS)
+        finally:
+            if env_before is None:
+                os.environ.pop("RAFT_TPU_BLACKBOX_INTERVAL", None)
+    b_s = time.perf_counter() - t0
+    if any(fp.alive() for fp in spy.pf.processes()):
+        fail("fleet_postmortem (b): a daemon outlived the fleet's close")
+    # loadgen's workdir (the daemons' boxes, logs, logs of mutations and
+    # checkpoints) lives under TMPDIR: r1's box is copied above
+    shutil.rmtree(spy.pf.workdir, ignore_errors=True)
+    fed = rep.get("federation", {})
+    if rc != 0 or rep.get("errors") != 0:
+        fail(f"fleet_postmortem (b): rc {rc}, errors {rep.get('errors')}")
+    if sorted(fed.get("instances", {})) != ["r0", "r1", "r2"] or \
+            fed.get("instances_share_registry") is not False or \
+            "r1" not in fed.get("stale", []):
+        fail(f"fleet_postmortem (b): federation section {fed}")
+    if spy.errors:
+        fail(f"fleet_postmortem (b): {'; '.join(spy.errors)}")
+    b_launch = spy.launches
+    if not b_launch.get("select_k"):
+        fail(f"fleet_postmortem (b): the survivors launched no kernel 2 in "
+             f"the open loop: {b_launch}")
+    b = dict(run_summary(rep, spy.lat), seconds=b_s,
+             open_loop_launches=b_launch,
+             scrape_overhead_frac=fed.get("scrape_overhead_frac"),
+             federation=fed, killed_replica=rep.get("blackbox", {}).get(
+                 "killed_replica"), **spy.checks)
+    phase("fleet_postmortem", run="procs", n=PROC_N, card=card, **b)
+    phase("fleet_postmortem", card=card,
+          seconds=time.perf_counter() - t_phase)
+    return a_launch.get("select_k", 0)
+
+
 def mutate_tail_rows(m, qb, rows, ids, params, launches: dict):
     """Kernel 2 at the mutable tail's shapes on ``m``'s current epoch:
     the column select on the scores of ``qb`` against a delta segment at
@@ -3502,6 +3905,11 @@ def run_flat(x, q, q_np, truth, args):
     run_mutate_durable(index, x, q, args.seed)
     run_serve_fleet(index, q, q_np, served, args.seed)
     run_fleet_procs(q_np, args.seed)
+    # kernel 2 at the probe-major coarse select's largest shape (32 rows),
+    # with the launches of fleet_postmortem's in-process open loop
+    pm_row = check_select_k(q[:32], index.centers, N_PROBES,
+                            "select_k@probe_major")
+    pm_row["launches"] = run_fleet_postmortem(q_np)
     wide_launches = run_wide_flat(index, q, truth)
     row, wide_row, rows = check_flat_scans(index, q)
     pass_b = check_pass_b("select_k_payload@ivf_flat", *rows, K,
@@ -3509,7 +3917,8 @@ def run_flat(x, q, q_np, truth, args):
                           "raft_tpu/ops/pallas_ivf_scan.py:241")
     del index, rows
     free_phase("flat")
-    return ([row, pass_b, quality_row] + mutate_rows + tiered_rows, launches,
+    return ([row, pass_b, quality_row, pm_row] + mutate_rows + tiered_rows,
+            launches,
             [wide_row], wide_launches)
 
 

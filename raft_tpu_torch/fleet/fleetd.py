@@ -42,6 +42,13 @@ write the bound port to ``--port-file``, serve until SIGTERM/SIGINT (or
 ``POST /rpc/stop``), then drain, log the kernel launches of the
 daemon's life (``ops.launch_counts()``, also in every ``/rpc/state``
 answer) and exit 0.
+
+``--blackbox <dir>`` gives the daemon a crash-durable black box
+(:class:`raft_tpu_torch.obs.blackbox.BlackBox`, named after ``--name``):
+it flushes on its cadence (``RAFT_TPU_BLACKBOX_INTERVAL``), on a
+promotion and at a clean exit, so a SIGKILLed daemon leaves its last
+cadence flush for the doctor (``python -m raft_tpu_torch.tools.doctor
+<dir>``).
 """
 
 import argparse
@@ -51,10 +58,6 @@ import os
 import signal
 import sys
 import threading
-
-_BLACKBOX_TODO = ("--blackbox: the black box (obs/blackbox.py) is "
-                  "ROADMAP.md queue 1 item 7d")
-
 
 def build_args(argv=None):
     ap = argparse.ArgumentParser(
@@ -88,8 +91,9 @@ def build_args(argv=None):
                     help="fsync every WAL append (durability over "
                          "smoke-test speed)")
     ap.add_argument("--blackbox", default=None,
-                    help="crash-durable flight-recorder directory "
-                         "(ROADMAP.md queue 1 item 7d)")
+                    help="crash-durable black-box directory: cadence "
+                         "flushes (RAFT_TPU_BLACKBOX_INTERVAL), one on "
+                         "promote and one at exit")
     ap.add_argument("--device", default="cuda",
                     help="the torch device to build and serve on "
                          "(default cuda; cpu only when asked)")
@@ -110,7 +114,7 @@ class Daemon:
     # (promote/retarget/stop/writes) and the main thread meet here
     GUARDED_BY = ("_role", "_replicator", "_promoting")
 
-    def __init__(self, args, mindex, server, replicator):
+    def __init__(self, args, mindex, server, replicator, blackbox=None):
         self.args = args
         self.name = args.name
         self.m = mindex
@@ -119,6 +123,7 @@ class Daemon:
         self._role = args.role
         self._replicator = replicator
         self._promoting = False
+        self._blackbox = blackbox
         self.transport = None          # installed by main()
         self.stop_event = threading.Event()
 
@@ -193,6 +198,8 @@ class Daemon:
             with self._lock:
                 self._promoting = False
         obs.counter("raft.fleet.proc.promotions.total").inc()
+        if self._blackbox is not None:
+            self._blackbox.flush("promote")
         return {"primary": self.name, "next_seq": wal.next_seq,
                 "epoch": self.m.epoch}
 
@@ -320,8 +327,6 @@ def _device_name(device: str) -> str:
 
 def main(argv=None):
     args = build_args(argv)
-    if args.blackbox:
-        raise NotImplementedError(_BLACKBOX_TODO)
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format=f"%(asctime)s fleetd[{args.name}] %(levelname)s "
@@ -341,6 +346,15 @@ def main(argv=None):
     from raft_tpu_torch.fleet.transport import serve_replica
     from raft_tpu_torch.serve import SearchServer, ServeConfig
 
+    blackbox = None
+    if args.blackbox:
+        # the box's own thread flushes and fsyncs on its cadence, off the
+        # dispatcher; a relative directory is the daemon's working
+        # directory's (the spawner's cwd is the replica's workdir)
+        from raft_tpu_torch.obs.blackbox import BlackBox
+        blackbox = BlackBox(args.blackbox, box=args.name).start()
+        log.info("black box in %s", blackbox.dir)
+
     log.info("building index (role=%s)", args.role)
     m, rep_queries, replicator = build_index(args)
 
@@ -352,7 +366,7 @@ def main(argv=None):
     server = SearchServer.from_index(m, rep_queries, args.k,
                                      config=cfg)
 
-    daemon = Daemon(args, m, server, replicator)
+    daemon = Daemon(args, m, server, replicator, blackbox)
     transport = serve_replica(
         host=args.host, port=args.port, searcher=server,
         wal_path=(args.wal if args.role == "primary" else None),
@@ -383,6 +397,8 @@ def main(argv=None):
         daemon.close_replication()
         server.close()
         transport.close()
+        if blackbox is not None:
+            blackbox.close()
     from raft_tpu_torch import ops
     log.info("kernel launches: %s", json.dumps(ops.launch_counts()))
     log.info("exited clean")

@@ -23,6 +23,10 @@ for a stock :class:`~raft_tpu_torch.fleet.router.FleetRouter`.
   :meth:`promote` completes a failover: the follower opens its OWN WAL
   at the inherited ``next_seq`` and the live peers are retargeted at it.
 
+* **forensics** — ``blackbox=True`` gives each daemon a crash-durable
+  black box at ``<workdir>/<name>/blackbox`` (``fleetd --blackbox``); a
+  SIGKILLed daemon's last cadence flush stays there for the doctor.
+
 The kernels load from ``raft_tpu_torch/_build/``: build them once in the
 spawning process (``ops._build.build_all()``) before spawning, so the
 daemons only load them.
@@ -50,10 +54,6 @@ __all__ = ["ProcessFleet", "FleetProcess", "device_env"]
 _FLEETD = "raft_tpu_torch.fleet.fleetd"
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-_BLACKBOX_TODO = ("the black box (obs/blackbox.py) is ROADMAP.md queue 1 "
-                  "item 7d")
-
 
 def _visible_cards() -> List[str]:
     """The card ids this process may hand out: its own
@@ -133,9 +133,6 @@ class ProcessFleet:
         expects(platform in ("cuda", "cpu"),
                 "ProcessFleet: platform must be 'cuda' or 'cpu', got %r",
                 platform)
-        if blackbox:
-            raise NotImplementedError(
-                f"ProcessFleet(blackbox=True): {_BLACKBOX_TODO}")
         self.workdir = os.path.abspath(workdir)
         self.n_procs = int(n_procs)
         self._dataset = dict(n=int(n), dim=int(dim), seed=int(seed),
@@ -170,7 +167,8 @@ class ProcessFleet:
                 "wal": os.path.join(d, "mutations.wal"),
                 "ckpt": os.path.join(d, "checkpoint.npz"),
                 "port_file": os.path.join(d, "port"),
-                "log": os.path.join(d, "daemon.log")}
+                "log": os.path.join(d, "daemon.log"),
+                "blackbox": os.path.join(d, "blackbox")}
 
     def _spawn_one(self, index: int, name: str, role: str,
                    primary_url: Optional[str]) -> FleetProcess:
@@ -200,6 +198,8 @@ class ProcessFleet:
             cmd += ["--primary-url", primary_url]
         if self.sync_wal:
             cmd += ["--sync-wal"]
+        if self.blackbox:
+            cmd += ["--blackbox", p["blackbox"]]
         cmd += self.extra_args
         env = dict(os.environ)
         env.update(device_env(index, self.platform,

@@ -13,7 +13,9 @@ router and ``rolling_restart`` front a process unchanged:
   ``DispatchError`` classes. ``load()`` snapshots ride every RPC answer
   and decay with age; an idle client asks ``GET /rpc/load`` only when
   its snapshot is stale.
-* :class:`RemoteReplica` — a :class:`Replica` around one.
+* :class:`RemoteReplica` — a :class:`Replica` around one: the whole
+  lifecycle (gauges, transitions, the black-box pointer of
+  ``set_blackbox``, ``describe()``) is inherited, the URL added.
 * :func:`bootstrap_from_url` — the remote twin of
   :func:`~raft_tpu_torch.fleet.replication.bootstrap_replica`: the
   primary's checkpoint over ``GET /rpc/checkpoint`` (with its sidecar)
@@ -23,21 +25,42 @@ Decay: a snapshot ``age`` seconds old has its queue terms scaled by
 ``0.5 ** (age / halflife)`` (the queue it described has most likely
 drained); ``closed`` and ``draining`` never decay.
 
+Local rows: the snapshot says what the peer held when it last
+answered; the rows this client has handed to it and not had back are
+known here for certain. Rows waiting for a pool worker add to
+``queued_rows``, and rows on the wire are a floor under
+``inflight_rows``, so a peer that stops answering (SIGKILLed, or busy
+with a promotion's fold) grows heavier with every request routed to it
+instead of looking idle while its snapshot decays.
+
+Load probes are coalesced: while one ``GET /rpc/load`` is on the wire,
+other callers take the stale snapshot, or, with none, wait for that
+probe's answer, so a router's many threads never hold more than one of
+the peer's handler threads with probes.
+
 Timeouts: a search RPC waits no longer than its deadline (plus
 ``_DEADLINE_SLACK_S``) or the client's ``timeout_s``, whichever is
-shorter. A peer that let an RPC time out is taken for down for one
-``refresh_s``: ``load()`` and ``search()`` raise at once, so the router
-routes around it and the calls queued behind the one that timed out
-retry elsewhere instead of each waiting out a timeout of its own (a
+shorter. A peer that let a search RPC time out is taken for down for
+one ``refresh_s``: ``load()`` and ``search()`` raise at once, so the
+router routes around it and the calls queued behind the one that timed
+out retry elsewhere instead of each waiting out a timeout of its own (a
 SIGKILLed process on the card keeps its sockets open until its device
-context is torn down). A refused or reset connection fails fast by
-itself and marks nothing.
+context is torn down). A peer that let a load probe time out, or closed
+a connection on a request without answering it (killed under the
+request, or saturated: the daemon's server drops a connection it has no
+handler thread for), is taken for down for routing only: ``load()``
+raises at once for one ``refresh_s``, while the searches already queued
+for it still go to the wire. A refused connection marks nothing. Each
+of these drops the load snapshot: the next ``load()`` asks the peer
+instead of reporting the queue of its last answer (a dead peer's looks
+idle).
 
 Arrays cross the wire as JSON lists and come back as host numpy arrays.
 """
 
 from __future__ import annotations
 
+import http.client
 import threading
 import time
 import urllib.error
@@ -74,6 +97,33 @@ def _timed_out(exc: BaseException) -> bool:
     return False
 
 
+def _connection_failure(exc: BaseException) -> Optional[str]:
+    """``"refused"`` when nothing took the connection, ``"cut"`` when the
+    peer closed it on a request without answering (reset, closed before
+    the status line, cut mid-body), else None; ``exc`` or an exception it
+    was raised from."""
+    while exc is not None:
+        if isinstance(exc, urllib.error.URLError) and \
+                isinstance(exc.reason, BaseException):
+            exc = exc.reason
+            continue
+        if isinstance(exc, ConnectionRefusedError):
+            return "refused"
+        if isinstance(exc, (ConnectionResetError, BrokenPipeError,
+                            http.client.IncompleteRead)):
+            return "cut"
+        exc = exc.__cause__
+    return None
+
+
+def _n_rows(queries) -> int:
+    """Query rows in one request (a 1-d query is one row)."""
+    shape = getattr(queries, "shape", None)
+    if shape is None:
+        shape = np.shape(queries)
+    return int(shape[0]) if len(shape) >= 2 else 1
+
+
 class RemoteSearchClient:
     """A ``SearchServer`` duck-type over one replica daemon's port.
 
@@ -84,7 +134,8 @@ class RemoteSearchClient:
     # static race contract (tools/graftlint GL003): pool threads and the
     # router's load probes meet on the snapshot cache
     GUARDED_BY = ("_snap", "_snap_ts", "_closed", "_draining",
-                  "_down_until")
+                  "_down_until", "_cut_until", "_cut_why", "_probe",
+                  "_waiting_rows", "_wire_rows")
 
     def __init__(self, url: str, name: str = "remote",
                  timeout_s: float = 30.0, refresh_s: float = 3.0,
@@ -104,6 +155,11 @@ class RemoteSearchClient:
         self._closed = False
         self._draining = False
         self._down_until = 0.0       # monotonic end of the down mark
+        self._cut_until = 0.0        # ... of the routing-only mark
+        self._cut_why = "was cut off"
+        self._probe: Optional[Future] = None   # the load probe in flight
+        self._waiting_rows = 0       # handed to the pool, not yet sent
+        self._wire_rows = 0          # in a search RPC on the wire
         self._pool = ThreadPoolExecutor(
             max_workers=max(1, int(pool_workers)),
             thread_name_prefix=f"raft-fleet-rpc-{self.name}")
@@ -117,21 +173,39 @@ class RemoteSearchClient:
                 self._snap = snap
                 self._snap_ts = time.monotonic()
 
-    def _check_up(self, route: str) -> None:
-        """Raise ``DispatchError`` while the peer counts as down (an RPC
-        to it timed out within the last ``refresh_s``)."""
+    def _check_up(self, route: str, cut_off_too: bool = False) -> None:
+        """Raise ``DispatchError`` while the peer counts as down: an RPC
+        to it timed out within the last ``refresh_s`` or, with
+        ``cut_off_too``, one was cut off."""
         with self._lock:
-            down = time.monotonic() < self._down_until
-        if down:
+            now = time.monotonic()
+            why = ("timed out" if now < self._down_until else
+                   self._cut_why if cut_off_too and now < self._cut_until
+                   else None)
+        if why is not None:
             from raft_tpu_torch.serve.types import DispatchError
             raise DispatchError(
                 f"remote {self.name}: {route} skipped, an rpc to "
-                f"{self.url} timed out within {self._refresh_s:g}s")
+                f"{self.url} {why} within {self._refresh_s:g}s")
 
-    def _note_failure(self, exc: BaseException) -> None:
-        if _timed_out(exc):
-            with self._lock:
-                self._down_until = time.monotonic() + self._refresh_s
+    def _note_failure(self, exc: BaseException,
+                      probe: bool = False) -> None:
+        """A failed RPC: a search that timed out marks the peer down, a
+        load ``probe`` that timed out or a cut-off connection marks it
+        down for routing; any of these, or a refused connection, drops
+        the load snapshot."""
+        until = time.monotonic() + self._refresh_s
+        timed_out, lost = _timed_out(exc), _connection_failure(exc)
+        if not timed_out and lost is None:
+            return
+        with self._lock:
+            self._snap = None
+            if timed_out and not probe:
+                self._down_until = until
+            elif timed_out or lost == "cut":
+                self._cut_until = until
+                self._cut_why = ("let a load probe time out" if timed_out
+                                 else "was cut off")
 
     # -- SearchServer surface ----------------------------------------------
     def submit(self, queries, k: Optional[int] = None,
@@ -141,15 +215,29 @@ class RemoteSearchClient:
         the submitting thread (inside the router's route span), so the
         daemon's spans join the caller's trace."""
         trace_ctx = obs.current_traceparent()
+        rows = _n_rows(queries)
         with self._lock:
             if self._closed:
                 from raft_tpu_torch.serve.types import DispatchError
                 raise DispatchError(
                     f"remote {self.name}: client closed")
             pool = self._pool
-        return pool.submit(self.search, queries, k=k,
-                           deadline_ms=deadline_ms,
-                           trace_context=trace_ctx)
+            self._waiting_rows += rows
+        try:
+            return pool.submit(self._pooled_search, rows, queries, k,
+                               deadline_ms, trace_ctx)
+        except BaseException:
+            with self._lock:
+                self._waiting_rows -= rows
+            raise
+
+    def _pooled_search(self, rows: int, queries, k, deadline_ms,
+                       trace_context):
+        """A pool worker's search: its rows leave the local queue."""
+        with self._lock:
+            self._waiting_rows -= rows
+        return self.search(queries, k=k, deadline_ms=deadline_ms,
+                           trace_context=trace_context)
 
     def search(self, queries, k: Optional[int] = None,
                deadline_ms: Optional[float] = None,
@@ -163,6 +251,9 @@ class RemoteSearchClient:
         timeout = self.client.timeout_s
         if deadline_ms is not None and deadline_ms > 0:
             timeout = min(timeout, deadline_ms / 1e3 + _DEADLINE_SLACK_S)
+        rows = _n_rows(queries)
+        with self._lock:
+            self._wire_rows += rows
         try:
             status, body = self.client.search_raw(
                 queries, k=k, deadline_ms=deadline_ms,
@@ -170,6 +261,9 @@ class RemoteSearchClient:
         except Exception as e:
             self._note_failure(e)
             raise
+        finally:
+            with self._lock:
+                self._wire_rows -= rows
         self._note_load(body)
         if status != 200:
             raise self.client._typed(status, body, "search")
@@ -190,25 +284,49 @@ class RemoteSearchClient:
             draining = self._draining
         age = (time.monotonic() - ts) if snap is not None else None
         if snap is None or age > self._refresh_s:
-            self._check_up("load probe")
-            try:
-                snap = self.client.load(timeout=5.0)   # raises when dead
-            except Exception as e:
-                self._note_failure(e)
-                raise
-            self._note_load({"load": snap})
-            age = 0.0
+            self._check_up("load probe", cut_off_too=True)
+            fresh = self._probe_load(snap is None)
+            if fresh is not None:
+                snap, age = fresh, 0.0
+        with self._lock:
+            waiting, wire = self._waiting_rows, self._wire_rows
         decay = 0.5 ** (age / self._halflife_s)
         out = dict(snap)
-        out["queued_rows"] = float(snap.get("queued_rows", 0)) * decay
-        out["inflight_rows"] = \
-            float(snap.get("inflight_rows", 0)) * decay
+        out["queued_rows"] = \
+            float(snap.get("queued_rows", 0)) * decay + waiting
+        out["inflight_rows"] = max(
+            float(snap.get("inflight_rows", 0)) * decay, float(wire))
         out["shed_rate"] = float(snap.get("shed_rate", 0.0)) * decay
         out["remote"] = True
         out["load_age_s"] = round(age, 3)
         if draining:
             out["draining"] = True
         return out
+
+    def _probe_load(self, need: bool) -> Optional[dict]:
+        """``GET /rpc/load``, one at a time → the peer's snapshot. A
+        caller that finds a probe in flight returns None (keep the stale
+        snapshot), or, when it has none (``need``), waits for that
+        probe's answer or error. Raises when the probe fails."""
+        with self._lock:
+            probe = self._probe
+            mine = probe is None
+            if mine:
+                probe = self._probe = Future()
+        if not mine:
+            return probe.result() if need else None
+        try:
+            snap = self.client.load(timeout=5.0)   # raises when dead
+        except Exception as e:
+            self._note_failure(e, probe=True)
+            probe.set_exception(e)
+            raise
+        finally:
+            with self._lock:
+                self._probe = None
+        self._note_load({"load": snap})
+        probe.set_result(snap)
+        return snap
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Drain the REMOTE batcher. False when the daemon is unreachable

@@ -126,17 +126,16 @@ class Replica:
 
     def set_blackbox(self, box) -> "Replica":
         """Attach a per-replica black box: any object with
-        ``flush(reason)`` and a ``dir``. :meth:`kill` and :meth:`stop`
-        flush it, so even a death without a drain leaves its last state
-        on disk, and :meth:`describe` carries its ``dir`` into
-        ``router.report()``. A directory in place of a box asks for the
-        flight-recorder black box itself, which is ROADMAP.md queue 1
-        item 7d."""
+        ``flush(reason)`` and a ``dir``, or a directory, for which a
+        :class:`raft_tpu_torch.obs.blackbox.BlackBox` named after this
+        replica is built (its first flush is at construction; it runs no
+        cadence thread until its ``start()``). :meth:`kill` and
+        :meth:`stop` flush it, so even a death without a drain leaves its
+        last state on disk, and :meth:`describe` carries its ``dir`` into
+        ``router.report()``."""
         if isinstance(box, (str, bytes, os.PathLike)):
-            raise NotImplementedError(
-                "Replica.set_blackbox(<directory>): the black box "
-                "(obs/blackbox.py) is ROADMAP.md queue 1 item 7d; pass "
-                "an object with flush(reason) and a dir")
+            from raft_tpu_torch.obs.blackbox import BlackBox
+            box = BlackBox(os.fsdecode(box), box=self.name)
         with self._lock:
             self._blackbox = box
         return self

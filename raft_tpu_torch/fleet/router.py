@@ -4,7 +4,8 @@
 Routing is **power-of-two-choices**: per request the router samples two
 routable replicas from ``random.Random(seed)``, compares their
 :meth:`~raft_tpu_torch.fleet.replica.Replica.load` and dispatches to the
-lighter. Replicas outside the routing set (``DRAINING``, ``DOWN``,
+lighter; when both loads are +inf (neither takes traffic), to the
+lightest of the other routable replicas, if one takes any. Replicas outside the routing set (``DRAINING``, ``DOWN``,
 ``BOOTSTRAPPING``, or *suspect* for ``suspect_ms`` after a
 dispatch-class failure) are excluded before the duel, so a sick replica
 stops receiving traffic the moment it first fails.
@@ -29,6 +30,7 @@ server call.
 
 from __future__ import annotations
 
+import math
 import random
 import threading
 import time
@@ -205,6 +207,15 @@ class FleetRouter:
         if len(duel) == 1:
             return duel[0]
         la, lb = duel[0].load(), duel[1].load()
+        if math.isinf(la) and math.isinf(lb):
+            # both drawn replicas refuse traffic by load (a failed probe,
+            # a closed or draining server): the lightest of the rest
+            # that takes any
+            rest = [(r.load(), r) for r in cands
+                    if r not in duel and r.routable()]
+            rest = [(ld, r) for ld, r in rest if not math.isinf(ld)]
+            if rest:
+                return min(rest, key=lambda t: t[0])[1]
         return duel[0] if la <= lb else duel[1]
 
     def submit(self, queries, k: Optional[int] = None,

@@ -355,6 +355,16 @@ class _RpcHandler(_Handler):
                     error=kind).inc()
 
 
+# handler threads of a replica daemon's server, unless the caller sets
+# max_threads. Each router holds at most its pool's searches on one
+# daemon, and load probes (one per router), replication tails, control
+# verbs, scrapes and /rpc/state reads come on top. A connection past the
+# bound is dropped, which a router sees as a failed search, so the bound
+# sits well above that traffic (the debug endpoint's default of 8 is for
+# a process that only operators read).
+RPC_HANDLER_THREADS = 64
+
+
 class ReplicaTransport(DebugServer):
     """One replica daemon's HTTP server: the whole debug endpoint
     (``/metrics``, ``/healthz``, ``/debug/*``, inherited) plus the
@@ -363,6 +373,8 @@ class ReplicaTransport(DebugServer):
     def __init__(self, addr, searcher=None, wal_path: Optional[str] = None,
                  checkpoint_path: Optional[str] = None, control=None,
                  **kw):
+        if kw.get("max_threads") is None:
+            kw["max_threads"] = RPC_HANDLER_THREADS
         super().__init__(addr, searcher=searcher, **kw)
         # the parent pins _Handler: swap in the rpc-aware one
         self.RequestHandlerClass = _RpcHandler

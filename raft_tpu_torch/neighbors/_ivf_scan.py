@@ -99,11 +99,11 @@ def coarse_probes(queries: torch.Tensor, centers: torch.Tensor,
 
 def probe_major_search(queries, centers, n_probes: int, k: int, sqrt: bool,
                        kind: str, score_probe):
-    """The probe-major route (the JAX package's XLA scans): coarse scores
-    + the top ``n_probes`` by a stable sort, then :func:`probe_scan` →
-    (dists, ids), best first."""
-    coarse = coarse_scores(queries, centers, kind)
-    probes = stable_topk_min(coarse, n_probes)[1]
+    """The probe-major route (the JAX package's XLA scans): the top
+    ``n_probes`` lists by :func:`coarse_probes` (kernel 2 on the card,
+    the same (value, column) order as the JAX package's ``lax.top_k``),
+    then :func:`probe_scan` → (dists, ids), best first."""
+    probes = coarse_probes(queries, centers, n_probes, kind).long()
     return probe_scan(probes, k, sqrt, score_probe)
 
 

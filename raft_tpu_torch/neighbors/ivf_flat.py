@@ -12,9 +12,10 @@ chooses (``scan_order``; "auto" picks list-major when ``nq >= 64`` and
   the fused ``ivf_flat_scan`` kernel at k <= 256, or the unfused list
   scan kernel and the candidate merge above that
   (``neighbors._ivf_scan``);
-* probe-major: plain PyTorch — per probe rank, one batched product over
-  every query's p-th list and a merge into the running top-k (the JAX
-  package leaves this route to XLA too).
+* probe-major: the coarse GEMM and the ``select_k`` kernel, then plain
+  PyTorch — per probe rank, one batched product over every query's p-th
+  list and a merge into the running top-k (the JAX package leaves this
+  route to XLA too).
 
 List storage (``IndexParams.storage_dtype``): float32, bfloat16 (rows
 rounded to nearest) or int8 (one global ``scale``, codes

@@ -20,22 +20,24 @@ taxonomy.
   ``/debug/history``, ``/debug/fleet`` and ``POST /search`` over an
   attached ``SearchServer``.
 
-Four planes load on use: :mod:`raft_tpu_torch.obs.quality`
+Further planes load on use: :mod:`raft_tpu_torch.obs.quality`
 (shadow-exact recall), :mod:`raft_tpu_torch.obs.profiler` (sampled
 device-time attribution, duty cycle, device memory;
 ``RAFT_TPU_PROFILE_SAMPLE``), :mod:`raft_tpu_torch.obs.slo` (declared
-objectives as multi-window burn rates) and
+objectives as multi-window burn rates),
+:mod:`raft_tpu_torch.obs.federation` (cross-process metric federation
+and the fleet rollup: ``obs.serve(federator=...)`` turns the endpoint
+into the fleet aggregator, with ``/fleet/metrics``, ``/fleet/healthz``
+and ``/fleet/trace``), and the post-mortem pair
 :mod:`raft_tpu_torch.obs.history` (the registry sampled over time, with
-mean-shift anomaly detection).
+mean-shift anomaly detection) + :mod:`raft_tpu_torch.obs.blackbox` (the
+crash-durable black box). ``RAFT_TPU_BLACKBOX=<dir>`` attaches both at
+import; ``python -m raft_tpu_torch.tools.doctor <dir>`` reads the dump.
 
 The replica fleet (:mod:`raft_tpu_torch.fleet`) serves on this
 endpoint: ``obs.serve(fleet=router)`` folds the router into
 ``/debug/fleet``, and each fleet daemon's transport is a
 :class:`~raft_tpu_torch.obs.endpoint.DebugServer`.
-
-Still to port (ROADMAP.md queue 1 item 7d): the metrics federator behind
-the endpoint's ``/fleet/*`` routes, the black box and the
-``RAFT_TPU_BLACKBOX`` knob that attaches it and the history at import.
 """
 
 from raft_tpu_torch.obs.registry import (
@@ -115,3 +117,22 @@ __all__ = [
     "DebugServer",
     "serve",
 ]
+
+# -- black-box ambient attach ---------------------------------------------
+# RAFT_TPU_BLACKBOX=<dir> attaches the metrics-history sampler and the
+# crash-durable black box at import, like the profiler's
+# RAFT_TPU_PROFILE_SAMPLE knob. Unset, 0, off, false or no leaves BOTH
+# modules unimported: the off state is one env read here and
+# `_STATE is None` in each module, nothing else. The attach lives HERE,
+# not at the black box's import, so the doctor can import the modules to
+# READ a dump without ever starting a recorder into it.
+import os as _os
+
+_bb_dir = _os.environ.get("RAFT_TPU_BLACKBOX", "")
+if _bb_dir and _bb_dir.lower() not in ("0", "false", "off", "no"):
+    from raft_tpu_torch.obs import blackbox as _blackbox
+    from raft_tpu_torch.obs import history as _history
+
+    _history.enable_history()
+    _blackbox.enable_blackbox(_bb_dir)
+del _os, _bb_dir

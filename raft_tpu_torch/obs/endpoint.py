@@ -44,8 +44,8 @@ the request the server serves; the response carries the request's
 The fleet aggregator's routes (``/fleet/metrics``, ``/fleet/healthz``,
 ``/fleet/trace``, and ``/metrics`` and ``/debug/fleet`` merged across the
 fleet) read a metrics federator: ``obs.serve(federator=fed)`` stores one,
-and with none attached those routes answer 404 as the JAX package's do.
-The federator is ROADMAP.md queue 1 item 7d. A fleet router
+and with none attached those routes answer 404 as the JAX package's do
+(:class:`raft_tpu_torch.obs.federation.MetricsFederator`). A fleet router
 (:class:`raft_tpu_torch.fleet.FleetRouter`) behind ``/debug/fleet`` comes
 through ``obs.serve(fleet=router)``; each fleet daemon's
 :class:`raft_tpu_torch.fleet.ReplicaTransport` is a :class:`DebugServer`
@@ -493,7 +493,7 @@ class DebugServer(ThreadingHTTPServer):
         self.searcher = searcher
         # a fleet router (raft_tpu_torch.fleet) behind GET /debug/fleet
         self.fleet = fleet
-        # a metrics federator behind /fleet/* (queue 1 item 7d)
+        # a metrics federator behind /fleet/* and the merged /metrics
         self.federator = federator
         if max_threads is None:
             try:

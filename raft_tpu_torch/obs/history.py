@@ -35,10 +35,10 @@ per shift. ``/healthz`` shows active anomalies in an informational
 
 Module state follows the profiler's attach pattern:
 :func:`enable_history` installs the module singleton (``_STATE is None``
-is the off state), :func:`disable_history` tears it down. The JAX
-package's ``RAFT_TPU_BLACKBOX=<dir>`` knob also attaches the history at
-import, together with its black box; both wait for ROADMAP.md queue 1
-item 7d here.
+is the off state), :func:`disable_history` tears it down.
+``RAFT_TPU_BLACKBOX=<dir>`` attaches the history at import, together
+with the black box (:mod:`raft_tpu_torch.obs.blackbox`), which spills
+its frames to disk.
 
 Knobs: ``RAFT_TPU_HISTORY_INTERVAL`` (seconds a frame, default 1.0) and
 ``RAFT_TPU_HISTORY_RING`` (retained frames, default 512: about 8.5

@@ -32,10 +32,11 @@ Injection sites (labels in parentheses):
 ``mutate.transfer``        the delta/tombstone host-to-device refresh
                            (``epoch``), ``MutableIndex._push_dev_locked``;
                            wired in ``mutate/mutable.py``
-``fed.scrape``             one federator scrape (``instance``): comes with
-                           the metrics federator (item 7d)
-``obs.blackbox.append``    a black-box record's write (``kind``, ``box``):
-                           comes with the black box (item 7d)
+``fed.scrape``             one federator scrape (``instance``), before its
+                           fetch; wired in ``obs/federation.py``
+``obs.blackbox.append``    a black-box record's write (``kind``, ``box``),
+                           between its header and its payload; wired in
+                           ``obs/blackbox.py``
 =========================  ==================================================
 
 Convenience scopes: :func:`stall_shard`, :func:`kill_compactor`,

@@ -16,6 +16,7 @@ import dataclasses
 import enum
 import importlib
 import inspect
+import os
 import pathlib
 import time
 
@@ -308,9 +309,9 @@ def _fold(**kw):
 
 def _unimplemented():
     """case -> (call, the ROADMAP.md item its message names)."""
-    from raft_tpu_torch import fleet, mutate
-    from raft_tpu_torch.fleet import fleetd
+    from raft_tpu_torch import mutate
     from raft_tpu_torch.serve.types import ServeConfig
+    from raft_tpu_torch.tools import loadgen
     return {
         "ServeConfig.failover": (lambda: ServeConfig(failover=True),
                                  "item 6"),
@@ -322,12 +323,8 @@ def _unimplemented():
                                                    mesh=object()),
             "item 6"),
         "fold(mesh=...)": (_fold(mesh=object()), "item 6"),
-        "fleetd --blackbox": (lambda: fleetd.main(
-            ["--blackbox", "box", "--device", "cpu"]), "item 7d"),
-        "ProcessFleet(blackbox=True)": (lambda: fleet.ProcessFleet(
-            "unused", blackbox=True, spawn=False), "item 7d"),
-        "Replica.set_blackbox(<directory>)": (
-            lambda: fleet.Replica("r0").set_blackbox("box"), "item 7d"),
+        "loadgen --server dist": (lambda: loadgen.main(
+            ["--server", "dist", "--device", "cpu"]), "item 6"),
     }
 
 
@@ -437,6 +434,78 @@ def test_duck_typed_blackbox_is_honoured():
     assert rep.describe()["blackbox"] == "/boxes/r0"
     rep.kill()
     assert box.reasons == ["kill"]
+
+
+def test_replica_set_blackbox_directory_is_honoured(tmp_path):
+    """A directory in place of a box: a black box of the replica's name
+    is built there, named in ``describe()`` and flushed on a kill."""
+    from raft_tpu_torch import fleet
+    from raft_tpu_torch.obs import blackbox
+    rep = fleet.Replica("r0").set_blackbox(str(tmp_path / "box"))
+    assert rep.describe()["blackbox"] == str(tmp_path / "box")
+    rep.kill()
+    recs = blackbox.read_dump(str(tmp_path / "box"))
+    assert {r["box"] for r in recs} == {"r0"}
+    assert [r["data"]["reason"] for r in recs if r["kind"] == "meta"] == [
+        "start", "kill"]
+
+
+def test_process_fleet_blackbox_is_honoured(tmp_path, monkeypatch):
+    """``ProcessFleet(blackbox=True)`` hands each daemon ``--blackbox
+    <workdir>/<name>/blackbox``."""
+    from raft_tpu_torch import fleet
+    cmds = []
+
+    class _Popen:
+        def __init__(self, cmd, **kw):
+            cmds.append((cmd, kw["cwd"]))
+
+    monkeypatch.setattr(fleet.proc.subprocess, "Popen", _Popen)
+    monkeypatch.setattr(fleet.ProcessFleet, "_handshake",
+                        lambda self, name, popen, port_file: "http://x")
+    pf = fleet.ProcessFleet(str(tmp_path), blackbox=True, spawn=False,
+                            platform="cpu")
+    pf._spawn_one(0, "r0", "primary", None)
+    (cmd, cwd), = cmds
+    i = cmd.index("--blackbox")
+    assert cmd[i + 1] == str(tmp_path / "r0" / "blackbox")
+    assert cwd == str(tmp_path / "r0")
+
+
+def test_fleetd_blackbox_is_honoured(tmp_path):
+    """``fleetd --blackbox <relative dir>`` spawned from another working
+    directory than the repo's: the daemon's box lands under its own
+    working directory, flushed at its start and its clean exit."""
+    import subprocess
+    import sys
+    from raft_tpu_torch.obs import blackbox
+    from raft_tpu_torch.fleet import TransportClient
+    repo = str(PORT_ROOT.parent)
+    env = dict(os.environ, PYTHONPATH=repo, CUDA_VISIBLE_DEVICES="")
+    port_file = tmp_path / "port"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "raft_tpu_torch.fleet.fleetd", "--device",
+         "cpu", "--name", "r5", "--n", "400", "--n-lists", "4",
+         "--port-file", str(port_file), "--blackbox", "bb"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.monotonic() + 120
+        while not port_file.exists() and time.monotonic() < deadline:
+            assert proc.poll() is None, "fleetd exited during startup"
+            time.sleep(0.1)
+        client = TransportClient(
+            f"http://127.0.0.1:{int(port_file.read_text())}")
+        assert client.stop(timeout=30)["stopping"]
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    recs = blackbox.read_dump(str(tmp_path / "bb"))
+    reasons = [r["data"]["reason"] for r in recs if r["kind"] == "meta"]
+    assert reasons[0] == "start" and reasons[-1] == "close"
+    assert {r["box"] for r in recs} == {"r5"}
 
 
 def test_quality_sample_rate_is_honoured():

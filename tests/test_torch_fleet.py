@@ -390,6 +390,32 @@ def test_router_picks_equal_across_packages(seed):
     assert tp.count("b") > tp.count("c")
 
 
+class _ProbeFails(_FixedServer):
+    """A server whose load probe fails (``Replica.load()`` reads +inf)
+    and which would still answer."""
+
+    def load(self):
+        raise OSError("load probe refused")
+
+
+def test_two_unroutable_by_load_leave_the_third_the_route():
+    """When both drawn replicas read +inf (their probes failed), the
+    request goes to the lightest of the rest that takes traffic, not to
+    one of the two: every route to the third replica. (The JAX
+    package's router takes the first of the two.)"""
+    reps = [tfleet.Replica("pa", _ProbeFails("pa", 0)),
+            tfleet.Replica("pb", _ProbeFails("pb", 0)),
+            tfleet.Replica("pc", _FixedServer("pc", 50))]
+    router = tfleet.FleetRouter(reps, tfleet.FleetConfig(seed=4))
+    try:
+        picks = [chr(int(router.search(_rows(1, base=i),
+                                       timeout=5)[1][0, 0]))
+                 for i in range(40)]
+    finally:
+        router.close()
+    assert set(picks) == {"c"}
+
+
 @pytest.mark.parametrize("pkg", BOTH)
 def test_retry_on_other_replica_and_suspect_exclusion(pkg):
     ns = PKGS[pkg]

@@ -30,6 +30,7 @@ across the packages within 2e-6 of ``|q|^2 + max |x|^2``.
 
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -49,6 +50,7 @@ from raft_tpu.mutate import wal as jwal
 from raft_tpu.neighbors import ivf_flat as jflat
 from raft_tpu_torch import fleet as tfleet
 from raft_tpu_torch import mutate as tmutate
+from raft_tpu_torch import obs as tobs
 from raft_tpu_torch import serve as tserve
 from raft_tpu_torch.mutate import wal as twal
 from raft_tpu_torch.neighbors import ivf_flat as tflat
@@ -596,6 +598,291 @@ def test_three_daemons_sigkill_promote_respawn(small_flat, tmp_path):
         status, body = fp.client.search_raw(rows[:1], k=4)
         assert status == 200 and new_ids[0] in body["ids"][0]
     finally:
+        router.close()
+        pf.close()
+    assert not any(fp.alive() for fp in pf.processes())
+
+
+@pytest.fixture
+def cutting_url():
+    """A port that takes each request and closes its connection without
+    an answer: a process killed under the request."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.bind(("127.0.0.1", 0))
+    sock.listen(128)
+    stop = threading.Event()
+
+    def serve():
+        sock.settimeout(0.1)
+        while not stop.is_set():
+            try:
+                conn, _ = sock.accept()
+            except OSError:
+                continue
+            conn.settimeout(1.0)
+            try:
+                conn.recv(65536)
+            except OSError:   # graftlint: disable=GL006
+                # the close below is the point either way (justified)
+                pass
+            conn.close()
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{sock.getsockname()[1]}"
+    finally:
+        stop.set()
+        th.join(timeout=5)
+        sock.close()
+
+
+def test_cut_off_request_marks_the_peer_down_for_routing(cutting_url):
+    """A connection closed on a request without an answer counts the
+    peer down for routing for ``refresh_s``: the load probe fails at
+    once (the router's duel reads +inf), while a search queued for it
+    still goes to the wire (a saturated daemon drops the connections it
+    has no handler thread for, and serves the next)."""
+    cli = tfleet.RemoteSearchClient(cutting_url, name="cut", timeout_s=5.0,
+                                    refresh_s=0.5)
+    cli._note_load({"load": {"queued_rows": 0, "inflight_rows": 0,
+                             "shed_rate": 0.0}})
+    q = np.zeros((1, 16), np.float32)
+    try:
+        took, msg = _elapsed(lambda: cli.search(q, k=K))
+        assert took < 2.0 and "unreachable" in msg
+        took, msg = _elapsed(cli.load)
+        assert took < 0.2 and "was cut off within" in msg
+        took, msg = _elapsed(lambda: cli.search(q, k=K))
+        assert "unreachable" in msg
+        time.sleep(0.6)
+        took, msg = _elapsed(cli.load)
+        assert "unreachable" in msg
+    finally:
+        cli.close()
+
+
+def test_refused_connection_drops_the_load_snapshot():
+    """A refused connection marks nothing, but the snapshot of the last
+    answer no longer stands for the peer: the next load probe asks (and
+    is refused), where it would have reported an idle queue."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    cli = tfleet.RemoteSearchClient(f"http://127.0.0.1:{port}",
+                                    name="gone", refresh_s=60.0)
+    cli._note_load({"load": {"queued_rows": 0, "inflight_rows": 0,
+                             "shed_rate": 0.0}})
+    q = np.zeros((1, 16), np.float32)
+    try:
+        assert cli.load()["queued_rows"] == 0.0
+        _elapsed(lambda: cli.search(q, k=K))
+        took, msg = _elapsed(cli.load)
+        assert "unreachable" in msg
+    finally:
+        cli.close()
+
+
+def test_router_routes_nothing_to_a_cut_off_peer(small_flat, cutting_url):
+    """A dead peer whose last load snapshot says idle wins the duels
+    until a request to it is cut off; after that no request is routed
+    there while the mark holds: one route to it, its retry answered by
+    the live replica."""
+    x, jidx = small_flat
+    srv = _server("torch", jidx, x)
+    tr = tfleet.serve_replica(searcher=srv)
+    dead = tfleet.RemoteReplica("dead", cutting_url, refresh_s=60.0)
+    dead.server._note_load({"load": {"queued_rows": 0,
+                                     "inflight_rows": 0,
+                                     "shed_rate": 0.0}})
+    live = tfleet.RemoteReplica("live", tr.url)
+    router = tfleet.FleetRouter([dead, live], tfleet.FleetConfig(
+        max_retries=1, suspect_ms=0.0, seed=3))
+    before = tobs.snapshot()
+    try:
+        live.server._note_load({"load": {"queued_rows": 64,
+                                         "inflight_rows": 0,
+                                         "shed_rate": 0.0}})
+        for i in range(12):
+            _, ids = router.search(x[i:i + 1], timeout=60)
+            assert ids[0, 0] == i
+    finally:
+        router.close()
+        tr.close()
+        srv.close()
+    after = tobs.snapshot()["counters"]
+    routes = after.get("raft.fleet.route.total{replica=dead}", 0.0) - \
+        before["counters"].get("raft.fleet.route.total{replica=dead}", 0.0)
+    assert routes == 1.0
+
+
+class _SlowSearcher:
+    """A searcher whose searches take ``search_s`` and whose load reads
+    take ``load_s``, counting the load reads."""
+
+    def __init__(self, search_s=0.0, load_s=0.0):
+        self.search_s, self.load_s = search_s, load_s
+        self.load_calls = 0
+        self._lock = threading.Lock()
+
+    def search(self, queries, k=None, deadline_ms=None):
+        time.sleep(self.search_s)
+        n = np.asarray(queries).shape[0]
+        return np.zeros((n, K), np.float32), np.zeros((n, K), np.int32)
+
+    def load(self):
+        with self._lock:
+            self.load_calls += 1
+        time.sleep(self.load_s)
+        return {"queue_depth": 0, "queued_rows": 0, "inflight_rows": 0,
+                "shed_rate": 0.0, "draining": False, "closed": False}
+
+
+def test_daemon_server_answers_past_the_endpoint_bound():
+    """A replica daemon's server answers 16 concurrent searches of 1.5 s
+    each: none is dropped for want of a handler thread (the debug
+    endpoint's bound of 8 drops those past it after 0.5 s, which a
+    router reads as a failed search)."""
+    tr = tfleet.serve_replica(searcher=_SlowSearcher(search_s=1.5))
+    cli = tfleet.TransportClient(tr.url, timeout_s=20.0)
+    q = np.zeros((1, 16), np.float32)
+    out, lock = [], threading.Lock()
+
+    def one():
+        try:
+            status, _ = cli.search_raw(q, k=K, timeout=20.0)
+        except Exception as e:
+            status = repr(e)
+        with lock:
+            out.append(status)
+
+    threads = [threading.Thread(target=one, daemon=True)
+               for _ in range(16)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=30)
+    finally:
+        tr.close()
+    assert out == [200] * 16, out
+
+
+def test_load_probes_are_coalesced():
+    """Sixteen threads that find no snapshot share one load probe: the
+    peer answers one ``GET /rpc/load`` and every caller gets its
+    snapshot."""
+    srv = _SlowSearcher(load_s=0.3)
+    tr = tfleet.serve_replica(searcher=srv)
+    cli = tfleet.RemoteSearchClient(tr.url, name="probed", refresh_s=60.0)
+    try:
+        cli.load()
+        per_probe = srv.load_calls
+        assert per_probe >= 1
+        with cli._lock:
+            cli._snap = None
+        srv.load_calls = 0
+        got, lock = [], threading.Lock()
+
+        def one():
+            snap = cli.load()
+            with lock:
+                got.append(snap["queued_rows"])
+
+        threads = [threading.Thread(target=one, daemon=True)
+                   for _ in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=30)
+        assert got == [0.0] * 16
+        assert srv.load_calls == per_probe
+    finally:
+        cli.close()
+        tr.close()
+
+
+def test_rows_handed_to_a_silent_peer_weigh_on_its_load(silent_url,
+                                                        monkeypatch):
+    """Rows this client has handed to a peer and not had back count in
+    its load, whatever its last snapshot said: with one pool worker,
+    three 2-row requests to a silent peer read as 2 rows in flight and
+    4 queued, and the count returns to 0 once they fail."""
+    from raft_tpu_torch.fleet import remote as tremote
+    monkeypatch.setattr(tremote, "_DEADLINE_SLACK_S", 0.1)
+    cli = tfleet.RemoteSearchClient(silent_url, name="silent",
+                                    timeout_s=30.0, refresh_s=60.0,
+                                    pool_workers=1)
+    cli._note_load({"load": {"queued_rows": 0, "inflight_rows": 0,
+                             "shed_rate": 0.0}})
+    q = np.zeros((2, 16), np.float32)
+    try:
+        futs = [cli.submit(q, k=K, deadline_ms=500.0) for _ in range(3)]
+        time.sleep(0.2)
+        snap = cli.load()
+        assert snap["inflight_rows"] == 2.0
+        assert snap["queued_rows"] == pytest.approx(4.0, abs=1e-3)
+        for f in futs:
+            with pytest.raises(tserve.DispatchError):
+                f.result(timeout=30)
+        with cli._lock:
+            assert cli._waiting_rows == 0 and cli._wire_rows == 0
+    finally:
+        cli.close()
+
+
+def test_primary_sigkilled_mid_burst_fails_no_request(tmp_path):
+    """The card's SIGKILL of the primary, on three CPU daemons, under a
+    burst routed with one retry: the primary first stops answering with
+    its sockets open (SIGSTOP: a process killed on the card keeps them
+    open while its device context is torn down), then the SIGKILL closes
+    every connection still waiting on it without an answer, and a
+    follower is promoted. No request fails."""
+    n, dim = 800, 8
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(64, dim)).astype(np.float32) * 3.0
+    pf = tfleet.ProcessFleet(str(tmp_path), n_procs=3, n=n, dim=dim,
+                             seed=0, n_lists=4, k=4, n_probes=4,
+                             deadline_ms=60_000.0, platform="cpu",
+                             startup_timeout_s=120.0)
+    router = tfleet.FleetRouter(
+        pf.replicas(timeout_s=10.0, pool_workers=4),
+        tfleet.FleetConfig(max_retries=1, seed=1))
+    stop = threading.Event()
+    failures, done = [], [0]
+    lock = threading.Lock()
+
+    def traffic(t):
+        i = t
+        while not stop.is_set():
+            try:
+                router.search(q[i % 64:i % 64 + 1], timeout=60)
+                with lock:
+                    done[0] += 1
+            except Exception as e:
+                with lock:
+                    failures.append(repr(e))
+            i += 8
+
+    threads = [threading.Thread(target=traffic, args=(t,), daemon=True)
+               for t in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        os.kill(pf.process("r0").pid, signal.SIGSTOP)
+        time.sleep(1.5)
+        pf.kill("r0")
+        assert pf.promote("r1")["primary"] == "r1"
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        assert failures == [], failures[:3]
+        assert done[0] > 50
+    finally:
+        stop.set()
         router.close()
         pf.close()
     assert not any(fp.alive() for fp in pf.processes())

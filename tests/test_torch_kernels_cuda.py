@@ -586,6 +586,83 @@ def test_pq_search_on_card_matches_cpu(dev):
                                    rtol=1e-5, atol=1e-3)
 
 
+def _stable_probes(queries, centers, n_probes, kind="l2"):
+    """The probe-major coarse select before kernel 2 took it over: a
+    stable sort of the coarse scores (ties to the lower list)."""
+    coarse = _ivf_scan.coarse_scores(queries, centers, kind)
+    return _ivf_scan.stable_topk_min(coarse, n_probes)[1].to(torch.int32)
+
+
+def _probe_major_case(route, nq, dev):
+    """An index on ``dev`` whose odd lists' centres are copies of their
+    even neighbours' (every query's coarse scores tie in pairs), 1, 8 or
+    32 queries (the last one a centre itself) and the probe-major search
+    of ``route`` → (search(), centres, coarse kind)."""
+    rng = np.random.default_rng(40 + nq)
+    d, n_lists, n = 32, 16, 4000
+    c = rng.normal(size=(n_lists, d)).astype(np.float32) * 4
+    x = (c[rng.integers(0, n_lists, n)]
+         + rng.normal(size=(n, d))).astype(np.float32)
+    q = (c[rng.integers(0, n_lists, nq)]
+         + rng.normal(size=(nq, d))).astype(np.float32)
+    q[-1] = c[3]
+    if route.startswith("flat"):
+        metric = (ivf_flat.DistanceType.InnerProduct if route == "flat_ip"
+                  else ivf_flat.DistanceType.L2Expanded)
+        cpu = ivf_flat.build(x, ivf_flat.IndexParams(
+            n_lists=n_lists, metric=metric, kmeans_n_iters=4),
+            device="cpu")
+        arrays = {f: getattr(cpu, f).numpy() for f in
+                  ("centers", "lists_data", "lists_indices", "lists_norms",
+                   "list_sizes")}
+        arrays["centers"][1::2] = arrays["centers"][0::2]
+        index = ivf_flat.index_from_numpy(arrays, metric, cpu.size,
+                                          device=dev)
+        sp = ivf_flat.SearchParams(n_probes=6, scan_order="probe")
+        kind = "ip" if route == "flat_ip" else "l2"
+        return (lambda: ivf_flat.search(index, _t(q, dev), 10, sp),
+                index.centers, _t(q, dev), kind)
+    cpu = ivf_pq.build(x, ivf_pq.IndexParams(n_lists=n_lists,
+                                             kmeans_n_iters=4, pq_dim=16),
+                       device="cpu")
+    arrays = {f: getattr(cpu, f).numpy() for f in
+              ("centers", "centers_rot", "rotation_matrix", "pq_centers",
+               "codes", "lists_indices", "list_sizes")}
+    arrays["centers"][1::2] = arrays["centers"][0::2]
+    index = ivf_pq.index_from_numpy(arrays, cpu.metric, cpu.size,
+                                    cpu.pq_bits, device=dev)
+    sp = ivf_pq.SearchParams(n_probes=6, scan_mode=route.split("_")[1],
+                             scan_order="probe")
+    return (lambda: ivf_pq.search(index, _t(q, dev), 10, sp),
+            index.centers, _t(q, dev), "l2")
+
+
+@pytest.mark.parametrize("nq", [1, 8, 32])
+@pytest.mark.parametrize("route", ["flat", "flat_ip", "pq_reconstruct",
+                                   "pq_lut"])
+def test_probe_major_select_gives_the_stable_sort_probes(dev, monkeypatch,
+                                                         route, nq):
+    """The probe-major routes' coarse select (kernel 2) against the
+    stable sort it replaced, at 1, 8 and 32 rows with the coarse scores
+    tied in pairs: the same probes in the same order, and the same
+    search results exactly (the scan after the probes is one plain
+    PyTorch program)."""
+    search, centers, q, kind = _probe_major_case(route, nq, dev)
+    before = sel_op.launches
+    got = _ivf_scan.coarse_probes(q, centers, 6, kind)
+    assert sel_op.launches > before
+    want = _stable_probes(q, centers, 6, kind)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    before = sel_op.launches
+    dk, ik = search()
+    assert sel_op.launches > before
+    with monkeypatch.context() as m:
+        m.setattr(_ivf_scan, "coarse_probes", _stable_probes)
+        ds, is_ = search()
+    np.testing.assert_array_equal(ik.cpu().numpy(), is_.cpu().numpy())
+    np.testing.assert_array_equal(dk.cpu().numpy(), ds.cpu().numpy())
+
+
 def _blocks_match(ck, cik, cp, cip, tol):
     """Unfused candidate blocks (n_lists, cap, bins): the same empty
     pattern, ids -1 exactly there, distances within ``tol`` (a number or
@@ -2023,3 +2100,75 @@ def test_process_fleet_on_card_matches_in_process_build(dev, tmp_path):
     finally:
         pf.close()
     assert not any(fp.alive() for fp in pf.processes())
+
+
+def test_fleetd_blackbox_on_card_read_by_the_doctor(dev, tmp_path):
+    # a fleetd daemon on the card with --blackbox, SIGKILLed after its
+    # cadence flushes: the doctor reads its dump (records, the last
+    # cadence flush, a verdict)
+    import os
+    import time as _time
+    from raft_tpu_torch import fleet
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.tools import doctor
+    _build.build_all()
+    os.environ["RAFT_TPU_BLACKBOX_INTERVAL"] = "0.5"
+    try:
+        pf = fleet.ProcessFleet(str(tmp_path), n_procs=1, n=20000, dim=32,
+                                n_lists=64, k=8, n_probes=16,
+                                platform="cuda", blackbox=True,
+                                startup_timeout_s=300.0)
+    finally:
+        del os.environ["RAFT_TPU_BLACKBOX_INTERVAL"]
+    try:
+        fp = pf.process("r0")
+        q = np.random.default_rng(27).normal(size=(8, 32)).astype(np.float32)
+        for _ in range(4):
+            assert fp.client.search_raw(q, k=8)[0] == 200
+        _time.sleep(1.5)
+        t_kill = _time.time()
+        pf.kill("r0")
+    finally:
+        pf.close()
+    diag = doctor.diagnose_dump(os.path.join(fp.workdir, "blackbox"))
+    assert diag["records"] > 0 and diag["verdict"]
+    assert diag["meta"]["box"] == "r0"
+    assert diag["last_flush_reason"] == "cadence"
+    assert 0.0 <= t_kill - diag["t_last_flush_unix"] <= 2.0
+
+
+def test_federator_over_card_daemons_sums_their_counters(dev, tmp_path):
+    # a federator over two fleetd daemons on the card: its merged
+    # raft_serve_completed_total rollup equals the sum of each daemon's
+    # own /metrics value
+    import urllib.request
+    from raft_tpu_torch import fleet
+    from raft_tpu_torch.obs import federation
+    from raft_tpu_torch.ops import _build
+    _build.build_all()
+    pf = fleet.ProcessFleet(str(tmp_path), n_procs=2, n=20000, dim=32,
+                            n_lists=64, k=8, n_probes=16, platform="cuda",
+                            startup_timeout_s=300.0)
+    name = "raft_serve_completed_total_total"
+
+    def value(text):
+        return sum(float(line.rsplit(" ", 1)[1]) for line in
+                   text.splitlines() if line.startswith(name + " "))
+
+    try:
+        q = np.random.default_rng(28).normal(size=(8, 32)).astype(np.float32)
+        for i, fp in enumerate(pf.processes()):
+            for _ in range(3 + 2 * i):
+                assert fp.client.search_raw(q[:1 + i], k=8)[0] == 200
+        fed = federation.MetricsFederator(pf.urls(), interval_s=60.0)
+        assert fed.scrape_once()["errors"] == 0
+        own = 0.0
+        for url in pf.urls().values():
+            with urllib.request.urlopen(url + "/metrics") as r:
+                own += value(r.read().decode())
+        assert own == 8
+        assert value(fed.merged_text()) == own
+        assert sorted(fed.live_instances()) == ["r0", "r1"]
+        fed.close()
+    finally:
+        pf.close()
