@@ -273,6 +273,39 @@ Phases, one line each:
               slowest request of each run, retries, route shares, the
               federator's scrape overhead, each box's flushes and bytes,
               the doctor's verdicts and evidence, the phase's seconds.
+3a. serve_dist — the mesh-wide tier (after phase 3's index is freed):
+              a mesh of every card, one rank each, or eight logical
+              ranks on a lone card (``loadgen.dist_devices``); every
+              ``comms.collective_checks`` function on it, and a one-rank
+              NCCL group through ``comms.initialize_distributed`` whose
+              allreduce, allgather, alltoall and bcast equal the
+              in-process mesh's; two sharded trainer runs on the 262,144-row
+              sample bit for bit; ``parallel.sharded_ivf_flat_build`` of
+              the 10M rows over the mesh (1024 lists; seconds of the
+              trainer, the label and widths pass and the bucket +
+              alltoall + compaction; kernel 1's launches by shape; peak
+              device memory, beside the reckoning printed before it):
+              every id in exactly one list, ``list_sizes`` summing to n,
+              a 100,000-row sample's lists equal to kernel 1's plain
+              assignment (near-ties aside, >= 0.999); then
+              ``DistributedSearchServer.from_sharded_index`` (the JAX
+              bench's settings: shapes 1/8/32/128, 96 // 8 = 12 probes a
+              shard, ladder 12/6/3, the int8 merge) under the 512-request
+              burst: QPS, p50/p99, recall@32 beside ``main``'s; the
+              served ids of the 256 queries equal a direct
+              ``distributed_ivf_flat_search(merge="int8")``; the f32
+              merge's recall within 0.005 of the int8 merge's;
+              ``raft.parallel.plan.misses`` and ``raft.plan.build.total``
+              flat through the burst; the merge-ratio gauge; then a
+              server with ``failover=True``: ``stall_shard(3)`` plus its
+              suspect gauge gives typed partial results (coverage 1 -
+              rank 3's row share, 7 of 8 shards, the quality detail
+              ``"3"``, no failed request) and clearing it recovers the
+              full mesh with no plan built. Rows ``fused_l2_nn@sharded``
+              (a rank's trainer shape), ``select_k@dist`` (a shard's
+              coarse select, (128, 128) k=12) and
+              ``select_k_payload@dist`` (the f32 merge's (128, 8 x 32)
+              candidates, k=32), with ``torch.topk`` beside kernel 2.
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -521,6 +554,15 @@ PROC_POOL, PROC_UPSERT_BATCHES, PROC_BATCH = 8, 8, 256
 # retry: the timeout is above the slowest request a promotion's fold
 # caused, 8.8 s on an NVIDIA H100 80GB HBM3 at 700 W)
 FLEET_STALL_X = 2.0
+# serve_dist: per-shard probes (96 // 8, the JAX bench's 8-way mesh) and
+# their ladder, the sample whose lists are held to kernel 1's plain
+# assignment, the failover server's watchdog and the stalled shard's stall
+DIST_PROBES, DIST_LADDER = 12, (12, 6, 3)
+DIST_CHECK_ROWS, DIST_STALL_RANK, DIST_STALL_S = 100_000, 3, 4.0
+DIST_FAILOVER = dict(failover=True, failover_probe_ms=200.0,
+                     dispatch_timeout_ms=2000.0, max_retries=2,
+                     retry_backoff_ms=1.0)
+DIST_FAILOVER_REQUESTS = 32
 PROC_RPC_TIMEOUT_S, PROC_PROBE_S = 12.0, 5.0
 # fleet_postmortem: loadgen's in-process fleet at the full 10M rows and its
 # daemon fleet at fleet_procs' cut, each with one replica killed; the
@@ -3919,7 +3961,377 @@ def run_flat(x, q, q_np, truth, args):
     free_phase("flat")
     return ([row, pass_b, quality_row, pm_row] + mutate_rows + tiered_rows,
             launches,
-            [wide_row], wide_launches)
+            [wide_row], wide_launches, served)
+
+
+def nccl_group_check(mesh) -> dict:
+    """A one-rank NCCL group through ``initialize_distributed``: its
+    allreduce, allgather, alltoall and bcast of one integer block equal
+    the same body's on a one-rank in-process mesh of the card."""
+    import socket
+    from raft_tpu_torch import comms, parallel
+    from raft_tpu_torch.comms import bootstrap
+    from raft_tpu_torch.parallel.mesh import P
+
+    def body(c, v):
+        return torch.stack([c.allreduce(v), c.allgather(v)[0],
+                            c.alltoall(v), c.bcast(v, root=0)])
+
+    x = torch.arange(16, dtype=torch.int32,
+                     device=mesh.devices_flat[0]).reshape(8, 2)
+    one = parallel.make_mesh(devices=[mesh.devices_flat[0]])
+    c1 = comms.build_comms(one, abort_timeout_s=60.0)
+    want = parallel.shard_map(lambda v: body(c1, v), one, P("data"),
+                              P())(x).cpu()
+    one.close()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    comms.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        pm = parallel.make_mesh()
+        cp = comms.build_comms(pm, abort_timeout_s=60.0)
+        got = parallel.shard_map(lambda v: body(cp, v), pm, P("data"),
+                                 P())(x).cpu()
+        backend = torch.distributed.get_backend()
+    finally:
+        bootstrap.shutdown_distributed()
+    if not torch.equal(got, want):
+        fail("serve_dist: the NCCL group's collectives differ from the "
+             "in-process mesh's")
+    return {"backend": backend, "ranks": 1, "equal": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def sharded_build(x, mesh):
+    """``sharded_ivf_flat_build`` of every row over ``mesh`` → (index,
+    its phase fields): seconds by part (each part synchronised), kernel
+    1's launches by shape, peak device memory beside the reckoning."""
+    from raft_tpu_torch import ops
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.parallel import ivf as pivf
+    n, d = x.shape
+    # the reckoning, before the call: the padded lists (n_lists x the
+    # widest list x d x 4 B, ~2.3 x the mean width on this mixture),
+    # the pre-exchange buckets and the alltoall's copy about as much
+    # again each, the trainset (half the rows) and the rows themselves
+    width = 2.4 * n / N_LISTS
+    lists_gb = N_LISTS * width * d * 4 / 1e9
+    reckon_gb = 3 * lists_gb + 1.5 * x.numel() * 4 / 1e9
+    phase("serve_dist_reckoning", lists_gb=lists_gb, peak_gb=reckon_gb)
+    parts = {"train": 0.0, "label_widths": 0.0, "bucket_exchange": 0.0}
+    saved = {}
+    for attr, part in (("_train_coarse_sharded", "train"),
+                       ("_label_and_widths", "label_widths"),
+                       ("_run_lbuild", "bucket_exchange")):
+        fn = saved[attr] = getattr(pivf, attr)
+
+        def wrapped(*a, _fn=fn, _part=part, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[_part] += time.perf_counter() - t0
+            return out
+        setattr(pivf, attr, wrapped)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        index = pivf.sharded_ivf_flat_build(x, ivf_flat.IndexParams(
+            n_lists=N_LISTS, kmeans_n_iters=KMEANS_ITERS), mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        for attr, fn in saved.items():
+            setattr(pivf, attr, fn)
+    build_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check_launched("sharded build", launches, ("fused_l2_nn",))
+    return index, dict(
+        build_s=build_s, parts_s=parts, build_launches=launches,
+        build_fused_l2_nn_shapes=l2nn_shapes(),
+        max_list=int(index.lists_data.shape[1]),
+        mem_base_gb=base / 1e9,
+        mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        mem_reckoned_gb=reckon_gb)
+
+
+def check_sharded_lists(index, x) -> dict:
+    """Every row id in exactly one list, ``list_sizes`` summing to n, and
+    a sample's lists kernel 1's plain assignment (bf16x3, the build's
+    arithmetic) to the built centres, near-ties aside."""
+    from raft_tpu_torch.ops import fused_l2_nn as nn_op
+    n = x.shape[0]
+    dev = x.device
+    ids = index.lists_indices.gather(dev)
+    valid = ids >= 0
+    flat = ids[valid].long()
+    if flat.numel() != n or not torch.equal(
+            torch.sort(flat).values, torch.arange(n, device=dev)):
+        fail("serve_dist: the sharded lists do not hold every id once")
+    sizes = index.list_sizes.gather(dev)
+    if int(sizes.sum()) != n or not torch.equal(
+            sizes.long(), valid.sum(1)):
+        fail("serve_dist: list_sizes do not count the lists' rows")
+    where = torch.empty(n, dtype=torch.long, device=dev)
+    where[flat] = torch.nonzero(valid)[:, 0]
+    del ids, valid, flat
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = torch.randperm(n, generator=g, device=dev)[:DIST_CHECK_ROWS]
+    xs = x[rows]
+    centers = index.centers.gather(dev)
+    lab, _ = nn_op.fused_l2_nn_plain(xs, centers, False, "bf16x3")
+    got = where[rows]
+    same = got == lab.long()
+    # a row in another list than the plain assignment's is a near-tie:
+    # its two centres' distances within RTOL of the expanded-L2 scale
+    d_got = ((xs - centers[got]) ** 2).sum(1)
+    d_lab = ((xs - centers[lab.long()]) ** 2).sum(1)
+    scale = (xs * xs).sum(1) + (centers * centers).sum(1).max()
+    ties = (~same) & ((d_got - d_lab).abs() <= 4 * RTOL * scale)
+    agree = float(same.float().mean())
+    if agree < MIN_ID_AGREEMENT or not bool((same | ties).all()):
+        fail(f"serve_dist: sampled lists agree with kernel 1's plain "
+             f"assignment on {agree:.6f} (floor {MIN_ID_AGREEMENT}), "
+             f"{int((~same & ~ties).sum())} not near-ties")
+    return {"rows_checked": DIST_CHECK_ROWS, "agreement": agree,
+            "near_ties": int(ties.sum())}
+
+
+def dist_recall(ids: np.ndarray, truth: np.ndarray) -> float:
+    return float(np.mean([len(set(ids[r]) & set(truth[r % N_QUERIES]))
+                          for r in range(len(ids))])) / K
+
+
+def capture_merge_rows(index, q, mesh, params):
+    """One 128-query f32-merge search, the cross-shard merge's candidate
+    rows captured (kernel 2's payload select at (128, 8 x 32))."""
+    from raft_tpu_torch.ops import select_k as op
+    from raft_tpu_torch.parallel import ivf as pivf
+    rows = []
+    orig = op.select_k_payload
+
+    # (a dispatch a watchdog abandoned may still run a 1-row search)
+    def capture(v, ids, k, sqrt=False):
+        if not rows and tuple(v.shape) == (128, mesh.shape["data"] * k):
+            rows.append((v.clone(), ids.clone()))
+        return orig(v, ids, k, sqrt)
+    op.select_k_payload = capture
+    try:
+        pivf.distributed_ivf_flat_search(index, q[:128], K, params,
+                                         mesh=mesh, merge="f32")
+        torch.cuda.synchronize()
+    finally:
+        op.select_k_payload = orig
+    if not rows:
+        fail("serve_dist: no cross-shard merge rows captured")
+    return rows[0]
+
+
+def failover_round(srv, q_np, mesh, index) -> dict:
+    """``stall_shard`` plus its suspect gauge: every request served
+    partial (coverage 1 - the rank's row share, the quality detail naming
+    it), none failed; then the gauge cleared, the full mesh back with no
+    plan built."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.testing import faults
+    sizes = index.list_sizes.gather("cpu").double()
+    per = sizes.numel() // mesh.shape["data"]
+    r = DIST_STALL_RANK
+    want_cov = 1.0 - float(sizes[r * per:(r + 1) * per].sum() / sizes.sum())
+    before = obs.snapshot()
+    results, errors = [None] * DIST_FAILOVER_REQUESTS, []
+    t0 = time.perf_counter()
+    with faults.stall_shard(r, seconds=DIST_STALL_S):
+        def call(j):
+            try:
+                results[j] = srv.search(q_np[j], timeout=120)
+            except Exception as e:  # reported below
+                errors.append(repr(e))
+        pool = [threading.Thread(target=call, args=(j,), daemon=True)
+                for j in range(DIST_FAILOVER_REQUESTS)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join()
+        detail = srv._quality_detail()
+        excluded = srv.excluded_ranks
+    partial_s = time.perf_counter() - t0
+    mid = obs.snapshot()
+    if errors:
+        fail(f"serve_dist failover: {len(errors)} requests failed, first "
+             f"{errors[0]}")
+    covs = sorted({round(res.coverage, 6) for res in results})
+    if not all(getattr(res, "partial", False) for res in results):
+        fail("serve_dist failover: a request under the stall was not "
+             "served partial")
+    if any(abs(c - want_cov) > 1e-4 for c in covs):
+        fail(f"serve_dist failover: coverage {covs} != {want_cov}")
+    if excluded != (r,) or detail != str(r):
+        fail(f"serve_dist failover: excluded {excluded}, quality detail "
+             f"{detail!r}")
+    time.sleep(2 * DIST_FAILOVER["failover_probe_ms"] / 1e3)
+    t1 = time.perf_counter()
+    back = [srv.search(q_np[j], timeout=120) for j in range(8)]
+    recover_s = time.perf_counter() - t1
+    after = obs.snapshot()
+    if any(getattr(b, "partial", False) for b in back) or srv.excluded_ranks:
+        fail("serve_dist failover: the full mesh did not come back")
+    built = {name: after["counters"].get(name, 0)
+             - before["counters"].get(name, 0)
+             for name in ("raft.plan.build.total", "raft.parallel.plan.misses")}
+    if any(built.values()):
+        fail(f"serve_dist failover: plans built on the failure path {built}")
+    return {"stalled_rank": r, "requests": DIST_FAILOVER_REQUESTS,
+            "partial": DIST_FAILOVER_REQUESTS, "failed": 0,
+            "coverage": covs, "coverage_want": want_cov,
+            "shards_served": f"{mesh.shape['data'] - 1}/{mesh.shape['data']}",
+            "quality_detail": detail, "partial_round_s": partial_s,
+            "recover_s": recover_s,
+            "failover_deltas": counter_deltas(mid, after,
+                                              "raft.serve.failover")
+            | counter_deltas(before, mid, "raft.serve.failover"),
+            "plans_built": built}
+
+
+def run_serve_dist(x, q, q_np, truth, main: dict, profile: bool = False):
+    """Phase 3a (module docstring) → kernel rows."""
+    from raft_tpu_torch import comms, obs, ops, parallel
+    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.serve import DistributedSearchServer, ServeConfig
+    from raft_tpu_torch.tools import loadgen
+    t_phase = time.perf_counter()
+    # loadgen --server dist's mesh: every card once, else eight logical
+    # ranks on the one card
+    mesh = parallel.make_mesh(devices=loadgen.dist_devices(x.device))
+    n_shards = mesh.shape["data"]
+    phase("serve_dist_mesh", device_count=torch.cuda.device_count(),
+          mesh=repr(mesh), ranks=n_shards,
+          logical_ranks_per_card=n_shards // len(set(mesh.devices_flat)))
+    # 1. collectives
+    t0 = time.perf_counter()
+    checks = {name: getattr(comms, name)(mesh)
+              for name in comms.collective_checks.__all__}
+    if not all(v is True for v in checks.values()):
+        fail(f"serve_dist: collective checks {checks}")
+    nccl = nccl_group_check(mesh)
+    sample = sample_rows(x, KM_ROWS, 11)
+    runs = [kmeans_balanced.balanced_kmeans_sharded(
+        sample, N_LISTS, KMEANS_ITERS, mesh=mesh) for _ in range(2)]
+    if not torch.equal(runs[0], runs[1]):
+        fail("serve_dist: two sharded trainer runs differ")
+    del runs
+    phase("serve_dist_collectives", checks=checks, nccl=nccl,
+          sharded_trainer_bit_identical=True,
+          seconds=time.perf_counter() - t0)
+    # 2. the sharded build
+    index, built = sharded_build(x, mesh)
+    lists = check_sharded_lists(index, x)
+    phase("serve_dist_build", n=x.shape[0], n_lists=N_LISTS, ranks=n_shards,
+          **built, lists=lists)
+    # 3. serving
+    params = ivf_flat.SearchParams(n_probes=DIST_PROBES)
+    cfg = ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                      max_wait_ms=2.0, probes_ladder=DIST_LADDER)
+    t0 = time.perf_counter()
+    srv = DistributedSearchServer.from_sharded_index(
+        index, q_np[:128], K, params, mesh=mesh, config=cfg, merge="int8")
+    ladder_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    before = obs.snapshot()
+    served_d, served, lat, wall = serve_burst(srv, q_np)
+    after = obs.snapshot()
+    burst_launches = ops.launch_counts()
+    check_launched("serve_dist", burst_launches,
+                   ("select_k", "select_k_payload"))
+    flat = {name: after["counters"].get(name, 0)
+            - before["counters"].get(name, 0)
+            for name in ("raft.parallel.plan.misses", "raft.plan.build.total",
+                         "raft.plan.cache.misses")}
+    if any(flat.values()):
+        fail(f"serve_dist: the burst prepared plans {flat}")
+    ratio = after["gauges"].get("raft.serve.dist.merge.ratio")
+    if ratio is None:
+        fail("serve_dist: raft.serve.dist.merge.ratio not recorded")
+    if (served < 0).any() or (served >= x.shape[0]).any() or \
+            not np.isfinite(served_d).all():
+        fail("serve_dist: served ids or distances out of range")
+    burst_recall = dist_recall(served, truth)
+    if burst_recall < RECALL_FLOOR:
+        fail(f"serve_dist: recall@{K} = {burst_recall} < {RECALL_FLOOR}")
+    # the 256 queries once the load is gone (rung 0), against a direct
+    # search; the f32 merge's recall beside the int8 merge's
+    t1 = time.perf_counter()
+    while obs.snapshot()["gauges"].get("raft.serve.degrade.level", 0) and \
+            time.perf_counter() - t1 < 10:
+        srv.search(q_np[:1], timeout=120)
+        time.sleep(0.1)
+    got = np.concatenate([srv.search(q_np[s:s + 128], timeout=300)[1]
+                          for s in range(0, N_QUERIES, 128)])
+    recalls = {}
+    for merge in ("int8", "f32"):
+        ids = np.concatenate([pivf.distributed_ivf_flat_search(
+            index, q[s:s + 128], K, params, mesh=mesh,
+            merge=merge)[1].cpu().numpy() for s in range(0, N_QUERIES, 128)])
+        recalls[merge] = dist_recall(ids, truth)
+        if merge == "int8" and not np.array_equal(got, ids):
+            fail(f"serve_dist: served ids differ from a direct search on "
+                 f"{int((got != ids).sum())} entries")
+    if abs(recalls["f32"] - recalls["int8"]) > 0.005:
+        fail(f"serve_dist: f32 merge recall {recalls['f32']} vs int8 "
+             f"{recalls['int8']} (budget 0.005)")
+    if profile:
+        profile_burst(srv, q_np, "dist")
+    srv.close()
+    phase("serve_dist", **latency_row(lat, wall), requests=N_REQUESTS,
+          threads=N_THREADS, ladder_s=ladder_s,
+          **{f"recall_at_{K}": burst_recall},
+          direct_recall=recalls, served_equals_direct=True,
+          merge_ratio=ratio, steady_state=flat,
+          batches=counter_deltas(before, after, "raft.serve.batch"),
+          dist=counter_deltas(before, after, "raft.serve.dist"),
+          burst_launches=burst_launches,
+          single_device_main={key: main.get(key) for key in
+                              ("qps", "p50_ms", "p99_ms",
+                               f"recall_at_{K}")},
+          mem_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    # 4. failover
+    t0 = time.perf_counter()
+    fsrv = DistributedSearchServer.from_sharded_index(
+        index, q_np[:128], K, params, mesh=mesh,
+        config=ServeConfig(batch_sizes=BATCH_SIZES, max_queue=512,
+                           max_wait_ms=2.0, probes_ladder=DIST_LADDER,
+                           **DIST_FAILOVER), merge="int8")
+    fo_ladder_s = time.perf_counter() - t0
+    try:
+        fo = failover_round(fsrv, q_np, mesh, index)
+    finally:
+        fsrv.close()
+    phase("serve_dist_failover", ladder_s=fo_ladder_s, **fo)
+    # 5. kernel rows at the path's shapes
+    local_centers = index.centers.blocks[0].contiguous()
+    rows_d, rows_i = capture_merge_rows(index, q, mesh, params)
+    # a rank's share of the trainer's rows (the build trains on half the
+    # rows, kmeans_trainset_fraction 0.5)
+    m_local = max(N_LISTS, x.shape[0] // 2) // n_shards
+    rows = [check_fused_l2_nn(x[:m_local], index.centers.gather(x.device),
+                              "fused_l2_nn@sharded"),
+            check_select_k(q, local_centers, DIST_PROBES, "select_k@dist"),
+            check_pass_b("select_k_payload@dist", rows_d, rows_i, K,
+                         burst_launches["select_k_payload"],
+                         "raft_tpu/ops/pallas_select_k.py:47")]
+    rows[0]["launches"] = built["build_launches"]["fused_l2_nn"]
+    rows[1]["launches"] = burst_launches["select_k"]
+    # the servers' ladders hold the index (and views of its shards)
+    del srv, fsrv, index, local_centers, rows_d, rows_i, sample
+    mesh.close()
+    free_phase("serve_dist")
+    phase("serve_dist_done", seconds=time.perf_counter() - t_phase)
+    return rows
 
 
 def run_flat_narrow(x, q, q_np, truth, args, storage: str):
@@ -5114,16 +5526,20 @@ def main() -> None:
 
     # 3. the IVF-Flat path, with its k > 256 search; 3b, 3c. the same at
     # bf16 and int8 list storage (rows carry their own launches)
-    scan_rows, flat_launches, wide_rows, wide_launches = run_flat(
+    scan_rows, flat_launches, wide_rows, wide_launches, served = run_flat(
         x, q, q_np, truth, args)
     flat_rows += scan_rows
+    # 3a. the mesh-wide tier over a list-sharded build (rows carry their
+    # own launches)
+    dist_rows = run_serve_dist(x, q, q_np, truth, served, args.profile)
     narrow_rows = [r for st in FLAT_STORAGES
                    for r in run_flat_narrow(x, q, q_np, truth, args, st)]
 
     # 4., 5. the IVF-PQ and IVF-BQ paths; 5b, 5c. the same points grown by
     # extend (IVF-PQ with per-cluster books), their recall beside the
     # first's
-    paths = [(flat_rows, flat_launches), (wide_rows, wide_launches)]
+    paths = [(flat_rows, flat_launches), (wide_rows, wide_launches),
+             (dist_rows, None)]
     recalls = {}
     for fam in FAMILIES:
         rows, counts, recalls[fam.module] = run_family(fam, x, q, q_np,

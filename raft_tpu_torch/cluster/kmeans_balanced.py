@@ -16,7 +16,8 @@ so the two agree there).
 CPU; ``"bf16"`` is one bf16 pass, ``"highest"`` f32. :func:`predict`
 takes none, so it uses the default. :func:`build_hierarchical` trains
 flat up to ``FLAT_MAX_CLUSTERS`` centres and on two levels above that,
-as the JAX package does.
+as the JAX package does. :func:`balanced_kmeans_sharded` is the
+data-parallel trainer over a mesh (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -104,6 +105,100 @@ def _train_from(x: torch.Tensor, n_clusters: int, n_iters: int = 20,
     with obs.timed("raft.kmeans_balanced.train"):
         return _em(x, centers0, n_clusters, n_iters, balance_threshold,
                    kernel_precision)
+
+
+def balanced_kmeans_sharded(x, n_clusters: int, n_iters: int = 20,
+                            balance_threshold: float = 0.25, seed: int = 0,
+                            kernel_precision: Optional[str] = None,
+                            mesh=None, axis: str = "data",
+                            res=None) -> torch.Tensor:
+    """Data-parallel :func:`balanced_kmeans` over ``mesh[axis]`` →
+    (n_clusters, dim) centres, the same on every rank.
+
+    Rows are sharded over the axis; each sweep assigns each rank's rows
+    on kernel 1, sums its per-cluster statistics in row order and
+    ``allreduce``s them (added in rank order: the same bits on every
+    rank and every run). The re-seed pool is exact: each rank offers its
+    ``min(n_clusters, rows a rank)`` highest-cost real rows (ties to the
+    lower row), the offers are allgathered and the global top
+    ``n_clusters`` taken in (cost, global row) order — the single-device
+    trainer's stable choice. The initial centres are the single-device
+    trainer's draw, so the two agree within the sums' rounding."""
+    from raft_tpu_torch.comms.comms import build_comms
+    from raft_tpu_torch.parallel.mesh import (P, make_mesh, shard_map,
+                                              shard_rows)
+    if mesh is None:
+        mesh = (res.mesh if res is not None
+                else make_mesh(axis_names=(axis,)))
+    x = torch.as_tensor(x, dtype=torch.float32)
+    n, dim = x.shape
+    expects(n_clusters <= n,
+            "balanced_kmeans_sharded: n_clusters=%d > n_rows=%d",
+            n_clusters, n)
+    n_shards = mesh.shape[axis]
+    obs.counter("raft.kmeans_balanced.em_sweeps").inc(n_iters)
+    obs.counter("raft.kmeans_balanced.build.total", path="sharded").inc()
+    c0 = take_rows(x, sample_rows(n, n_clusters, seed, x.device))
+    xs, pad = shard_rows(x, mesh, axis)
+    # which rows are real is an input, as in the JAX body: a plan keyed
+    # by the shard shape serves every n that pads to it
+    vs, _ = shard_rows(torch.arange(n + pad, device=x.device) < n, mesh,
+                       axis)
+    m_local = (n + pad) // n_shards
+    kc = min(n_clusters, m_local)
+    avg = n / n_clusters
+
+    def build():
+        comms = build_comms(mesh, axis)
+
+        def local(x_sh, valid_sh, c_init):
+            centers = c_init
+            for _ in range(n_iters):
+                labels, d = _nn(x_sh, centers, kernel_precision)
+                # pad rows go to an extra segment that is dropped
+                sums, counts = segment_sum(
+                    x_sh, torch.where(valid_sh, labels.long(), n_clusters),
+                    n_clusters + 1)
+                counts = comms.allreduce(counts[:n_clusters].float())
+                sums = comms.allreduce(sums[:n_clusters])
+                new_centers = sums / torch.where(
+                    counts == 0.0, torch.ones_like(counts), counts)[:, None]
+                dm = torch.where(valid_sh, d,
+                                 torch.full_like(d, -float("inf")))
+                wd, wi = stable_topk_min(-dm, kc)
+                gd = comms.allgather(-wd).reshape(-1)
+                gc = comms.allgather(x_sh[wi]).reshape(-1, dim)
+                seeds = gc[stable_topk_min(-gd, n_clusters)[1]]
+                small = counts < balance_threshold * avg
+                slot = torch.cumsum(small.to(torch.int64), 0) - 1
+                centers = torch.where(small[:, None],
+                                      seeds[slot.clamp(0, n_clusters - 1)],
+                                      new_centers)
+            return centers
+
+        return shard_map(local, mesh, (P(axis), P(axis), P()), P())
+
+    with obs.timed("raft.kmeans_balanced.train", path="sharded"):
+        # n is in the key for ``avg``, the balance threshold
+        fn = _sharded_em_plan(("balanced_em", mesh, axis, n_clusters,
+                               n_iters, float(balance_threshold),
+                               kernel_precision, m_local, dim, n), build)
+        return fn(xs, vs, c0)
+
+
+# the sharded trainer's shard_map callables, keyed like the JAX
+# package's jitted programs
+_SHARDED_EM_PLANS: dict = {}
+
+
+def _sharded_em_plan(key, builder):
+    fn = _SHARDED_EM_PLANS.get(key)
+    if fn is None:
+        obs.counter("raft.kmeans_balanced.sharded.plan_misses").inc()
+        fn = _SHARDED_EM_PLANS[key] = builder()
+    else:
+        obs.counter("raft.kmeans_balanced.sharded.plan_hits").inc()
+    return fn
 
 
 def build_hierarchical(x: torch.Tensor, n_clusters: int, n_iters: int = 20,

@@ -21,13 +21,18 @@ DeviceLike = Union[str, torch.device, None]
 
 
 class Resources:
-    """Execution context: one ``torch.device`` and its stream.
+    """Execution context: one ``torch.device`` and its stream, and the
+    JAX package's mesh and communicator slots.
 
     ``stream`` is the CUDA stream kernels launch on: PyTorch's current
     stream for the device, read at each access; ``None`` on the CPU.
+    ``mesh`` is the one given (``parallel.mesh.Mesh``), else a one-rank
+    mesh over ``device``; ``set_comms``/``get_comms`` and
+    ``set_subcomm``/``get_subcomm`` hold the communicators
+    (``comms.inject_comms``).
     """
 
-    def __init__(self, device: DeviceLike = "cuda"):
+    def __init__(self, device: DeviceLike = "cuda", mesh=None):
         dev = torch.device(device if device is not None else "cuda")
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -39,6 +44,45 @@ class Resources:
         elif dev.type != "cpu":
             raise LogicError(f"Resources: unsupported device {dev}")
         self.device = dev
+        self._mesh = mesh
+        self._comms = None
+        self._subcomms: dict = {}
+        self._lock = threading.Lock()
+
+    @property
+    def mesh(self):
+        """The device mesh; lazily a one-rank mesh over ``device``."""
+        with self._lock:
+            if self._mesh is None:
+                from raft_tpu_torch.parallel.mesh import Mesh
+                self._mesh = Mesh([self.device], ("data",))
+            return self._mesh
+
+    def set_mesh(self, mesh) -> None:
+        with self._lock:
+            self._mesh = mesh
+
+    # -- comms slot (reference handle.hpp:239-264) --------------------------
+    def set_comms(self, comms) -> None:
+        self._comms = comms
+
+    def get_comms(self):
+        if self._comms is None:
+            raise LogicError("ERROR: communicator was not initialized\n")
+        return self._comms
+
+    @property
+    def comms_initialized(self) -> bool:
+        return self._comms is not None
+
+    def set_subcomm(self, key: str, comms) -> None:
+        self._subcomms[key] = comms
+
+    def get_subcomm(self, key: str):
+        if key not in self._subcomms:
+            raise LogicError(
+                f"ERROR: subcommunicator {key} was not initialized\n")
+        return self._subcomms[key]
 
     @property
     def stream(self):

@@ -16,19 +16,31 @@ Quick use::
 Failure handling: ``ServeConfig(dispatch_timeout_ms=..., max_retries=...)``
 bounds a hung dispatch and retries a failed one (``ShardFailedError``);
 ``raft_tpu_torch.testing.faults`` injects delays and errors at the
-``serve.execute`` site to exercise it.
+``serve.execute`` and ``serve.dist.dispatch`` sites to exercise it.
+
+Mesh-wide serving: ``DistributedSearchServer.from_sharded_index`` over a
+list-sharded index (``parallel.shard_ivf_flat`` /
+``parallel.sharded_ivf_flat_build``), with the int8 cross-shard merge
+(``serve.merge``) and, with ``ServeConfig(failover=True)``, partial
+results over the healthy shards.
 """
 
 from raft_tpu_torch.serve.batcher import (OCCUPANCY_BUCKETS,
                                           SERVE_LATENCY_BUCKETS,
                                           SearchServer)
 from raft_tpu_torch.serve.controller import LoadController
+from raft_tpu_torch.serve.dist import (DistributedSearchServer,
+                                       DistSearchPlan, FailoverLadder,
+                                       build_dist_ladder,
+                                       build_failover_ladder)
 from raft_tpu_torch.serve.ladder import PlanLadder
 from raft_tpu_torch.serve.types import (DeadlineExceeded, DispatchError,
                                         RejectedError, SearchResult,
                                         ServeConfig, ShardFailedError)
 
-__all__ = ["DeadlineExceeded", "DispatchError", "LoadController",
+__all__ = ["DeadlineExceeded", "DispatchError", "DistSearchPlan",
+           "DistributedSearchServer", "FailoverLadder",
+           "build_dist_ladder", "build_failover_ladder", "LoadController",
            "OCCUPANCY_BUCKETS", "PlanLadder", "RejectedError",
            "SERVE_LATENCY_BUCKETS", "SearchResult", "SearchServer",
            "ServeConfig", "ShardFailedError"]

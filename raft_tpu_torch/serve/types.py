@@ -1,11 +1,5 @@
 """Serving-runtime types: config, request record, typed errors and the
-result tuple (counterpart of ``raft_tpu.serve.types``; stdlib only).
-
-Not ported yet: the distributed failover (``failover``, ROADMAP.md
-queue 1 item 6). ``ServeConfig`` takes its fields with the JAX
-package's defaults and raises ``NotImplementedError`` on
-``failover=True``.
-"""
+result tuple (counterpart of ``raft_tpu.serve.types``; stdlib only)."""
 
 from __future__ import annotations
 
@@ -103,8 +97,13 @@ class ServeConfig:
       (``SearchServer.enable_quality``, ``raft_tpu_torch.obs.quality``);
       0, the default, attaches nothing and keeps the hot path at one
       flag read.
-    * ``failover``, ``failover_probe_ms`` — the JAX package's
-      partial-mesh failover: only its default (off) is ported.
+    * ``failover`` — a :class:`~raft_tpu_torch.serve.dist.
+      DistributedSearchServer` pre-warms a per-shard ladder and, when a
+      dispatch fails while the health plane names suspect ranks, serves
+      typed partial results (``SearchResult.partial``, ``coverage``) over
+      the healthy shards; ``failover_probe_ms`` is how often it re-reads
+      the suspects to recover the full mesh. A single-device server
+      ignores both.
     """
 
     batch_sizes: Tuple[int, ...] = (1, 8, 32, 128)
@@ -150,10 +149,6 @@ class ServeConfig:
         if not 0.0 <= self.quality_sample_rate <= 1.0:
             raise ValueError("ServeConfig: quality_sample_rate must be "
                              "in [0, 1]")
-        if self.failover:
-            raise NotImplementedError(
-                "ServeConfig: the partial-mesh failover is not ported yet "
-                "(ROADMAP.md queue 1 item 6)")
 
 
 @dataclass

@@ -24,8 +24,8 @@ Injection sites (labels in parentheses):
                            scope (``shape``): a delay here trips
                            ``dispatch_timeout_ms``; wired now
 ``serve.dist.dispatch``    one mesh-wide dispatch (``ranks``, ``family``):
-                           comes with the distributed tier (ROADMAP.md
-                           queue 1 item 6)
+                           a full-mesh or partial-mesh plan's search;
+                           wired in ``serve/dist.py``
 ``mutate.compact``         ``MutableIndex.compact`` entry, before any state
                            is frozen (no labels); wired in
                            ``mutate/mutable.py``

@@ -27,8 +27,12 @@ as a module; it serves on the card unless ``--device cpu``:
     python -m raft_tpu_torch.tools.loadgen --fleet-procs 3 --federate \
         --blackbox on --chaos kill_replica:1@t+8s+30s
 
-``--server dist`` (the mesh-wide tier) raises ``NotImplementedError``:
-the distributed serving tier is ROADMAP.md queue 1 item 6.
+``--server dist`` serves the mesh-wide tier: the index list-sharded
+over a mesh of every card, one rank each, or of eight logical ranks on
+a lone card or (``--device cpu``) the CPU, through a
+``DistributedSearchServer`` with the int8 cross-shard merge; with
+``--chaos`` it also pre-warms the partial-mesh failover. Its report
+gains ``merge_bytes_per_rung``.
 
 Reports land as one JSON line: offered/completed/shed/deadline counts,
 achieved QPS, accepted-latency p50/p99, and the ``raft.serve.*``
@@ -49,8 +53,8 @@ from typing import Optional
 
 import numpy as np
 
-_DIST_TODO = ("loadgen --server dist: the distributed serving tier is "
-              "ROADMAP.md queue 1 item 6")
+# logical ranks of the --server dist mesh on a lone card or the CPU
+DIST_LOGICAL_RANKS = 8
 
 
 def percentile(xs, q: float) -> float:
@@ -358,6 +362,22 @@ def measure_sustainable_qps(server, query_pool: np.ndarray, nq: int = 1,
     return done / (time.perf_counter() - t0)
 
 
+def dist_devices(device) -> list:
+    """The ``--server dist`` mesh's devices: every card once when there
+    are several, else :data:`DIST_LOGICAL_RANKS` logical ranks on the
+    one card, or on the CPU when it is asked for."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return [dev] * DIST_LOGICAL_RANKS
+    from raft_tpu_torch.core.resources import Resources
+    Resources(dev)  # raises without a card
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * DIST_LOGICAL_RANKS
+
+
 def _blobs(n: int, dim: int, device):
     """The demo's synthetic corpus and 512-row query pool (two seeds, one
     centre count) → ``(x on device, queries as host numpy)``."""
@@ -377,8 +397,6 @@ def _build_demo_server(n: int, dim: int, n_lists: int, k: int,
                        quality_sample: float = 0.0,
                        tiered_frac: Optional[float] = None,
                        device="cuda"):
-    if server == "dist":
-        raise NotImplementedError(_DIST_TODO)
     from raft_tpu_torch import serve
     from raft_tpu_torch.neighbors import ivf_flat
 
@@ -393,10 +411,29 @@ def _build_demo_server(n: int, dim: int, n_lists: int, k: int,
         # retry budget
         dispatch_timeout_ms=500.0 if chaos else 0.0,
         max_retries=2 if chaos else 0,
+        # and, on the mesh, the pre-warmed partial-mesh failover
+        failover=bool(chaos and server == "dist"),
         failover_probe_ms=500.0,
         # reservoir-sample served queries for shadow-exact recall: the
         # live-recall column
         quality_sample_rate=quality_sample)
+    if server == "dist":
+        # the mesh-wide tier: the index list-sharded over the mesh,
+        # served through the distributed ladder with the int8 merge
+        from raft_tpu_torch.parallel import make_mesh, shard_ivf_flat
+        mesh = make_mesh(devices=dist_devices(device))
+        n_shards = mesh.shape["data"]
+        if n_lists % n_shards:
+            n_lists = max(n_shards, n_lists // n_shards * n_shards)
+        index = ivf_flat.build(x, ivf_flat.IndexParams(
+            n_lists=n_lists, kmeans_n_iters=4), device=device)
+        params = ivf_flat.SearchParams(n_probes=probes_ladder[0])
+        srv = serve.DistributedSearchServer.from_sharded_index(
+            shard_ivf_flat(index, mesh), q[:32], k=k, params=params,
+            mesh=mesh, config=cfg)
+        if quality_sample > 0:
+            srv.enable_quality(x)
+        return srv, q, None
     index = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=n_lists,
                                                    kmeans_n_iters=4),
                            device=device)
@@ -689,8 +726,10 @@ def main(argv=None) -> int:
     ap.add_argument("--server", choices=("single", "dist"),
                     default="single",
                     help="serving tier: 'single' = one-device "
-                         "SearchServer; 'dist' = the mesh-wide tier "
-                         "(not ported yet: ROADMAP.md queue 1 item 6)")
+                         "SearchServer; 'dist' = DistributedSearchServer "
+                         "over a mesh of every card (eight logical "
+                         "ranks on a lone card or the CPU), the index "
+                         "list-sharded, the int8 merge")
     ap.add_argument("--fleet", type=int, default=0,
                     help="serve through N replica servers behind a "
                          "power-of-two-choices FleetRouter: the report "
@@ -1053,6 +1092,11 @@ def main(argv=None) -> int:
                 report["slo"] = {
                     name: {"burn": o["burn"], "breach": o["breach"]}
                     for name, o in slo_tracker.tick().items()}
+            if args.server == "dist":
+                # what each degradation rung cost on the wire, beside
+                # the p99 it bought
+                report["merge_bytes_per_rung"] = merge_bytes_by_rung(
+                    report["serve_metrics"])
             prof = profile_report()
             if prof is not None:
                 # host- vs device-bound: the overload verdict's cause
@@ -1097,6 +1141,9 @@ def main(argv=None) -> int:
                     "compactor_failing_at_end": g.get(
                         "raft.mutate.compactor.failing", 0.0),
                 }
+            if args.server == "dist":
+                report["merge_bytes_per_rung"] = merge_bytes_by_rung(
+                    report["serve_metrics"])
             prof = profile_report()
             if prof is not None:
                 report["profile"] = prof

@@ -78,6 +78,9 @@ ALLOWED_EXTRA = {
         "the device a follower loads the primary's checkpoint onto",
     ("fleet.remote", "bootstrap_from_url", "device"):
         "the device a follower loads the primary's checkpoint onto",
+    ("comms.bootstrap", "initialize_distributed", "backend"):
+        "the torch.distributed backend: nccl on the card, gloo on the CPU "
+        "only when asked",
 }
 # defaults the port sets apart, and why: (JAX default, port default)
 DEFAULT_DIFFERS = {
@@ -310,11 +313,10 @@ def _fold(**kw):
 def _unimplemented():
     """case -> (call, the ROADMAP.md item its message names)."""
     from raft_tpu_torch import mutate
-    from raft_tpu_torch.serve.types import ServeConfig
-    from raft_tpu_torch.tools import loadgen
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.serve import DistributedSearchServer
+    x = _x(64, 8)
     return {
-        "ServeConfig.failover": (lambda: ServeConfig(failover=True),
-                                 "item 6"),
         "MutableIndex.register_dist": (
             lambda: _mutable().register_dist(object(), "data", _x(4, 8),
                                              shapes=(1,)), "item 6"),
@@ -323,8 +325,24 @@ def _unimplemented():
                                                    mesh=object()),
             "item 6"),
         "fold(mesh=...)": (_fold(mesh=object()), "item 6"),
-        "loadgen --server dist": (lambda: loadgen.main(
-            ["--server", "dist", "--device", "cpu"]), "item 6"),
+        "DistributedSearchServer.from_mutable": (
+            lambda: DistributedSearchServer.from_mutable(
+                _mutable(), x[:4], mesh=object()), "item 6"),
+        "distributed_ivf_flat_build": (
+            lambda: parallel.distributed_ivf_flat_build(x), "item 6"),
+        "distributed_ivf_flat_search_parts": (
+            lambda: parallel.distributed_ivf_flat_search_parts(
+                None, x, 3), "item 6"),
+        "distributed_ivf_pq_build": (
+            lambda: parallel.distributed_ivf_pq_build(x), "item 6"),
+        "distributed_ivf_pq_search_parts": (
+            lambda: parallel.distributed_ivf_pq_search_parts(
+                None, x, 3), "item 6"),
+        "distributed_ivf_bq_build": (
+            lambda: parallel.distributed_ivf_bq_build(x), "item 6"),
+        "distributed_ivf_bq_search_parts": (
+            lambda: parallel.distributed_ivf_bq_search_parts(
+                None, x, 3), "item 6"),
     }
 
 
@@ -390,6 +408,56 @@ def test_max_retries_is_honoured():
         ("ok", 3)
     assert _serve_once(fail_n=2, max_retries=1, retry_backoff_ms=1.0) == \
         ("ShardFailedError", 2)
+
+
+def _cpu_mesh_index():
+    """A list-sharded CPU IVF-Flat index over 8 logical CPU ranks."""
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.neighbors import ivf_flat
+    mesh = parallel.make_mesh(devices=[torch.device("cpu")] * 8)
+    index = ivf_flat.build(_x(512, 8), ivf_flat.IndexParams(
+        n_lists=8, kmeans_n_iters=2), device="cpu")
+    return parallel.shard_ivf_flat(index, mesh), mesh
+
+
+def test_failover_is_honoured():
+    """``ServeConfig(failover=True)``: a shard stalled past the watchdog
+    while its suspect gauge is up is excluded, and the request is served
+    partial over the other seven (no error)."""
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import DistributedSearchServer, ServeConfig
+    from raft_tpu_torch.testing import faults
+    sidx, mesh = _cpu_mesh_index()
+    cfg = ServeConfig(batch_sizes=(1,), max_wait_ms=0.0, failover=True,
+                      failover_probe_ms=50.0, dispatch_timeout_ms=2500.0,
+                      max_retries=1, retry_backoff_ms=1.0)
+    srv = DistributedSearchServer.from_sharded_index(
+        sidx, _x(4, 8).numpy(), 3, ivf_flat.SearchParams(n_probes=1),
+        mesh=mesh, config=cfg)
+    try:
+        with faults.stall_shard(5, seconds=3.5):
+            r = srv.search(_x(1, 8).numpy(), timeout=30)
+        assert r.partial and 0.0 < r.coverage < 1.0
+        assert srv.excluded_ranks == (5,)
+    finally:
+        srv.close()
+
+
+def test_loadgen_server_dist_is_honoured(capsys):
+    """``loadgen --server dist --device cpu`` serves the mesh-wide tier:
+    every request completes and the report names each rung's merge
+    bytes (the ``raft.serve.dist.*`` values)."""
+    import json
+    from raft_tpu_torch.tools import loadgen
+    assert loadgen.main(["--server", "dist", "--device", "cpu", "--n",
+                         "2000", "--dim", "8", "--n-lists", "8",
+                         "--probes-ladder", "1", "--rate", "20",
+                         "--duration", "1", "--k", "3"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["completed"] == report["offered"] > 0
+    assert report["errors"] == 0
+    assert report["merge_bytes_per_rung"].get("rung_0", 0) > 0
+    assert report["serve_metrics"]["raft.serve.dist.queries"] > 0
 
 
 def test_set_profile_tag_is_honoured(monkeypatch):

@@ -2172,3 +2172,111 @@ def test_federator_over_card_daemons_sums_their_counters(dev, tmp_path):
         fed.close()
     finally:
         pf.close()
+
+
+@pytest.mark.parametrize("m,n,d", [(2500, 64, 32), (4883, 1024, 128)])
+def test_fused_l2_nn_at_sharded_trainer_shapes(dev, m, n, d):
+    # kernel 1 at a rank's share of the sharded trainer (the smoke's
+    # serve_dist build: 625,000 x 1024 x 128 a rank), against the plain
+    # version at bf16x3, on a side stream as a mesh rank runs it
+    rng = np.random.default_rng(m + n)
+    x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
+    y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ik, dk = nn_op.fused_l2_nn(x, y, False, "bf16x3")
+    torch.cuda.current_stream(dev).wait_stream(side)
+    ip, dp = nn_op.fused_l2_nn_plain(x, y, False, "bf16x3")
+    scale = ((x * x).sum(1) + (y * y).sum(1).max()).cpu().numpy()
+    np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
+    assert (np.abs(dk.cpu().numpy() - dp.cpu().numpy())
+            <= 1e-5 * scale).all()
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 128, 12), (1, 128, 12),
+                                   (128, 16, 2)])
+def test_select_k_at_dist_coarse_shapes(dev, m, n, k):
+    # kernel 2 as a shard's coarse select runs it: 128 queries against a
+    # rank's 128 of 1024 lists, 12 probes (and the tie-heavy rows)
+    rng = np.random.default_rng(m * n + k)
+    v = _t(_select_rows(rng, n)[:1].repeat(m, 0) if m == 1
+           else rng.integers(0, 9, size=(m, n)).astype(np.float32), dev)
+    before = sel_op.launches
+    dk, ik = sel_op.select_k(v, k)
+    torch.cuda.synchronize()
+    assert sel_op.launches == before + 1
+    dp, ip = sel_op.select_k_plain(v, k)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("nq", [1, 8, 128])
+def test_select_k_payload_at_dist_merge_shape(dev, nq):
+    # kernel 2's payload select as the cross-shard f32 merge runs it: each
+    # query's 8 shards x 32 candidates, ids global, ties across shards
+    rng = np.random.default_rng(nq)
+    v = np.sort(rng.integers(0, 40, size=(nq, 8, 32)).astype(np.float32),
+                axis=2).reshape(nq, 256)
+    ids = rng.permutation(nq * 256).astype(np.int32).reshape(nq, 256)
+    v[:, 250:] = np.inf
+    ids[:, 250:] = -1
+    vt, it = _t(v, dev), _t(ids, dev)
+    before = sel_op.launches_payload
+    dk, ik = sel_op.select_k_payload(vt, it, 32)
+    torch.cuda.synchronize()
+    assert sel_op.launches_payload == before + 1
+    dp, ip = sel_op.select_k_payload_plain(vt, it, 32)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+def test_mesh_on_card_matches_cpu_mesh(dev):
+    # eight logical ranks on the card: the collective checks hold, two
+    # sharded trainer runs are bit-identical, a sharded build puts each
+    # row in the list kernel 1 gives it (near-ties aside) and searches at
+    # both merges give the CPU mesh's ids on the same index; kernels 1
+    # and 2 (column and payload) launched
+    from raft_tpu_torch import comms, parallel
+    from raft_tpu_torch.cluster import kmeans_balanced
+    cm = parallel.make_mesh(devices=[dev] * 8)
+    hm = parallel.make_mesh(devices=[torch.device("cpu")] * 8)
+    try:
+        for name in comms.collective_checks.__all__:
+            assert getattr(comms, name)(cm) is True, name
+        rng = np.random.default_rng(31)
+        c = rng.normal(size=(40, 32)).astype(np.float32) * 3
+        x = (c[rng.integers(0, 40, 20000)]
+             + rng.normal(size=(20000, 32))).astype(np.float32)
+        q = (c[rng.integers(0, 40, 128)]
+             + rng.normal(size=(128, 32))).astype(np.float32)
+        xt = _t(x, dev)
+        before = nn_op.launches
+        a = kmeans_balanced.balanced_kmeans_sharded(xt, 64, 5, mesh=cm)
+        b = kmeans_balanced.balanced_kmeans_sharded(xt, 64, 5, mesh=cm)
+        assert torch.equal(a, b)
+        assert nn_op.launches >= before + 2 * 8 * 5
+        idx = parallel.sharded_ivf_flat_build(xt, ivf_flat.IndexParams(
+            n_lists=64, kmeans_n_iters=5), mesh=cm)
+        ids = np.asarray(idx.lists_indices)
+        assert sorted(ids[ids >= 0].tolist()) == list(range(20000))
+        centers = idx.centers.gather(dev)
+        lab_p, _ = nn_op.fused_l2_nn_plain(xt, centers, False, "bf16x3")
+        lab_p = lab_p.cpu().numpy()
+        where = np.empty(20000, np.int64)
+        li, _ = np.nonzero(ids >= 0)
+        where[ids[ids >= 0]] = li
+        assert np.mean(where == lab_p) >= 0.999
+        host = parallel.gather_index(idx, "cpu")
+        sp = ivf_flat.SearchParams(n_probes=3)
+        s0, s1 = sel_op.launches, sel_op.launches_payload
+        for merge in ("f32", "int8"):
+            dc, ic = parallel.distributed_ivf_flat_search(
+                idx, q, 32, sp, mesh=cm, merge=merge)
+            dh, ih = parallel.distributed_ivf_flat_search(
+                parallel.shard_ivf_flat(host, hm), q, 32, sp, mesh=hm,
+                merge=merge)
+            agree = (ic.cpu().numpy() == ih.numpy()).mean()
+            assert agree >= 0.999, (merge, agree)
+        assert sel_op.launches > s0 and sel_op.launches_payload > s1
+    finally:
+        cm.close()
+        hm.close()
