@@ -306,6 +306,50 @@ Phases, one line each:
               coarse select, (128, 128) k=12) and
               ``select_k_payload@dist`` (the f32 merge's (128, 8 x 32)
               candidates, k=32), with ``torch.topk`` beside kernel 2.
+              At its end the sharded index is gathered onto the card
+              (``gather_index``) for 3d and the sharded one dropped.
+3d. serve_dist_mutate — the gathered index as a ``MutableIndex`` (the
+              default ``MutateConfig``) behind
+              ``DistributedSearchServer.from_mutable`` (shapes 1/8/32/128,
+              ladder 12/6/3, the int8 merge) over eight logical ranks:
+              512-request bursts while ``mutate_writer`` upserts 12,288
+              rows, deletes 4,096 and re-upserts 1,024 and one fold-mode
+              ``compact()`` runs, until both are done. Fails unless no
+              request fails, ``raft.parallel.plan.misses`` and
+              ``raft.plan.cache.misses`` move only inside the compaction's
+              warm-up (``_prewarm_epoch``), the epoch rolled; then no
+              deleted id comes back (a 1,024-row sample), >= 0.99 of the
+              upserted rows find themselves at rank 0 (2,048 of the new
+              rows and every re-upsert), the server's ids equal a direct
+              ``_MutableDistPlan.search``. Then ``compact(mode="rebuild",
+              mesh=mesh)`` (``sharded_ivf_flat_build`` on the live rows):
+              the epoch rolls, its lists are ``Sharded``, every live id
+              sits in one list, a second burst prepares nothing; a fold
+              of that sharded epoch (block by block) equals a fold of its
+              lists gathered, lists and search ids. QPS, p50/p99,
+              recall@32 against the live corpus's exact top 32, the
+              fold's and the rebuild's seconds by part, peak memory
+              beside the reckoning printed first.
+3e. serve_parts — the row-sharded multi-part indexes over eight logical
+              ranks: ``distributed_ivf_flat_build`` of the 10M rows
+              (1024 lists; seconds of k-means++, Lloyd, label and width,
+              bucketing; kernel 1's launches by shape; peak memory beside
+              the reckoning printed first), every id once across the
+              parts, ``distributed_ivf_flat_search_parts`` of the 256
+              queries at 96 probes (recall@32, ms of 128-, 8- and 1-query
+              searches), and the on-card check: one ``ivf_flat.Index``
+              whose list l is the shards' parts of l side by side,
+              searched probe-major at 96 probes, its ids on >= 0.999 of
+              the entries and distances within 1e-5 relative. Then, at
+              the 2M cut (a ``cut`` line says why), IVF-PQ parts (4096
+              lists, 128 probes, pq 32 x 8, bf16 LUT) and IVF-BQ parts
+              (1024 lists, 128 probes, rescore 8 on the card, the
+              rescored distances exact for their ids): build seconds,
+              recall@32 against the cut's exact top 32, ms a 128-query
+              search. Rows ``fused_l2_nn@parts`` (1,250,000 x 1024 x
+              128), ``@parts_pq`` (250,000 x 4096), ``@parts_bq``
+              (250,000 x 1024) and ``select_k_payload@parts_bq`` (the BQ
+              merge's (128, 8 x 256) candidates, k = 256).
 3b. main_flat_bf16 — the same path at ``storage_dtype="bfloat16"``: build,
               burst, ``wide_flat`` (kernels 3 and 4 at ``Bf16Rows``, launch
               keys ``ivf_scan_bf16``, ``ivf_list_scan_bf16``), both scans
@@ -563,6 +607,10 @@ DIST_FAILOVER = dict(failover=True, failover_probe_ms=200.0,
                      dispatch_timeout_ms=2000.0, max_retries=2,
                      retry_backoff_ms=1.0)
 DIST_FAILOVER_REQUESTS = 32
+# serve_dist_mutate: the upserted rows checked for their own rank-0 hit
+# (every re-upsert besides) and the deleted rows searched, through the
+# served plan (a 128-query mesh-wide search takes ~0.3 s on one card)
+DIST_SELF_HIT_ROWS, DIST_DEAD_ROWS = 2048, 1024
 PROC_RPC_TIMEOUT_S, PROC_PROBE_S = 12.0, 5.0
 # fleet_postmortem: loadgen's in-process fleet at the full 10M rows and its
 # daemon fleet at fleet_procs' cut, each with one replica killed; the
@@ -4326,11 +4374,552 @@ def run_serve_dist(x, q, q_np, truth, main: dict, profile: bool = False):
                          "raft_tpu/ops/pallas_select_k.py:47")]
     rows[0]["launches"] = built["build_launches"]["fused_l2_nn"]
     rows[1]["launches"] = burst_launches["select_k"]
+    # serve_dist_mutate serves the same lists from one device (handed over
+    # in a list it empties, so no caller keeps the first epoch alive)
+    t0 = time.perf_counter()
+    single = [pivf.gather_index(index)]
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
     # the servers' ladders hold the index (and views of its shards)
     del srv, fsrv, index, local_centers, rows_d, rows_i, sample
     mesh.close()
     free_phase("serve_dist")
-    phase("serve_dist_done", seconds=time.perf_counter() - t_phase)
+    phase("serve_dist_done", seconds=time.perf_counter() - t_phase,
+          gather_s=gather_s)
+    return rows, single
+
+
+def dist_search_all(plan, queries, batch: int = 128) -> np.ndarray:
+    """Every row of ``queries`` through a mesh-wide mutable plan of shape
+    ``batch`` (the last batch padded with its own first rows) → ids."""
+    out = []
+    for s in range(0, queries.shape[0], batch):
+        qb = queries[s:s + batch]
+        n = qb.shape[0]
+        if n < batch:
+            qb = torch.cat([qb, qb[:1].expand(batch - n, -1)])
+        out.append(plan.search(qb.cpu().numpy(),
+                               block=True)[1][:n].cpu().numpy())
+    return np.concatenate(out)
+
+
+@contextlib.contextmanager
+def counted_misses(owner, attr: str):
+    """Count the plan misses (``raft.parallel.plan.misses``,
+    ``raft.plan.cache.misses``) that happen inside calls of ``owner``'s
+    ``attr`` → a dict updated in the scope."""
+    from raft_tpu_torch import obs
+    names = ("raft.parallel.plan.misses", "raft.plan.cache.misses")
+    inside = dict.fromkeys(names, 0)
+    fn = getattr(owner, attr)
+
+    def wrapped(*a, **kw):
+        before = obs.snapshot()["counters"]
+        try:
+            return fn(*a, **kw)
+        finally:
+            after = obs.snapshot()["counters"]
+            for name in names:
+                inside[name] += after.get(name, 0) - before.get(name, 0)
+    setattr(owner, attr, wrapped)
+    try:
+        yield inside
+    finally:
+        setattr(owner, attr, fn)
+
+
+def plan_misses(before: dict, after: dict) -> dict:
+    return {name: after["counters"].get(name, 0)
+            - before["counters"].get(name, 0)
+            for name in ("raft.parallel.plan.misses",
+                         "raft.plan.cache.misses")}
+
+
+def run_serve_dist_mutate(box, x, q, q_np, seed: int):
+    """Phase 3d (module docstring) over the index ``box`` holds (taken
+    out of it) → kernel rows (none: the mesh tail's kernel 2 shapes are
+    ``serve_mutate``'s, (128, 16384) k=32 and (128, 80) k=32; its
+    launches are in the phase line)."""
+    from raft_tpu_torch import mutate, obs, ops, parallel
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.mutate import compact as compact_mod
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.neighbors.brute_force import brute_force_knn
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.serve import DistributedSearchServer, ServeConfig
+    from raft_tpu_torch.tools import loadgen
+    t_phase = time.perf_counter()
+    index = box.pop()
+    n, dev = x.shape[0], x.device
+    mesh = parallel.make_mesh(devices=loadgen.dist_devices(dev))
+    # the reckoning, before the calls: the mesh rebuild holds the old
+    # epoch's lists, the live rows, and the sharded build's buckets, its
+    # alltoall's copy and its serving lists at once (each ~ the padded
+    # lists), beside the dataset
+    lists_gb = index.lists_data.numel() * 4 / 1e9
+    rows_gb = x.numel() * 4 / 1e9
+    reckon_gb = rows_gb + lists_gb + rows_gb + 3 * lists_gb
+    phase("serve_dist_mutate_reckoning", lists_gb=lists_gb, rows_gb=rows_gb,
+          rebuild_peak_gb=reckon_gb)
+    gen = np.random.default_rng(seed + 201)
+    picked = gen.choice(n, MUTATE_DELETES + MUTATE_REUPSERTS, replace=False)
+    re_ids = picked[:MUTATE_REUPSERTS].astype(np.int32)
+    del_ids = picked[MUTATE_REUPSERTS:].astype(np.int64)
+    new_rows = mixture_rows(n, MUTATE_UPSERTS, seed, seed + 202, dev)
+    re_rows = mixture_rows(n, MUTATE_REUPSERTS, seed, seed + 203, dev)
+    new_np, re_np = new_rows.cpu().numpy(), re_rows.cpu().numpy()
+    params = ivf_flat.SearchParams(n_probes=DIST_PROBES)
+    m = mutate.MutableIndex(index, k=K, params=params)
+    del index
+    t0 = time.perf_counter()
+    srv = DistributedSearchServer.from_mutable(
+        m, q_np[:128], mesh=mesh, config=ServeConfig(
+            batch_sizes=BATCH_SIZES, max_queue=512, max_wait_ms=2.0,
+            probes_ladder=DIST_LADDER), merge="int8")
+    ladder_s = time.perf_counter() - t0
+    plan = srv.ladder.plan_for(128, 0)[1]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    errors, got, rounds = [], [], []
+    folded = threading.Event()
+
+    def compactor():
+        # one fold once half the writes are in the delta
+        while m.stats()["delta_used"] < MUTATE_UPSERTS // 2 and \
+                writer.is_alive():
+            time.sleep(0.01)
+        try:
+            m.compact()
+        except Exception as e:  # reported after the join
+            errors.append(repr(e))
+        folded.set()
+
+    ops.reset_launch_counts()
+    before = obs.snapshot()
+    with timed_parts([(compact_mod, "purge", "purge"),
+                      (ivf_flat, "extend", "extend"),
+                      (mutate.MutableIndex, "_prewarm_epoch", "prewarm"),
+                      (mutate.MutableIndex, "_swap_epoch", "swap")]
+                     ) as (fold_s, fold_calls), \
+            counted_misses(mutate.MutableIndex, "_prewarm_epoch") as warm:
+        writer = threading.Thread(target=lambda: got.extend(mutate_writer(
+            m, new_np, del_ids, re_ids, re_np, errors)), daemon=True)
+        writer.start()
+        comp = threading.Thread(target=compactor, daemon=True)
+        comp.start()
+        deadline = time.perf_counter() + MUTATE_TIMEOUT_S
+        while True:
+            rounds.append(serve_burst(srv, q_np))
+            if not writer.is_alive() and folded.is_set() and len(rounds) >= 2:
+                break
+            if time.perf_counter() > deadline:
+                fail(f"serve_dist_mutate: not quiet after {len(rounds)} "
+                     f"bursts: {m.stats()}")
+        writer.join(timeout=60)
+        comp.join(timeout=60)
+    after = obs.snapshot()
+    launches = ops.launch_counts()
+    if errors or writer.is_alive() or comp.is_alive():
+        fail(f"serve_dist_mutate: the writer or the fold failed: "
+             f"{errors[:1]}")
+    misses = plan_misses(before, after)
+    if misses != warm or m.epoch != 1:
+        fail(f"serve_dist_mutate: plan misses {misses}, {warm} inside the "
+             f"compaction's warm-up; epoch {m.epoch}")
+    check_launched("serve_dist_mutate", launches,
+                   ("fused_l2_nn", "select_k", "select_k_payload"))
+    up_ids = np.concatenate(got)
+    if up_ids.shape[0] != MUTATE_UPSERTS:
+        fail(f"serve_dist_mutate: {up_ids.shape[0]} upserts acknowledged")
+    # serial checks on the quiet index, through the served plan
+    t0 = time.perf_counter()
+    sample = gen.choice(MUTATE_UPSERTS, min(DIST_SELF_HIT_ROWS,
+                                            MUTATE_UPSERTS), replace=False)
+    self_new = dist_search_all(plan, new_rows[torch.from_numpy(sample).to(
+        dev)])[:, 0] == up_ids[sample]
+    self_re = dist_search_all(plan, re_rows)[:, 0] == re_ids
+    self_hit = float(np.concatenate([self_new, self_re]).mean())
+    if self_hit < MUTATE_SELF_HIT:
+        fail(f"serve_dist_mutate: upserted rows find themselves at rank 0 "
+             f"on {self_hit:.5f} < {MUTATE_SELF_HIT}")
+    dead_sample = del_ids[:DIST_DEAD_ROWS]
+    dead = dist_search_all(plan, x[torch.from_numpy(dead_sample).to(dev)])
+    if np.isin(dead, del_ids).any():
+        fail(f"serve_dist_mutate: {int(np.isin(dead, del_ids).sum())} "
+             f"deleted ids returned")
+    t1 = time.perf_counter()
+    while obs.snapshot()["gauges"].get("raft.serve.degrade.level", 0) and \
+            time.perf_counter() - t1 < 10:
+        srv.search(q_np[:1], timeout=120)
+        time.sleep(0.1)
+    for s in range(0, N_QUERIES, 128):
+        srv_i = srv.search(q_np[s:s + 128], timeout=600)[1]
+        dir_i = plan.search(q_np[s:s + 128], block=True)[1].cpu().numpy()
+        if not np.array_equal(np.asarray(srv_i), dir_i):
+            fail("serve_dist_mutate: the server's ids differ from a direct "
+                 "_MutableDistPlan.search of the same batch")
+    serial_s = time.perf_counter() - t0
+    # recall@K of the live view against the live corpus's exact top-K
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    keep[torch.from_numpy(picked).to(dev)] = False
+    live_ids = np.concatenate([np.flatnonzero(keep.cpu().numpy()), re_ids,
+                               up_ids])
+    live = torch.cat([x[keep], re_rows, new_rows])
+    truth_live = live_ids[brute_force_knn(
+        live, q, K, DistanceType.L2Expanded, mode="exact",
+        device=dev)[1].cpu().numpy()]
+    del live, keep
+    got_live = dist_search_all(plan, q)
+    recall = dist_recall(got_live, truth_live)
+    if recall < RECALL_FLOOR:
+        fail(f"serve_dist_mutate: live recall@{K} = {recall}")
+    lat = np.concatenate([r[2] for r in rounds])
+    wall = sum(r[3] for r in rounds)
+    p50, p99 = (float(v) * 1e3 for v in np.percentile(lat, [50, 99]))
+    phase("serve_dist_mutate", n=n, upserts=MUTATE_UPSERTS,
+          deletes=MUTATE_DELETES, reupserts=MUTATE_REUPSERTS,
+          ladder_s=ladder_s, bursts=len(rounds), requests=len(lat),
+          qps=len(lat) / wall, p50_ms=p50, p99_ms=p99,
+          burst_qps=[N_REQUESTS / r[3] for r in rounds],
+          plan_misses=misses, warmup_misses=warm, fold_s=fold_s,
+          fold_calls=fold_calls, epoch=m.epoch,
+          **{f"live_recall_at_{K}": recall}, self_hit_rank0=self_hit,
+          self_hit_rows=int(sample.size + re_ids.size),
+          deleted_checked=int(dead_sample.size), deleted_returned=0,
+          serial_s=serial_s, launches=launches,
+          mem_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # the mesh rebuild (the cache's free blocks back first: eight rank
+    # streams each keep their own)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_parts([(compact_mod, "reconstruct_rows", "reconstruct"),
+                      (pivf, "sharded_ivf_flat_build", "sharded_build"),
+                      (compact_mod, "_renumber", "renumber"),
+                      (mutate.MutableIndex, "_prewarm_epoch", "prewarm"),
+                      (mutate.MutableIndex, "_swap_epoch", "swap")]
+                     ) as (rebuild_s, _):
+        if not m.compact(mode="rebuild", mesh=mesh):
+            fail("serve_dist_mutate: the mesh rebuild did not run")
+    torch.cuda.synchronize()
+    rebuild_total = time.perf_counter() - t0
+    rebuild_peak = torch.cuda.max_memory_allocated() / 1e9
+    sharded = m.index
+    if m.epoch != 2 or not isinstance(sharded.lists_indices,
+                                      parallel.Sharded):
+        fail(f"serve_dist_mutate: after the mesh rebuild epoch {m.epoch}, "
+             f"lists {type(sharded.lists_indices).__name__}")
+    ids = torch.cat([b.reshape(-1) for b in sharded.lists_indices.blocks])
+    ids = torch.sort(ids[ids >= 0].long()).values.cpu().numpy()
+    if not np.array_equal(ids, np.sort(live_ids)):
+        fail("serve_dist_mutate: the rebuilt lists do not hold every live "
+             "id once")
+    del ids
+    before = obs.snapshot()
+    served_d, served, lat2, wall2 = serve_burst(srv, q_np)
+    built = plan_misses(before, obs.snapshot())
+    if any(built.values()):
+        fail(f"serve_dist_mutate: the burst after the rebuild prepared "
+             f"plans {built}")
+    rebuilt_recall = dist_recall(dist_search_all(plan, q), truth_live)
+    # one fold of the sharded epoch, against a fold of its lists gathered
+    more = mixture_rows(n, 1024, seed, seed + 204, dev)
+    more_ids = m.upsert(more)
+    m.delete(up_ids[:512])
+    args = []
+    fold = compact_mod.fold
+
+    def capture(*a, **kw):
+        args.append((a, kw))
+        return fold(*a, **kw)
+    compact_mod.fold = capture
+    t0 = time.perf_counter()
+    try:
+        if not m.compact():
+            fail("serve_dist_mutate: the fold of the sharded epoch did not "
+                 "run")
+    finally:
+        compact_mod.fold = fold
+    torch.cuda.synchronize()
+    sharded_fold_s = time.perf_counter() - t0
+    folded_idx = m.index
+    (old, rows, f_ids, tombs), kw = args[0]
+    del args
+    gathered = pivf.gather_index(old)
+    del old
+    want = compact_mod.fold(gathered, rows, f_ids, tombs, **kw)
+    del gathered
+    same_lists = all(torch.equal(b, w) for b, w in zip(
+        folded_idx.lists_indices.blocks,
+        pivf.shard_ivf_flat(want, mesh).lists_indices.blocks))
+    want_s = pivf.shard_ivf_flat(want, mesh)
+    fold_ids = [pivf.distributed_ivf_flat_search(
+        idx_, q[:128], K, params, mesh=mesh, merge="f32")[1].cpu().numpy()
+        for idx_ in (folded_idx, want_s)]
+    del want, want_s
+    if not same_lists or not np.array_equal(*fold_ids):
+        fail("serve_dist_mutate: the sharded epoch's fold differs from a "
+             "fold of its lists gathered")
+    if not isinstance(folded_idx.lists_indices, parallel.Sharded) or \
+            (dist_search_all(plan, more[:128])[:, 0]
+             == more_ids[:128]).mean() < MUTATE_SELF_HIT:
+        fail("serve_dist_mutate: the folded sharded epoch lost its layout "
+             "or its rows")
+    srv.close()
+    phase("serve_dist_mutate_rebuild", rebuild_s=rebuild_total,
+          rebuild_parts_s=rebuild_s, mem_peak_gb=rebuild_peak,
+          mem_reckoned_gb=reckon_gb, epoch_rebuilt=2, epoch=m.epoch,
+          lists="Sharded", max_list=int(sharded.lists_data.shape[1]),
+          **latency_row(lat2, wall2),
+          **{f"recall_at_{K}": rebuilt_recall},
+          plans_prepared=built, sharded_fold_s=sharded_fold_s,
+          sharded_fold_equals_gathered=True)
+    del m, srv, plan, sharded, folded_idx, served_d, served
+    mesh.close()
+    free_phase("serve_dist_mutate")
+    phase("serve_dist_mutate_done", seconds=time.perf_counter() - t_phase)
+    return []
+
+
+def parts_ms(fn, reps: int = 3) -> float:
+    """Median wall milliseconds of ``fn()`` (synchronized), after one
+    untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def timed_build(build, mesh_parts):
+    """``build()`` with each ``(owner, attribute, part)`` wrapped to add
+    its synchronized seconds to the part → (result, parts, seconds,
+    kernel 1's launches by shape, launches, peak GB)."""
+    from raft_tpu_torch import ops
+    parts = {p: 0.0 for _, _, p in mesh_parts}
+    saved = [(o, a, getattr(o, a)) for o, a, _ in mesh_parts]
+    for (o, a, part), (_, _, fn) in zip(mesh_parts, saved):
+        def wrapped(*args, _fn=fn, _part=part, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                parts[_part] += time.perf_counter() - t0
+        setattr(o, a, wrapped)
+    ops.reset_launch_counts()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = build()
+        torch.cuda.synchronize()
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+    return (out, parts, time.perf_counter() - t0, l2nn_shapes(),
+            ops.launch_counts(), torch.cuda.max_memory_allocated() / 1e9)
+
+
+def parts_ids_once(didx, n: int, what: str) -> None:
+    ids = torch.cat([b.reshape(-1) for b in didx.parts_indices.blocks])
+    ids = torch.sort(ids[ids >= 0].long()).values
+    if ids.numel() != n or not torch.equal(
+            ids, torch.arange(n, device=ids.device)):
+        fail(f"serve_parts: the {what} parts do not hold every id once")
+
+
+def parts_search(search, didx, q, params, k: int = K):
+    """The queries through ``search`` in batches of 128 → (dists, ids)."""
+    out = [search(didx, q[s:s + 128], k, params)
+           for s in range(0, q.shape[0], 128)]
+    return (torch.cat([o[0] for o in out]),
+            torch.cat([o[1] for o in out]))
+
+
+def run_serve_parts(x, q, q_np, truth):
+    """Phase 3e (module docstring) → kernel rows."""
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.cluster import kmeans as kmeans_mod
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors.brute_force import brute_force_knn
+    from raft_tpu_torch.ops import select_k as sel_op
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.parallel import kmeans as pkm
+    from raft_tpu_torch.tools import loadgen
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    mesh = parallel.make_mesh(devices=loadgen.dist_devices(x.device))
+    n_shards = mesh.shape["data"]
+    # the reckoning, before the call: ml ~2.4x a shard's mean list, the
+    # parts at that width, the rows and k-means++'s n x d temporary
+    mean_list = n / N_LISTS / n_shards
+    ml = -(-int(2.4 * mean_list) // 8) * 8
+    parts_gb = n_shards * N_LISTS * ml * d * 4 / 1e9
+    rows_gb = x.numel() * 4 / 1e9
+    phase("serve_parts_reckoning", mean_list=mean_list, ml=ml,
+          parts_gb=parts_gb, rows_gb=rows_gb, kmeanspp_gb=rows_gb,
+          peak_gb=parts_gb + 2 * rows_gb)
+    wrap = [(kmeans_mod, "_plus_plus", "init"),
+            (pkm, "distributed_kmeans_fit", "fit"),
+            (pivf, "_label_and_widths", "label_width"),
+            (pivf, "_parts_build", "label_bucket")]
+    didx, bparts, build_s, shapes, launches, peak = timed_build(
+        lambda: parallel.distributed_ivf_flat_build(x, ivf_flat.IndexParams(
+            n_lists=N_LISTS, kmeans_n_iters=KMEANS_ITERS), mesh), wrap)
+    secs = {"init": bparts["init"], "lloyd": bparts["fit"] - bparts["init"],
+            "label_width": bparts["label_width"],
+            "bucketing": build_s - bparts["fit"] - bparts["label_width"]}
+    check_launched("serve_parts build", launches, ("fused_l2_nn",))
+    parts_ids_once(didx, n, "IVF-Flat")
+    ml_got = int(didx.parts_data.shape[2])
+    phase("serve_parts_build", n=n, n_lists=N_LISTS, ranks=n_shards,
+          build_s=build_s, parts_s=secs, ml=ml_got, ml_reckoned=ml,
+          build_fused_l2_nn_shapes=shapes, build_launches=launches,
+          mem_peak_gb=peak,
+          parts_gb=n_shards * N_LISTS * ml_got * d * 4 / 1e9)
+    params = ivf_flat.SearchParams(n_probes=N_PROBES)
+    search = parallel.distributed_ivf_flat_search_parts
+    from raft_tpu_torch import ops
+    ops.reset_launch_counts()
+    dp, ip = parts_search(search, didx, q, params)
+    search_launches = ops.launch_counts()
+    check_launched("serve_parts search", search_launches,
+                   ("select_k", "select_k_payload"))
+    recall = dist_recall(ip.cpu().numpy(), truth)
+    if recall < RECALL_FLOOR:
+        fail(f"serve_parts: IVF-Flat parts recall@{K} = {recall}")
+    ms = {nq: parts_ms(lambda nq=nq: search(didx, q[:nq], K, params))
+          for nq in (128, 8, 1)}
+    # the on-card check: one index whose list l is every shard's part of
+    # l side by side, searched probe-major at the same probes
+    union = ivf_flat.Index(
+        centers=didx.centers,
+        lists_data=torch.cat([b[0] for b in didx.parts_data.blocks], 1),
+        lists_indices=torch.cat([b[0] for b in didx.parts_indices.blocks],
+                                1),
+        lists_norms=torch.cat([b[0] for b in didx.parts_norms.blocks], 1),
+        list_sizes=torch.zeros(N_LISTS, dtype=torch.int32,
+                               device=x.device),
+        metric=didx.metric, size=n)
+    union.list_sizes = (union.lists_indices >= 0).sum(1).to(torch.int32)
+    du, iu = parts_search(ivf_flat.search, union, q, ivf_flat.SearchParams(
+        n_probes=N_PROBES, scan_order="probe"))
+    del union
+    same = (iu == ip)
+    agree = float(same.float().mean())
+    gap = (du - dp).abs() / du.abs().clamp(min=1.0)
+    diff = torch.nonzero(~same)
+    if agree < MIN_ID_AGREEMENT or float(gap.max()) > RTOL:
+        fail(f"serve_parts: the parts search agrees with the union index "
+             f"on {agree:.6f} of ids (floor {MIN_ID_AGREEMENT}), distances "
+             f"{float(gap.max())} relative apart (1e-5)")
+    phase("serve_parts", n=n, n_probes=N_PROBES, k=K,
+          **{f"recall_at_{K}": recall}, search_ms=ms,
+          search_launches=search_launches, union_id_agreement=agree,
+          union_max_rel_gap=float(gap.max()),
+          union_differing=[[int(r), int(c), float(dp[r, c]),
+                            float(du[r, c])] for r, c in diff[:16].tolist()])
+    rows = [check_fused_l2_nn(x[:n // n_shards],
+                              didx.centers.contiguous(),
+                              "fused_l2_nn@parts")]
+    rows[0]["launches"] = launches["fused_l2_nn"]
+    del didx, dp, ip, du, iu
+    free_phase("serve_parts_flat")
+    # IVF-PQ and IVF-BQ parts at the cut
+    xc = x[:PROC_N]
+    nc = xc.shape[0]
+    phase("cut", path="serve_parts_pq_bq", n=nc,
+          note="k-means++ over the rows is the multi-part build's largest "
+               "serial cost (~1.2 ms a draw per million rows): 4096 draws "
+               "over 10M rows would take ~50 s, so IVF-PQ and IVF-BQ parts "
+               "run at fleet_procs' 2M cut; IVF-Flat parts run at 10M")
+    truth_c = brute_force_knn(xc, q, K, DistanceType.L2Expanded,
+                              mode="exact", device=xc.device)[1].cpu().numpy()
+    pq_didx, pq_parts, pq_s, pq_shapes, pq_launches, pq_peak = timed_build(
+        lambda: parallel.distributed_ivf_pq_build(xc, ivf_pq.IndexParams(
+            n_lists=PQ_LISTS, pq_bits=PQ_BITS, kmeans_n_iters=KMEANS_ITERS),
+            mesh), wrap[:2])
+    parts_ids_once(pq_didx, nc, "IVF-PQ")
+    pq_params = ivf_pq.SearchParams(n_probes=PQ_PROBES)
+    pq_search = parallel.distributed_ivf_pq_search_parts
+    _, pq_ip = parts_search(pq_search, pq_didx, q, pq_params)
+    pq_recall = dist_recall(pq_ip.cpu().numpy(), truth_c)
+    pq_ms = parts_ms(lambda: pq_search(pq_didx, q[:128], K, pq_params))
+    phase("serve_parts_pq", n=nc, n_lists=PQ_LISTS, pq_dim=pq_didx.pq_dim,
+          pq_bits=PQ_BITS, n_probes=PQ_PROBES, lut_dtype="bfloat16",
+          build_s=pq_s, init_s=pq_parts["init"], fit_s=pq_parts["fit"],
+          build_fused_l2_nn_shapes=pq_shapes, mem_peak_gb=pq_peak,
+          **{f"recall_at_{K}": pq_recall}, search_ms_128=pq_ms)
+    if pq_recall < RECALL_FLOOR:
+        fail(f"serve_parts: IVF-PQ parts recall@{K} = {pq_recall}")
+    rows.append(check_fused_l2_nn(xc[:nc // n_shards],
+                                  pq_didx.centers.contiguous(),
+                                  "fused_l2_nn@parts_pq"))
+    rows[-1]["launches"] = pq_launches["fused_l2_nn"]
+    del pq_didx, pq_ip
+    bq_didx, bq_parts, bq_s, bq_shapes, bq_launches, bq_peak = timed_build(
+        lambda: parallel.distributed_ivf_bq_build(xc, ivf_bq.IndexParams(
+            n_lists=BQ_LISTS, kmeans_n_iters=KMEANS_ITERS, keep_raw=True),
+            mesh), wrap[:2])
+    parts_ids_once(bq_didx, nc, "IVF-BQ")
+    bq_params = ivf_bq.SearchParams(n_probes=BQ_PROBES,
+                                    rescore_factor=RESCORE,
+                                    rescore_on_device="always")
+    bq_search = parallel.distributed_ivf_bq_search_parts
+    ops.reset_launch_counts()
+    bq_d, bq_ip = parts_search(bq_search, bq_didx, q, bq_params)
+    bq_search_launches = ops.launch_counts()
+    bq_recall = dist_recall(bq_ip.cpu().numpy(), truth_c)
+    exact = ((xc[bq_ip.long()] - q[:, None, :]) ** 2).sum(2)
+    if not torch.allclose(bq_d, exact, rtol=1e-4, atol=1e-4):
+        fail("serve_parts: IVF-BQ parts' rescored distances are not exact "
+             "for their ids")
+    bq_ms = parts_ms(lambda: bq_search(bq_didx, q[:128], K, bq_params))
+    # the BQ merge's candidates: kernel 2's payload select at (128, 8 x
+    # 256), k = 256, captured from one 128-query search
+    cand = []
+    orig = sel_op.select_k_payload
+
+    def capture(v, ids, k, sqrt=False):
+        if not cand and tuple(v.shape) == (128, n_shards * K * RESCORE):
+            cand.append((v.clone(), ids.clone()))
+        return orig(v, ids, k, sqrt)
+    sel_op.select_k_payload = capture
+    try:
+        bq_search(bq_didx, q[:128], K, bq_params)
+        torch.cuda.synchronize()
+    finally:
+        sel_op.select_k_payload = orig
+    if not cand:
+        fail("serve_parts: no IVF-BQ merge rows captured")
+    phase("serve_parts_bq", n=nc, n_lists=BQ_LISTS, n_probes=BQ_PROBES,
+          rescore_factor=RESCORE, rescored_on_device=True, build_s=bq_s,
+          init_s=bq_parts["init"], fit_s=bq_parts["fit"],
+          build_fused_l2_nn_shapes=bq_shapes, mem_peak_gb=bq_peak,
+          **{f"recall_at_{K}": bq_recall}, rescored_exact=True,
+          search_ms_128=bq_ms, search_launches=bq_search_launches)
+    if bq_recall < RECALL_FLOOR:
+        fail(f"serve_parts: IVF-BQ parts recall@{K} = {bq_recall}")
+    rows.append(check_fused_l2_nn(xc[:nc // n_shards],
+                                  bq_didx.centers.contiguous(),
+                                  "fused_l2_nn@parts_bq"))
+    rows[-1]["launches"] = bq_launches["fused_l2_nn"]
+    rows.append(check_pass_b("select_k_payload@parts_bq", *cand[0],
+                             K * RESCORE,
+                             bq_search_launches["select_k_payload"],
+                             "raft_tpu/ops/pallas_select_k.py:47"))
+    del bq_didx, bq_d, bq_ip, exact, cand, xc
+    mesh.close()
+    free_phase("serve_parts")
+    phase("serve_parts_done", seconds=time.perf_counter() - t_phase)
     return rows
 
 
@@ -5531,7 +6120,12 @@ def main() -> None:
     flat_rows += scan_rows
     # 3a. the mesh-wide tier over a list-sharded build (rows carry their
     # own launches)
-    dist_rows = run_serve_dist(x, q, q_np, truth, served, args.profile)
+    dist_rows, gathered = run_serve_dist(x, q, q_np, truth, served,
+                                         args.profile)
+    # 3d, 3e. mesh-wide mutable serving over the gathered index, then the
+    # row-sharded multi-part indexes
+    dist_rows += run_serve_dist_mutate(gathered, x, q, q_np, args.seed)
+    dist_rows += run_serve_parts(x, q, q_np, truth)
     narrow_rows = [r for st in FLAT_STORAGES
                    for r in run_flat_narrow(x, q, q_np, truth, args, st)]
 

@@ -16,10 +16,16 @@ Two modes (``MutateConfig.compact_mode``):
   ``MutateConfig.rebuild_stream_chunk``) the rows go back to the host and
   the rebuild runs ``host_memory.build_streaming`` over chunks of that
   many rows (device memory O(chunk + 4 * chunk training rows)), and the
-  host lists come back to the device as an ``ivf_flat.Index``.
+  host lists come back to the device as an ``ivf_flat.Index``. With a
+  ``mesh`` it runs ``parallel.sharded_ivf_flat_build`` on the live rows
+  and renumbers the ids block by block, so the next epoch's lists stay
+  list-sharded (:class:`~raft_tpu_torch.parallel.mesh.Sharded`).
 
-The JAX package's mesh rebuild (its sharded build, ROADMAP.md queue 1
-item 6) raises ``NotImplementedError``.
+A list-sharded epoch folds block by block: :func:`purge` flips each
+block's dead slots, :func:`reconstruct_rows` takes each block's live
+rows, and the fold buckets old and new rows at the frozen centres, as
+``ivf_flat.extend`` does, then shards the lists again over the same mesh
+(views of one tensor where the ranks share a device).
 
 Everything here runs on the compactor thread against a frozen snapshot;
 tensors stay on the wrapped index's device. A purged index gets a fresh
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.parallel.mesh import Sharded
 
 __all__ = ["fold", "purge", "reconstruct_rows"]
 
@@ -53,51 +60,100 @@ def _family(index) -> str:
             "ivf_pq/ivf_bq Index)", type(index).__name__)
 
 
+def _blocks(t):
+    """A tensor's blocks: a :class:`Sharded`'s, or the tensor alone."""
+    return t.blocks if isinstance(t, Sharded) else [t]
+
+
+def _like(t, blocks):
+    """``blocks`` in ``t``'s layout (a :class:`Sharded` over its mesh
+    axis, or the one tensor)."""
+    return Sharded(blocks, t.mesh, t.axis) if isinstance(t, Sharded) \
+        else blocks[0]
+
+
 def purge(index, tombstoned_ids):
     """Drop tombstoned rows from the main lists WITHOUT re-bucketing:
     their ``lists_indices`` slots flip to -1 in place (holes inside a
     list; a list's live rows are not its first ``list_sizes`` rows) and
     the per-list sizes and logical size are refreshed → ``(index,
-    n_removed)``. The new index shares every untouched tensor (the dead
-    slots' payload is never scored) and starts an empty plan cache."""
+    n_removed)``; block by block on a list-sharded index. The new index
+    shares every untouched tensor (the dead slots' payload is never
+    scored) and starts an empty plan cache."""
     tombs = np.asarray(sorted(tombstoned_ids), dtype=np.int64)
     if tombs.size == 0:
         return index, 0
-    ids = index.lists_indices
-    t = torch.from_numpy(tombs[tombs < 2 ** 31]).to(ids.device, ids.dtype)
-    dead = (ids >= 0) & torch.isin(ids, t)
-    n_removed = int(dead.sum())
+    tombs = torch.from_numpy(tombs[tombs < 2 ** 31])
+    new_ids, sizes, n_removed = [], [], 0
+    for ids in _blocks(index.lists_indices):
+        dead = (ids >= 0) & torch.isin(ids, tombs.to(ids.device, ids.dtype))
+        n_removed += int(dead.sum())
+        new_ids.append(torch.where(dead, -1, ids))
+        sizes.append((new_ids[-1] >= 0).sum(dim=1).to(torch.int32))
     if n_removed == 0:
         return index, 0
-    new_ids = torch.where(dead, -1, ids)
-    sizes = (new_ids >= 0).sum(dim=1).to(torch.int32)
     return dataclasses.replace(
-        index, lists_indices=new_ids, list_sizes=sizes,
+        index, lists_indices=_like(index.lists_indices, new_ids),
+        list_sizes=_like(index.lists_indices, sizes),
         size=int(index.size) - n_removed, plan_cache={}), n_removed
 
 
 def reconstruct_rows(index):
     """(rows (n, dim) f32, ids (n,) int32) of every live slot of an
     IVF-Flat index, dequantized, on the index's device: the rebuild
-    corpus. Row order is list-major (the bucketing order), which a
-    re-train ignores."""
+    corpus. Row order is list-major (the bucketing order; block by block
+    on a list-sharded index, the same order), which a re-train
+    ignores."""
     from raft_tpu_torch.neighbors import ivf_flat
     expects(isinstance(index, ivf_flat.Index),
             "mutate: rebuild compaction reconstructs rows from flat "
             "lists only — use compact_mode='fold' for ivf_pq/ivf_bq")
-    ids = index.lists_indices.reshape(-1)
-    valid = ids >= 0
-    data = index.lists_data.reshape(-1, index.dim)[valid]
-    return (ivf_flat._dequantize(data, index.scale),
-            ids[valid].to(torch.int32))
+    dev = index.device
+    rows, ids = [], []
+    for data, idx in zip(_blocks(index.lists_data),
+                         _blocks(index.lists_indices)):
+        flat = idx.reshape(-1)
+        valid = flat >= 0
+        rows.append(ivf_flat._dequantize(
+            data.reshape(-1, index.dim)[valid], index.scale).to(dev))
+        ids.append(flat[valid].to(dev, torch.int32))
+    return torch.cat(rows), torch.cat(ids)
 
 
-def _mesh_not_ported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mutate: mesh-wide compaction (the sharded list-layout "
-            "rebuild and the sharded serving view) is not ported yet "
-            "(ROADMAP.md queue 1 item 6)")
+def _extend_sharded(purged, rows, ids):
+    """``ivf_flat.extend`` of a list-sharded IVF-Flat index, block by
+    block: its live rows (:func:`reconstruct_rows`, never the padded
+    lists gathered) and the new rows bucketed at the frozen centres, as
+    ``extend`` buckets them, then the lists sharded again over the
+    index's mesh axis."""
+    from raft_tpu_torch.cluster import kmeans_balanced
+    from raft_tpu_torch.core.precision import full_fp32_matmul
+    from raft_tpu_torch.distance.distance_types import DistanceType
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.parallel.ivf import shard_ivf_flat
+    expects(isinstance(purged, ivf_flat.Index),
+            "mutate: a list-sharded epoch folds IVF-Flat lists only")
+    full_fp32_matmul()
+    if purged.metric == DistanceType.CosineExpanded:
+        rows = ivf_flat._normalize_rows(rows)
+    old_rows, old_ids = reconstruct_rows(purged)
+    all_rows = torch.cat([old_rows, rows])
+    del old_rows
+    all_ids = torch.cat([old_ids, ids])
+    centers = purged.centers.gather() if isinstance(
+        purged.centers, Sharded) else purged.centers
+    labels = kmeans_balanced.predict(all_rows, centers)
+    data, idx, norms, counts = ivf_flat._bucketize(
+        all_rows, labels, purged.n_lists, row_ids=all_ids)
+    del all_rows, labels
+    data, norms, scale = ivf_flat._quantize_lists(
+        data, norms, ivf_flat._STORAGE_NAMES[purged.lists_data.dtype])
+    sh = purged.lists_indices
+    return shard_ivf_flat(ivf_flat.Index(
+        centers=centers, lists_data=data, lists_indices=idx,
+        lists_norms=norms, list_sizes=counts, metric=purged.metric,
+        size=int(purged.size) + int(rows.shape[0]), scale=scale),
+        sh.mesh, sh.axis)
 
 
 def fold(index, delta_rows, delta_ids, tombstoned_ids,
@@ -106,9 +162,8 @@ def fold(index, delta_rows, delta_ids, tombstoned_ids,
     """Produce the next epoch's index from the frozen snapshot: purge the
     tombstones, then absorb the live delta rows (numpy or tensors, moved
     to the index's device). See the module note for the two modes;
-    ``mesh`` raises ``NotImplementedError``."""
+    ``mesh`` picks the sharded rebuild."""
     from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
-    _mesh_not_ported(mesh)
     fam = _family(index)
     dev = index.device
     delta_rows = torch.as_tensor(delta_rows, dtype=torch.float32).to(dev)
@@ -124,6 +179,8 @@ def fold(index, delta_rows, delta_ids, tombstoned_ids,
     expects(mode == "fold", "mutate.fold: unknown mode %r", mode)
     if delta_rows.shape[0] == 0:
         return purged
+    if isinstance(purged.lists_indices, Sharded):
+        return _extend_sharded(purged, delta_rows, delta_ids)
     ext = {"ivf_flat": ivf_flat.extend, "ivf_pq": ivf_pq.extend,
            "ivf_bq": ivf_bq.extend}[fam]
     return ext(purged, delta_rows, new_indices=delta_ids)
@@ -132,9 +189,9 @@ def fold(index, delta_rows, delta_ids, tombstoned_ids,
 def _rebuild(purged, delta_rows, delta_ids, mesh=None,
              axis: str = "data", stream_chunk: int = 0, params=None):
     """From-scratch re-train on the live corpus (IVF-Flat only), the
-    periodic centre refresh, on the purged index's device."""
+    periodic centre refresh, on the purged index's device (list-sharded
+    over ``mesh[axis]`` when a mesh is given)."""
     from raft_tpu_torch.neighbors import ivf_flat
-    _mesh_not_ported(mesh)
     old_rows, old_ids = reconstruct_rows(purged)
     rows = torch.cat([old_rows, delta_rows])
     ids = torch.cat([old_ids, delta_ids])
@@ -143,6 +200,21 @@ def _rebuild(purged, delta_rows, delta_ids, mesh=None,
         params = ivf_flat.IndexParams(
             n_lists=purged.n_lists, metric=purged.metric,
             kmeans_n_iters=10)
+    if mesh is not None:
+        # the sharded list-layout build lands in the list-sharded serving
+        # layout; its 0..n-1 ids then take the mutable id space. It
+        # hands each rank one contiguous block of rows, so the rows go in
+        # id order: in list-major order a rank would hold whole lists,
+        # and every rank's pre-exchange buckets would be as wide as the
+        # widest list
+        from raft_tpu_torch.parallel.ivf import sharded_ivf_flat_build
+        order = torch.argsort(ids)
+        rows, ids = rows[order], ids[order]
+        del order
+        built = sharded_ivf_flat_build(rows, params=params, mesh=mesh,
+                                       axis=axis)
+        del rows
+        return _renumber(built, ids)
     if stream_chunk > 0:
         from raft_tpu_torch.neighbors.host_memory import build_streaming
         host_rows = rows.cpu().numpy()
@@ -183,9 +255,12 @@ def _as_device_flat(host_index, metric):
 
 def _renumber(index, row_ids):
     """Rewrite a freshly built index's 0..n-1 slot ids to the mutable id
-    space (``row_ids[slot]``); pads stay -1."""
-    lists = index.lists_indices
-    row_ids = torch.as_tensor(row_ids).to(lists.device, torch.int32)
-    out = torch.where(lists >= 0, row_ids[torch.clamp(lists, min=0).long()],
-                      -1)
-    return dataclasses.replace(index, lists_indices=out, plan_cache={})
+    space (``row_ids[slot]``), block by block when the lists are
+    sharded; pads stay -1."""
+    row_ids = torch.as_tensor(row_ids).to(torch.int32)
+    out = [torch.where(lists >= 0,
+                       row_ids.to(lists.device)[
+                           torch.clamp(lists, min=0).long()], -1)
+           for lists in _blocks(index.lists_indices)]
+    return dataclasses.replace(
+        index, lists_indices=_like(index.lists_indices, out), plan_cache={})

@@ -43,9 +43,17 @@ saves the folded inner index (``serialize.save``) and, at the epoch swap,
 promotes it (``os.replace``) and rewrites the log to the still-pending
 tail.
 
-Not ported yet: the mesh-wide serving half (``register_dist``,
-``build_dist_serve_ladder``; ROADMAP.md queue 1 item 6), which raises
-``NotImplementedError``.
+Mesh-wide serving (:meth:`MutableIndex.register_dist`,
+:func:`build_dist_serve_ladder`): every epoch also holds a list-sharded
+view of its index (``parallel.shard_ivf_flat`` / ``shard_ivf_pq``: views
+where the ranks share a card) served by one ``serve.dist.DistSearchPlan``
+per (shape, rung) at ``k + tombstone_slack``, and the tombstone filter
+and the delta merge run as a standalone tail
+(``program.compile_tail_program``) on the merged (nq, k) block, on rank
+0's device. A compaction warms the next epoch's dist grid before the
+swap. After a mesh rebuild (``compact(mode="rebuild", mesh=...)``) the
+epoch's own lists are list-sharded; its single-device programs run over
+the lists gathered once (``parallel.gather_index``).
 """
 
 from __future__ import annotations
@@ -78,8 +86,6 @@ from raft_tpu_torch.util.host import host_array
 
 __all__ = ["MutableIndex", "build_serve_ladder",
            "build_dist_serve_ladder"]
-
-_MESH_ITEM = "ROADMAP.md queue 1 item 6"
 
 
 def _tomb_words(id_base: int) -> int:
@@ -174,6 +180,19 @@ class _Epoch:
     number: int
     tomb_words: int
     plans: Dict[tuple, object] = field(default_factory=dict)
+    tails: Dict[tuple, object] = field(default_factory=dict)
+    dist: Optional[dict] = None     # list-sharded view + DistSearchPlans
+    # the index on one device (list-sharded lists gathered once), for
+    # the single-device programs
+    local: Optional[object] = None
+
+    def local_index(self):
+        if self.local is None:
+            from raft_tpu_torch.parallel.ivf import gather_index
+            from raft_tpu_torch.parallel.mesh import Sharded
+            self.local = (gather_index(self.index) if isinstance(
+                self.index.lists_indices, Sharded) else self.index)
+        return self.local
 
 
 @dataclass(frozen=True)
@@ -209,8 +228,8 @@ class MutableIndex:
                   "_delta_ids", "_delta_used", "_delta_live",
                   "_delta_map", "_tomb", "_tomb_ids", "_next_id",
                   "_compacting", "_frozen_id_base", "_pending_tombs",
-                  "_rep", "_rungs", "_grid", "_wal", "_wal_ckpt",
-                  "_epoch_listeners")
+                  "_rep", "_rungs", "_grid", "_dist_cfg", "_wal",
+                  "_wal_ckpt", "_epoch_listeners")
 
     def __init__(self, index, k: int, params=None,
                  config: Optional[MutateConfig] = None):
@@ -254,6 +273,7 @@ class MutableIndex:
             self._rungs: Tuple[int, ...] = (
                 min(self.params.n_probes, index.n_lists),)
             self._grid: set = set()
+            self._dist_cfg: Optional[dict] = None
             self._wal: Optional[MutationWAL] = None
             self._wal_ckpt: Optional[str] = None
             self._epoch_listeners: Tuple = ()
@@ -580,7 +600,7 @@ class MutableIndex:
         params = dataclasses.replace(self.params, n_probes=n_probes)
         delta_cap = self.cfg.delta_capacities[delta_rung]
         entry = program_mod.compile_mutate_program(
-            epoch.index, rep, nq, self.k, params, delta_cap,
+            epoch.local_index(), rep, nq, self.k, params, delta_cap,
             epoch.tomb_words, slack=self.cfg.tombstone_slack)
         if warm:
             # run once on empty delta operands, so the first served call
@@ -640,19 +660,145 @@ class MutableIndex:
         warmup caller or the compactor, never the serving path)."""
         with self._cond:
             grid = sorted(self._grid)
+            dist_cfg = self._dist_cfg
         for (nq, rung_idx) in grid:
             for dr in self._warm_delta_rungs():
                 self._build_entry(epoch, nq, rung_idx, dr)
+        if dist_cfg is not None:
+            self._prewarm_dist(epoch, dist_cfg)
 
-    # -- distributed serving: not ported -----------------------------------
+    # -- distributed serving -----------------------------------------------
     def register_dist(self, mesh, axis: str, rep_queries,
                       shapes: Tuple[int, ...],
                       probes_ladder: Tuple[int, ...] = (),
                       merge: Optional[str] = None) -> None:
-        """Mesh-wide serving of the mutable index: not ported yet."""
-        raise NotImplementedError(
-            "mutate.register_dist: mesh-wide mutable serving is not "
-            f"ported yet ({_MESH_ITEM})")
+        """Attach a mesh: every epoch (this one and each compaction's)
+        also warms a list-sharded view of its index served by
+        ``DistSearchPlan`` ``shard_map`` runs at ``k + tombstone_slack``
+        (``merge``: the cross-shard wire format, int8 unless
+        ``RAFT_TPU_DIST_MERGE`` says otherwise), with the delta merge and
+        the tombstone filter as a tail after the cross-shard merge (the
+        delta segment is not sharded: it is orders of magnitude smaller
+        than the lists)."""
+        from raft_tpu_torch.serve.merge import merge_mode
+        rep = program_mod._host_rows(rep_queries)
+        with self._cond:
+            index = self._epoch.index
+            self._rep = rep if self._rep is None else self._rep
+            if probes_ladder:
+                self._rungs = tuple(probes_ladder)
+            cfg = {"mesh": mesh, "axis": axis,
+                   "shapes": tuple(int(s) for s in shapes),
+                   "merge": (merge_mode(default="int8")
+                             if merge is None else merge)}
+            self._dist_cfg = cfg
+            epoch = self._epoch
+        expects(self.family in ("ivf_flat", "ivf_pq"),
+                "mutate.register_dist: mesh-wide serving takes ivf_flat "
+                "or ivf_pq indexes, not %s", self.family)
+        expects(index.n_lists % mesh.shape[axis] == 0,
+                "mutate.register_dist: n_lists=%d not divisible by %d "
+                "shards", index.n_lists, mesh.shape[axis])
+        self._prewarm_dist(epoch, cfg)
+
+    def _prewarm_dist(self, epoch: _Epoch, cfg: dict) -> None:
+        """Shard ``epoch``'s index over the registered mesh, build and
+        warm one ``DistSearchPlan`` per (shape, rung), then the tails."""
+        from raft_tpu_torch.parallel import ivf as pivf
+        from raft_tpu_torch.serve.dist import DistSearchPlan
+        mesh, axis = cfg["mesh"], cfg["axis"]
+        with self._cond:
+            rep = self._rep
+            rungs = self._rungs
+        shard = (pivf.shard_ivf_flat if self.family == "ivf_flat"
+                 else pivf.shard_ivf_pq)
+        sharded = shard(epoch.index, mesh, axis=axis)
+        comms = pivf.get_comms(mesh, axis)
+        plans = {}
+        d_dt = i_dt = None
+        # the mesh-wide main phase over-fetches k + slack candidates, so
+        # the tail's tombstone filter never costs a result slot
+        k_fetch = self.k + self.cfg.tombstone_slack
+        for ri, n_probes in enumerate(rungs):
+            p_r = dataclasses.replace(self.params, n_probes=n_probes)
+            for s in cfg["shapes"]:
+                dp = DistSearchPlan(self.family, sharded, mesh, axis, s,
+                                    k_fetch, p_r, cfg["merge"], comms,
+                                    level=ri)
+                reps = -(-s // rep.shape[0])
+                d, i = dp.search(np.tile(rep, (reps, 1))[:s], block=True)
+                d_dt, i_dt = d.dtype, i.dtype
+                plans[(s, ri)] = dp
+        epoch.dist = {"index": sharded, "plans": plans,
+                      "d_dtype": d_dt, "i_dtype": i_dt}
+        dim = int(epoch.index.dim)
+        for s in cfg["shapes"]:
+            for dr in self._warm_delta_rungs():
+                self._build_tail(epoch, s, dr, dim)
+
+    def _build_tail(self, epoch: _Epoch, nq: int, delta_rung: int,
+                    dim: int):
+        """The (nq, delta-rung) tail of ``epoch``'s dist grid, prepared
+        once (counted as a plan-cache miss)."""
+        key = (nq, delta_rung)
+        with self._cond:
+            tail = epoch.tails.get(key)
+        if tail is not None:
+            return tail
+        dist = epoch.dist
+        tail = program_mod.compile_tail_program(
+            nq, self.k, dim, epoch.index.metric,
+            self.cfg.delta_capacities[delta_rung], epoch.tomb_words,
+            k_main=self.k + self.cfg.tombstone_slack,
+            d_dtype=dist["d_dtype"], i_dtype=dist["i_dtype"])
+        with self._cond:
+            cur = epoch.tails.get(key)
+            if cur is None:
+                epoch.tails[key] = tail
+            else:
+                tail = cur
+        return tail
+
+    def _dist_search(self, nq: int, rung_idx: int, queries,
+                     block: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One mesh-wide search of the live view: the epoch's
+        ``DistSearchPlan`` at (nq, rung), then the tail over the current
+        delta and tombstones where the merged block landed."""
+        q = program_mod._host_rows(queries)
+        with self._cond:
+            epoch = self._epoch
+            dev = self._dev
+            dist_cfg = self._dist_cfg
+        if epoch.dist is None:
+            # a mesh registered after this epoch was built (a cold path,
+            # outside the steady-state contract): shard and warm it now
+            expects(dist_cfg is not None,
+                    "mutate: no mesh registered (register_dist)")
+            self._prewarm_dist(epoch, dist_cfg)
+        dp = epoch.dist["plans"][(nq, rung_idx)]
+        d, i = dp.search(q, block=False)
+        d, i = d.to(self.device), i.to(self.device)
+        if d.is_cuda:
+            stream = torch.cuda.current_stream(d.device)
+            for t in dev.tensors():
+                t.record_stream(stream)
+        tail = epoch.tails.get((nq, dev.rung))
+        if tail is None:
+            tail = self._build_tail(epoch, nq, dev.rung, q.shape[1])
+        d, i = tail.run(torch.from_numpy(q).to(self.device), d, i,
+                        *dev.tensors())
+        if block:
+            wait_ready((d, i))
+        return d, i
+
+    def _dist_plan(self, nq: int, rung_idx: int):
+        """The current epoch's ``DistSearchPlan`` at a grid point (the
+        serving tier's gauges read it)."""
+        with self._cond:
+            dist = self._epoch.dist
+        expects(dist is not None,
+                "mutate: no mesh registered (register_dist)")
+        return dist["plans"][(nq, rung_idx)]
 
     # -- epoch listeners ---------------------------------------------------
     def add_epoch_listener(self, fn) -> "MutableIndex":
@@ -992,6 +1138,37 @@ class _MutableServePlan:
         return self._m._search_rung(queries, self.rung, block)
 
 
+class _MutableDistPlan:
+    """The mesh-wide counterpart: the current epoch's
+    ``DistSearchPlan`` (one cached ``shard_map`` run), then the tail over
+    the delta and the tombstones, resolved per call."""
+
+    dist_like = True     # accepted by DistributedSearchServer
+
+    def __init__(self, mindex: MutableIndex, nq: int, rung: int,
+                 n_probes: int):
+        self._m = mindex
+        self.nq = int(nq)
+        self.rung = int(rung)
+        self.n_probes = int(n_probes)
+        self.device = mindex.device
+
+    @property
+    def mesh(self):
+        return self._m._dist_plan(self.nq, self.rung).mesh
+
+    @property
+    def n_shards(self) -> int:
+        return self._m._dist_plan(self.nq, self.rung).n_shards
+
+    @property
+    def merge_ratio(self) -> float:
+        return self._m._dist_plan(self.nq, self.rung).merge_ratio
+
+    def search(self, queries, block: bool = False):
+        return self._m._dist_search(self.nq, self.rung, queries, block)
+
+
 def build_serve_ladder(mindex: MutableIndex, rep_queries,
                        shapes: Tuple[int, ...] = (1, 8, 32, 128),
                        probes_ladder: Tuple[int, ...] = (),
@@ -1025,7 +1202,20 @@ def build_dist_serve_ladder(mindex: MutableIndex, rep_queries,
                             shapes: Tuple[int, ...] = (1, 8, 32, 128),
                             probes_ladder: Tuple[int, ...] = (),
                             merge: Optional[str] = None):
-    """Mesh-wide mutable serving ladder: not ported yet."""
-    raise NotImplementedError(
-        "mutate.build_dist_serve_ladder: mesh-wide mutable serving is not "
-        f"ported yet ({_MESH_ITEM})")
+    """Mesh-wide mutable serving: list-shard the current epoch, build and
+    warm its ``DistSearchPlan`` grid and tails, and register the mesh so
+    every compaction shards and warms the next epoch before the swap →
+    a :class:`PlanLadder` of stable mesh-wide handles."""
+    from raft_tpu_torch.serve.ladder import PlanLadder
+    expects(mesh is not None, "build_dist_serve_ladder: mesh required")
+    mindex.register_dist(mesh, axis, rep_queries, shapes=shapes,
+                         probes_ladder=probes_ladder, merge=merge)
+    with mindex._cond:
+        rungs = mindex._rungs
+    plans = {}
+    for s in shapes:
+        for r in range(len(rungs)):
+            dp = mindex._dist_plan(s, r)
+            plans[(s, r)] = _MutableDistPlan(mindex, s, r, dp.n_probes)
+    return PlanLadder(shapes=tuple(shapes), rungs=rungs, plans=plans,
+                      dim=mindex.dim, k=mindex.k)

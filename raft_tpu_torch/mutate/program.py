@@ -107,19 +107,6 @@ def _select_min(v: torch.Tensor, k: int):
                              sel).to(torch.int32)
 
 
-def _select_min_payload(v: torch.Tensor, ids: torch.Tensor, k: int):
-    """Per-row k smallest of ``v`` with ``ids`` riding along: kernel 2's
-    payload select at k <= 256, else a stable sort; ``(+inf, -1)`` where
-    no finite candidate is left."""
-    if k <= _select_op.MAX_K:
-        return _select_op.select_k_payload(v.contiguous(),
-                                           ids.contiguous(), k)
-    vals, sel = stable_topk_min(v, k)
-    out = torch.gather(ids, 1, sel)
-    return vals, torch.where(torch.isinf(vals) & (vals > 0), -1,
-                             out).to(torch.int32)
-
-
 def mutate_tail(d_main, i_main, ds, delta_ids, tomb_words, k: int,
                 metric: DistanceType) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tombstone-filter the main results, top-k the delta scores, and
@@ -138,7 +125,8 @@ def mutate_tail(d_main, i_main, ds, delta_ids, tomb_words, k: int,
     id_d = torch.where(torch.isfinite(dd), id_d, -1)
     cat_d = torch.cat([d_main, dd], dim=1)
     cat_i = torch.cat([i_main, id_d.to(i_main.dtype)], dim=1)
-    v, ids = _select_min_payload(-cat_d if desc else cat_d, cat_i, k)
+    v, ids = _select_op.select_k_payload_any(-cat_d if desc else cat_d,
+                                             cat_i, k)
     return (-v if desc else v), ids
 
 

@@ -217,12 +217,18 @@ def build(dataset, params: IndexParams = IndexParams(), res=None,
 
 
 def index_from_numpy(arrays: dict, metric, size: int, raw=None,
-                     device="cuda") -> Index:
+                     device="cuda", mesh=None, axis: str = "data") -> Index:
     """An :class:`Index` on ``device`` from numpy arrays of the JAX
     package's ``ivf_bq.Index`` fields (``centers``, ``centers_rot``,
     ``rotation_matrix``, ``bits`` (uint32), ``norms2``, ``scales``,
     ``lists_indices``, ``list_sizes``), with the optional host ``raw``
-    corpus. The bits keep their bit patterns as int32."""
+    corpus. The bits keep their bit patterns as int32. With ``mesh``: a
+    ``parallel.DistributedIvfBq`` from the JAX package's multi-part
+    fields (the replicated ones and ``parts_*``) over ``mesh[axis]``."""
+    if mesh is not None:
+        from raft_tpu_torch.parallel.ivf import _parts_from_numpy
+        return _parts_from_numpy("ivf_bq", arrays, mesh, axis,
+                                metric=metric, size=int(size), raw=raw)
     dev = ensure_resources(None, device).device
 
     def put(name, dtype):

@@ -335,12 +335,18 @@ def _list_rows(a) -> torch.Tensor:
 
 
 def index_from_numpy(arrays: dict, metric, size: int, scale: float = 1.0,
-                     device="cuda") -> Index:
+                     device="cuda", mesh=None, axis: str = "data") -> Index:
     """An :class:`Index` from host arrays (the fields the JAX package's
     ``ivf_flat.Index`` holds: ``centers``, ``lists_data``,
     ``lists_indices``, ``lists_norms``, ``list_sizes``) on ``device``.
     ``lists_data`` is float32, int8 (dequantized by ``scale``) or
-    bfloat16 (see :func:`_list_rows`)."""
+    bfloat16 (see :func:`_list_rows`). With ``mesh``: a
+    ``parallel.DistributedIvfFlat`` from the JAX package's multi-part
+    fields (``centers``, ``parts_*``) over ``mesh[axis]``."""
+    if mesh is not None:
+        from raft_tpu_torch.parallel.ivf import _parts_from_numpy
+        return _parts_from_numpy("ivf_flat", arrays, mesh, axis,
+                                metric=metric, size=int(size))
     dev = ensure_resources(None, device).device
     data = _list_rows(arrays["lists_data"])
     expects(data.dtype in _STORAGE_NAMES,

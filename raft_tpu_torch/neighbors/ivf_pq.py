@@ -557,12 +557,19 @@ def build(dataset, params: IndexParams = IndexParams(), seed: int = 0,
 
 def index_from_numpy(arrays: dict, metric, size: int, pq_bits: int,
                      codebook_kind=CodebookGen.PER_SUBSPACE, raw=None,
-                     device="cuda") -> Index:
+                     device="cuda", mesh=None, axis: str = "data") -> Index:
     """An :class:`Index` on ``device`` from numpy arrays of the JAX
     package's ``ivf_pq.Index`` fields (``centers``, ``centers_rot``,
     ``rotation_matrix``, ``pq_centers``, ``codes`` (u8),
     ``lists_indices``, ``list_sizes``), with the optional host ``raw``
-    corpus; the code norms are derived."""
+    corpus; the code norms are derived. With ``mesh``: a
+    ``parallel.DistributedIvfPq`` from the JAX package's multi-part
+    fields (the replicated ones and ``parts_*``) over ``mesh[axis]``."""
+    if mesh is not None:
+        from raft_tpu_torch.parallel.ivf import _parts_from_numpy
+        return _parts_from_numpy("ivf_pq", arrays, mesh, axis,
+                                metric=metric, size=int(size),
+                                pq_bits=int(pq_bits))
     dev = ensure_resources(None, device).device
 
     def put(name, dtype):

@@ -92,7 +92,6 @@ from raft_tpu_torch.neighbors.ivf_flat import (
 )
 from raft_tpu_torch.obs import profiler, spans
 from raft_tpu_torch.ops import select_k as _select_op
-from raft_tpu_torch.ops._util import stable_topk_min
 
 __all__ = ["TieredConfig", "TieredIndex", "TieredPlan", "build_plan",
            "build_ladder", "from_index", "from_host"]
@@ -119,10 +118,7 @@ def _merge_topk(d_a, i_a, d_b, i_b, k: int):
     probe rank, so the merged set equals the single-scan result."""
     cat_d = torch.cat([d_a, d_b], dim=1).contiguous()
     cat_i = torch.cat([i_a, i_b], dim=1).to(torch.int32).contiguous()
-    if k <= _select_op.MAX_K:
-        return _select_op.select_k_payload(cat_d, cat_i, k)
-    d, sel = stable_topk_min(cat_d, k)
-    return d, torch.gather(cat_i, 1, sel)
+    return _select_op.select_k_payload_any(cat_d, cat_i, k)
 
 
 def _on_device(device) -> contextlib.AbstractContextManager:

@@ -27,7 +27,7 @@ from raft_tpu_torch.ops import _build
 from raft_tpu_torch.ops._build import I64, INT, PTR
 from raft_tpu_torch.ops._util import (PRECISIONS, check_cuda_tensor, dot_nt,
                                       resolve_precision, round_up)
-from raft_tpu_torch.ops.select_k import select_k_payload_plain
+from raft_tpu_torch.ops.select_k import select_k_payload_sorted
 
 # k served by the kernel's pass B (csrc/radix_select.cuh kRsMaxK); above
 # it the candidates are ranked by a stable sort
@@ -133,11 +133,11 @@ def fused_knn_plain(x: torch.Tensor, y: torch.Tensor, k: int,
                     metric: str = "l2", sqrt: bool = False, tn: int = 4096,
                     l_bins: int = 64, kt: int = 0, precision: str = "f32"):
     """Plain PyTorch version: pass A (:func:`bin_candidates_plain`) and
-    the ranking (``select_k_payload_plain``); IP scores negated back."""
+    the ranking (``select_k_payload_sorted``); IP scores negated back."""
     cand_d, cand_i = bin_candidates_plain(x, y, metric, tn, l_bins, kt,
                                           precision)
-    vals, ids = select_k_payload_plain(cand_d, cand_i, k,
-                                       sqrt and metric == "l2")
+    vals, ids = select_k_payload_sorted(cand_d, cand_i, k,
+                                        sqrt and metric == "l2")
     return (-vals if metric == "ip" else vals), ids
 
 
@@ -228,7 +228,8 @@ def fused_knn_cuda(x: torch.Tensor, y: torch.Tensor, k: int,
                                    out_i[s].data_ptr(), stream),
                              "fused_knn top-k")
             else:
-                out_d[s:s + rows], out_i[s:s + rows] = select_k_payload_plain(
+                (out_d[s:s + rows],
+                 out_i[s:s + rows]) = select_k_payload_sorted(
                     cand_d, cand_i, k, do_sqrt)
             del cand_d, cand_i
     return (-out_d if metric == "ip" else out_d), out_i

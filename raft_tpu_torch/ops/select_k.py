@@ -26,10 +26,18 @@ launches = 0
 launches_payload = 0
 
 
+def _check_k(name: str, k: int) -> None:
+    """The kernel's bound, held on every route: a CPU caller sees the
+    ``ValueError`` a card caller would."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{name}: k={k} outside [1, {MAX_K}]")
+
+
 def select_k_plain(v: torch.Tensor, k: int):
     """Plain PyTorch version: the k smallest of each row, ascending,
     ties to the lower column (a stable sort), ``+inf`` slots with id
-    ``-1``; NaN reads as ``+inf``."""
+    ``-1``; NaN reads as ``+inf``. ``k <= 256``, as the kernel's."""
+    _check_k("select_k", k)
     v = v.float()
     v = torch.where(torch.isnan(v), torch.full_like(v, float("inf")), v)
     vals, idx = torch.sort(v, dim=1, stable=True)
@@ -41,10 +49,18 @@ def select_k_plain(v: torch.Tensor, k: int):
 
 def select_k_payload_plain(v: torch.Tensor, ids: torch.Tensor, k: int,
                            sqrt: bool = False):
-    """Plain version of :func:`select_k_payload`: each row's k smallest
-    by (value, column) from a stable sort, NaN read as ``+inf``, the ids
-    gathered from ``ids``; ``(+inf, -1)`` where fewer than k finite
-    values exist (n < k included); the square root taken last."""
+    """Plain version of :func:`select_k_payload` (``k <= 256``, as the
+    kernel's): :func:`select_k_payload_sorted` under the kernel's bound."""
+    _check_k("select_k_payload", k)
+    return select_k_payload_sorted(v, ids, k, sqrt)
+
+
+def select_k_payload_sorted(v: torch.Tensor, ids: torch.Tensor, k: int,
+                            sqrt: bool = False):
+    """Each row's k smallest of ``v`` (m, n) by (value, column) from a
+    stable sort, at any k: NaN read as ``+inf``, the ids gathered from
+    ``ids``; ``(+inf, -1)`` where fewer than k finite values exist (n < k
+    included); the square root taken last."""
     m, n = v.shape
     v = torch.where(torch.isnan(v), float("inf"), v.float())
     if n < k:
@@ -105,8 +121,7 @@ def select_k_payload_cuda(v: torch.Tensor, ids: torch.Tensor, k: int,
     check_cuda_tensor("select_k_payload ids", ids, torch.int32, 2)
     if ids.shape != v.shape or ids.device != v.device:
         raise ValueError("select_k_payload: ids and values disagree")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"select_k_payload: k={k} outside [1, {MAX_K}]")
+    _check_k("select_k_payload", k)
     m, n = v.shape
     out_v = torch.empty((m, k), dtype=torch.float32, device=v.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=v.device)
@@ -135,3 +150,12 @@ def select_k_payload(v: torch.Tensor, ids: torch.Tensor, k: int,
                                      ids.to(torch.int32).contiguous(),
                                      int(k), sqrt)
     return select_k_payload_plain(v, ids, int(k), sqrt)
+
+
+def select_k_payload_any(v: torch.Tensor, ids: torch.Tensor, k: int):
+    """:func:`select_k_payload` at any k: kernel 2 at ``k <= 256``, above
+    that :func:`select_k_payload_sorted` (the same (value, column) order
+    and ``(+inf, -1)`` slots), on either device."""
+    if k <= MAX_K:
+        return select_k_payload(v, ids, k)
+    return select_k_payload_sorted(v.float(), ids.to(torch.int32), int(k))

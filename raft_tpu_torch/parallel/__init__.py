@@ -1,8 +1,6 @@
 """Algorithms over a mesh (counterpart of ``raft_tpu.parallel``):
 distributed exact k-NN, MNMG k-means, and the list-sharded IVF builds
-and searches. The row-sharded multi-part IVF indexes are ROADMAP.md
-queue 1 item 6, second half (their entry points raise
-``NotImplementedError``)."""
+and searches, and the row-sharded multi-part IVF indexes."""
 
 from raft_tpu_torch.parallel.mesh import (Mesh, P, PartitionSpec, Sharded,
                                           make_mesh, replicate, shard_map,
@@ -11,6 +9,9 @@ from raft_tpu_torch.parallel.knn import distributed_knn
 from raft_tpu_torch.parallel.kmeans import (distributed_kmeans_fit,
                                             distributed_kmeans_step)
 from raft_tpu_torch.parallel.ivf import (
+    DistributedIvfBq,
+    DistributedIvfFlat,
+    DistributedIvfPq,
     distributed_ivf_bq_build,
     distributed_ivf_bq_search_parts,
     distributed_ivf_flat_build,
@@ -38,5 +39,6 @@ __all__ = [
     "distributed_ivf_pq_build", "distributed_ivf_pq_search_parts",
     "distributed_ivf_bq_build", "distributed_ivf_bq_search_parts",
     "sharded_ivf_flat_build", "sharded_ivf_pq_build",
-    "sharded_ivf_bq_build",
+    "sharded_ivf_bq_build", "DistributedIvfFlat", "DistributedIvfPq",
+    "DistributedIvfBq",
 ]

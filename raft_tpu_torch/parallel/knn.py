@@ -21,7 +21,6 @@ import torch
 
 from raft_tpu_torch.distance.distance_types import DistanceType
 from raft_tpu_torch.ops import select_k as select_op
-from raft_tpu_torch.ops._util import stable_topk_min
 from raft_tpu_torch.parallel.ivf import _shmap_plan
 from raft_tpu_torch.parallel.mesh import P, current_rank_context, shard_map
 
@@ -39,11 +38,8 @@ def _db_tile(nq: int, rows: int) -> int:
 def _select(v: torch.Tensor, ids: torch.Tensor, k: int):
     """The k smallest of each row of ``v`` with their ``ids``, ties to
     the lower column (``lax.top_k``'s rule)."""
-    if k <= select_op.MAX_K:
-        return select_op.select_k_payload(v.contiguous(),
+    return select_op.select_k_payload_any(v.contiguous(),
                                           ids.to(torch.int32).contiguous(), k)
-    vals, sel = stable_topk_min(v, k)
-    return vals, torch.gather(ids, 1, sel).to(torch.int32)
 
 
 def _merge(d_a, i_a, d_b, i_b, k: int):

@@ -28,8 +28,11 @@ Observability: ``raft.serve.dist.*`` and ``raft.serve.failover.*``
 counters and gauges, rank-tagged ``raft.parallel.ivf.shard`` spans, and
 ``/healthz``'s ``dist`` section.
 
-Not ported yet: ``from_mutable`` (ROADMAP.md queue 1 item 6, second
-half) raises ``NotImplementedError``.
+A :class:`~raft_tpu_torch.mutate.MutableIndex` is served mesh-wide by
+:meth:`DistributedSearchServer.from_mutable`: each epoch's index
+list-sharded, the delta merge and the tombstone filter a tail after the
+cross-shard merge, compactions warming the next epoch off the serving
+path.
 """
 
 from __future__ import annotations
@@ -60,10 +63,6 @@ __all__ = [
     "build_dist_ladder",
     "build_failover_ladder",
 ]
-
-_FROM_MUTABLE = ("DistributedSearchServer.from_mutable: serving a "
-                 "MutableIndex mesh-wide is not ported yet (ROADMAP.md "
-                 "queue 1 item 6, second half)")
 
 
 def _resolve_family(index) -> str:
@@ -547,5 +546,27 @@ class DistributedSearchServer(SearchServer):
                      config: Optional[ServeConfig] = None,
                      merge: Optional[str] = None,
                      start: bool = True) -> "DistributedSearchServer":
-        """Not ported yet (ROADMAP.md queue 1 item 6, second half)."""
-        raise NotImplementedError(_FROM_MUTABLE)
+        """Serve a :class:`~raft_tpu_torch.mutate.MutableIndex` mesh-wide
+        (``mutate.build_dist_serve_ladder``): each epoch's index
+        list-sharded and served through the cached ``shard_map`` grid,
+        the delta merge and the tombstone filter a tail after the
+        cross-shard merge. Compactions shard and warm the next epoch off
+        the serving path, then swap: the server never stops and prepares
+        nothing in steady state. Partial-mesh failover is refused."""
+        from raft_tpu_torch.mutate import build_dist_serve_ladder
+        config = config if config is not None else ServeConfig()
+        expects(not config.failover,
+                "from_mutable: partial-mesh failover is not supported "
+                "over a MutableIndex yet (the delta/tombstone tail "
+                "would need per-shard recomposition) — serve with "
+                "failover=False")
+        ladder = build_dist_serve_ladder(
+            mindex, rep_queries, mesh=mesh, axis=axis,
+            shapes=config.batch_sizes,
+            probes_ladder=config.probes_ladder, merge=merge)
+        srv = cls(ladder, config, start=start)
+        srv._quality_meta = {"metric": mindex.metric,
+                             "family": mindex.family,
+                             "device": mindex.device}
+        srv._quality_src = mindex
+        return srv

@@ -129,9 +129,9 @@ def merge_wire_bytes(nq: int, k: int, n_shards: int, mode: str,
 
 def _select(cat_d, cat_i, k: int):
     """The k smallest per row by (value, column): kernel 2's payload
-    select (its plain version on the CPU)."""
-    from raft_tpu_torch.ops.select_k import select_k_payload
-    return select_k_payload(cat_d.contiguous(), cat_i.contiguous(), k)
+    select (its plain version on the CPU), a stable sort above k = 256."""
+    from raft_tpu_torch.ops.select_k import select_k_payload_any
+    return select_k_payload_any(cat_d.contiguous(), cat_i.contiguous(), k)
 
 
 def compressed_merge(comms, d, i, k: int, size: int):

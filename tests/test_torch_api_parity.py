@@ -7,9 +7,8 @@ and class constructor defined in both (exceptions, enums and
 JAX one,
 with the same default, kind and relative order, so a caller written for
 ``raft_tpu`` never gets a ``TypeError``. A parameter the port adds must
-be on :data:`ALLOWED_EXTRA`. Values the port does not implement raise
-``NotImplementedError`` naming their ROADMAP.md item; values it
-implements are honoured (the second half of this file).
+be on :data:`ALLOWED_EXTRA`. Values the port implements are honoured
+(the second half of this file).
 """
 
 import dataclasses
@@ -286,8 +285,7 @@ def test_core_helpers_exist():
 
 
 # ---------------------------------------------------------------------
-# Values the port accepts by name but does not implement: each raises
-# NotImplementedError (naming its ROADMAP.md item), never TypeError.
+# Values the port implements: honoured as the JAX package does.
 
 def _x(n=256, d=8):
     return torch.from_numpy(
@@ -310,52 +308,88 @@ def _fold(**kw):
     return lambda: compact.fold(m.index, _x(2, 8), [300, 301], [1], **kw)
 
 
-def _unimplemented():
-    """case -> (call, the ROADMAP.md item its message names)."""
-    from raft_tpu_torch import mutate
+def _cpu_mesh(n=4):
     from raft_tpu_torch import parallel
-    from raft_tpu_torch.serve import DistributedSearchServer
-    x = _x(64, 8)
-    return {
-        "MutableIndex.register_dist": (
-            lambda: _mutable().register_dist(object(), "data", _x(4, 8),
-                                             shapes=(1,)), "item 6"),
-        "build_dist_serve_ladder": (
-            lambda: mutate.build_dist_serve_ladder(_mutable(), _x(4, 8),
-                                                   mesh=object()),
-            "item 6"),
-        "fold(mesh=...)": (_fold(mesh=object()), "item 6"),
-        "DistributedSearchServer.from_mutable": (
-            lambda: DistributedSearchServer.from_mutable(
-                _mutable(), x[:4], mesh=object()), "item 6"),
-        "distributed_ivf_flat_build": (
-            lambda: parallel.distributed_ivf_flat_build(x), "item 6"),
-        "distributed_ivf_flat_search_parts": (
-            lambda: parallel.distributed_ivf_flat_search_parts(
-                None, x, 3), "item 6"),
-        "distributed_ivf_pq_build": (
-            lambda: parallel.distributed_ivf_pq_build(x), "item 6"),
-        "distributed_ivf_pq_search_parts": (
-            lambda: parallel.distributed_ivf_pq_search_parts(
-                None, x, 3), "item 6"),
-        "distributed_ivf_bq_build": (
-            lambda: parallel.distributed_ivf_bq_build(x), "item 6"),
-        "distributed_ivf_bq_search_parts": (
-            lambda: parallel.distributed_ivf_bq_search_parts(
-                None, x, 3), "item 6"),
-    }
+    return parallel.make_mesh(devices=[torch.device("cpu")] * n)
 
 
-@pytest.mark.parametrize("case", sorted(_unimplemented()))
-def test_unimplemented_value_raises_not_implemented(case):
-    call, item = _unimplemented()[case]
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md queue 1 {item}\b"):
-        call()
+def _register_dist(mesh):
+    m = _mutable()
+    m.register_dist(mesh, "data", _x(4, 8), shapes=(1,))
+    return m._dist_plan(1, 0).n_shards == 4
 
 
-# ---------------------------------------------------------------------
-# Values the port implements: honoured as the JAX package does.
+def _dist_ladder(mesh):
+    from raft_tpu_torch import mutate
+    ladder = mutate.build_dist_serve_ladder(_mutable(), _x(4, 8),
+                                            mesh=mesh, shapes=(1,))
+    d, i = ladder.plan_for(1, 0)[1].search(_x(1, 8), block=True)
+    return tuple(i.shape) == (1, 3) and bool((i >= 0).all())
+
+
+def _fold_mesh(mesh):
+    from raft_tpu_torch.parallel import Sharded
+    new = _fold(mode="rebuild", mesh=mesh)()
+    ids = new.lists_indices.numpy()
+    return (isinstance(new.lists_indices, Sharded) and new.size == 257
+            and sorted(ids[ids >= 0].tolist())
+            == [i for i in range(256) if i != 1] + [300, 301])
+
+
+def _from_mutable(mesh):
+    from raft_tpu_torch.serve import DistributedSearchServer, ServeConfig
+    srv = DistributedSearchServer.from_mutable(
+        _mutable(), _x(4, 8).numpy(), mesh=mesh,
+        config=ServeConfig(batch_sizes=(1,), max_wait_ms=0.0))
+    try:
+        return tuple(srv.search(_x(1, 8).numpy(), timeout=30)[1].shape) \
+            == (1, 3)
+    finally:
+        srv.close()
+
+
+def _parts(family, mesh):
+    """A multi-part build of ``family`` over 512 rows and one search of
+    its parts at k = 3."""
+    from raft_tpu_torch import parallel
+    from raft_tpu_torch.neighbors import ivf_bq, ivf_flat, ivf_pq
+    mod = {"flat": ivf_flat, "pq": ivf_pq, "bq": ivf_bq}[family]
+    build = getattr(parallel, f"distributed_ivf_{family}_build")
+    search = getattr(parallel, f"distributed_ivf_{family}_search_parts")
+    kw = {"pq_bits": 4} if family == "pq" else {}
+    didx = build(_x(512, 8), mod.IndexParams(n_lists=4, kmeans_n_iters=2,
+                                             **kw), mesh)
+    ids = didx.parts_indices.numpy()
+    d, i = search(didx, _x(5, 8), 3, mod.SearchParams(n_probes=4))
+    return (sorted(ids[ids >= 0].tolist()) == list(range(512))
+            and tuple(i.shape) == (5, 3) and bool((i >= 0).all()))
+
+
+_MESH_VALUES = {
+    "MutableIndex.register_dist": _register_dist,
+    "build_dist_serve_ladder": _dist_ladder,
+    "fold(mesh=...)": _fold_mesh,
+    "DistributedSearchServer.from_mutable": _from_mutable,
+    "distributed_ivf_flat_build": lambda mesh: _parts("flat", mesh),
+    "distributed_ivf_flat_search_parts": lambda mesh: _parts("flat", mesh),
+    "distributed_ivf_pq_build": lambda mesh: _parts("pq", mesh),
+    "distributed_ivf_pq_search_parts": lambda mesh: _parts("pq", mesh),
+    "distributed_ivf_bq_build": lambda mesh: _parts("bq", mesh),
+    "distributed_ivf_bq_search_parts": lambda mesh: _parts("bq", mesh),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MESH_VALUES))
+def test_mesh_value_is_honoured(case):
+    """The mesh-wide entry points (ROADMAP.md queue 1 item 6) run on a
+    four-rank CPU mesh and answer as their JAX namesakes would."""
+    mesh = _cpu_mesh()
+    try:
+        assert _MESH_VALUES[case](mesh)
+    finally:
+        mesh.close()
+
+
 
 class _SlowOrFlakyPlan:
     """A fake plan: sleeps ``delay`` s, or fails its first ``fail_n``

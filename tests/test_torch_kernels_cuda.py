@@ -2280,3 +2280,150 @@ def test_mesh_on_card_matches_cpu_mesh(dev):
     finally:
         cm.close()
         hm.close()
+
+
+@pytest.mark.parametrize("merge", ["f32", "int8"])
+def test_cross_shard_merges_above_256_on_card(dev, merge):
+    # F15: k = 300 through both cross-shard merges of the list-sharded
+    # search on eight logical ranks of the card (kernel 2 takes k <= 256,
+    # a stable sort above), equal to the same search on the CPU mesh
+    from raft_tpu_torch import parallel
+    cm = parallel.make_mesh(devices=[dev] * 8)
+    hm = parallel.make_mesh(devices=[torch.device("cpu")] * 8)
+    try:
+        rng = np.random.default_rng(15)
+        x = rng.normal(size=(8000, 16)).astype(np.float32)
+        q = rng.normal(size=(24, 16)).astype(np.float32)
+        host = ivf_flat.build(x, ivf_flat.IndexParams(
+            n_lists=16, kmeans_n_iters=3), device="cpu")
+        card = parallel.gather_index(host, dev)
+        sp = ivf_flat.SearchParams(n_probes=2)
+        dc, ic = parallel.distributed_ivf_flat_search(
+            parallel.shard_ivf_flat(card, cm), q, 300, sp, mesh=cm,
+            merge=merge)
+        dh, ih = parallel.distributed_ivf_flat_search(
+            parallel.shard_ivf_flat(host, hm), q, 300, sp, mesh=hm,
+            merge=merge)
+        assert tuple(ic.shape) == (24, 300)
+        assert (ic.cpu().numpy() == ih.numpy()).mean() >= 0.999
+        tol = (1e-2 if merge == "int8" else 1e-5) * float(dh.max())
+        assert np.abs(dc.cpu().numpy() - dh.numpy()).max() <= tol
+    finally:
+        cm.close()
+        hm.close()
+
+
+@pytest.mark.parametrize("family", ["flat", "pq", "bq"])
+def test_parts_search_on_card_matches_cpu(dev, family):
+    # the row-parts builds and searches on eight logical ranks of the
+    # card: every id once, and the parts search's ids equal the same
+    # search of the same parts on the CPU mesh (near-ties aside);
+    # kernels 1 and 2 launched
+    from raft_tpu_torch import parallel
+    cm = parallel.make_mesh(devices=[dev] * 8)
+    hm = parallel.make_mesh(devices=[torch.device("cpu")] * 8)
+    try:
+        rng = np.random.default_rng(25)
+        c = rng.normal(size=(40, 32)).astype(np.float32) * 3
+        x = (c[rng.integers(0, 40, 16000)]
+             + rng.normal(size=(16000, 32))).astype(np.float32)
+        q = (c[rng.integers(0, 40, 128)]
+             + rng.normal(size=(128, 32))).astype(np.float32)
+        mod = {"flat": ivf_flat, "pq": ivf_pq, "bq": ivf_bq}[family]
+        build = getattr(parallel, f"distributed_ivf_{family}_build")
+        search = getattr(parallel, f"distributed_ivf_{family}_search_parts")
+        n0, s0 = nn_op.launches, sel_op.launches
+        didx = build(_t(x, dev), mod.IndexParams(n_lists=64,
+                                                 kmeans_n_iters=4), cm)
+        ids = didx.parts_indices.numpy()
+        assert sorted(ids[ids >= 0].tolist()) == list(range(16000))
+        kw = {"rescore_factor": 16} if family == "bq" else {}
+        dc, ic = search(didx, q, 32, mod.SearchParams(n_probes=8, **kw))
+        assert nn_op.launches > n0 and sel_op.launches > s0
+        import dataclasses
+        arrays = {}
+        for f in dataclasses.fields(didx):
+            v = getattr(didx, f.name)
+            if isinstance(v, parallel.Sharded):
+                arrays[f.name] = v.numpy()
+            elif isinstance(v, torch.Tensor) and f.name != "raw_dev":
+                arrays[f.name] = v.cpu().numpy()
+        if family == "pq":
+            host = mod.index_from_numpy(arrays, didx.metric, didx.size,
+                                        didx.pq_bits, mesh=hm)
+        elif family == "bq":
+            arrays["parts_bits"] = arrays["parts_bits"].view(np.uint32)
+            host = mod.index_from_numpy(arrays, didx.metric, didx.size,
+                                        raw=didx.raw, mesh=hm)
+        else:
+            host = mod.index_from_numpy(arrays, didx.metric, didx.size,
+                                        mesh=hm)
+        dh, ih = search(host, q, 32, mod.SearchParams(n_probes=8, **kw))
+        agree = (ic.cpu().numpy() == ih.numpy()).mean()
+        assert agree >= 0.999, agree
+        np.testing.assert_allclose(dc.cpu().numpy(), dh.numpy(), rtol=1e-4,
+                                   atol=1e-3)
+    finally:
+        cm.close()
+        hm.close()
+
+
+@pytest.mark.parametrize("nq", [1, 8, 128])
+def test_mesh_tail_selects_on_card(dev, nq):
+    # kernel 2 at the mesh-wide mutable tail's shapes: the delta top-k at
+    # a rung of 1024 and the merge of the cross-shard block (k + slack =
+    # 48) with the delta's 32, against their plain versions
+    rng = np.random.default_rng(nq + 3)
+    ds = _t(rng.integers(0, 50, size=(nq, 1024)).astype(np.float32), dev)
+    ds[:, 700:] = float("inf")
+    dk, ik = sel_op.select_k(ds, 32)
+    dp, ip = sel_op.select_k_plain(ds, 32)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    cand = _t(np.sort(rng.integers(0, 60, size=(nq, 80)).astype(np.float32),
+                      axis=1), dev)
+    ids = _t(rng.permutation(nq * 80).astype(np.int32).reshape(nq, 80), dev)
+    dk, ik = sel_op.select_k_payload(cand, ids, 32)
+    dp, ip = sel_op.select_k_payload_plain(cand, ids, 32)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+def test_dist_mutable_on_card(dev):
+    # a MutableIndex served mesh-wide over eight logical ranks of the
+    # card: an upsert found at once, a delete gone, both through a fold
+    # and a mesh rebuild whose epoch is list-sharded; nothing prepared
+    # outside the compactions
+    from raft_tpu_torch import mutate, obs, parallel, serve
+    cm = parallel.make_mesh(devices=[dev] * 8)
+    try:
+        rng = np.random.default_rng(19)
+        x = rng.normal(size=(20000, 16)).astype(np.float32)
+        q = rng.normal(size=(8, 16)).astype(np.float32)
+        idx = ivf_flat.build(_t(x, dev), ivf_flat.IndexParams(
+            n_lists=64, kmeans_n_iters=4))
+        m = mutate.MutableIndex(idx, k=5, params=ivf_flat.SearchParams(
+            n_probes=16), config=mutate.MutateConfig(
+                delta_capacities=(64, 256)))
+        srv = serve.DistributedSearchServer.from_mutable(
+            m, q, mesh=cm, config=serve.ServeConfig(batch_sizes=(1, 8),
+                                                    max_wait_ms=0.5))
+        try:
+            ids = m.upsert(q[:1] + 1e-4)
+            before = obs.snapshot()["counters"]
+            _, i = srv.search(q[:1])
+            assert int(ids[0]) == int(np.asarray(i)[0][0])
+            after = obs.snapshot()["counters"]
+            for name in ("raft.plan.cache.misses",
+                         "raft.parallel.plan.misses"):
+                assert after.get(name, 0) == before.get(name, 0), name
+            victim = int(np.asarray(i)[0][1])
+            m.delete([victim])
+            for mode, mesh in (("fold", None), ("rebuild", cm)):
+                assert m.compact(mode=mode, mesh=mesh)
+                _, i = srv.search(q[:1])
+                got = np.asarray(i)[0].tolist()
+                assert int(ids[0]) in got and victim not in got
+            assert isinstance(m.index.lists_indices, parallel.Sharded)
+        finally:
+            srv.close()
+    finally:
+        cm.close()
