@@ -260,7 +260,9 @@ Phases, one line each:
               request, the federation section lists three instances on
               their own registries, the killed instance reads stale or
               unreachable and ``/fleet/healthz`` is 503 naming it while
-              it is down, after the load one ``scrape_once()`` gives a
+              it is down, none is stale at the end (the respawned r1 is
+              scraped at its new url, F17), after the load one
+              ``scrape_once()`` gives a
               ``raft_serve_completed_total`` rollup on ``/fleet/metrics``
               equal to the sum of the live daemons' own ``/metrics``,
               ``/fleet/trace`` of one routed request stitches the
@@ -715,7 +717,8 @@ REG_SHAPE, REG_TOL = (1 << 20, 128), 1e-4
 # kernels whose compiled resources the build line reports
 PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
                  "list_scan_tc_kernel", "fused_l2_nn_tc_kernel",
-                 "pq_pairs_kernel", "elementwise_dist_kernel")
+                 "pq_pairs_kernel", "elementwise_dist_kernel",
+                 "knn_bins_kernel", "fused_l2_nn_kernel")
 
 OUT_DIR = "chiprun_out"
 
@@ -869,6 +872,27 @@ def compare(name, d_k, i_k, d_p, i_p, exact_ids: bool, scale=None):
     return max_abs, agree
 
 
+def product_ms(xa, ya) -> float:
+    """Device ms of ``torch.mm`` of the f32 product ``xa @ ya.T`` with
+    TF32 off (set and restored): the card's own yardstick for an f32
+    body's products alone. It is not the kernel's function (no library
+    row) and the port never calls it. A product past 2^30 entries is
+    timed on a 2^20-row slice of its larger operand and scaled by the
+    rows (the whole 10M-row product would need 40 GB)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        scale = 1.0
+        if xa.shape[0] * ya.shape[0] > 1 << 30:
+            if xa.shape[0] >= ya.shape[0]:
+                scale, xa = xa.shape[0] / (1 << 20), xa[:1 << 20]
+            else:
+                scale, ya = ya.shape[0] / (1 << 20), ya[:1 << 20]
+        return cuda_ms(lambda: torch.mm(xa, ya.T), 3) * scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def kernel_row(name, src, replaces, max_abs, ms, plain_ms, bnd, lib_ms):
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": None,
@@ -928,11 +952,15 @@ def check_fused_l2_nn(xa, ya, name, tier="bf16x3"):
     op.shapes.update(saved[2])
     bnd = bound(4 * (m * dim + n * dim) + 8 * m,
                 (passes * 2 * m * n * dim, rate))
+    prod = product_ms(xa, ya) if precision == "f32" else None
     phase("kernels", kernel=name, shape=[m, n, dim], precision=precision,
           id_agreement=agree, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-          bound_ms=bnd[0], bound_by=bnd[1])
-    return kernel_row(name, src, "raft_tpu/ops/pallas_fused_l2_nn.py:34",
-                      max_abs, ms, plain_ms, bnd, None)
+          bound_ms=bnd[0], bound_by=bnd[1], product_ms=prod)
+    row = kernel_row(name, src, "raft_tpu/ops/pallas_fused_l2_nn.py:34",
+                     max_abs, ms, plain_ms, bnd, None)
+    if prod is not None:
+        row["product_ms"] = prod
+    return row
 
 
 def l2nn_shapes() -> dict:
@@ -2061,6 +2089,12 @@ def run_serve_obs(index, q_np, truth, main: dict) -> None:
         if samples != searches or samples <= 0:
             fail(f"serve_obs: {samples} profiler samples for {searches} "
                  f"blocking plan.search calls")
+        # a batch's request traces are recorded after its batch trace, so
+        # when the burst's last batch holds 128 requests they alone fill
+        # the 128-trace ring: one more 128-row request (one batch, one
+        # request trace) puts a batch trace of the list-major plan among
+        # the newest entries whatever the burst's batching
+        srv.search(q_np[:128], timeout=600)
         traces = rec.requests()
         batch_traces = [t for t in traces if t["name"] == "raft.serve.batch"]
         if len(traces) != rec.capacity or not batch_traces:
@@ -3669,7 +3703,7 @@ def run_fleet_postmortem(q_np):
         fail(f"fleet_postmortem (b): rc {rc}, errors {rep.get('errors')}")
     if sorted(fed.get("instances", {})) != ["r0", "r1", "r2"] or \
             fed.get("instances_share_registry") is not False or \
-            "r1" not in fed.get("stale", []):
+            fed.get("stale") != []:
         fail(f"fleet_postmortem (b): federation section {fed}")
     if spy.errors:
         fail(f"fleet_postmortem (b): {'; '.join(spy.errors)}")
@@ -5292,12 +5326,16 @@ def check_fused_knn(name, xq, y, metric, replaces, launches, precision,
     bnd = bound(4 * (m + n) * dim + 8 * m * K,
                 {"bf16x3": (3 * ops, BF16_FLOPS), "bf16": (ops, BF16_FLOPS),
                  "f32": (ops, FP32_FLOPS)}[bound_as or precision])
+    prod = product_ms(xq, y) if precision == "f32" else None
     phase("kernels", kernel=name, shape=[m, n, dim], k=K, tn=tn,
           l_bins=l_bins, kt=kt, precision=precision, id_agreement=agree,
           max_abs_err=max_abs,
           ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-          f32_cuda_core_ms=2 * m * n * dim / FP32_FLOPS * 1e3)
+          f32_cuda_core_ms=2 * m * n * dim / FP32_FLOPS * 1e3,
+          product_ms=prod)
     row = kernel_row(name, src, replaces, max_abs, ms, plain_ms, bnd, None)
+    if prod is not None:
+        row["product_ms"] = prod
     row["launches"] = launches
     return row
 

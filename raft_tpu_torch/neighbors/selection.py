@@ -2,8 +2,9 @@
 
 The JAX package's split is kept: ``k <= 256`` on a 2-D float input with
 at least ``2k`` columns goes to the exact ``select_k`` kernel (plain
-version on the CPU); anything else goes to ``torch.topk`` (the JAX
-package's ``lax.top_k``).
+version on the CPU); anything else goes to a stable sort, which puts the
+lower index first among equal values as the JAX package's ``lax.top_k``
+does (``torch.topk`` leaves their order unspecified).
 
 ``mode="approx"`` takes the same exact route. The JAX package answers it
 with ``lax.approx_{min,max}_k`` (the TPU's partial-reduce selection at
@@ -26,7 +27,7 @@ _FLOATS = (torch.float32, torch.float16, torch.bfloat16)
 
 
 def _use_kernel(v: torch.Tensor, k: int) -> bool:
-    # float64 stays on topk: the kernel computes in float32
+    # float64 stays off the kernel: it computes in float32
     return (k <= _op.MAX_K and v.dim() == 2 and v.shape[1] >= 2 * k
             and v.dtype in _FLOATS)
 
@@ -49,8 +50,8 @@ def select_k(values: torch.Tensor, k: int, select_min: bool = True,
         if not select_min:
             d = -d
     else:
-        d, i = torch.topk(v, k, dim=1, largest=not select_min, sorted=True)
-        i = i.to(torch.int32)
+        d, i = torch.sort(v, dim=1, descending=not select_min, stable=True)
+        d, i = d[:, :k], i[:, :k].to(torch.int32)
     if input_indices is not None:
         idx = torch.as_tensor(input_indices, device=v.device).to(torch.int64)
         idx = idx.expand(v.shape[0], idx.shape[-1])

@@ -102,7 +102,7 @@ def parse_chaos_spec(spec: str, default_duration_s: float = 5.0):
 
 def run_chaos_schedule(events, stop: threading.Event,
                        router=None, revive_fn=None,
-                       proc_fleet=None) -> threading.Thread:
+                       proc_fleet=None, federator=None) -> threading.Thread:
     """Drive the fault harness on a schedule: a daemon thread enters
     each event's scope at its offset and exits it after its duration
     (or when ``stop`` is set: faults never outlive the run).
@@ -114,7 +114,9 @@ def run_chaos_schedule(events, stop: threading.Event,
     kill is a real ``SIGKILL`` to the replica's OS process: the router
     is told nothing and must discover the death through dispatch errors
     (suspect → re-route), and the revival is a real respawn (the router
-    replica re-points at the new process's url)."""
+    replica re-points at the new process's url, and so does
+    ``federator``, a :class:`raft_tpu_torch.obs.federation.MetricsFederator`
+    over the fleet, with the new process's black-box path)."""
     from contextlib import ExitStack, contextmanager
     from raft_tpu_torch.testing import faults
 
@@ -148,6 +150,11 @@ def run_chaos_schedule(events, stop: threading.Event,
             rep.begin_bootstrap()
             rep.set_server(RemoteSearchClient(fp.url, name=name))
             rep.mark_serving()
+            if federator is not None:
+                # the respawn listens on a new port: scrape it there
+                federator.add_instance(name, fp.url)
+                federator.set_blackbox_path(
+                    name, os.path.join(fp.workdir, "blackbox"))
 
     def _enter(stack, kind, arg, dur):
         if kind == "stall_shard":
@@ -623,7 +630,7 @@ def _run_fleet_procs(args, chaos_events, ladder) -> int:
         agg = obs.serve(federator=federator, fleet=router)
     stop = threading.Event()
     chaos_t = (run_chaos_schedule(chaos_events, stop, router=router,
-                                  proc_fleet=pf)
+                                  proc_fleet=pf, federator=federator)
                if chaos_events else None)
     before = obs.snapshot()
     try:

@@ -230,7 +230,8 @@ def test_kill_replica_post_mortem(tmp_path):
 def test_fleet_procs_federate_blackbox(tmp_path, monkeypatch):
     """Two CPU daemons behind the router, r1 SIGKILLed and respawned:
     no failed request, two federated instances on their own registries,
-    r1's own dump readable by both doctors."""
+    the respawned r1 scraped at its new url (F17: live, not stale), r1's
+    own dump readable by both doctors."""
     import tempfile
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     monkeypatch.setenv("RAFT_TPU_BLACKBOX_INTERVAL", "0.5")
@@ -243,7 +244,7 @@ def test_fleet_procs_federate_blackbox(tmp_path, monkeypatch):
     fed = report["federation"]
     assert sorted(fed["instances"]) == ["r0", "r1"]
     assert fed["instances_share_registry"] is False
-    assert "r1" in fed["stale"]     # its old process is gone
+    assert fed["stale"] == []       # r1 is scraped at its new url
     assert report["fleet"]["killed"] == 1
     killed = report["blackbox"]["killed_replica"]
     assert killed["name"] == "r1" and killed["dump_readable"] is True

@@ -603,6 +603,45 @@ def test_three_daemons_sigkill_promote_respawn(small_flat, tmp_path):
     assert not any(fp.alive() for fp in pf.processes())
 
 
+def test_respawn_repoints_the_federator(tmp_path):
+    """F17: a daemon SIGKILLed and respawned through loadgen's chaos
+    schedule is scraped by the federator at its new url, and its black
+    box path is the new process's."""
+    from raft_tpu_torch.obs import federation
+    from raft_tpu_torch.tools import loadgen
+    pf = tfleet.ProcessFleet(str(tmp_path), n_procs=3, n=800, dim=8,
+                             seed=0, n_lists=4, k=4, n_probes=4,
+                             deadline_ms=20_000.0, platform="cpu",
+                             startup_timeout_s=120.0)
+    router = tfleet.FleetRouter(pf.replicas(), tfleet.FleetConfig(
+        max_retries=2, suspect_ms=400.0, seed=0))
+    fed = federation.MetricsFederator(pf.urls(), interval_s=0.5,
+                                      fleet=router)
+    stop = threading.Event()
+    try:
+        assert fed.scrape_once()["errors"] == 0
+        old = pf.process("r1").url
+        chaos = loadgen.run_chaos_schedule(
+            [(0.0, "kill_replica", "1", 0.2)], stop, router=router,
+            proc_fleet=pf, federator=fed)
+        chaos.join(timeout=180)
+        assert not chaos.is_alive()
+        fp = pf.process("r1")
+        assert fp.alive() and fp.url != old
+        assert fed.url_instances() == pf.urls()
+        assert fed.scrape_once()["errors"] == 0
+        assert fed.live_instances() == ["r0", "r1", "r2"]
+        row = fed.report()["instances"]["r1"]
+        assert row["state"] == "live"
+        assert row["blackbox"] == os.path.join(fp.workdir, "blackbox")
+    finally:
+        stop.set()
+        fed.close()
+        router.close()
+        pf.close()
+    assert not any(fp.alive() for fp in pf.processes())
+
+
 @pytest.fixture
 def cutting_url():
     """A port that takes each request and closes its connection without

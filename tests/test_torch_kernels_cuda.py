@@ -881,57 +881,89 @@ def test_fused_knn_matches_plain(dev, m, n, d, k, metric, sqrt, precision):
 # of the tensor-core epilogue: b = 1 (exact), 2, 4, 8..128 in registers,
 # b > 128 carried across chunks, b not a power of two through shared
 # memory (below and above a chunk), ragged n, queries past one block, and
-# d past the resident-query limit (the queries stream with the rows)
-TC_GEOMETRIES = [(40, 1000, 32, 1000, 1000), (50, 999, 16, 1000, 500),
-                 (129, 2000, 20, 2000, 500), (20, 4100, 64, 4096, 512),
-                 (70, 5000, 128, 4096, 128), (33, 9000, 128, 4096, 64),
-                 (10, 4096, 48, 4096, 32), (17, 12000, 128, 4096, 8),
-                 (25, 7000, 40, 3000, 10), (30, 3000, 24, 3000, 600),
-                 (300, 3001, 72, 3008, 47), (9, 2000, 400, 1024, 64),
-                 (12, 1500, 1000, 1024, 128), (5, 600, 4096, 600, 100)]
+# d past the resident-query limit (the queries stream with the rows); and
+# of the f32 body's: b a power of two up to 64 in registers (bins inside
+# a thread group's 64 rows), a multiple of 64 (128, 192, 512: carried
+# across halves and chunks), any other b (5, 6, 300) through shared memory
+BIN_GEOMETRIES = [(40, 1000, 32, 1000, 1000), (50, 999, 16, 1000, 500),
+                  (129, 2000, 20, 2000, 500), (20, 4100, 64, 4096, 512),
+                  (70, 5000, 128, 4096, 128), (33, 9000, 128, 4096, 64),
+                  (10, 4096, 48, 4096, 32), (17, 12000, 128, 4096, 8),
+                  (25, 7000, 40, 3000, 10), (30, 3000, 24, 3000, 600),
+                  (300, 3001, 72, 3008, 47), (9, 2000, 400, 1024, 64),
+                  (12, 1500, 1000, 1024, 128), (5, 600, 4096, 600, 100),
+                  (33, 7000, 40, 3072, 16)]
 
 
-@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16", "f32"])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("m,n,d,tn,l_bins", TC_GEOMETRIES)
+@pytest.mark.parametrize("m,n,d,tn,l_bins", BIN_GEOMETRIES)
 def test_fused_knn_tc_bins_match_plain(dev, m, n, d, tn, l_bins, metric,
                                        precision):
+    # the tensor-core pass A (bf16x3, bf16) and the f32 body (kernel 5's
+    # "highest") at each bin geometry
     rng = np.random.default_rng(m * 3 + n + d)
     x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
     y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
-    before = knn_op.launches
+    key = "launches_f32" if precision == "f32" else "launches"
+    before = getattr(knn_op, key)
     got = knn_op.fused_knn_cuda(x, y, 10, metric, False, tn, l_bins, 0,
                                 precision)
     torch.cuda.synchronize()
-    assert knn_op.launches == before + 1
+    assert getattr(knn_op, key) == before + 1
     want = knn_op.fused_knn_plain(x, y, 10, metric, False, tn, l_bins, 0,
                                   precision)
     tol = 1e-5 * float(((x * x).sum(1).max() + (y * y).sum(1).max()))
     _near_tie_equal(*got, *want, tol)
 
 
-@pytest.mark.parametrize("precision", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16", "f32"])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("d", [8192, 4100])
 def test_fused_knn_ktiled_tc_matches_plain(dev, d, metric, precision):
     # kernel 6 on the tensor cores: the queries stream with the rows
     # (128 feature slices at d 8192; 4100 ends on a 4-feature slice), two
-    # query blocks, a ragged last tile of the 1024-row geometry
+    # query blocks, a ragged last tile of the 1024-row geometry; and its
+    # f32 body ("highest": the norms Kahan-summed in the product loop,
+    # 4100 padded to 4112 features)
     rng = np.random.default_rng(d + len(metric) + len(precision))
     m, n, k = 130, 2100, 16
     x = _t(rng.normal(size=(m, d)).astype(np.float32), dev)
     y = _t(rng.normal(size=(n, d)).astype(np.float32), dev)
     _, tn, l_bins, kt = knn_op.geometry(m, n, d, k)
     assert (tn, kt) == (1024, 2048)
+    f32 = precision == "f32"
     before = (knn_op.launches_ktiled, knn_op.launches_ktiled_f32)
-    dk, ik = knn_op.fused_knn(x, y, k, metric, kernel_precision=precision)
+    dk, ik = knn_op.fused_knn(x, y, k, metric,
+                              kernel_precision="highest" if f32
+                              else precision)
     torch.cuda.synchronize()
     assert (knn_op.launches_ktiled, knn_op.launches_ktiled_f32) == \
-        (before[0] + 1, before[1])
+        (before[0] + (not f32), before[1] + f32)
     dp, ip = knn_op.fused_knn_plain(x, y, k, metric, False, tn, l_bins, kt,
                                     precision)
     tol = 1e-5 * float(((x * x).sum(1).max() + (y * y).sum(1).max()))
     _near_tie_equal(dk, ik, dp, ip, tol)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x3"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("tn,l_bins", [(1000, 1000), (1024, 64),
+                                       (4096, 64), (1000, 200)])
+def test_fused_knn_ties_exact(dev, tn, l_bins, metric, precision):
+    # integers in [-3, 3] (exact in bf16, every product and sum exact in
+    # f32) and every db row present three times: each bin (b 1, 16, 64
+    # and 5, the general epilogue) and each rank keeps the lowest row
+    # among equal distances, so the kernel equals its plain version
+    rng = np.random.default_rng(tn + l_bins + len(metric))
+    base = rng.integers(-3, 4, size=(700, 24)).astype(np.float32)
+    y = _t(np.concatenate([base, base[::-1], base]), dev)
+    x = _t(rng.integers(-3, 4, size=(150, 24)).astype(np.float32), dev)
+    got = knn_op.fused_knn_cuda(x, y, 20, metric, False, tn, l_bins, 0,
+                                precision)
+    want = knn_op.fused_knn_plain(x, y, 20, metric, False, tn, l_bins, 0,
+                                  precision)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def test_highest_launches_the_f32_body(dev):
@@ -1366,6 +1398,18 @@ def test_select_k_approx_launches_kernel_2(dev):
     assert sel_op.launches > before
     de, ie = select_k(v, 128)
     assert torch.equal(ia, ie) and torch.equal(da, de)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_k_above_256_ties_match_cpu(dev, select_min):
+    # F16: k = 300 takes the stable sort on the card too, so tied values
+    # give the CPU's ids (the lower index first)
+    from raft_tpu_torch.neighbors.selection import select_k
+    rng = np.random.default_rng(300)
+    v = rng.integers(0, 5, size=(4, 600)).astype(np.float32)
+    dg, ig = select_k(_t(v, dev), 300, select_min=select_min)
+    dc, ic = select_k(torch.from_numpy(v), 300, select_min=select_min)
+    assert torch.equal(ig.cpu(), ic) and torch.equal(dg.cpu(), dc)
 
 
 @pytest.mark.parametrize("tier", ["bf16x3", "highest"])

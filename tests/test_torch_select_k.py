@@ -73,6 +73,7 @@ def test_narrow_rows_use_kernel_op_like_coarse_probes():
 
 
 def test_k_above_256_goes_to_topk(monkeypatch):
+    # the route off the kernel (a stable sort since F16)
     rng = np.random.default_rng(8)
     v = rng.normal(size=(4, 700)).astype(np.float32)
     calls = []
@@ -87,6 +88,25 @@ def test_k_above_256_goes_to_topk(monkeypatch):
     # and k <= 256 with n >= 2k does take the kernel op
     select_k(torch.from_numpy(v), 256)
     assert calls == [1]
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("shape,k,dtype", [
+    ((4, 600), 300, np.float32),    # k > 256
+    ((3, 30), 20, np.float32),      # n < 2k
+    ((5, 50), 10, np.float64)])     # float64
+def test_tied_values_off_the_kernel_route_match_jax(shape, k, dtype,
+                                                    select_min):
+    # F16: off the kernel route (k > 256, fewer than 2k columns, float64)
+    # a stable sort puts the lower index first among equal values, as
+    # lax.top_k does; few integer levels put ties everywhere
+    rng = np.random.default_rng(k + len(shape))
+    v = rng.integers(0, 5, size=shape).astype(dtype)
+    dj, ij = jax_select_k(jnp.asarray(v), k, select_min=select_min)
+    dt, it = select_k(torch.from_numpy(v), k, select_min=select_min)
+    assert it.dtype == torch.int32 and dt.dtype == torch.from_numpy(v).dtype
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
 
 
 def test_select_max_and_input_indices_match_jax():
@@ -175,7 +195,7 @@ def test_payload_select_matches_list_state_merge(n, k, sqrt):
 def test_approx_mode_matches_jax(shape, k, select_min):
     # the JAX package's lax.approx_{min,max}_k is exact on the CPU; the
     # port's approx mode is the exact route (the kernel's plain version
-    # at k <= 256 and 2k columns, torch.topk above): the same values and
+    # at k <= 256 and 2k columns, a stable sort otherwise): the same values and
     # ids, recall 1.0 whatever the target
     rng = np.random.default_rng(k)
     v = rng.normal(size=shape).astype(np.float32)
