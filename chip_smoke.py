@@ -368,8 +368,10 @@ Phases, one line each:
               the same burst, then one ``ivf_pq.search`` at k=64 (the
               unfused scan); the same measurements; then ``pq_f32``: one
               search at k=32 and one at k=64 at ``lut_dtype`` float32
-              (the f32 body's two launch keys, counted alone); the index
-              is then dropped (``free``), as after phase 5.
+              (the f32 body's two launch keys, counted alone), then both
+              float32 scans on a small 768-d index at the default pq_dim
+              (``pq_f32_wide``, kernel against plain); the index is then
+              dropped (``free``), as after phase 5.
 5. main_bq  — the IVF-BQ serving path on the same dataset, after the
               IVF-PQ index is freed: build (1024 lists, 10 sweeps, raw
               vectors kept; ``tools/north_star_recall.py``'s 10M BQ
@@ -544,6 +546,9 @@ EXTEND_SHARE = 10
 # n_probes=128) with its defaults (k=32, pq_bits 8, pq_dim dim/4,
 # rescore_factor 8), the re-rank kept on the card
 PQ_LISTS, PQ_PROBES, PQ_BITS = 4096, 128, 8
+# the float32 tier at a 768-d embedding's default pq_dim (192 x 8 bits:
+# a 196,608 B table), a small synthetic index
+F32W_ROWS, F32W_DIM, F32W_LISTS, F32W_PROBES = 16384, 768, 8, 4
 # the IVF-BQ point: tools/north_star_recall.py's 10M BQ build (1024
 # lists, 10 sweeps, raw kept) at its 128-probe operating point, k=32,
 # rescore_factor 8 (the SearchParams default), the re-rank on the card
@@ -717,7 +722,7 @@ REG_SHAPE, REG_TOL = (1 << 20, 128), 1e-4
 # kernels whose compiled resources the build line reports
 PTXAS_KERNELS = ("radix_select_kernel", "knn_bins_tc_kernel",
                  "list_scan_tc_kernel", "fused_l2_nn_tc_kernel",
-                 "pq_pairs_kernel", "elementwise_dist_kernel",
+                 "pq_f32_kernel", "elementwise_dist_kernel",
                  "knn_bins_kernel", "fused_l2_nn_kernel")
 
 OUT_DIR = "chiprun_out"
@@ -1363,9 +1368,11 @@ FAMILIES = (
            lambda index: index.pq_dim + 8,
            # bf16 and fp8 tiers (list-major): the decoded rows against
            # the bf16 queries, a multiply and an add per (scored pair,
-           # row, dimension) on the tensor cores; float32 (the f32 body):
-           # an f32 table per kept (query, list) pair, then a pq_dim-term
-           # f32 sum per (pair, row)
+           # row, dimension) on the tensor cores; float32: the function's
+           # least fp32 work, whatever body computes it (the CUDA-core
+           # body decodes rows instead of building tables): an f32 table
+           # of subspace products per kept (query, list) pair, then a
+           # pq_dim-term sum per (pair, row)
            lambda index, params, info: [
                (info["pairs"] * index.pq_dim * index.pq_centers.shape[1]
                 * index.pq_len * 2, FP32_FLOPS),
@@ -1403,6 +1410,20 @@ GROWN = (
 )
 
 
+def scan_scale(fused: bool, b: Batch, q_rot, c_rot, norms):
+    """``scale(d_p, i_p)`` of a quantized scan's outputs, where its f32
+    rounding lives: fused, per query, the largest |qsub|^2 of its probes
+    plus the largest row norm; unfused, per (list, slot), |qsub|^2 of the
+    slot's query plus the list's largest row norm."""
+    if fused:
+        rr = ((q_rot[:, None, :] - c_rot[b.probes.long()]) ** 2).sum(-1)
+        sc = rr.max(dim=1).values + norms.max()
+        return lambda d_p, i_p: sc[:, None].expand_as(d_p)
+    qs = q_rot[b.qmap.clamp(min=0).long()] - c_rot[:, None, :]
+    sc = (qs * qs).sum(-1) + norms.max(dim=1).values[:, None]
+    return lambda d_p, i_p: sc[:, :, None].expand_as(d_p)
+
+
 def check_family_scans(fam: Family, index, q, params, launches: dict,
                        f32_launches: dict):
     """Both scans of ``fam`` against their plain versions on the served
@@ -1432,20 +1453,7 @@ def check_family_scans(fam: Family, index, q, params, launches: dict,
             route = mod._Route(index, k, prm)
             kernel, plain, norms, bins = fam.calls(index, prm, b, q_rot,
                                                    route)
-            if route.fused:
-                # per query: the largest |qsub|^2 of its probes plus the
-                # largest row norm
-                rr = ((q_rot[:, None, :] - c_rot[b.probes.long()]) ** 2
-                      ).sum(-1)
-                sc = rr.max(dim=1).values + norms.max()
-                scale = lambda d_p, i_p, sc=sc: sc[:, None].expand_as(d_p)  # noqa: E731
-            else:
-                # per (list, slot): |qsub|^2 of the slot's query plus the
-                # list's largest row norm
-                qs = q_rot[b.qmap.clamp(min=0).long()] - c_rot[:, None, :]
-                sc = (qs * qs).sum(-1) + norms.max(dim=1).values[:, None]
-                del qs
-                scale = lambda d_p, i_p, sc=sc: sc[:, :, None].expand_as(d_p)  # noqa: E731
+            scale = scan_scale(route.fused, b, q_rot, c_rot, norms)
             counter = ("launches_fused" if route.fused else "launches") \
                 + suffix
             row = check_scan_kernel(
@@ -1493,7 +1501,50 @@ def run_pq_f32(mod, index, q, params):
                                                 "ivf_pq_scan_fused_f32"))
     phase("pq_f32", nq=128, k=[K, WIDE_K], seconds=time.perf_counter() - t0,
           launches={k_: v for k_, v in launches.items() if v})
+    check_pq_f32_wide(mod, params)
     return launches
+
+
+def check_pq_f32_wide(mod, params):
+    """The float32 tier past the 160 KB table its first body held whole in
+    shared memory: a synthetic F32W_ROWS x F32W_DIM index of F32W_LISTS
+    lists at the default pq_dim (dim / 4) x PQ_BITS bits, both scans for
+    one 128-query batch at F32W_PROBES probes, kernel against plain. Its
+    launches are not the main path's."""
+    from raft_tpu_torch.neighbors import _ivf_scan
+    from raft_tpu_torch.ops import ivf_pq_scan as op
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((F32W_ROWS, F32W_DIM), generator=g, device="cuda")
+    q = torch.randn((128, F32W_DIM), generator=g, device="cuda")
+    index = mod.build(x, mod.IndexParams(n_lists=F32W_LISTS, pq_bits=PQ_BITS,
+                                         kmeans_n_iters=4))
+    table = index.pq_dim * (1 << PQ_BITS) * 4
+    if table <= 160 * 1024:
+        fail(f"IVF-PQ float32 at dim {F32W_DIM}: a {table} B table")
+    prm = dataclasses.replace(params, n_probes=F32W_PROBES,
+                              lut_dtype=torch.float32)
+    saved = (op.launches_f32, op.launches_fused_f32)
+    _ivf_scan.resolve_cap(index.cap_cache, q, index.centers, prm,
+                          F32W_PROBES, index.n_lists)
+    b = probe_batch(index, q, F32W_PROBES, "IVF-PQ float32 wide")
+    q_rot = (b.qb @ index.rotation_matrix.T).contiguous()
+    errs = {}
+    for k in (K, WIDE_K):
+        route = mod._Route(index, k, prm)
+        kernel, plain, norms, _ = _pq_calls(index, prm, b, q_rot, route)
+        d_k, i_k = kernel()
+        d_p, i_p = plain()
+        torch.cuda.synchronize()
+        scale = scan_scale(route.fused, b, q_rot, index.centers_rot, norms)
+        errs[k] = compare(f"IVF-PQ float32 at rot_dim {index.rot_dim} k={k}",
+                          d_k, i_k, d_p, i_p, False, scale(d_p, i_p))[0]
+    op.launches_f32, op.launches_fused_f32 = saved
+    phase("pq_f32_wide", rows=F32W_ROWS, dim=F32W_DIM, n_lists=F32W_LISTS,
+          pq_dim=index.pq_dim, pq_bits=PQ_BITS, table_bytes=table,
+          n_probes=F32W_PROBES, max_abs_err={str(k): v for k, v in
+                                             errs.items()},
+          seconds=time.perf_counter() - t0)
 
 
 def closed_loop(call, threads: int):

@@ -5,10 +5,12 @@
 //     kernel 9 (raft_ivf_pq_list_scan_fused) per-query candidate rows, the
 //     IP centre term included, then pass B, the payload radix select of
 //     radix_select.cuh, keeps the k best;
-//   * the float32 tier (the f32 body): pair-major, pq_pairs_kernel below,
-//     one block per (query, probed list) pair building an f32 table of
-//     subspace inner products; kernel 9's pass B (raft_ivf_pq_topk) is the
-//     same payload radix select.
+//   * the float32 tier (the f32 body): list-major on the CUDA cores,
+//     pq_f32_kernel below, one block per (list, tile of up to 32 probing
+//     table slots), walking the bins 64 at a time, decoding the list's
+//     rows once per tile into f32 codebook values and scoring every slot
+//     of the tile against them; kernel 9's pass B (raft_ivf_pq_topk) is
+//     the same payload radix select.
 //
 // Replaces: raft_tpu/ops/pallas_ivf_scan.py:_pq_scan_kernel (unfused; entry
 // ivf_pq_code_scan_pallas(fused=False)) and :_fused_pq_scan_kernel (fused;
@@ -27,10 +29,11 @@
 //     value is a bf16 or fp8 value) against bf16(qsub) in one bf16 wgmma
 //     pass, so each product is exact and only the f32 summation order
 //     differs from the plain version (the TPU's bf16 MXU pass with f32
-//     accumulation). Pair-major f32 body: the same sum regrouped as LUT[s][c]
-//     = sum_j qsub_s,j * book[c][j], the row's score sum_s LUT[s][c_s] (the
-//     reference's shared-memory LUT, ivf_pq_search.cuh:593): the TPU
-//     computes that tier at HIGHEST, which one bf16 pass would not match;
+//     accumulation). The f32 body: the same sum regrouped per subspace,
+//     t_s = sum_j qsub_s,j * book[c_s][j] (the table entry LUT[s][c_s] of
+//     the reference's shared-memory LUT, ivf_pq_search.cuh:593) and ip =
+//     sum_s t_s, in f32: the TPU computes that tier at HIGHEST, which one
+//     bf16 pass would not match;
 //   * score: L2 = max((|qsub|^2 + code_norm) - 2 ip, 0) with |qsub|^2 from
 //     the unrounded qsub; IP = -ip; a row with id < 0, or beyond max_list
 //     inside the bins-padded length mlp, scores +inf with id -1;
@@ -51,11 +54,16 @@
 // point (10M x 128, 4096 lists, pq_dim 32 x 8 bits, 128 probes, a 128-query
 // batch) the batch needs its 6.8M probed rows' codes, norms and ids once
 // (40 B a row, 0.081 ms at 3.35 TB/s); the list-major products, 2 x
-// 138.7M pair-rows x 128 at the 989 TFLOP/s bf16 rate, take 0.036 ms. The
-// pair-major design read each probed list once per probing query (138.7M
-// (pair, row) scores, 20x the rows, mostly from the 50 MB L2): fused 3.28
-// ms (pq_pairs_kernel ~2.3 ms + pass B ~0.6 ms), unfused (kk = 512) 2.60
-// ms per 128-query batch (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py).
+// 138.7M pair-rows x 128 at the 989 TFLOP/s bf16 rate, take 0.036 ms; the
+// f32 body's least work, a table per pair and a pq_dim-term sum per (pair,
+// row), is bound by bytes too, but the body it has does 4 FMAs and an add
+// per (pair, row, subspace) on the CUDA cores: 22.2G fp32 operations, 0.66
+// ms at 67 TFLOP/s. The first f32 body, pair-major (one block per (query,
+// list) pair building the (pq_dim, n_codes) table in shared memory, then
+// pq_dim random lookups per (pair, row) with bank conflicts), took 2.57 ms
+// (kk = 512) and 2.74 (kk = 256, with pass B) per 128-query batch, and
+// refused tables over 160 KB (NVIDIA H100 80GB HBM3, 700.00 W;
+// chip_smoke.py).
 //
 // Design, list-major (PqRows): one block per (list, tile of up to 64
 // probing table slots), lists longest first, strided bins in the
@@ -306,229 +314,634 @@ int pq_args(ListArgs& a, const float* q_rot, int rot_dim, const int* qmap,
   return 0;
 }
 
-// The f32 body (the float32 LUT tier): pq_pairs_kernel runs one
-// 256-thread block per pair, so even a 1-row batch has n_probes blocks to
-// spread over the 132 SMs. The block builds the (pq_dim, n_codes) f32 table
-// in dynamic shared memory (32 KB at the served point, so several blocks
-// share an SM), then scans the list: with bins < 256, 256 / bins threads
-// share a bin and combine their partial minima through shared memory; each
-// thread reads a row's pq_dim codes as 16-byte vectors (pq_dim % 16 == 0),
-// neighbouring threads on neighbouring rows.
+// The f32 body (the float32 LUT tier): pq_f32_kernel, list-major on the
+// CUDA cores, one 256-thread block per (list, tile of up to kF32Slots table
+// slots), lists longest first (the pre-pass of list_scan_tc.cuh). The block
+// compacts the tile's valid slots into groups of kF32Group and computes
+// their query terms once, then walks the list's bins in segments of up to
+// kF32Bins; a thread scores 1, 2 or 4 rows (as the block holds 1, 2 or 4
+// groups, so every thread works) of one bin against the 8 slots of its
+// group. A segment's stripes (rows w * bins + b) go in tiles of at most
+// kF32Rows rows and the features in steps of kF32K:
+//  - decode: a tile row's codes are read a step ahead into registers, and
+//    each (row, subspace) of a step is copied from its codebook entry (f32,
+//    through L1) by cp.async into the shared decoded tile, a step ahead of
+//    its products, so every slot group reads the row decoded once; qsub of
+//    the step's features is staged beside it; one barrier a step;
+//  - products: t = fmaf(qsub[s*pl + j], book[c_s][j], t) over ascending j
+//    from 0, then ip = __fadd_rn(ip, t) over ascending s from 0: the
+//    parent's table entry and its row sum, so every score is bit for bit the
+//    first (pair-major) f32 body's (the table, summed per row, regrouped per
+//    subspace); |qsub|^2 and the IP centre term in its reduction order (256
+//    strided lanes, the xor tree, warps in order), a warp a slot;
+//  - bins: a thread keeps its bin's (value, id) minimum per slot in shared
+//    memory across the tiles, updated once a tile from the row ids and
+//    norms the decoders staged (lexicographic, so order-free: ids are
+//    unique in a list); the threads of a bin's other stripes fold in at the
+//    end. Registers then hold the 8 x R sums and one subspace's operands:
+//    128 a thread, two blocks an SM.
+// Nothing holds a whole table, so any pq_dim and pq_bits run. pq_len 1, 2
+// and 4 (with rot_dim a multiple of the step) take whole subspaces a step
+// with vector copies; any other pq_len the generic path, feature by
+// feature (forced at the served point, about 3x slower). The parts, timed
+// by tools/ab_pq_f32.py --parts from edited copies of this source, are in
+// PERF.md section 6: a per-step skeleton, the products, then the copies.
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLutBytes = 160 * 1024;  // table + query row, dynamic smem
+constexpr int kF32Slots = 32;         // table slots a block
+constexpr int kF32Group = 8;          // slots a thread
+constexpr int kF32Rows = 256;         // rows a tile, at most
+constexpr int kF32Bins = 64;          // bins a segment
+constexpr int kF32K = 16;             // features a step (a multiple of 8)
+static_assert(kF32Bins <= kThreads / 4, "a bin needs a thread a group");
+static_assert(kF32Slots <= 32, "a warp compacts the slots");
+static_assert(kF32K % 8 == 0 && kF32K * kF32Slots % kThreads == 0, "step");
+// floats a decoded row: an odd number of 16-byte units, so 8 consecutive
+// rows' 16-byte reads fall in 8 distinct bank groups
+constexpr int kF32Pitch = kF32K + (kF32K / 4 % 2 == 0 ? 4 : 0);
+// qsub elements a thread stages a step
+constexpr int kF32Qs = kF32K * kF32Slots / kThreads;
+
+struct F32Args {
+  const float* q_rot;    // (nq, rot_dim)
+  const float* centers;  // (n_lists, rot_dim)
+  const float* books;    // (pq_dim or n_lists, n_codes, pq_len)
+  const uint8_t* codes;  // (n_lists, max_list, pq_dim)
+  const float* norms;    // (n_lists, max_list)
+  const int* ids;        // (n_lists, max_list), -1 = pad
+  const int* qmap;       // (n_lists, cap) query ids, -1 = empty slot
+  const int* kp;         // fused: (nq, n_probes) sorted kept probes
+  const int* extent;     // (n_lists) one past each list's last row
+  const int* order;      // (n_lists) the lists, longest first
+  int rot_dim, pq_dim, pq_len, n_codes, per_cluster;
+  int max_list, bins, cap, tpl, nseg, n_probes;  // nseg: bin segments
+  long long ncols;       // fused: candidate row width, n_probes * bins
+  int metric_ip, round_out;
+  float* out_d;
+  int* out_i;
+};
+
+// dynamic shared memory (66 KB at 16 features a step)
+struct __align__(16) F32Smem {
+  float dec[2][kF32Rows * kF32Pitch];  // decoded rows, two steps
+  float qs[2][kF32Slots * kF32K];      // qsub, slot-major, two steps
+  int rid[2][kF32Rows];                // a tile's row ids (-1: pad), and
+  float rnorm[2][kF32Rows];            // norms, two tiles
+  float best_v[kF32Group][kThreads];   // a thread's bin minima per slot
+  int best_i[kF32Group][kThreads];
+  long long col[kF32Slots];            // a slot's output offset at bin 0
+  float rr[kF32Slots], corr[kF32Slots];
+  int q[kF32Slots];                    // compacted slots' queries, -1 past
+  int n_valid;
+};
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool kVec16>
-__device__ __forceinline__ float row_ip(const float* lut,
-                                        const uint8_t* __restrict__ crow,
-                                        int pq_dim, int n_codes) {
-  float acc = 0.f;
-  if (kVec16) {
-    for (int s0 = 0; s0 < pq_dim; s0 += 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(crow + s0);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        const int c = (w[t >> 2] >> ((t & 3) * 8)) & 0xFF;
-        acc += lut[(s0 + t) * n_codes + c];
-      }
-    }
-  } else {
-    for (int s = 0; s < pq_dim; ++s) acc += lut[s * n_codes + crow[s]];
-  }
-  return acc;
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(N)
+               : "memory");
 }
 
-template <bool kVec16>
-__global__ __launch_bounds__(kThreads) void pq_pairs_kernel(
-    const float* __restrict__ q_rot, const float* __restrict__ centers_rot,
-    const float* __restrict__ books, const uint8_t* __restrict__ codes,
-    const float* __restrict__ norms, const int* __restrict__ ids,
-    const int* __restrict__ qsel, const int* __restrict__ lsel, int div,
-    int rot_dim, int pq_dim, int pq_len, int n_codes, int max_list, int bins,
-    int mlp, int metric_ip, int per_cluster, int round_q, int center_term,
-    int round_out, float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ __align__(16) float smem[];
-  float* lut = smem;                        // pq_dim * n_codes
-  float* qs = smem + pq_dim * n_codes;      // rot_dim
-  __shared__ float part_d[kThreads];
-  __shared__ int part_i[kThreads];
-  __shared__ float red[2][kWarps];
-
-  const int tid = threadIdx.x;
-  const size_t pair = blockIdx.x;
-  const int q = qsel ? qsel[pair] : static_cast<int>(pair / div);
-  const int l = lsel ? lsel[pair] : static_cast<int>(pair / div);
-  float* od = out_d + pair * bins;
-  int* oi = out_i + pair * bins;
-  if (q < 0 || l < 0) {  // empty table slot or dropped pair (block-uniform)
-    for (int b = tid; b < bins; b += kThreads) {
-      od[b] = CUDART_INF_F;
-      oi[b] = -1;
-    }
-    return;
-  }
-
-  // the pair's query row: |qsub|^2 and the IP centre term from the
-  // unrounded values, the table operand rounded as the tier says
-  float p_sq = 0.f, p_c = 0.f;
-  for (int j = tid; j < rot_dim; j += kThreads) {
-    const float a = q_rot[static_cast<size_t>(q) * rot_dim + j];
-    const float c = centers_rot[static_cast<size_t>(l) * rot_dim + j];
-    const float s = metric_ip ? a : a - c;
-    p_sq = fmaf(s, s, p_sq);
-    p_c = fmaf(s, c, p_c);
-    qs[j] = round_q ? round_bf16(s) : s;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    p_sq += __shfl_xor_sync(0xffffffffu, p_sq, o);
-    p_c += __shfl_xor_sync(0xffffffffu, p_c, o);
-  }
-  if ((tid & 31) == 0) {
-    red[0][tid >> 5] = p_sq;
-    red[1][tid >> 5] = p_c;
-  }
-  __syncthreads();
-  float rr = 0.f, corr = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    rr += red[0][w];
-    corr += red[1][w];
-  }
-
-  // LUT[s][c] = sum_j op(qsub[s*pq_len + j]) * op(book[c][j])
-  const int n_lut = pq_dim * n_codes;
-  for (int e = tid; e < n_lut; e += kThreads) {
-    const int s = e / n_codes;
-    const int c = e - s * n_codes;
-    const float* bk = books + (static_cast<size_t>(per_cluster ? l : s) *
-                                   n_codes + c) * pq_len;
-    const float* qv = qs + s * pq_len;
-    float acc = 0.f;
-    for (int j = 0; j < pq_len; ++j) acc = fmaf(qv[j], bk[j], acc);
-    lut[e] = acc;
-  }
-  __syncthreads();
-
-  const size_t lbase = static_cast<size_t>(l) * max_list;
-  const int n_w = mlp / bins;  // rows per bin
-  // strided bins: bin b owns rows b, b + bins, ...; this thread walks the
-  // rows w = w0, w0 + wstep, ... of its bin
-  auto bin_min = [&](int b, int w0, int wstep, float& bd, int& bi) {
-    bd = CUDART_INF_F;
-    bi = INT_MAX;
-    for (int w = w0; w < n_w; w += wstep) {
-      const int r = w * bins + b;
-      if (r >= max_list) break;
-      const int id = ids[lbase + r];
-      if (id < 0) continue;
-      const float ip = row_ip<kVec16>(
-          lut, codes + (lbase + r) * static_cast<size_t>(pq_dim), pq_dim,
-          n_codes);
-      const float dist =
-          metric_ip ? -ip : fmaxf((rr + norms[lbase + r]) - 2.0f * ip, 0.f);
-      if (dist < bd || (dist == bd && id < bi)) {
-        bd = dist;
-        bi = id;
-      }
-    }
-  };
-  auto emit = [&](int b, float bd, int bi) {
-    if (bi == INT_MAX) bi = -1;
-    if (center_term && metric_ip) bd -= corr;  // +inf stays +inf
-    if (round_out) bd = round_bf16(bd);
-    od[b] = bd;
-    oi[b] = bi;
-  };
-
-  if (bins >= kThreads) {
-    for (int b = tid; b < bins; b += kThreads) {
-      float bd;
-      int bi;
-      bin_min(b, 0, 1, bd, bi);
-      emit(b, bd, bi);
-    }
+// N floats from 16-byte aligned (N = 4), 8-byte (2) or 4-byte (1) shared
+// memory in one load
+template <int N>
+__device__ __forceinline__ void load_vec(float (&v)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
   } else {
-    const int g = kThreads / bins;  // threads sharing one bin
-    float bd = CUDART_INF_F;
-    int bi = INT_MAX;
-    if (tid < g * bins) bin_min(tid % bins, tid / bins, g, bd, bi);
-    part_d[tid] = bd;
-    part_i[tid] = bi;
-    __syncthreads();
-    if (tid < bins) {
-      for (int u = 1; u < g; ++u) {
-        const float v = part_d[u * bins + tid];
-        const int i = part_i[u * bins + tid];
-        if (v < bd || (v == bd && i < bi)) {
-          bd = v;
-          bi = i;
+    v[0] = *p;
+  }
+}
+
+// a step of a walk: its tile T and its feature slice ks of the tile's
+// ks_n
+struct F32Step {
+  int T, ks;
+  __device__ __forceinline__ F32Step next(int ks_n) const {
+    return ks + 1 == ks_n ? F32Step{T + 1, 0} : F32Step{T, ks + 1};
+  }
+};
+
+// The walk of a block with R slot groups (R rows a thread).
+template <int PL, int R>
+__device__ __forceinline__ void pq_f32_walk(const F32Args& a, F32Smem& sm,
+                                            int l, int extent, int nw,
+                                            int b0, int nb, int n_valid) {
+  constexpr int P = kThreads / R;       // threads a slot group
+  constexpr int SPS = PL > 0 ? kF32K / PL : 0;  // subspaces a step
+  const int tid = threadIdx.x;
+  const int g = tid / P, p = tid - g * P;
+  const int H = P / nb;                 // a bin's row phases
+  const int h = p / nb, b = p - h * nb;
+  const int Wt = R * H;                 // stripes a tile
+  const int Rt = Wt * nb;               // rows a tile
+  const bool scorer = h < H && g * kF32Group < n_valid;
+  const bool ip = a.metric_ip != 0;
+  const bool fused = a.kp != nullptr;
+  const int bins = a.bins, rot = a.rot_dim;
+  const int pl = PL > 0 ? PL : a.pq_len;
+  const int ks_n = (rot + kF32K - 1) / kF32K;
+  const int steps = ((nw + Wt - 1) / Wt) * ks_n;
+  const long long lbase = static_cast<long long>(l) * a.max_list;
+  // decoding: tile row tid (stripe dw of the tile, bin b0 + db)
+  const int dw = tid / nb, db = tid - dw * nb;
+  const bool decoder = tid < Rt;
+  const float* cl = a.centers + static_cast<long long>(l) * rot;
+
+  // the decoded row of a step's tile (-1: none)
+  auto dec_row = [&](F32Step st) -> int {
+    const int r = (st.T * Wt + dw) * bins + b0 + db;
+    return decoder && r < extent ? r : -1;
+  };
+  // fast path: the step's codes (kF32K / PL bytes) of the decoded row
+  auto fetch = [&](F32Step st) -> uint4 {
+    uint4 c = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (PL > 0) {
+      const int r = dec_row(st);
+      if (r >= 0) {
+        const uint8_t* pc = a.codes + (lbase + r) * a.pq_dim + st.ks * SPS;
+        // past L1 (ld.global.cg), which keeps the codebooks
+        if constexpr (SPS == 16) {
+          c = __ldcg(reinterpret_cast<const uint4*>(pc));
+        } else if constexpr (SPS == 8) {
+          const uint2 v = __ldcg(reinterpret_cast<const uint2*>(pc));
+          c.x = v.x;
+          c.y = v.y;
+        } else if constexpr (SPS == 4) {
+          c.x = __ldcg(reinterpret_cast<const unsigned int*>(pc));
+        } else if constexpr (SPS == 2) {
+          c.x = __ldcg(reinterpret_cast<const unsigned short*>(pc));
         }
       }
-      emit(tid, bd, bi);
+    }
+    return c;
+  };
+  // a step's rows decoded into dec[its parity] (pad rows left as they
+  // are); at a tile's first step its rows' ids and norms too
+  auto issue = [&](F32Step st, int par, uint4 c) {
+    const int r = dec_row(st);
+    if (st.ks == 0 && decoder) {
+      if (r >= 0) {
+        cp_async<4>(&sm.rid[st.T & 1][tid], a.ids + lbase + r);
+        cp_async<4>(&sm.rnorm[st.T & 1][tid], a.norms + lbase + r);
+      } else {
+        sm.rid[st.T & 1][tid] = -1;
+      }
+    }
+    if (r < 0) return;
+    float* dst = sm.dec[par] + tid * kF32Pitch;
+    if constexpr (PL > 0) {
+      const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int u = 0; u < SPS; ++u) {
+        const int sub = st.ks * SPS + u;
+        const int code = (w[u >> 2] >> (8 * (u & 3))) & 0xff;
+        const float* src =
+            a.books + (static_cast<long long>(a.per_cluster ? l : sub) *
+                           a.n_codes + code) * PL;
+        cp_async<4 * PL>(dst + u * PL, src);
+      }
+    } else {
+      const uint8_t* pc = a.codes + (lbase + r) * a.pq_dim;
+#pragma unroll
+      for (int kk = 0; kk < kF32K; ++kk) {
+        const int k = st.ks * kF32K + kk;
+        if (k < rot) {
+          const int sub = k / pl;
+          const int code = __ldg(pc + sub);
+          cp_async<4>(dst + kk,
+                      a.books + (static_cast<long long>(
+                                     a.per_cluster ? l : sub) * a.n_codes +
+                                 code) * pl + (k - sub * pl));
+        }
+      }
+    }
+  };
+  // a step's qsub elements of this thread (slot e / kF32K, feature e %
+  // kF32K of the step, e = tid + j * kThreads)
+  auto load_q = [&](F32Step st, float (&x)[kF32Qs]) {
+#pragma unroll
+    for (int j = 0; j < kF32Qs; ++j) {
+      const int e = tid + j * kThreads;
+      const int q = sm.q[e / kF32K];
+      const int k = st.ks * kF32K + e % kF32K;
+      x[j] = 0.f;
+      if (q >= 0 && k < rot) {
+        const float v = a.q_rot[static_cast<long long>(q) * rot + k];
+        x[j] = ip ? v : v - cl[k];
+      }
+    }
+  };
+  auto put_q = [&](int par, const float (&x)[kF32Qs]) {
+#pragma unroll
+    for (int j = 0; j < kF32Qs; ++j) sm.qs[par][tid + j * kThreads] = x[j];
+  };
+
+  float acc[R][kF32Group], tt[PL > 0 ? 1 : R][kF32Group];
+#pragma unroll
+  for (int s = 0; s < kF32Group; ++s) {
+    sm.best_v[s][tid] = CUDART_INF_F;
+    sm.best_i[s][tid] = INT_MAX;
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i][s] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (PL > 0 ? 1 : R); ++i) tt[i][s] = 0.f;
+  }
+
+  // prologue: step 0 decoded and staged, step 1's codes and qsub loading
+  F32Step cur{0, 0};
+  float qx[kF32Qs];
+  uint4 cn = fetch(cur);
+  issue(cur, 0, cn);
+  load_q(cur, qx);
+  put_q(0, qx);
+  if (steps > 1) {
+    cn = fetch(cur.next(ks_n));
+    load_q(cur.next(ks_n), qx);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  for (int t = 0; t < steps; ++t) {
+    const int buf = t & 1;
+    const int T = cur.T, ks = cur.ks;
+    const F32Step s1 = cur.next(ks_n);  // the next step
+    if (t + 1 < steps) {
+      issue(s1, buf ^ 1, cn);
+      put_q(buf ^ 1, qx);
+      if (t + 2 < steps) {
+        cn = fetch(s1.next(ks_n));
+        load_q(s1.next(ks_n), qx);
+      }
+    }
+    const int w0 = T * Wt + R * h;      // the thread's first stripe
+    if (scorer && w0 < nw) {
+      const float* dq = sm.qs[buf] + g * kF32Group * kF32K;
+      const float* dr = sm.dec[buf] + (R * h * nb + b) * kF32Pitch;
+      if constexpr (PL > 0) {
+        // unrolled (faster at the served pq_len 4), but not at pq_len
+        // 1: its 16 subspaces a step, unrolled, spill past 128 registers
+#pragma unroll(PL <= 1 ? 1 : SPS)
+        for (int u = 0; u < SPS; ++u) {
+          float rv[R][PL];
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            load_vec<PL>(rv[i], dr + i * nb * kF32Pitch + u * PL);
+#pragma unroll
+          for (int s = 0; s < kF32Group; ++s) {
+            float qv[PL];
+            load_vec<PL>(qv, dq + s * kF32K + u * PL);
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              float e = 0.f;
+#pragma unroll
+              for (int j = 0; j < PL; ++j) e = fmaf(qv[j], rv[i][j], e);
+              acc[i][s] = __fadd_rn(acc[i][s], e);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kF32K; ++kk) {
+          const int k = ks * kF32K + kk;
+          if (k < rot) {
+            float rv[R];
+#pragma unroll
+            for (int i = 0; i < R; ++i) rv[i] = dr[i * nb * kF32Pitch + kk];
+#pragma unroll
+            for (int s = 0; s < kF32Group; ++s) {
+              const float qv = dq[s * kF32K + kk];
+#pragma unroll
+              for (int i = 0; i < R; ++i) tt[i][s] = fmaf(qv, rv[i], tt[i][s]);
+            }
+            if ((k + 1) % pl == 0) {  // the subspace's last feature
+#pragma unroll
+              for (int i = 0; i < R; ++i)
+#pragma unroll
+                for (int s = 0; s < kF32Group; ++s) {
+                  acc[i][s] = __fadd_rn(acc[i][s], tt[i][s]);
+                  tt[i][s] = 0.f;
+                }
+            }
+          }
+        }
+      }
+    }
+    if (ks == ks_n - 1 && scorer && w0 < nw) {
+      // the tile's scores into the bins' running minima
+      int rid[R];
+      float rn[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        rid[i] = sm.rid[T & 1][(R * h + i) * nb + b];
+        rn[i] = sm.rnorm[T & 1][(R * h + i) * nb + b];
+      }
+#pragma unroll
+      for (int s = 0; s < kF32Group; ++s) {
+        const int slot = g * kF32Group + s;
+        const float rr = sm.rr[slot];
+        float bv = sm.best_v[s][tid];
+        int bi = sm.best_i[s][tid];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float x = acc[i][s];
+          acc[i][s] = 0.f;
+          if (slot >= n_valid || rid[i] < 0) continue;
+          const float dist =
+              ip ? -x : fmaxf(fmaf(-2.0f, x, __fadd_rn(rr, rn[i])), 0.f);
+          if (dist < bv || (dist == bv && rid[i] < bi)) {
+            bv = dist;
+            bi = rid[i];
+          }
+        }
+        sm.best_v[s][tid] = bv;
+        sm.best_i[s][tid] = bi;
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    cur = s1;
+  }
+
+  // a bin's other row phases (threads tid + hh nb) fold into phase 0 (the
+  // last step's barrier published their minima)
+  if (scorer && h == 0) {
+#pragma unroll
+    for (int s = 0; s < kF32Group; ++s) {
+      const int slot = g * kF32Group + s;
+      if (slot >= n_valid) continue;
+      float v = sm.best_v[s][tid];
+      int id = sm.best_i[s][tid];
+      for (int hh = 1; hh < H; ++hh) {
+        const float ov = sm.best_v[s][tid + hh * nb];
+        const int oi = sm.best_i[s][tid + hh * nb];
+        if (ov < v || (ov == v && oi < id)) {
+          v = ov;
+          id = oi;
+        }
+      }
+      if (id == INT_MAX) id = -1;
+      if (fused && ip) v -= sm.corr[slot];  // +inf stays +inf
+      if (a.round_out) v = round_bf16(v);
+      const long long at = sm.col[slot] + b0 + b;
+      a.out_d[at] = v;
+      a.out_i[at] = id;
     }
   }
 }
 
-template <bool kVec16>
-int launch_pairs(int n_pairs, size_t dyn, cudaStream_t s, const float* q_rot,
-                 const float* centers_rot, const float* books,
-                 const uint8_t* codes, const float* norms, const int* ids,
-                 const int* qsel, const int* lsel, int div, int rot_dim,
-                 int pq_dim, int pq_len, int n_codes, int max_list, int bins,
-                 int mlp, int metric_ip, int per_cluster, int round_q,
-                 int center_term, int round_out, float* out_d, int* out_i) {
-  if (dyn > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pq_pairs_kernel<kVec16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dyn));
-    if (e != cudaSuccess) return static_cast<int>(e);
+template <int PL>
+__global__ __launch_bounds__(kThreads, 2) void pq_f32_kernel(F32Args a) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  F32Smem& sm = *reinterpret_cast<F32Smem*>(f32_smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x % a.tpl;
+  const int l = a.order[blockIdx.x / a.tpl];
+  const int s0 = tile * kF32Slots;
+  const int ns = min(kF32Slots, a.cap - s0);
+  const int* qm = a.qmap + static_cast<long long>(l) * a.cap + s0;
+  const bool fused = a.kp != nullptr;
+  const bool ip = a.metric_ip != 0;
+
+  // the tile's valid slots, compacted in slot order, with their output
+  // offsets at bin 0: unfused (list, slot, bin); fused the query's
+  // candidate row at the list's rank among its kept probes (= its probe
+  // position p)
+  if (warp == 0) {
+    const int q = lane < ns ? qm[lane] : -1;
+    const unsigned bal = __ballot_sync(0xffffffffu, q >= 0);
+    if (q >= 0) {
+      const int pos = __popc(bal & ((1u << lane) - 1u));
+      sm.q[pos] = q;
+      long long col;
+      if (fused) {
+        int rank = 0;
+        const int* kr = a.kp + static_cast<long long>(q) * a.n_probes;
+#pragma unroll 8
+        for (int pp = 0; pp < a.n_probes; ++pp) rank += kr[pp] < l;
+        col = q * a.ncols + static_cast<long long>(rank) * a.bins;
+      } else {
+        col = (static_cast<long long>(l) * a.cap + s0 + lane) * a.bins;
+      }
+      sm.col[pos] = col;
+    }
+    if (lane < kF32Slots && lane >= __popc(bal)) sm.q[lane] = -1;
+    if (lane == 0) sm.n_valid = __popc(bal);
   }
-  pq_pairs_kernel<kVec16><<<n_pairs, kThreads, dyn, s>>>(
-      q_rot, centers_rot, books, codes, norms, ids, qsel, lsel, div, rot_dim,
-      pq_dim, pq_len, n_codes, max_list, bins, mlp, metric_ip, per_cluster,
-      round_q, center_term, round_out, out_d, out_i);
+  if (!fused) {  // unfused: empty slots are (+inf, -1) over the bins
+    const long long base = (static_cast<long long>(l) * a.cap + s0) * a.bins;
+    for (long long e = tid; e < static_cast<long long>(ns) * a.bins;
+         e += kThreads) {
+      if (qm[e / a.bins] < 0) {
+        a.out_d[base + e] = CUDART_INF_F;
+        a.out_i[base + e] = -1;
+      }
+    }
+  }
+  __syncthreads();
+  const int n_valid = sm.n_valid;
+  if (n_valid == 0) return;  // block-uniform
+  const int extent = a.extent[l];
+
+  // |qsub|^2 and the IP centre term of each slot, a warp a slot, in the
+  // first f32 body's order: thread j % 256 of 256 sums features j, j +
+  // 256, ... by fmaf; the xor tree in each warp; the eight warps in order
+  const float* cl = a.centers + static_cast<long long>(l) * a.rot_dim;
+  for (int s = warp; s < n_valid; s += kWarps) {
+    const float* qp = a.q_rot + static_cast<long long>(sm.q[s]) * a.rot_dim;
+    float p_sq[kWarps], p_c[kWarps];
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) p_sq[v] = p_c[v] = 0.f;
+    for (int j0 = 0; j0 < a.rot_dim; j0 += kThreads) {
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) {
+        const int j = j0 + 32 * v + lane;
+        if (j < a.rot_dim) {
+          const float x = qp[j], c = cl[j];
+          const float d = ip ? x : x - c;
+          p_sq[v] = fmaf(d, d, p_sq[v]);
+          p_c[v] = fmaf(d, c, p_c[v]);
+        }
+      }
+    }
+    float rr = 0.f, corr = 0.f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        p_sq[v] += __shfl_xor_sync(0xffffffffu, p_sq[v], o);
+        p_c[v] += __shfl_xor_sync(0xffffffffu, p_c[v], o);
+      }
+      rr += p_sq[v];
+      corr += p_c[v];
+    }
+    if (lane == 0) {
+      sm.rr[s] = rr;
+      sm.corr[s] = corr;
+    }
+  }
+
+  const int groups = (n_valid + kF32Group - 1) / kF32Group;
+  for (int seg = 0; seg < a.nseg; ++seg) {
+    const int b0 = seg * kF32Bins;
+    const int nb = min(kF32Bins, a.bins - b0);
+    // stripes holding a row of the segment below the extent
+    const int nw = extent > b0 ? (extent - b0 + a.bins - 1) / a.bins : 0;
+    if (nw == 0) {  // no row: unfused bins (+inf, -1), fused the +inf fill
+      if (!fused)
+        for (int e = tid; e < n_valid * nb; e += kThreads) {
+          const long long at = sm.col[e / nb] + b0 + e % nb;
+          a.out_d[at] = CUDART_INF_F;
+          a.out_i[at] = -1;
+        }
+      continue;
+    }
+    // (the walk's prologue barrier publishes rr and corr, and the one
+    // after it frees the minima for the next segment)
+    if (groups == 1)
+      pq_f32_walk<PL, 1>(a, sm, l, extent, nw, b0, nb, n_valid);
+    else if (groups == 2)
+      pq_f32_walk<PL, 2>(a, sm, l, extent, nw, b0, nb, n_valid);
+    else
+      pq_f32_walk<PL, kF32Slots / kF32Group>(a, sm, l, extent, nw, b0, nb,
+                                             n_valid);
+    __syncthreads();
+  }
+}
+
+// The pre-pass (extents, lists longest first) into lists_scratch, then the
+// f32 body over every (list, slot tile, bin segment). pq_len 1, 2 and 4 with
+// rot_dim % 8 == 0 and aligned codes and books take the vector path.
+int launch_pq_f32(F32Args a, int n_lists, int* lists_scratch,
+                  cudaStream_t s) {
+  if (n_lists == 0) return 0;
+  list_extent_kernel<<<n_lists, 256, 0, s>>>(a.ids, a.max_list,
+                                             lists_scratch);
+  list_order_kernel<<<1, 256, 0, s>>>(lists_scratch, n_lists, a.max_list,
+                                      lists_scratch + n_lists);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.extent = lists_scratch;
+  a.order = lists_scratch + n_lists;
+  a.tpl = (a.cap + kF32Slots - 1) / kF32Slots;
+  a.nseg = (a.bins + kF32Bins - 1) / kF32Bins;
+  const long long blocks = static_cast<long long>(n_lists) * a.tpl;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = a.rot_dim % kF32K == 0 &&
+                   reinterpret_cast<uintptr_t>(a.codes) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.books) % 16 == 0;
+  const int sps = kF32K / a.pq_len;  // 2 to 16 code bytes a step
+  const int pl = vec && sps >= 2 && sps <= 16 ? a.pq_len : 0;
+  auto kernel = pl == 4   ? pq_f32_kernel<4>
+                : pl == 2 ? pq_f32_kernel<2>
+                : pl == 1 ? pq_f32_kernel<1>
+                          : pq_f32_kernel<0>;
+  constexpr int smem = sizeof(F32Smem);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+int f32_args(F32Args& a, const float* q_rot, int rot_dim, const int* qmap,
+             int cap, const float* centers_rot, const float* books,
+             const unsigned char* codes, int pq_dim, int pq_len, int n_codes,
+             int per_cluster, const float* norms, const int* ids,
+             int max_list, int bins, int metric_ip) {
+  if (bins < 1 || cap < 1 || rot_dim < 1 || pq_len < 1 || max_list < 0 ||
+      pq_dim * pq_len != rot_dim || n_codes < 1 || n_codes > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a = F32Args{};
+  a.q_rot = q_rot;
+  a.centers = centers_rot;
+  a.books = books;
+  a.codes = reinterpret_cast<const uint8_t*>(codes);
+  a.norms = norms;
+  a.ids = ids;
+  a.qmap = qmap;
+  a.rot_dim = rot_dim;
+  a.pq_dim = pq_dim;
+  a.pq_len = pq_len;
+  a.n_codes = n_codes;
+  a.per_cluster = per_cluster;
+  a.max_list = max_list;
+  a.bins = bins;
+  a.cap = cap;
+  a.metric_ip = metric_ip;
+  return 0;
 }
 
 }  // namespace
 }  // namespace raft_tpu_torch
 
-// Pair p scores list lsel ? lsel[p] : p / div against query
-// qsel ? qsel[p] : p / div (-1 = write (+inf, -1) bins) into
-// out_d/out_i[p * bins, (p + 1) * bins). books hold (pq_dim or n_lists,
-// n_codes, pq_len) f32 values already rounded to the LUT tier; codes
-// (n_lists, max_list, pq_dim) u8; norms/ids (n_lists, max_list). vec16 != 0
-// requires pq_dim % 16 == 0 and 16-byte aligned codes.
-extern "C" int raft_ivf_pq_scan(
-    const float* q_rot, const float* centers_rot, const float* books,
-    const unsigned char* codes, const float* norms, const int* ids,
-    const int* qsel, const int* lsel, int n_pairs, int div, int rot_dim,
-    int pq_dim, int pq_len, int n_codes, int max_list, int bins, int mlp,
-    int metric_ip, int per_cluster, int round_q, int center_term,
-    int round_out, int vec16, float* out_d, int* out_i, void* stream) {
-  const size_t dyn =
-      (static_cast<size_t>(pq_dim) * n_codes + rot_dim) * sizeof(float);
-  if (bins < 1 || mlp < max_list || mlp % bins != 0 || div < 1 ||
-      pq_dim * pq_len != rot_dim || dyn > raft_tpu_torch::kMaxLutBytes ||
-      (vec16 && pq_dim % 16 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pairs == 0) return 0;
+// Kernel 8's f32 body: q_rot (nq, rot_dim) and centers_rot (n_lists,
+// rot_dim) f32; qmap (n_lists, cap) query ids (-1 = empty slot); books
+// (pq_dim, or n_lists when per_cluster, n_codes, pq_len) f32; codes
+// (n_lists, max_list, pq_dim) u8; norms/ids (n_lists, max_list); out_d/out_i
+// (n_lists, cap, bins), rounded to bf16 when round_out; lists_scratch 2 x
+// n_lists ints. No IP centre term.
+extern "C" int raft_ivf_pq_scan_f32(
+    const float* q_rot, int rot_dim, const int* qmap, int n_lists, int cap,
+    const float* centers_rot, const float* books, const unsigned char* codes,
+    int pq_dim, int pq_len, int n_codes, int per_cluster, const float* norms,
+    const int* ids, int max_list, int bins, int metric_ip, int round_out,
+    float* out_d, int* out_i, int* lists_scratch, void* stream) {
+  raft_tpu_torch::F32Args a;
+  const int rc = raft_tpu_torch::f32_args(
+      a, q_rot, rot_dim, qmap, cap, centers_rot, books, codes, pq_dim, pq_len,
+      n_codes, per_cluster, norms, ids, max_list, bins, metric_ip);
+  if (rc != 0) return rc;
+  a.round_out = round_out;
+  a.out_d = out_d;
+  a.out_i = out_i;
+  return raft_tpu_torch::launch_pq_f32(a, n_lists, lists_scratch,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 9's f32 body, pass A: the same inputs, kp (nq, n_probes) each
+// query's kept probed lists sorted ascending (-1 = dropped); cand_d/cand_i
+// (nq, n_probes * bins) filled with +inf, then each kept pair's bin minima
+// at its probe position, the IP centre term subtracted. Pass B is
+// raft_ivf_pq_topk.
+extern "C" int raft_ivf_pq_scan_f32_fused(
+    const float* q_rot, int rot_dim, const int* qmap, int n_lists, int cap,
+    const int* kp, int n_probes, int nq, const float* centers_rot,
+    const float* books, const unsigned char* codes, int pq_dim, int pq_len,
+    int n_codes, int per_cluster, const float* norms, const int* ids,
+    int max_list, int bins, int metric_ip, float* cand_d, int* cand_i,
+    int* lists_scratch, void* stream) {
+  raft_tpu_torch::F32Args a;
+  const int rc = raft_tpu_torch::f32_args(
+      a, q_rot, rot_dim, qmap, cap, centers_rot, books, codes, pq_dim, pq_len,
+      n_codes, per_cluster, norms, ids, max_list, bins, metric_ip);
+  if (rc != 0 || n_probes < 1 || nq < 0)
+    return rc != 0 ? rc : static_cast<int>(cudaErrorInvalidValue);
+  if (nq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* c = reinterpret_cast<const uint8_t*>(codes);
-  if (vec16)
-    return raft_tpu_torch::launch_pairs<true>(
-        n_pairs, dyn, s, q_rot, centers_rot, books, c, norms, ids, qsel, lsel,
-        div, rot_dim, pq_dim, pq_len, n_codes, max_list, bins, mlp, metric_ip,
-        per_cluster, round_q, center_term, round_out, out_d, out_i);
-  return raft_tpu_torch::launch_pairs<false>(
-      n_pairs, dyn, s, q_rot, centers_rot, books, c, norms, ids, qsel, lsel,
-      div, rot_dim, pq_dim, pq_len, n_codes, max_list, bins, mlp, metric_ip,
-      per_cluster, round_q, center_term, round_out, out_d, out_i);
+  a.kp = kp;
+  a.n_probes = n_probes;
+  a.ncols = static_cast<long long>(n_probes) * bins;
+  a.out_d = cand_d;
+  a.out_i = cand_i;
+  raft_tpu_torch::fill_inf_kernel<<<1024, 256, 0, s>>>(cand_d,
+                                                       a.ncols * nq);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return raft_tpu_torch::launch_pq_f32(a, n_lists, lists_scratch, s);
 }
 
 // The f32 body's pass B: cand_d/cand_i (nq, n) -> out_d/out_i (nq, k),

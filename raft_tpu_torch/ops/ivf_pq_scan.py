@@ -22,10 +22,12 @@ the card the tier picks the route:
   products, f32 sums; kernel 9's pass B is the payload radix select
   (``csrc/radix_select.cuh``). Counters ``launches`` (kernel 8) and
   ``launches_fused`` (kernel 9).
-* float32: the pair-major f32 body (``pq_pairs_kernel``), one block per
-  (query, list) pair summing an f32 table of subspace products; the same
-  pass B. Counters ``launches_f32`` and ``launches_fused_f32``; the
-  table's shared memory limits it to ``MAX_LUT_BYTES``.
+* float32: list-major on the CUDA cores (``pq_f32_kernel``): each probed
+  list's rows decoded once per tile of up to 32 table slots into f32
+  codebook values, every slot's score summed per subspace as the f32
+  table entry ``sum_j qsub_j * book[c][j]`` would be; the same pass B.
+  No table is held whole, so every ``pq_dim`` and ``pq_bits`` runs.
+  Counters ``launches_f32`` and ``launches_fused_f32``.
 
 Either way the kernel and the plain version differ in f32 summation
 order only. See the kernel's source note.
@@ -43,12 +45,11 @@ from raft_tpu_torch.ops.ivf_scan import (bin_rows, finish_state,
                                          merge_lists_into_state)
 
 MAX_K = 256
-# the f32 body's dynamic shared memory: (pq_dim * n_codes + rot_dim) f32
-MAX_LUT_BYTES = 160 * 1024
 LUT_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
 
 # launches of the CUDA kernels since the last reset (plain integers): the
-# list-major kernels 8 and 9 (bf16, fp8), the pair-major f32 body
+# list-major kernels 8 and 9 on the tensor cores (bf16, fp8), on the CUDA
+# cores (float32)
 launches = 0
 launches_fused = 0
 launches_f32 = 0
@@ -164,13 +165,17 @@ def pq_scan_fused_plain(q_rot, centers_rot, books, codes, norms, ids,
     return finish_state(best_d, best_i, sqrt)
 
 
-_SCAN = _build.Entry("ivf_pq_scan", "raft_ivf_pq_scan",
-                     [PTR] * 8 + [INT] * 15 + [PTR] * 3)
 _TOPK = _build.Entry("ivf_pq_scan", "raft_ivf_pq_topk",
                      [PTR] * 2 + [INT] * 4 + [PTR] * 3)
-_LIST_SCAN = _build.Entry("ivf_pq_scan", "raft_ivf_pq_list_scan",
-                          [PTR, INT, PTR, INT, INT, PTR, PTR, PTR]
-                          + [INT] * 4 + [PTR, PTR] + [INT] * 4
+# kernel 8 on the tensor cores (bf16 books) and on the CUDA cores (f32
+# books): one argument list
+_LIST_ARGS = ([PTR, INT, PTR, INT, INT, PTR, PTR, PTR] + [INT] * 4
+              + [PTR, PTR] + [INT] * 4 + [PTR] * 4)
+_LIST_SCAN = _build.Entry("ivf_pq_scan", "raft_ivf_pq_list_scan", _LIST_ARGS)
+_F32_SCAN = _build.Entry("ivf_pq_scan", "raft_ivf_pq_scan_f32", _LIST_ARGS)
+_F32_FUSED = _build.Entry("ivf_pq_scan", "raft_ivf_pq_scan_f32_fused",
+                          [PTR, INT, PTR, INT, INT, PTR, INT, INT, PTR, PTR,
+                           PTR] + [INT] * 4 + [PTR, PTR] + [INT] * 3
                           + [PTR] * 4)
 _LIST_FUSED = _build.Entry("ivf_pq_scan", "raft_ivf_pq_list_scan_fused",
                            [PTR, INT, PTR, INT, INT, PTR] + [INT] * 3
@@ -198,40 +203,11 @@ def _check(q_rot, centers_rot, books, codes, norms, ids, per_cluster,
             or pq_dim * pq_len != rot_dim
             or books.shape[0] != (n_lists if per_cluster else pq_dim)):
         raise ValueError("ivf_pq_scan: index tensors disagree in shape")
-    if round_q:
-        # the list-major kernels: 2^pq_bits codes, pq_bits 3..8
-        if n_codes % 8 or not 8 <= n_codes <= 256:
-            raise ValueError(f"ivf_pq_scan: n_codes={n_codes}: the "
-                             "list-major scan takes 8..256, a multiple of 8")
-        return n_lists, max_list, pq_dim, rot_dim, n_codes, pq_len
-    lut_bytes = (pq_dim * n_codes + rot_dim) * 4
-    if lut_bytes > MAX_LUT_BYTES:
-        raise ValueError(
-            f"ivf_pq_scan: a (pq_dim={pq_dim}, n_codes={n_codes}) table "
-            f"needs {lut_bytes} B of shared memory; the f32 body takes at "
-            f"most {MAX_LUT_BYTES} B")
+    if round_q and (n_codes % 8 or not 8 <= n_codes <= 256):
+        # the tensor-core kernels: 2^pq_bits codes, pq_bits 3..8
+        raise ValueError(f"ivf_pq_scan: n_codes={n_codes}: the "
+                         "list-major scan takes 8..256, a multiple of 8")
     return n_lists, max_list, pq_dim, rot_dim, n_codes, pq_len
-
-
-def _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, qsel,
-                  lsel, n_pairs, div, bins, metric, per_cluster,
-                  center_term, round_out, out_d, out_i):
-    """The f32 body: one block per (query, list) pair."""
-    n_lists, max_list, pq_dim = codes.shape
-    n_codes, pq_len = books.shape[1], books.shape[2]
-    vec16 = pq_dim % 16 == 0 and codes.data_ptr() % 16 == 0
-    with torch.cuda.device(q_rot.device):
-        rc = _SCAN(q_rot.data_ptr(), centers_rot.data_ptr(), books.data_ptr(),
-                   codes.data_ptr(), norms.data_ptr(), ids.data_ptr(),
-                   qsel.data_ptr() if qsel is not None else None,
-                   lsel.data_ptr() if lsel is not None else None,
-                   n_pairs, div, q_rot.shape[1], pq_dim, pq_len, n_codes,
-                   max_list, bins, round_up(max_list, bins),
-                   int(metric == "ip"), int(bool(per_cluster)), 0,
-                   int(bool(center_term)), int(bool(round_out)), int(vec16),
-                   out_d.data_ptr(), out_i.data_ptr(),
-                   _build.stream_handle(q_rot.device))
-    _build.check(rc, "ivf_pq_scan")
 
 
 def _book_args(codes, books, per_cluster):
@@ -244,9 +220,10 @@ def _book_args(codes, books, per_cluster):
 def pq_scan_cuda(q_rot, centers_rot, books, codes, norms, ids, qmap,
                  bins: int, metric: str, round_q: bool, per_cluster: bool,
                  round_out: bool):
-    """Launch kernel 8: list-major (one block per (list, tile of up to 64
-    table slots)) for the bf16 and fp8 tiers, the pair-major f32 body (one
-    block per (list, table slot)) for float32."""
+    """Launch kernel 8, list-major: on the tensor cores (one block per
+    (list, tile of up to 64 table slots)) for the bf16 and fp8 tiers, on
+    the CUDA cores (one block per (list, tile of up to 32 slots), walking
+    the bins 64 at a time) for float32."""
     global launches, launches_f32
     n_lists, max_list, *_ = _check(q_rot, centers_rot, books, codes, norms,
                                    ids, per_cluster, round_q)
@@ -258,24 +235,21 @@ def pq_scan_cuda(q_rot, centers_rot, books, codes, norms, ids, qmap,
     out_d = torch.empty((n_lists, cap, bins), dtype=torch.float32,
                         device=dev)
     out_i = torch.empty((n_lists, cap, bins), dtype=torch.int32, device=dev)
-    if not round_q:
-        _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, qmap,
-                      None, n_lists * cap, cap, bins, metric, per_cluster,
-                      False, round_out, out_d, out_i)
-        launches_f32 += 1
-        return out_d, out_i
     lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
+    entry = _LIST_SCAN if round_q else _F32_SCAN
     with torch.cuda.device(dev):
-        rc = _LIST_SCAN(q_rot.data_ptr(), q_rot.shape[1], qmap.data_ptr(),
-                        n_lists, cap, centers_rot.data_ptr(),
-                        books.data_ptr(), codes.data_ptr(),
-                        *_book_args(codes, books, per_cluster),
-                        norms.data_ptr(), ids.data_ptr(), max_list, bins,
-                        int(metric == "ip"), int(bool(round_out)),
-                        out_d.data_ptr(), out_i.data_ptr(), lists.data_ptr(),
-                        _build.stream_handle(dev))
+        rc = entry(q_rot.data_ptr(), q_rot.shape[1], qmap.data_ptr(),
+                   n_lists, cap, centers_rot.data_ptr(), books.data_ptr(),
+                   codes.data_ptr(), *_book_args(codes, books, per_cluster),
+                   norms.data_ptr(), ids.data_ptr(), max_list, bins,
+                   int(metric == "ip"), int(bool(round_out)),
+                   out_d.data_ptr(), out_i.data_ptr(), lists.data_ptr(),
+                   _build.stream_handle(dev))
     _build.check(rc, "ivf_pq_scan")
-    launches += 1
+    if round_q:
+        launches += 1
+    else:
+        launches_f32 += 1
     return out_d, out_i
 
 
@@ -287,7 +261,7 @@ def pq_scan_fused_cuda(q_rot, centers_rot, books, codes, norms, ids,
     and fp8 tiers the list-major pass A over (list, query tile) blocks
     into per-query candidate rows, the IP centre term applied, then pass
     B, queries in chunks of at most ``_MAX_CAND`` candidates; for float32
-    the pair-major f32 body, one block per (query, probe), then pass B."""
+    the same walk on the CUDA cores into all queries' rows, then pass B."""
     global launches_fused, launches_fused_f32
     n_lists, max_list, *_ = _check(q_rot, centers_rot, books, codes, norms,
                                    ids, per_cluster, round_q)
@@ -306,10 +280,17 @@ def pq_scan_fused_cuda(q_rot, centers_rot, books, codes, norms, ids,
     if not round_q:
         cand_d = torch.empty((nq, ncols), dtype=torch.float32, device=dev)
         cand_i = torch.empty((nq, ncols), dtype=torch.int32, device=dev)
-        _launch_pairs(q_rot, centers_rot, books, codes, norms, ids, None,
-                      kp, nq * n_probes, n_probes, bins, metric,
-                      per_cluster, True, False, cand_d, cand_i)
+        lists = torch.empty(2 * n_lists, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
+            rc = _F32_FUSED(
+                q_rot.data_ptr(), q_rot.shape[1], qmap.data_ptr(), n_lists,
+                cap, kp.data_ptr(), n_probes, nq, centers_rot.data_ptr(),
+                books.data_ptr(), codes.data_ptr(),
+                *_book_args(codes, books, per_cluster), norms.data_ptr(),
+                ids.data_ptr(), max_list, bins, int(metric == "ip"),
+                cand_d.data_ptr(), cand_i.data_ptr(), lists.data_ptr(),
+                _build.stream_handle(dev))
+            _build.check(rc, "ivf_pq_scan_fused")
             rc = _TOPK(cand_d.data_ptr(), cand_i.data_ptr(), nq, ncols, k,
                        int(bool(sqrt)), out_d.data_ptr(), out_i.data_ptr(),
                        _build.stream_handle(dev))

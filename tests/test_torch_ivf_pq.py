@@ -199,6 +199,16 @@ def test_scan_plain_matches_pallas_shapes(metric, lut, per_cluster, pq_bits,
                  pq_bits * 7 + per_cluster + pq_dim)
 
 
+# rot_dim 768 at the default pq_dim (dim // 4 = 192) and 8 bits: a
+# (192, 256) f32 table is 196,608 B, past the 160 KB the card's f32 body
+# once held whole in shared memory
+@pytest.mark.parametrize("per_cluster", [False, True],
+                         ids=["per_subspace", "per_cluster"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_scan_plain_matches_pallas_f32_rot768(metric, per_cluster):
+    _scan_parity(metric, "f32", per_cluster, 8, 192, 4, 768 + per_cluster)
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_unfused_bf16_internal_and_wide_k(metric):
     # internal_distance_dtype bf16 rounds the unfused candidate scores;

@@ -494,7 +494,9 @@ PQ_ROUTES = {torch.bfloat16: ("launches_fused", "launches"),
     (64, 8, torch.float32, 2), (64, 8, torch.float8_e4m3fn, 2),
     (24, 8, torch.bfloat16, 2), (32, 8, torch.bfloat16, 4),
     (16, 8, torch.float8_e4m3fn, 8), (64, 4, torch.bfloat16, 1),
-    (24, 8, torch.bfloat16, 3), (64, 8, torch.bfloat16, 5)])
+    (24, 8, torch.bfloat16, 3), (64, 8, torch.bfloat16, 5),
+    (192, 8, torch.float32, 4), (32, 8, torch.float32, 4),
+    (24, 8, torch.float32, 3), (64, 4, torch.float32, 1)])
 @pytest.mark.parametrize("k,bins,cap", [(1, 16, 32), (10, 128, 32),
                                         (256, 64, 32), (10, 16, 8),
                                         (10, 0, 32), (10, -1, 32),
@@ -502,10 +504,13 @@ PQ_ROUTES = {torch.bfloat16: ("launches_fused", "launches"),
 @pytest.mark.parametrize("per_cluster", [False, True])
 def test_pq_scans_match_plain(dev, metric, pq_dim, bits, lut, pq_len, k,
                               bins, cap, per_cluster):
-    # bf16 and fp8 take the list-major kernels, float32 the pair-major f32
+    # bf16 and fp8 take the tensor-core kernels, float32 the CUDA-core
     # body. pq_len 4 (the served shape), 8, 2 and 1 decode whole
     # subspaces per 8-feature unit; pq_len 3 straddles units and slices;
-    # rot_dim 320 (pq_len 5) streams the queries. Per-subspace books of 4
+    # rot_dim 320 (pq_len 5) streams the queries. At float32, pq_len 4, 2
+    # and 1 take the vector path, pq_len 3 the generic one; pq_dim 192 x 8
+    # bits (rot_dim 768) needs a 196,608 B table, past the 160 KB the
+    # f32 body once held whole in shared memory. Per-subspace books of 4
     # bits are staged in shared memory, of 8 bits read through L1; a
     # per-cluster book is always staged. bins 128 >
     # max_list 100: every list is shorter than its bins; bins 0 (auto)
